@@ -1,0 +1,20 @@
+"""Plain PyTorch version of the fused query-gram + projection kernel."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import kernels_fn as kf
+
+Tensor = torch.Tensor
+
+
+def transform_project_ref(xq: Tensor, x: Tensor, s: Tensor, num_active, *,
+                          spec: kf.KernelSpec) -> tuple[Tensor, Tensor]:
+    """(Y, rowsum) = (Kq_masked @ s, Kq_masked @ 1), with the masked query
+    gram Kq[i, j] = k(xq[i], x[j])·[j < m] materialized."""
+    dtype = s.dtype
+    kq = kf.gram_block(xq.to(dtype), x.to(dtype), spec=spec)
+    live = torch.arange(x.shape[0], device=x.device) < torch.as_tensor(
+        num_active, device=x.device)
+    kq = torch.where(live[None, :], kq, 0.0)
+    return kq @ s, torch.sum(kq, dim=1)

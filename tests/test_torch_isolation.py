@@ -1,0 +1,57 @@
+"""The port stands alone: it imports neither ``jax`` nor anything of the
+reference package, and nothing in it catches an exception (so no kernel
+build or launch can fall back quietly)."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_importing_the_port_loads_no_jax_and_no_reference():
+    modules = sorted(".".join(p.relative_to(ROOT / "src").with_suffix("")
+                              .parts).removesuffix(".__init__")
+                     for p in PORT.rglob("*.py"))
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in modules)
+            + "bad = [k for k in sys.modules if k == 'jax' or "
+              "k.startswith('jax.') or k == 'repro' or "
+              "k.startswith('repro.')]\n"
+              "print(len(bad), bad[:5])\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("0 "), out.stdout
+
+
+def _imports(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: p.name)
+def test_source_imports_neither_jax_nor_the_reference(path):
+    tree = ast.parse(path.read_text())
+    for name in _imports(tree):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), f"{path}: {name}"
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: p.name)
+def test_source_catches_no_exception(path):
+    tree = ast.parse(path.read_text())
+    handlers = [n.lineno for n in ast.walk(tree)
+                if isinstance(n, ast.ExceptHandler)]
+    assert not handlers, f"{path}: except at lines {handlers}"
