@@ -3,26 +3,45 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line:
+Phases, each printing one JSON line per row:
 
 1. ``build``   — compile the CUDA kernels from ``src/repro_torch/kernels/
    csrc`` with nvcc (one process per source, all at once) into ``build/``.
 2. ``kernels`` — each kernel against its plain PyTorch version on the same
-   CUDA inputs (capacity bucket 1024 with m = 1000 and m = 300, f32 and
+   CUDA inputs (capacity bucket 1024 with m = 1000 and m = 300 for the
+   KPCA kernels, the fused pair with deflated columns under a permuted
+   cid; n = 4096 rows of width 512 and 200 for ``scaled_gram``; f32 and
    f64), each output entry within its own bound as
    ``repro_torch.kernels.checks`` states it.
-3. ``service`` — the port's main path, ``repro_torch.launch.serve`` in
-   ``--mode kpca`` (Algorithm 2, rotation kernel, fused k-row prologue,
-   bucketed dispatch): capacity 1024, d = 16, 4 seed + 1000 streamed
+3. ``service`` — the KPCA service, ``repro_torch.launch.serve --mode
+   kpca`` (Algorithm 2, fused k-row prologue, bucketed dispatch), on the
+   sequential route (``--matmul pallas``) and on the fused-pair route
+   (``--matmul pallas2``): capacity 1024, d = 16, 4 seed + 1000 streamed
    points in f32, a batch of 64 queries every 16 points; then capacity
    256 with 200 points in f64.  Every kernel's launch count is reset just
-   before and read just after, and must match the reckoning (4 rotations,
-   1 k-row pass and 1 projection per point, 1 transform per query batch).
-   The final state is held against ``batch_kpca`` (eigh on the card, f64).
-4. ``timing`` — at the kernel phase's shapes, each kernel's device time
+   before each run and read just after, and must match the reckoning
+   (sequential: 4 rotations per point; fused: rotate2 + rotate / 2 = 2
+   pairs per point, a pair whose cluster merge fires running as two
+   rotations; both: 1 k-row pass and 1 projection per point, 1 transform
+   per query batch).  The final state is held against ``batch_kpca``
+   (eigh on the card, f64).
+4. ``nystrom`` — the landmark service, ``serve --mode nystrom`` (paper §4,
+   grow_rows, append policy, Algorithm 1 per admission on the fused-pair
+   route): capacity 512, d = 16, 1000 points, f32 and f64.  Its final
+   ``trace_error`` is held against an f64 recomputation from the dense
+   gram on the card, and its launches to the reckoning (1 k-row pass and
+   1 pair per admission).
+5. ``fig2``    — the paper's Fig. 2 loop: ``magic_like`` with n = 4096
+   rows (d = 10, standardised, RBF with sigma from the median heuristic,
+   f64, fixed rows), 16 seed landmarks grown by ``Engine.add_landmark``
+   to 512; at m = 64, 128, 256 and 512, K̃ from ``scaled_gram`` against
+   the plain (B·s) @ Bᵀ entry by entry, the trace norm of K - K̃ from
+   ``approximation_error`` against ``trace_error`` (K - K̃ is PSD: the
+   same quantity), and the trace error non-increasing (nested sets).
+6. ``timing`` — at the kernel phase's shapes, each kernel's device time
    (profiler records) beside the plain version's, one library call's and
    its bound, and each call's event-timed time, host work included.  It
-   runs last so that the profiler is never attached to the service.
+   runs last so that the profiler is never attached to a service.
 
 Then the card's name and power limit, the kernels' summary line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -41,6 +60,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 MAIN_N, MAIN_M = 1024, 1000
+GRAM_N, GRAM_K = 4096, (512, 200)   # scaled_gram: Fig. 2 rows, widths
 # Final-state bars against the eigh oracle (top-8 eigenvalues' largest
 # relative error, smallest cosine of the principal angles between the
 # top-8 subspaces).  On this data the port's stream, run on a CPU, is
@@ -51,6 +71,13 @@ MAIN_N, MAIN_M = 1024, 1000
 # displacement deflation uses the state type's eps (ROADMAP.md, "Faults
 # found"); the port uses the solve type's.
 BARS = {"float32": (1e-3, 0.999), "float64": (1e-6, 1.0 - 1e-8)}
+# Nyström service: final trace_error's relative error against the f64
+# recomputation.  f64 keeps the 1e-6 of the plan (1.5e-13 on an H100); an
+# f32 eigensystem of 511 landmarks carries the rounding of 507 updates
+# through K_mm's pseudo-inverse, and ran 1.9e-3 and 2.1e-3 off in two
+# runs on an H100, so f32 is held to 1e-2.
+NYSTROM_BARS = {"float32": 1e-2, "float64": 1e-6}
+FIG2_REL = 1e-8          # approximation_error's trace vs trace_error
 
 
 def emit(obj) -> None:
@@ -81,18 +108,27 @@ def kernel_phase(torch, checks, cuda) -> dict:
     counts this phase's launches of the kernel; the service's counts start
     from zero after it."""
     rows = {}
+    for dtype, n, m, case in all_cases(torch, checks):
+        before = cuda.LAUNCHES[case.name]
+        res = checks.compare(case)
+        row = {"phase": "kernels", "name": case.name,
+               "dtype": str(dtype).removeprefix("torch."), "n": n, "m": m,
+               **res, "launches": cuda.LAUNCHES[case.name] - before}
+        emit(row)
+        rows[case.name, row["dtype"], m] = row
+    return rows
+
+
+def all_cases(torch, checks):
+    """(dtype, n, m, case) for every kernel at the phases' shapes: the KPCA
+    kernels at bucket 1024, scaled_gram at n = 4096 (m is B's width)."""
     for dtype in (torch.float32, torch.float64):
         for m in (MAIN_M, 300):
             for case in checks.cases(MAIN_N, m, dtype, "cuda"):
-                before = cuda.LAUNCHES[case.name]
-                res = checks.compare(case)
-                row = {"phase": "kernels", "name": case.name,
-                       "dtype": str(dtype).removeprefix("torch."),
-                       "n": MAIN_N, "m": m, **res,
-                       "launches": cuda.LAUNCHES[case.name] - before}
-                emit(row)
-                rows[case.name, row["dtype"], m] = row
-    return rows
+                yield dtype, MAIN_N, m, case
+        for k in GRAM_K:
+            for case in checks.gram_cases(GRAM_N, k, dtype, "cuda"):
+                yield dtype, GRAM_N, k, case
 
 
 def timing_phase(torch, checks) -> dict:
@@ -104,27 +140,24 @@ def timing_phase(torch, checks) -> dict:
     time whole calls between CUDA events, the wrapper's host work
     included."""
     rows = {}
-    for dtype in (torch.float32, torch.float64):
-        for m in (MAIN_M, 300):
-            for case in checks.cases(MAIN_N, m, dtype, "cuda"):
-                ms, per_call = checks.device_ms(case.kernel)
-                plain_ms, plain_per_call = checks.device_ms(case.plain)
-                bound_ms, bound_by = case.bound(dtype)
-                row = {"phase": "timing", "name": case.name,
-                       "dtype": str(dtype).removeprefix("torch."),
-                       "n": MAIN_N, "m": m, "ms": ms,
-                       "device_launches_per_call": per_call,
-                       "call_ms": checks.call_ms(case.kernel),
-                       "plain_ms": plain_ms,
-                       "plain_device_launches_per_call": plain_per_call,
-                       "plain_call_ms": checks.call_ms(case.plain),
-                       "library_ms": (checks.device_ms(case.library)[0]
-                                      if case.library else None),
-                       "library_call_ms": (checks.call_ms(case.library)
-                                           if case.library else None),
-                       "bound_ms": bound_ms, "bound_by": bound_by}
-                emit(row)
-                rows[case.name, row["dtype"], m] = row
+    for dtype, n, m, case in all_cases(torch, checks):
+        ms, per_call = checks.device_ms(case.kernel)
+        plain_ms, plain_per_call = checks.device_ms(case.plain)
+        bound_ms, bound_by = case.bound(dtype)
+        row = {"phase": "timing", "name": case.name,
+               "dtype": str(dtype).removeprefix("torch."), "n": n, "m": m,
+               "ms": ms, "device_launches_per_call": per_call,
+               "call_ms": checks.call_ms(case.kernel),
+               "plain_ms": plain_ms,
+               "plain_device_launches_per_call": plain_per_call,
+               "plain_call_ms": checks.call_ms(case.plain),
+               "library_ms": (checks.device_ms(case.library)[0]
+                              if case.library else None),
+               "library_call_ms": (checks.call_ms(case.library)
+                                   if case.library else None),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        emit(row)
+        rows[case.name, row["dtype"], m] = row
     return rows
 
 
@@ -152,22 +185,26 @@ def oracle_check(torch, stream, dtype_name: str) -> dict:
 
 
 def service_phase(torch, cuda, serve, capacity: int, points: int,
-                  dtype_name: str) -> dict:
-    """The main path through its entry point, with the launch counts read
-    around it and checked against the reckoning."""
+                  dtype_name: str, matmul: str) -> dict:
+    """The KPCA service through its entry point, with the launch counts
+    read around it and checked against the reckoning."""
     args = serve.parse_args([
         "--mode", "kpca", "--device", "cuda", "--dtype", dtype_name,
         "--capacity", str(capacity), "--points", str(points),
-        "--dim", "16", "--batch", "64", "--transform-every", "16"])
+        "--dim", "16", "--batch", "64", "--transform-every", "16",
+        "--matmul", matmul])
     cuda.reset_launches()
     result, stream = serve.kpca_service(args)
     torch.cuda.synchronize()
     launches = dict(cuda.LAUNCHES)
-    expect = {"eigvec_rotate": 4 * points, "krow_project": points,
-              "eigvec_project": points,
-              "transform_project": points // args.transform_every}
+    expect = {"eigvec_rotate": 4 * points, "eigvec_rotate2": 0,
+              "krow_project": points, "eigvec_project": points,
+              "transform_project": points // args.transform_every,
+              "scaled_gram": 0}
+    if matmul == "pallas2":
+        expect.update(pair_reckoning(launches, 2 * points))
     if launches != expect:
-        raise AssertionError(f"launch counts {launches} != {expect}")
+        raise AssertionError(f"{matmul} launch counts {launches} != {expect}")
     if not (result["finite"] and torch.isfinite(stream.state.U).all()):
         raise AssertionError("non-finite state")
     if result["m_final"] != 4 + points:
@@ -176,10 +213,141 @@ def service_phase(torch, cuda, serve, capacity: int, points: int,
             "update_ms_p99", "update_ms_max", "update_ms_compile_ms",
             "query_ms_p50", "query_ms_p90", "query_ms_p99", "query_ms_max",
             "transforms_served", "total_s")
-    row = {"phase": "service", "dtype": dtype_name, "capacity": capacity,
-           "points": points, **{k: result[k] for k in keep},
-           "launches": launches,
+    row = {"phase": "service", "matmul": matmul, "dtype": dtype_name,
+           "capacity": capacity, "points": points,
+           **{k: result[k] for k in keep}, "launches": launches,
+           "merge_fallback_pairs": launches["eigvec_rotate"] // 2
+           if matmul == "pallas2" else None,
            **oracle_check(torch, stream, dtype_name)}
+    emit(row)
+    return row
+
+
+def pair_reckoning(launches: dict, pairs: int) -> dict:
+    """The rotation counts of ``pairs`` fused pairs, given how many single
+    rotations ran: each pair is one ``eigvec_rotate2`` launch, or two
+    ``eigvec_rotate`` launches where its cluster merge fired."""
+    rot = launches["eigvec_rotate"]
+    return {"eigvec_rotate": rot, "eigvec_rotate2": pairs - rot / 2}
+
+
+def exact_trace_error(torch, rows, landmarks, spec) -> float:
+    """Σ_i k(x_i, x_i) - K̃_ii of the exact Nyström approximation, in f64
+    on the card from the dense grams (eigh of K_mm, the pseudo-inverse cut
+    at m·eps·λmax as ``nystrom._pinv_lam`` cuts it)."""
+    from repro_torch.core import kernels_fn as kf
+
+    R, X = rows.double(), landmarks.double()
+    lam, V = torch.linalg.eigh(kf.gram_block(X, X, spec=spec))
+    ok = lam > X.shape[0] * torch.finfo(torch.float64).eps * lam.max()
+    B = kf.gram_block(R, X, spec=spec) @ V[:, ok]
+    diag = kf.kernel_diag(R, spec=spec)
+    return float((diag - (B ** 2 / lam[ok]).sum(1)).sum())
+
+
+def nystrom_phase(torch, cuda, serve, dtype_name: str) -> dict:
+    """The landmark service through its entry point: launches against the
+    reckoning, final trace error against the f64 recomputation."""
+    from repro_torch.core import kernels_fn as kf
+
+    capacity, points = 512, 1000
+    args = serve.parse_args([
+        "--mode", "nystrom", "--device", "cuda", "--dtype", dtype_name,
+        "--capacity", str(capacity), "--points", str(points), "--dim", "16",
+        "--matmul", "pallas2"])
+    cuda.reset_launches()
+    result, state = serve.nystrom_service(args)
+    torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    adm = capacity - 1 - 4
+    expect = {"eigvec_project": 0, "krow_project": adm,
+              "transform_project": 0, "scaled_gram": 0,
+              **pair_reckoning(launches, adm)}
+    if result["admitted"] != adm or launches != expect:
+        raise AssertionError(f"nystrom: {result['admitted']} admissions, "
+                             f"launches {launches} != {expect}")
+    m = result["m_final"]
+    exact = exact_trace_error(torch, state.Xrows, state.kpca.X[:m],
+                              kf.KernelSpec(name="rbf", sigma=16.0))
+    rel = abs(result["trace_error"] - exact) / abs(exact)
+    bar = NYSTROM_BARS[dtype_name]
+    if not (result["finite"] and rel <= bar):
+        raise AssertionError(f"nystrom {dtype_name}: trace_error "
+                             f"{result['trace_error']!r} vs f64 {exact!r}: "
+                             f"relative {rel:.3e} (bar {bar})")
+    keep = ("m_final", "rows", "admitted", "rejected", "trace_error",
+            "step_ms_p50", "step_ms_p90", "step_ms_p99", "step_ms_max",
+            "total_s")
+    row = {"phase": "nystrom", "dtype": dtype_name, "capacity": capacity,
+           "points": points, **{k: result[k] for k in keep},
+           "trace_error_f64": exact, "trace_error_rel_err": rel,
+           "bar_rel_err": bar, "launches": launches,
+           "merge_fallback_pairs": launches["eigvec_rotate"] // 2}
+    emit(row)
+    return row
+
+
+def fig2_phase(torch, cuda, checks) -> dict:
+    """The Fig. 2 loop on ``magic_like`` (f64, fixed rows), landmarks grown
+    by ``Engine.add_landmark`` on the main path's plan; at each checkpoint
+    K̃ from the kernel against the plain version entry by entry, the
+    trace identity, and a non-increasing trace error."""
+    import numpy as np
+
+    from repro_torch.core import engine as eng, kernels_fn as kf, nystrom
+    from repro_torch.data.uci_like import load_dataset
+
+    n, m0, checkpoints = GRAM_N, 16, (64, 128, 256, 512)
+    X = torch.as_tensor(load_dataset("magic", n=n, seed=0), device="cuda")
+    spec = kf.KernelSpec(name="rbf", sigma=float(kf.median_heuristic(X)))
+    K = kf.gram_block(X, X, spec=spec)
+    order = np.random.default_rng(0).permutation(n)
+    capacity = max(checkpoints)
+    engine = eng.Engine(spec, eng.UpdatePlan(matmul="pallas2",
+                                             fuse_krow=True,
+                                             dispatch="bucketed"),
+                        adjusted=False)
+    state = nystrom.init_nystrom(X, X[order[:m0]], capacity, spec,
+                                 dtype=torch.float64)
+    cuda.reset_launches()
+    rows, prev = [], None
+    t0 = time.perf_counter()
+    m = m0
+    for ck in checkpoints:
+        while m < ck:
+            state = engine.add_landmark(state, X, X[order[m]])
+            m += 1
+        Kt = nystrom.reconstruct_tilde(state, use_pallas=True)
+        B, s = nystrom.recon_factors(state)
+        err = (Kt - nystrom.reconstruct_tilde(state)).abs()
+        tol = checks.scaled_gram_tol(B, s, torch.float64)
+        if not bool((err <= tol).all()):
+            raise AssertionError(f"fig2 m={ck}: K̃ from scaled_gram off its "
+                                 f"plain version beyond the bound "
+                                 f"({float((err / tol).max()):.3e} x)")
+        norms = nystrom.approximation_error(K, Kt)
+        tr = float(nystrom.trace_error(state, spec, X))
+        rel = abs(norms.trace - tr) / abs(tr)
+        if rel > FIG2_REL or (prev is not None and tr > prev):
+            raise AssertionError(f"fig2 m={ck}: trace norm {norms.trace!r} "
+                                 f"vs trace_error {tr!r} (rel {rel:.3e}, "
+                                 f"bar {FIG2_REL}), previous {prev!r}")
+        prev = tr
+        rows.append({"m": ck, "fro": norms.fro, "spectral": norms.spectral,
+                     "trace": norms.trace, "trace_error": tr,
+                     "trace_rel_diff": rel,
+                     "recon_err_over_tol": float((err / tol).max())})
+    torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    grown = max(checkpoints) - m0
+    expect = {"eigvec_project": 0, "krow_project": grown,
+              "transform_project": 0, "scaled_gram": len(checkpoints),
+              **pair_reckoning(launches, grown)}
+    if launches != expect:
+        raise AssertionError(f"fig2 launch counts {launches} != {expect}")
+    row = {"phase": "fig2", "n": n, "sigma": spec.sigma,
+           "checkpoints": rows, "launches": launches,
+           "total_s": time.perf_counter() - t0}
     emit(row)
     return row
 
@@ -203,21 +371,36 @@ def main() -> int:
           "ptxas_registers": ptxas_summary(info.get("ptxas", {}))})
 
     checked = kernel_phase(torch, checks, cuda)
-    f32 = service_phase(torch, cuda, serve, 1024, 1000, "float32")
-    service_phase(torch, cuda, serve, 256, 200, "float64")
+    runs = {"pallas": service_phase(torch, cuda, serve, 1024, 1000,
+                                    "float32", "pallas"),
+            "pallas2": service_phase(torch, cuda, serve, 1024, 1000,
+                                     "float32", "pallas2")}
+    service_phase(torch, cuda, serve, 256, 200, "float64", "pallas")
+    service_phase(torch, cuda, serve, 256, 200, "float64", "pallas2")
+    nystrom_phase(torch, cuda, serve, "float32")
+    nystrom_phase(torch, cuda, serve, "float64")
+    runs["fig2"] = fig2_phase(torch, cuda, checks)
     timed = timing_phase(torch, checks)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
+    # Each kernel's launches are read from the run of the path it belongs
+    # to (counts reset just before that run): the sequential service for
+    # the single rotation and the prologue/projection/transform kernels,
+    # the fused-pair service for rotate2, the Fig. 2 loop for scaled_gram.
+    path_of = {"eigvec_rotate2": "pallas2", "scaled_gram": "fig2"}
     kernels = []
     for name, (source, replaces) in checks.SOURCES.items():
-        key = (name, "float32", MAIN_M)
+        main_m = GRAM_K[0] if name == "scaled_gram" else MAIN_M
+        key = (name, "float32", main_m)
         r = timed[key]
+        launches = runs[path_of.get(name, "pallas")]["launches"][name]
+        if not launches:
+            raise AssertionError(f"{name} was not launched on its path")
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces,
-                        "launches": f32["launches"][name],
+                        "replaces": replaces, "launches": launches,
                         "max_abs_err": checked[key]["max_abs_err"],
                         "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -13,9 +13,9 @@ active pairs is itself a valid capacity-M_b state (``slice_state``), and
 host's count of active pairs, which the caller passes (``KPCAStream``
 mirrors it), so a step reads nothing back from the card.
 
-Not ported yet, each raising ``NotImplementedError`` from ``check_plan``:
-the fused ±sigma pair (``matmul="jnp2"|"pallas2"``), sliding windows,
-health and metrics lanes — see ROADMAP.md, "Open items".
+Not ported yet, each raising ``NotImplementedError`` from ``check_plan``
+or from the call: sliding windows, health and metrics lanes, the
+leverage landmark policy — see ROADMAP.md, "Open items".
 """
 from __future__ import annotations
 
@@ -36,8 +36,10 @@ class UpdatePlan(NamedTuple):
     method:     secular-solve eigenvector variant ("gu" | "bns")
     matmul:     rotation route — "jnp" (dense factor, the oracle) or
                 "pallas" (the CUDA rotation kernel on the card, its plain
-                version on the CPU); "jnp2"/"pallas2" (fused pair) are
-                not ported yet
+                version on the CPU); "jnp2"/"pallas2" fuse each ±sigma
+                pair into one rotation (``eigvec_rotate2`` for "pallas2")
+    merge_fallback: a fused pair on which a cluster merge would fire runs
+                as two sequential updates
     iters:      fixed bisection iteration count; None resolves per state
                 type (``resolve_iters``)
     dispatch:   "fixed" (capacity M every step) | "bucketed"
@@ -71,6 +73,12 @@ class UpdatePlan(NamedTuple):
     def fused(self) -> bool:
         return self.matmul in ("jnp2", "pallas2")
 
+    @property
+    def inner_matmul(self) -> str:
+        """The single-rotation route behind a possibly fused spelling."""
+        return {"jnp2": "jnp", "pallas2": "pallas"}.get(self.matmul,
+                                                        self.matmul)
+
 
 DEFAULT_PLAN = UpdatePlan()
 
@@ -78,12 +86,7 @@ DEFAULT_PLAN = UpdatePlan()
 def check_plan(plan: UpdatePlan) -> None:
     """Raise for plan values whose paths this port does not have yet,
     naming the ROADMAP.md item that ports each."""
-    if plan.fused:
-        raise NotImplementedError(
-            f"matmul={plan.matmul!r} (fused ±sigma pair, eigvec_rotate2) "
-            "is not ported yet: ROADMAP.md, Open items §1 item 2 and §2 "
-            "item 2")
-    if plan.matmul not in ("jnp", "pallas"):
+    if plan.inner_matmul not in ("jnp", "pallas"):
         raise ValueError(f"unknown matmul route {plan.matmul!r}")
     if plan.window is not None:
         raise NotImplementedError("sliding windows are not ported yet: "
@@ -93,6 +96,8 @@ def check_plan(plan: UpdatePlan) -> None:
                                   "yet: ROADMAP.md, Open items §1 item 7")
     if plan.dispatch not in ("fixed", "bucketed"):
         raise ValueError(f"unknown dispatch {plan.dispatch!r}")
+    if plan.landmark_policy not in ("append", "leverage"):
+        raise ValueError(f"unknown landmark_policy {plan.landmark_policy!r}")
 
 
 def resolve_iters(iters: int | None, dtype) -> int:
@@ -172,16 +177,22 @@ def apply_pair(L: Tensor, U: Tensor, v1: Tensor, sigma1: Tensor, v2: Tensor,
                sigma2: Tensor, m: Tensor, *, plan: UpdatePlan,
                z1: Tensor | None = None, z2: Tensor | None = None
                ) -> tuple[Tensor, Tensor]:
-    """A ±sigma update pair as two sequential rank-one updates.
+    """A ±sigma update pair under ``plan``: one fused double rotation
+    (matmul "jnp2"/"pallas2", back to sequential where a cluster merge
+    fires and ``plan.merge_fallback`` is set) or two sequential rank-one
+    updates.
 
-    ``z1``/``z2`` are optional precomputed Uᵀv₁/Uᵀv₂ in the CURRENT basis;
-    only z1 can be reused — z2 is stale after the first rotation, so the
-    second update computes its own projection."""
-    if plan.fused:
-        check_plan(plan)
+    ``z1``/``z2`` are optional precomputed Uᵀv₁/Uᵀv₂ in the CURRENT basis.
+    The fused pair takes both; the sequential spelling reuses z1 only —
+    z2 is stale after the first rotation, so the second update computes
+    its own projection."""
     iters = resolve_iters(plan.iters, L.dtype)
-    kw = dict(method=plan.method, matmul=plan.matmul, iters=iters,
+    kw = dict(method=plan.method, matmul=plan.inner_matmul, iters=iters,
               precise=plan.precise)
+    if plan.fused:
+        return rankone.rank_one_update_pair(
+            L, U, v1, sigma1, v2, sigma2, m,
+            merge_fallback=plan.merge_fallback, z1=z1, z2=z2, **kw)
     L, U = rankone.rank_one_update(L, U, v1, sigma1, m, z=z1, **kw)
     return rankone.rank_one_update(L, U, v2, sigma2, m, **kw)
 
@@ -194,7 +205,7 @@ def rank_one(L: Tensor, U: Tensor, v: Tensor, sigma, m: Tensor, *,
     m = torch.as_tensor(m, dtype=torch.int32, device=L.device)
     Mb = (M if plan.dispatch != "bucketed"
           else bucket_for(max(int(m), 1), M, plan.min_bucket))
-    kw = dict(method=plan.method, matmul=plan.matmul,
+    kw = dict(method=plan.method, matmul=plan.inner_matmul,
               iters=resolve_iters(plan.iters, L.dtype), precise=plan.precise)
     if Mb == M:
         return rankone.rank_one_update(L, U, v, sigma, m, **kw)
@@ -270,3 +281,43 @@ class Engine:
         sub = slice_state(state, Mb) if Mb < M else state
         sub = _ingest(sub, x_new, self.spec, self.adjusted, self.plan)
         return scatter_state(state, sub) if Mb < M else sub
+
+    # ---- Nyström landmarks ------------------------------------------------
+    def add_landmark(self, state, x_all, x_new: Tensor):
+        """Bucketed ``nystrom.add_landmark``: the eigensystem update and the
+        Knm column write both run at the bucket holding m + 1 landmarks.
+        Reads m on the host once."""
+        from repro_torch.core import nystrom
+
+        M = state.kpca.L.shape[0]
+        Mb = bucket_for(int(state.kpca.m) + 1, M, self.plan.min_bucket)
+        if self.plan.dispatch != "bucketed":
+            Mb = M
+        if Mb == M:
+            return nystrom.add_landmark(state, x_all, x_new, self.spec,
+                                        plan=self.plan)
+        sub = state._replace(kpca=slice_state(state.kpca, Mb),
+                             Knm=state.Knm[:, :Mb])
+        sub = nystrom.add_landmark(sub, x_all, x_new, self.spec,
+                                   plan=self.plan)
+        Knm = state.Knm.clone()
+        Knm[:, :Mb] = sub.Knm
+        return state._replace(kpca=scatter_state(state.kpca, sub.kpca),
+                              Knm=Knm, Xrows=sub.Xrows)
+
+    def offer_landmark(self, state, x: Tensor, *, x_all=None,
+                       budget: int | None = None):
+        """Offer one candidate landmark under ``plan.landmark_policy``:
+        ``"append"``, the paper's §4 loop, admits every candidate until the
+        budget (default M − 1) fills, then rejects.  Returns ``(state,
+        action)`` with action "admitted" or "rejected"."""
+        if self.plan.landmark_policy == "leverage":
+            raise NotImplementedError(
+                "landmark_policy='leverage' (residual-gated admission with "
+                "lowest-leverage replacement) is not ported yet: ROADMAP.md, "
+                "Open items §1 item 5")
+        M = state.kpca.L.shape[0]
+        budget = budget if budget is not None else M - 1
+        if int(state.kpca.m) < budget:
+            return self.add_landmark(state, x_all, x), "admitted"
+        return state, "rejected"

@@ -55,6 +55,13 @@ def kernel_row(x_new: Tensor, xs: Tensor, *, spec: KernelSpec) -> Tensor:
     return gram_block(xs, x_new[None, :], spec=spec)[:, 0]
 
 
+def constant_diag(spec: KernelSpec) -> float | None:
+    """k(x, x) when it is input-independent (stationary kernels: RBF,
+    Matern), else None — lets consumers evaluate diagonal sums without
+    the row points (``nystrom.trace_error``)."""
+    return spec.scale if spec.name in ("rbf", "matern32") else None
+
+
 def kernel_diag(x: Tensor, *, spec: KernelSpec) -> Tensor:
     """k(x_i, x_i) for each row (constant 'scale' for RBF and Matern)."""
     if spec.name in ("rbf", "matern32"):

@@ -17,8 +17,11 @@ tensor on the state's device, so no step reads it back to the host.
 The O(m³) rotation U @ W runs on the card in the hand-written kernel
 ``kernels/csrc/eigvec_rotate.cu`` (``matmul="pallas"``, the reference's
 spelling) or as a dense product of the materialized factor
-(``matmul="jnp"``, the oracle route).  sigma < 0 is reduced to sigma > 0
-by the flip identity eig(D + s zzᵀ) = -rev(eig(-rev(D) + |s| rev(z)rev(z)ᵀ)).
+(``matmul="jnp"``, the oracle route).  ``rank_one_update_pair`` fuses a
+±sigma pair's two rotations into one (``kernels/csrc/eigvec_rotate2.cu``).
+The secular roots are kept as (origin pole, offset) pairs (``_Roots``).
+sigma < 0 is reduced to sigma > 0 by the flip identity
+eig(D + s zzᵀ) = -rev(eig(-rev(D) + |s| rev(z)rev(z)ᵀ)).
 """
 from __future__ import annotations
 
@@ -27,7 +30,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels.eigvec_update import ops as eigvec_ops
-from repro_torch.kernels.eigvec_update.ref import cauchy_factor_ref
+from repro_torch.kernels.eigvec_update.ref import (cauchy_factor_ref,
+                                                   offset_guard)
 
 Tensor = torch.Tensor
 
@@ -79,42 +83,97 @@ def sentinelize(d: Tensor, m: Tensor, room: Tensor) -> Tensor:
     return torch.where(mask, d, sent)
 
 
-def _secular_bisect(d: Tensor, z2: Tensor, sigma: Tensor, iters: int,
-                    defl: Tensor | None = None) -> Tensor:
+class _Roots(NamedTuple):
+    """Secular roots in offset form: root j = org[j] + tau[j], with org[j]
+    the pole the root is closer to (the top root: its lower pole).  Every
+    difference d_i - root_j is then formed as (d_i - org_j) - tau_j, which
+    is exact for close poles (Sterbenz) and keeps the root's distance to
+    them to full relative accuracy, as LAPACK's dlaed4 does."""
+
+    org: Tensor
+    tau: Tensor
+
+    @property
+    def value(self) -> Tensor:
+        return self.org + self.tau
+
+
+def _pole_gaps(d: Tensor, org: Tensor, tau: Tensor) -> Tensor:
+    """(i, j) matrix of d_i - root_j in offset form."""
+    return (d[:, None] - org[None, :]) - tau[None, :]
+
+
+def _secular_roots(d: Tensor, z2: Tensor, sigma: Tensor, iters: int,
+                   defl: Tensor | None = None) -> _Roots:
     """All roots of 1 + sigma·sum_i z2_i/(d_i - t), sigma > 0, d ascending.
 
     Root j lives in (d_j, next pole) and the top root in (d_{M-1},
-    d_{M-1} + sigma·sum(z2)) (paper eq. 5); fixed-iteration bisection of
-    all M roots at once.  Deflated poles (``defl``) keep their eigenvalue
-    at the pole and are skipped in every other root's bracket.
+    d_{M-1} + sigma·sum(z2)) (paper eq. 5).  Deflated poles (``defl``)
+    keep their eigenvalue at the pole and are skipped in every other
+    root's bracket.  One evaluation at each bracket's midpoint picks the
+    root's origin (the nearer pole); then fixed-iteration bisection of
+    every offset at once, each secular term formed from (d_i - org_j)
+    - tau_j.  Bisecting the absolute root instead resolves it only to an
+    ulp of its magnitude: between two poles 2e-13 apart near 2.0 that
+    keeps 3 digits of the root's position, and the eigenvectors built on
+    it lose orthogonality (ROADMAP.md, "Faults found").
     """
     eps = _eps_for(d.dtype)
     znorm2 = torch.sum(z2)
     top = d[-1] + sigma * znorm2 + eps
-    lo = d
     if defl is None:
-        hi = torch.cat([d[1:], top[None]])
+        nxt = torch.cat([d[1:], d.new_full((1,), torch.inf)])
     else:
         d_nd = torch.where(defl, torch.inf, d)
         # Next non-deflated pole above each entry: a reversed cumulative
         # minimum (jax.lax.cummin over the flipped vector).
         nxt = torch.cat([torch.cummin(d_nd.flip(0), 0).values.flip(0)[1:],
                          d.new_full((1,), torch.inf)])
-        hi = torch.where(torch.isinf(nxt), top, nxt)
+    hi_is_pole = ~torch.isinf(nxt)
+    hi = torch.where(hi_is_pole, nxt, top)
+    half = 0.5 * (hi - d)
 
-    def w_at(t: Tensor) -> Tensor:
-        den = d[:, None] - t[None, :]
-        safe = torch.where(den == 0.0, eps, den)
-        return 1.0 + sigma * torch.sum(z2[:, None] / safe, dim=0)
+    def w_of(den: Tensor) -> Tensor:     # den[i, j] = d_i - t_j
+        return 1.0 + sigma * torch.sum(z2[:, None] / den, dim=0)
 
+    # Root j sits below its bracket's midpoint (w increasing between
+    # poles): origin d_j; above it and below a pole: origin that pole;
+    # above it and below ``top`` (the top root): origin d_j, offset in the
+    # upper half.  The offset's magnitude is then bisected geometrically
+    # from eps² of the half-width up, so it converges to relative accuracy
+    # however close the root is to its origin: an arithmetic bisection
+    # resolves only 2^-iters of the half-width, which for a root 1e-15
+    # from its pole in a bracket 1e-3 wide leaves 1e-7 of its distance.
+    den = _pole_gaps(d, d, half)
+    in_lower = w_of(torch.where(den == 0.0, eps, den)) > 0.0
+    upper = ~in_lower & hi_is_pole
+    org = torch.where(upper, hi, d)
+    sign = torch.where(upper, -1.0, 1.0).to(d.dtype)
+    near = in_lower | upper
+    tiny = torch.finfo(d.dtype).tiny
+    lo = torch.clamp_min(torch.where(near, half * eps * eps, half), tiny)
+    # A zero-width bracket (coincident poles the merge did not join) keeps
+    # a bracket of one tiny, so the offset stays finite.
+    hi_t = torch.maximum(torch.where(near, half, 2.0 * half), lo)
+    # Fixed origins: d_i - org_j once.  The offsets stay strictly inside
+    # their brackets (|tau| >= tiny), so no denominator is 0 in the loop.
+    delta = d[:, None] - org[None, :]
     for _ in range(iters):
-        mid = 0.5 * (lo + hi)
-        pos = w_at(mid) > 0.0     # w increasing between poles: root < mid
-        lo, hi = torch.where(pos, lo, mid), torch.where(pos, mid, hi)
-    roots = 0.5 * (lo + hi)
+        mid = lo * torch.sqrt(hi_t / lo)
+        # |tau| above mid iff w(org + sign·mid) is on the root's far side.
+        grow = (w_of(delta - (sign * mid)[None, :]) > 0.0) == upper
+        lo, hi_t = torch.where(grow, mid, lo), torch.where(grow, hi_t, mid)
+    tau = sign * lo * torch.sqrt(hi_t / lo)
     if defl is not None:
-        roots = torch.where(defl, d, roots)
-    return roots
+        org = torch.where(defl, d, org)
+        tau = torch.where(defl, 0.0, tau)
+    return _Roots(org=org, tau=tau)
+
+
+def _secular_bisect(d: Tensor, z2: Tensor, sigma: Tensor, iters: int,
+                    defl: Tensor | None = None) -> Tensor:
+    """The roots of ``_secular_roots`` as absolute values."""
+    return _secular_roots(d, z2, sigma, iters, defl).value
 
 
 def _cluster_merge(d: Tensor, z: Tensor, tol: Tensor):
@@ -159,11 +218,12 @@ def _cluster_merge(d: Tensor, z: Tensor, tol: Tensor):
     return z_new, apply, torch.any(active)
 
 
-def _gu_zhat(d: Tensor, roots: Tensor, sigma: Tensor, z: Tensor) -> Tensor:
+def _gu_zhat(d: Tensor, roots: _Roots, sigma: Tensor, z: Tensor) -> Tensor:
     """Gu–Eisenstat recomputation of |z| from the computed roots:
     sigma·ẑ_i² = prod_j (roots_j - d_i) / prod_{j != i} (d_j - d_i),
-    in log space.  Deflated and inactive entries come out exactly 0."""
-    num = roots[None, :] - d[:, None]                      # (i, j)
+    in log space, each roots_j - d_i in offset form.  Deflated and
+    inactive entries come out exactly 0."""
+    num = _pole_gaps(d, roots.org, roots.tau)               # -(root_j - d_i)
     den = d[None, :] - d[:, None]
     den.fill_diagonal_(1.0)
     tiny = torch.finfo(d.dtype).tiny
@@ -175,25 +235,34 @@ def _gu_zhat(d: Tensor, roots: Tensor, sigma: Tensor, z: Tensor) -> Tensor:
     return torch.where(torch.isfinite(zhat), zhat, z)
 
 
-def _cauchy_inv(d: Tensor, roots: Tensor, zhat: Tensor) -> Tensor:
+def _guarded(den: Tensor) -> Tensor:
+    """Offset-form denominators with an exact zero (a deflated column's
+    own pole) replaced by ±``offset_guard``.  The reference guards
+    absolute roots at ±eps; in offset form a root's distance to its pole
+    is exact however small, and a guard at eps would overwrite it
+    (``eigvec_update.ref._denominators``)."""
+    g = offset_guard(den.dtype)
+    return torch.where(den.abs() < g, torch.where(den < 0, -g, g), den)
+
+
+def _cauchy_inv(d: Tensor, roots: _Roots, zhat: Tensor) -> Tensor:
     """Inverse column norms of W[i, j] = zhat_i / (d_i - roots_j)."""
-    den = d[:, None] - roots[None, :]
-    eps = _eps_for(d.dtype)
-    safe = torch.where(den.abs() < eps, torch.where(den < 0, -eps, eps), den)
-    W = zhat[:, None] / safe
+    W = zhat[:, None] / _guarded(_pole_gaps(d, roots.org, roots.tau))
     norms = torch.sqrt(torch.sum(W * W, dim=0))
     return torch.where(norms > 0, 1.0 / norms, 1.0)
 
 
 class _Factor(NamedTuple):
     """One solved rank-one update as an original-domain Cauchy factor:
-    W[k, j] = z_k·inv_j/(d_k-lam_j), deflated columns identity; ``L_new``
-    is the updated (pre-sort) spectrum.  The sigma<0 flip's sign is folded
-    into z, so the active region is a prefix for either sign."""
+    W[k, j] = z_k·inv_j/((d_k - org_j) - tau_j), deflated columns
+    identity; the roots are org + tau (``_Roots``).  ``L_new`` is the
+    updated (pre-sort) spectrum.  The sigma<0 flip's sign is folded into
+    z, so the active region is a prefix for either sign."""
 
     z: Tensor
     d: Tensor
-    lam: Tensor
+    org: Tensor
+    tau: Tensor
     inv: Tensor
     defl: Tensor
     L_new: Tensor
@@ -205,10 +274,17 @@ def _solve_factor(d_sent: Tensor, z: Tensor, sigma: Tensor, m: Tensor,
     """Displacement deflation + secular solve + un-flip, as a ``_Factor``.
 
     A direction deflates when it is inactive, when |z_i| is negligible, or
-    when it would move by less than the spectrum's resolution
-    (sigma·z_i² ≲ eps·‖A‖).  With ``precise`` the secular equations are
-    solved in float64 for any state type (the reference does so under x64,
-    which its tests enable); the factor's vectors stay in the solve type.
+    when zeroing it perturbs the matrix by less than the spectrum's
+    resolution: |sigma|·|z_i|·‖z‖ ≲ eps·‖A‖, LAPACK's dlaed2 criterion
+    (the largest entry of sigma·z zᵀ it drops).  The reference deflates on
+    sigma·z_i² instead, which drops off-diagonal terms of up to
+    sqrt(eps·‖A‖·sigma)·‖z‖; it needs that to keep an absolute root from
+    rounding onto its pole, which the offset form (``_Roots``) never
+    does.
+
+    With ``precise`` the secular equations are solved in float64 for any
+    state type (the reference does so under x64, which its tests enable);
+    the factor's vectors stay in the solve type.
 
     eps is the solve type's.  The reference takes the state type's, so an
     f32 state under ``precise`` drops every component with sigma·z² below
@@ -227,7 +303,7 @@ def _solve_factor(d_sent: Tensor, z: Tensor, sigma: Tensor, m: Tensor,
     znorm = torch.sqrt(torch.sum(z * z))
     floor = 32.0 * eps * torch.clamp_min(znorm, eps)
     defl = (~mask | (z.abs() < floor)
-            | (sig_abs * z * z < 64.0 * eps * scale))
+            | (sig_abs * z.abs() * znorm < 64.0 * eps * scale))
     z = torch.where(defl, 0.0, z)
 
     d_eff = torch.where(neg, -d_sent.flip(0), d_sent)
@@ -236,7 +312,7 @@ def _solve_factor(d_sent: Tensor, z: Tensor, sigma: Tensor, m: Tensor,
     d_s = d_eff.to(solve_dtype)
     z_s = z_eff.to(solve_dtype)
     sig_s = sig_abs.to(solve_dtype)
-    roots_eff = _secular_bisect(d_s, z_s * z_s, sig_s, iters, defl=defl_eff)
+    roots_eff = _secular_roots(d_s, z_s * z_s, sig_s, iters, defl=defl_eff)
     if method == "gu":
         zhat_eff = _gu_zhat(d_s, roots_eff, sig_s, z_s)
         zhat_eff = torch.where(defl_eff, 0.0, zhat_eff)
@@ -245,45 +321,51 @@ def _solve_factor(d_sent: Tensor, z: Tensor, sigma: Tensor, m: Tensor,
     inv_eff = _cauchy_inv(d_s, roots_eff, zhat_eff)
     inv_eff = torch.where(defl_eff, 1.0, inv_eff)
 
+    # Un-flip; negation is exact, so (d - org) - tau keeps its accuracy.
     z_o = torch.where(neg, -zhat_eff.flip(0), zhat_eff)
-    lam_o = torch.where(neg, -roots_eff.flip(0), roots_eff)
+    org_o = torch.where(neg, -roots_eff.org.flip(0), roots_eff.org)
+    tau_o = torch.where(neg, -roots_eff.tau.flip(0), roots_eff.tau)
     inv_o = torch.where(neg, inv_eff.flip(0), inv_eff)
-    L_new = torch.where(mask, lam_o.to(dtype), d_sent)
+    L_new = torch.where(mask, (org_o + tau_o).to(dtype), d_sent)
     return _Factor(z=torch.where(mask, z_o, 0.0), d=d_sent.to(solve_dtype),
-                   lam=lam_o, inv=inv_o, defl=defl, L_new=L_new)
+                   org=org_o, tau=tau_o, inv=inv_o, defl=defl, L_new=L_new)
 
 
 def _apply_factor(U: Tensor, f: _Factor, mask: Tensor, m: Tensor, *,
                   matmul: str) -> Tensor:
     """U @ Ŵn for one factor, keeping the padding invariants.
 
-    ``"pallas"``: the rotation kernel generates the factor from four O(M)
-    vectors (padded entries d = 2e30, lam = 1e30, z = inv = 0, so padded
-    factor entries are exactly 0) and prunes everything beyond m; deflated
-    columns, which include every inactive one, keep U's own column.
+    ``"pallas"``: the rotation kernel generates the factor from five O(M)
+    vectors (``kernel_operands``: padded factor entries are exactly 0) and
+    prunes everything beyond m; deflated columns, which include every
+    inactive one, keep U's own column.
     ``"jnp"``: the dense factor with identity columns, then a product.
     """
     if matmul == "pallas":
-        C = eigvec_ops.rotate_vectors(U, *kernel_operands(f, mask, U.dtype),
-                                      m)
+        z, d, org, inv, tau = kernel_operands(f, mask, U.dtype)
+        C = eigvec_ops.rotate_vectors(U, z, d, org, inv, m, tau=tau)
         return torch.where(f.defl[None, :], U, C)
-    Wn = cauchy_factor_ref(f.z, f.d, f.lam, f.inv,
-                           f.defl.to(f.z.dtype)).to(dtype=U.dtype)
+    Wn = cauchy_factor_ref(f.z, f.d, f.org, f.inv, f.defl.to(f.z.dtype),
+                           tau=f.tau).to(dtype=U.dtype)
     return U @ Wn
 
 
 def kernel_operands(f: _Factor, mask: Tensor, dtype
-                    ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
-    """(z, d, lam, inv) of a factor as the rotation kernel takes them, with
-    padded entries d = 2e30, lam = 1e30 and z = inv = 0 so that every
-    padded factor entry is exactly 0.  z and inv are in the state's type;
-    d and lam stay in the solve's type, so a root closer to its pole than
-    the state's rounding does not collide with it.  (The reference casts
-    them to the state's type, and an f32 state can then divide by 0.)"""
+                    ) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """(z, d, org, inv, tau) of a factor as the rotation kernel takes
+    them, with padded entries d = 2e30, org = 1e30 and z = inv = tau = 0
+    so that every padded factor entry is exactly 0.  z and inv are in the
+    state's type; d, org and tau stay in the solve's type and the kernel
+    forms each denominator as (d - org) - tau in float64, so a root close
+    to its pole keeps its distance from it.  (The reference passes the
+    absolute roots, cast to the state's type: an f32 state can then
+    divide by 0, and an f64 one keeps 3 digits of a root between two
+    poles 1e-13 apart.)"""
     return (torch.where(mask, f.z.to(dtype), 0.0),
             torch.where(mask, f.d, 2e30),
-            torch.where(mask, f.lam, 1e30),
-            torch.where(mask, f.inv.to(dtype), 0.0))
+            torch.where(mask, f.org, 1e30),
+            torch.where(mask, f.inv.to(dtype), 0.0),
+            torch.where(mask, f.tau, 0.0))
 
 
 def _update_body(L: Tensor, U: Tensor, v: Tensor, sigma: Tensor, m: Tensor,
@@ -342,6 +424,181 @@ def rank_one_update(L: Tensor, U: Tensor, v: Tensor, sigma, m, *,
     m = torch.as_tensor(m, dtype=torch.int32, device=L.device)
     return _update_body(L, U, v, sigma, m, iters=iters, method=method,
                         matmul=matmul, precise=precise, z=z)
+
+
+# ------------------------------------------------------ fused ±sigma pair --
+def _pair_factor(L: Tensor, z: Tensor, sigma: Tensor, m: Tensor, *,
+                 iters: int, method: str, precise: bool) -> _Factor:
+    """Sentinelize + solve one update into a Cauchy factor (no rotation):
+    ``rank_one_update``'s pipeline minus the dlaed2 cluster merge, whose
+    block reflector is not a Cauchy factor and so cannot sit between the
+    two fused rotations (``_merge_fires`` sends such pairs down the
+    sequential path)."""
+    mask = active_mask(L.shape[0], m)
+    room = torch.abs(sigma) * torch.sum(z * z)
+    d_sent = sentinelize(L, m, room)
+    scale = torch.max(torch.abs(torch.where(mask, L, 0.0))) + room + 1e-30
+    return _solve_factor(d_sent, z, sigma, m, scale, iters=iters,
+                         method=method, precise=precise)
+
+
+def _factor_tmatvec(f: _Factor, y: Tensor) -> Tensor:
+    """(Ŵn)ᵀ y in O(M²) from the factor's vectors: the second secular
+    solve's z without the first rotation of U."""
+    den = _guarded(_pole_gaps(f.d, f.org, f.tau))
+    s = torch.sum((f.z * y)[:, None] / den, dim=0) * f.inv
+    return torch.where(f.defl, y, s)
+
+
+class _PairFactors(NamedTuple):
+    """Both solved factors of a fused ±sigma pair.
+
+    Factor 1's columns carry the inter-update sort (org1/tau1/inv1/defl1
+    are permuted; cid1 records the permutation, so a deflated column is
+    e_{cid1[j]}).  ``L_new`` is the post-update-2 spectrum before the
+    final ``perm2`` sort; ``merge_fired`` says a dlaed2 cluster merge
+    would fire on either update, where the fused rotation is unsafe."""
+
+    z1: Tensor
+    d1: Tensor
+    org1: Tensor
+    tau1: Tensor
+    inv1: Tensor
+    defl1: Tensor
+    cid1: Tensor
+    z2: Tensor
+    d2: Tensor
+    org2: Tensor
+    tau2: Tensor
+    inv2: Tensor
+    defl2: Tensor
+    cid2: Tensor
+    L_new: Tensor
+    perm2: Tensor
+    merge_fired: Tensor
+
+
+def _merge_fires(L: Tensor, z: Tensor, sigma: Tensor, m: Tensor) -> Tensor:
+    """Would ``rank_one_update``'s cluster merge rotate z-mass for this
+    (spectrum, z, sigma)?  Same sentinels and tolerance as the sequential
+    path, detection only."""
+    M = L.shape[0]
+    mask = active_mask(M, m)
+    room = torch.abs(sigma) * torch.sum(z * z)
+    d_sent = sentinelize(L, m, room)
+    scale = torch.max(torch.abs(torch.where(mask, L, 0.0))) + room + 1e-30
+    tol = 64.0 * _eps_for(L.dtype) * scale
+    return _cluster_merge(d_sent, z, tol)[2]
+
+
+def _pair_solve(L: Tensor, z1: Tensor, sigma1: Tensor, z2_raw: Tensor,
+                sigma2: Tensor, m: Tensor, *, iters: int, method: str,
+                precise: bool) -> _PairFactors:
+    """Solve both secular systems of a fused pair, no rotation of U.
+
+    ``z2_raw`` is Uᵀv₂ in the pre-update basis; the second update's
+    z₂ = U₁ᵀv₂ comes from the Cauchy transpose-matvec (O(M²))."""
+    M = L.shape[0]
+    dtype = L.dtype
+    f1 = _pair_factor(L, z1, sigma1, m, iters=iters, method=method,
+                      precise=precise)
+    perm1 = torch.argsort(f1.L_new, stable=True)
+    L1 = f1.L_new[perm1]
+    y = _factor_tmatvec(f1, z2_raw.to(f1.z.dtype))
+    z2 = y[perm1].to(dtype)
+    f2 = _pair_factor(L1, z2, sigma2, m, iters=iters, method=method,
+                      precise=precise)
+    perm2 = torch.argsort(f2.L_new, stable=True)
+    fired = _merge_fires(L, z1, sigma1, m) | _merge_fires(L1, z2, sigma2, m)
+    # Sentinels sort to themselves, so inactive cid stays the column index.
+    return _PairFactors(
+        z1=f1.z, d1=f1.d, org1=f1.org[perm1], tau1=f1.tau[perm1],
+        inv1=f1.inv[perm1], defl1=f1.defl[perm1],
+        cid1=perm1.to(torch.int32),
+        z2=f2.z, d2=f2.d, org2=f2.org, tau2=f2.tau, inv2=f2.inv,
+        defl2=f2.defl, cid2=torch.arange(M, dtype=torch.int32,
+                                         device=L.device),
+        L_new=f2.L_new, perm2=perm2, merge_fired=fired)
+
+
+def _pair_rotate_block(U: Tensor, pf: _PairFactors, m: Tensor, *,
+                       matmul: str) -> Tensor:
+    """Fused double rotation (U @ W1n @ W2n)[:, perm2].
+
+    ``"pallas"``: the ``eigvec_rotate2`` kernel generates both factors from
+    their vectors (z, inv in the state's type; d, org, tau in the solve's,
+    as for ``eigvec_rotate``: the reference casts them to the state's type
+    and an f32 state can divide by 0); inactive columns are U's own.
+    ``"jnp"``: both dense factors, then two products."""
+    dtype = U.dtype
+    if matmul == "pallas":
+        mask = active_mask(U.shape[-1], m)
+        C = eigvec_ops.rotate_vectors2(
+            U, pf.z1.to(dtype), pf.d1, pf.org1, pf.inv1.to(dtype),
+            pf.defl1.to(dtype), pf.cid1,
+            pf.z2.to(dtype), pf.d2, pf.org2, pf.inv2.to(dtype),
+            pf.defl2.to(dtype), pf.cid2, m, tau1=pf.tau1, tau2=pf.tau2)
+        C = torch.where(mask[None, :], C, U)
+    else:
+        W1 = cauchy_factor_ref(pf.z1, pf.d1, pf.org1, pf.inv1,
+                               pf.defl1.to(pf.z1.dtype), pf.cid1,
+                               tau=pf.tau1).to(dtype)
+        W2 = cauchy_factor_ref(pf.z2, pf.d2, pf.org2, pf.inv2,
+                               pf.defl2.to(pf.z2.dtype), pf.cid2,
+                               tau=pf.tau2).to(dtype)
+        C = (U @ W1) @ W2
+    return C[:, pf.perm2]
+
+
+def rank_one_update_pair(L: Tensor, U: Tensor, v1: Tensor, sigma1,
+                         v2: Tensor, sigma2, m, *, iters: int = 62,
+                         method: str = "gu", matmul: str = "jnp",
+                         precise: bool = True, merge_fallback: bool = True,
+                         z1: Tensor | None = None, z2: Tensor | None = None
+                         ) -> tuple[Tensor, Tensor]:
+    """Two back-to-back rank-one updates with ONE fused double rotation.
+
+    Semantically ``rank_one_update(·, v2, sigma2) ∘ rank_one_update(·, v1,
+    sigma1)``, the ±sigma pairs of Algorithms 1 and 2, except that U is
+    rotated once: C = U @ W1n @ W2n.  The second update's z₂ = U₁ᵀv₂
+    comes from the Cauchy transpose-matvec, so U is read and written once
+    per pair.
+
+    The cluster merge cannot sit between the two fused rotations; with
+    ``merge_fallback`` (default) a pair on which a merge would fire runs
+    as two sequential updates instead.  The reference decides that on the
+    device (``lax.cond``); here ``merge_fired`` is read on the host, one
+    synchronisation per pair, and the branch not taken launches nothing.
+
+    ``matmul``: "jnp" (dense factors) or "pallas" (the ``eigvec_rotate2``
+    kernel on the card, its plain version on the CPU).  ``z1``/``z2``
+    (both or neither) are precomputed Uᵀv₁ / Uᵀv₂ in the current basis;
+    the fallback reuses z1 and recomputes z2 from the rotated U₁.
+    """
+    if matmul not in ("jnp", "pallas"):
+        raise ValueError(f"unknown rotation route {matmul!r}")
+    if (z1 is None) != (z2 is None):
+        raise ValueError("pass both precomputed projections or neither")
+    M = L.shape[0]
+    sigma1 = torch.as_tensor(sigma1, dtype=L.dtype, device=L.device)
+    sigma2 = torch.as_tensor(sigma2, dtype=L.dtype, device=L.device)
+    m = torch.as_tensor(m, dtype=torch.int32, device=L.device)
+    mask = active_mask(M, m)
+    v1 = torch.where(mask, v1, 0.0)
+    v2 = torch.where(mask, v2, 0.0)
+    if z1 is None:
+        Z = U.T @ torch.stack([v1, v2], dim=1)  # one pass over U for both
+        z1, z2 = Z[:, 0], Z[:, 1]
+    else:
+        z1 = torch.where(mask, z1, 0.0)
+        z2 = torch.where(mask, z2, 0.0)
+    kw = dict(iters=iters, method=method, precise=precise)
+    pf = _pair_solve(L, z1, sigma1, z2, sigma2, m, **kw)
+    if merge_fallback and bool(pf.merge_fired):
+        L1, U1 = _update_body(L, U, v1, sigma1, m, matmul=matmul, z=z1,
+                              **kw)
+        return _update_body(L1, U1, v2, sigma2, m, matmul=matmul, **kw)
+    return pf.L_new[pf.perm2], _pair_rotate_block(U, pf, m, matmul=matmul)
 
 
 def expand_eigensystem_perm(L: Tensor, lam_new: Tensor, m: Tensor

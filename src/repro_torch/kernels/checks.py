@@ -1,9 +1,11 @@
 """Each CUDA kernel against its plain version, on the card.
 
-``cases(n, m, dtype, device)`` builds, for every kernel of the slice, the
-inputs the main path hands it at capacity-bucket ``n`` with ``m`` active
-pairs (a real solved rotation factor, an orthonormal active block of U,
-stored points and queries as the service draws them), and returns a
+``cases(n, m, dtype, device)`` builds, for every kernel of the KPCA path,
+the inputs the main path hands it at capacity-bucket ``n`` with ``m``
+active pairs (a real solved rotation factor or fused pair with deflated
+columns, an orthonormal active block of U, stored points and queries as
+the service draws them), and ``gram_cases(n, k, dtype, device)`` those of
+the Nyström reconstruction (B of n rows and width k); each returns a
 ``Case`` per kernel: the kernel call, its plain version, the one PyTorch
 call that computes the same function where there is one, the tolerance
 the comparison is held to and why, and the bound on its time.
@@ -46,6 +48,7 @@ from repro_torch.core import engine, kernels_fn as kf, rankone
 from repro_torch.kernels.eigvec_update import ops as eops
 from repro_torch.kernels.eigvec_update import ref as eref
 from repro_torch.kernels.nystrom_recon import ops as nops
+from repro_torch.kernels.nystrom_recon import ref as nref
 from repro_torch.kernels.nystrom_recon.ref import transform_project_ref
 from repro_torch.kernels.rbf_gram import ops as kops
 from repro_torch.kernels.rbf_gram.ref import krow_project_ref
@@ -58,6 +61,8 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
 SOURCES = {
     "eigvec_rotate": ("src/repro_torch/kernels/csrc/eigvec_rotate.cu",
                       "src/repro/kernels/eigvec_update/eigvec_update.py:118"),
+    "eigvec_rotate2": ("src/repro_torch/kernels/csrc/eigvec_rotate2.cu",
+                       "src/repro/kernels/eigvec_update/eigvec_update.py:360"),
     "eigvec_project": ("src/repro_torch/kernels/csrc/eigvec_project.cu",
                        "src/repro/kernels/eigvec_update/eigvec_update.py:217"),
     "krow_project": ("src/repro_torch/kernels/csrc/krow_project.cu",
@@ -65,6 +70,8 @@ SOURCES = {
     "transform_project": (
         "src/repro_torch/kernels/csrc/transform_project.cu",
         "src/repro/kernels/nystrom_recon/transform_batch.py:72"),
+    "scaled_gram": ("src/repro_torch/kernels/csrc/scaled_gram.cu",
+                    "src/repro/kernels/nystrom_recon/nystrom_recon.py:39"),
 }
 
 N_QUERIES, N_COMPONENTS, DIM = 64, 8, 16
@@ -127,21 +134,21 @@ def _rotate_case(U, L, m, rng, dtype) -> Case:
     f = rankone._solve_factor(d_sent, z, sigma, m, scale,
                               iters=engine.resolve_iters(None, dtype),
                               method="gu", precise=True)
-    ops = rankone.kernel_operands(f, mask, dtype)
-    zk, dk, lamk, invk = ops
+    zk, dk, orgk, invk, tauk = rankone.kernel_operands(f, mask, dtype)
+    ops = (zk, dk, orgk, invk)
     Wn = eref.eigvec_rotate_ref(torch.eye(n, dtype=dtype, device=U.device),
-                                *ops)                   # W * inv, stored
+                                *ops, tauk)             # W * inv, stored
     one = torch.ones(n, dtype=torch.float64, device=U.device)
     W64 = torch.where(~f.defl[None, :], eref.eigvec_rotate_ref(
-        torch.diag(one), zk.double(), dk, lamk, one), 0.0)
+        torch.diag(one), zk.double(), dk, orgk, one, tauk), 0.0)
     mag = (U.double().abs() @ W64.abs()) * invk.double().abs()
     rows, cols = eref.pruned_region_mask(n, n, mi, block=eops.ROTATE_TILE)
     outside = ~(rows[:, None] & cols[None, :]).to(U.device) & ~f.defl[None, :]
     item = U.element_size()
     return Case(
         name="eigvec_rotate",
-        kernel=lambda: (eops.rotate_vectors(U, *ops, m),),
-        plain=lambda: (eref.eigvec_rotate_ref(U, *ops),),
+        kernel=lambda: (eops.rotate_vectors(U, *ops, m, tau=tauk),),
+        plain=lambda: (eref.eigvec_rotate_ref(U, *ops, tauk),),
         library=lambda: torch.matmul(U, Wn),
         tols=(_gamma(mi, dtype) * mag,),
         tol_reason="2(m+2)eps·(|U||W|)_ij·|inv_j| per entry: two length-m "
@@ -152,6 +159,50 @@ def _rotate_case(U, L, m, rng, dtype) -> Case:
         exact_zero=outside,
         # _apply_factor puts U's own column in place of deflated ones.
         keep=~f.defl)
+
+
+def _rotate2_case(U, L, m, rng, dtype) -> Case:
+    """A solved fused pair (sigma = +0.5 then -0.5) whose first update
+    deflates every seventh direction (z1 = 0 there), so factor 1 carries
+    deflated identity columns e_{cid1[j]} under a permuted cid1."""
+    n = U.shape[0]
+    mi = int(m)
+    mask = rankone.active_mask(n, m)
+    z1 = torch.as_tensor(rng.normal(size=n), dtype=dtype, device=U.device)
+    z1[torch.arange(n, device=U.device) % 7 == 3] = 0.0
+    z1 = torch.where(mask, z1, 0.0)
+    z2 = torch.where(mask, torch.as_tensor(rng.normal(size=n), dtype=dtype,
+                                           device=U.device), 0.0)
+    half = torch.tensor(0.5, dtype=dtype, device=U.device)
+    pf = rankone._pair_solve(L, z1, half, z2, -half, m,
+                             iters=engine.resolve_iters(None, dtype),
+                             method="gu", precise=True)
+    ops = (pf.z1.to(dtype), pf.d1, pf.org1, pf.inv1.to(dtype),
+           pf.defl1.to(dtype), pf.cid1, pf.z2.to(dtype), pf.d2, pf.org2,
+           pf.inv2.to(dtype), pf.defl2.to(dtype), pf.cid2)
+    taus = dict(tau1=pf.tau1, tau2=pf.tau2)
+    W1 = eref.cauchy_factor_ref(*ops[:6], tau=pf.tau1)
+    W2 = eref.cauchy_factor_ref(*ops[6:], tau=pf.tau2)
+    mag = (U.double().abs() @ W1.double().abs()) @ W2.double().abs()
+    rows, cols = eref.pruned_region_mask(n, n, mi, block=eops.ROTATE2_TILE)
+    rows, cols = rows.to(U.device), cols.to(U.device)
+    item = U.element_size()
+    return Case(
+        name="eigvec_rotate2",
+        kernel=lambda: (eops.rotate_vectors2(U, *ops, m, **taus),),
+        plain=lambda: (eref.eigvec_rotate2_ref(U, *ops, **taus),),
+        library=lambda: torch.matmul(torch.matmul(U, W1), W2),
+        tols=(_gamma(2 * mi, dtype) * mag,),
+        tol_reason="2(2m+2)eps·(|U||W1||W2|)_ij per entry: the second "
+                   "length-m product carries the first one's error "
+                   "(Higham gamma_m twice), both factors generated in the "
+                   "working type alike",
+        bytes=item * (mi * mi + n * n + 4 * n) + 8 * 6 * n + 4 * 2 * n,
+        flops=4.0 * mi ** 3 + 2.0 * mi * mi,
+        exact_zero=~(rows[:, None] & cols[None, :]) & mask[None, :],
+        # rank_one_update_pair puts U's own column in place of inactive
+        # ones (the kernel writes them as zeros inside the active tiles).
+        keep=mask)
 
 
 def _project_case(U, m, rng, dtype) -> Case:
@@ -253,16 +304,47 @@ def _transform_case(U, L, X, m, rng, spec, dtype) -> Case:
 
 
 def cases(n: int, m: int, dtype, device, seed: int = 0) -> list[Case]:
-    """The four kernels' cases at bucket ``n`` with ``m`` active pairs."""
+    """The KPCA path's kernels' cases at bucket ``n`` with ``m`` active
+    pairs."""
     U, L, mt, X, rng = _state(n, m, dtype, device, seed)
     spec = kf.KernelSpec(name="rbf", sigma=float(DIM))
     K1 = torch.where(rankone.active_mask(n, mt),
                      torch.as_tensor(rng.uniform(50.0, 150.0, size=n),
                                      dtype=dtype, device=device), 0.0)
     return [_rotate_case(U, L, mt, rng, dtype),
+            _rotate2_case(U, L, mt, rng, dtype),
             _project_case(U, mt, rng, dtype),
             _krow_case(U, X, K1, mt, rng, spec, dtype),
             _transform_case(U, L, X, mt, rng, spec, dtype)]
+
+
+def scaled_gram_tol(B: Tensor, s: Tensor, dtype) -> Tensor:
+    """Per-entry bound on two evaluations of B diag(s) Bᵀ of width k:
+    2(k+2)eps·((|B||s|)|B|ᵀ)_ij (the scaled left operand is rounded alike
+    in both)."""
+    Bd = B.double().abs()
+    return _gamma(B.shape[1], dtype) * ((Bd * s.double().abs()) @ Bd.T)
+
+
+def gram_cases(n: int, k: int, dtype, device, seed: int = 0) -> list[Case]:
+    """The Nyström reconstruction's case: B (n, k) as ``reconstruct_tilde``
+    forms it (kernel values through an orthonormal basis) and s its
+    pseudo-inverse spectrum, log-uniform over four decades."""
+    rng = np.random.default_rng(seed)
+    B = torch.as_tensor(rng.normal(size=(n, k)), dtype=dtype, device=device)
+    s = torch.as_tensor(10.0 ** rng.uniform(-2.0, 2.0, size=k), dtype=dtype,
+                        device=device)
+    item = B.element_size()
+    return [Case(
+        name="scaled_gram",
+        kernel=lambda: (nops.scaled_gram(B, s),),
+        plain=lambda: (nref.scaled_gram_ref(B, s),),
+        library=lambda: torch.matmul(B * s, B.T),
+        tols=(scaled_gram_tol(B, s, dtype),),
+        tol_reason="2(k+2)eps·((|B||s|)|B|ᵀ)_ij per entry: two length-k "
+                   "dot products (Higham gamma_k), the scale rounded alike",
+        bytes=item * (n * k + k + n * n),
+        flops=2.0 * n * n * k)]
 
 
 def compare(case: Case) -> dict:
@@ -301,27 +383,34 @@ def compare(case: Case) -> dict:
             "tol_reason": case.tol_reason}
 
 
-def device_ms(fn: Callable[[], object], reps: int = 25, warmup: int = 3
-              ) -> tuple[float, float]:
+def device_ms(fn: Callable[[], object], reps: int = 25, warmup: int = 3,
+              attempts: int = 3) -> tuple[float, float]:
     """(device ms per call, device launches per call) of ``fn``: the sum
     of the device activity records (kernels, copies, sets) of ``reps``
     calls under ``torch.profiler``, divided by ``reps``, after ``warmup``
     calls.  Gaps between launches and the host's work are not counted.
     Operands stay in L2 between calls, as on the main path, where the
-    previous step just wrote them."""
+    previous step just wrote them.
+
+    Every call issues the same device work, so the record count is a
+    multiple of ``reps``; a profile that recorded nothing or lost records
+    (CUPTI drops a whole buffer now and then) is taken again, up to
+    ``attempts`` times, and then raises."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    spans = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA]
-    if not spans:
-        raise RuntimeError("the profiler recorded no device activity")
-    return sum(spans) / reps / 1e3, len(spans) / reps
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if spans and len(spans) % reps == 0:
+            return sum(spans) / reps / 1e3, len(spans) / reps
+    raise RuntimeError(f"the profiler recorded {len(spans)} device records "
+                       f"for {reps} calls in each of {attempts} attempts")
 
 
 def call_ms(fn: Callable[[], object], reps: int = 25, warmup: int = 3

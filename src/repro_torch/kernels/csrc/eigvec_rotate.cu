@@ -4,15 +4,20 @@
 //   src/repro/kernels/eigvec_update/eigvec_update.py::eigvec_rotate
 //   (pallas_call at :179).
 //
-// Computes C = (U @ W) * inv with W[k, j] = z[k] / (d[k] - lam[j]); W is
-// generated tile by tile in shared memory from the three vectors and never
-// stored.  U is (n, n) row-major; z, inv are (n,) in T; d, lam are (n,)
-// in double, the secular solve's type: the denominator is formed in double
+// Computes C = (U @ W) * inv with W[k, j] = z[k] / ((d[k] - org[j]) - tau[j]);
+// W is generated tile by tile in shared memory from the vectors and never
+// stored.  U is (n, n) row-major; z, inv are (n,) in T; d, org, tau are
+// (n,) in double, the secular solve's type: root j is org[j] + tau[j], kept
+// as its origin pole and the offset from it (repro_torch/core/rankone.py,
+// _Roots), so that d[k] - org[j] is exact for close poles and the root's
+// distance to them keeps its digits.  The denominator is formed in double
 // and then rounded to T, because a root within half an f32 ulp of its pole
 // would otherwise round onto it and divide by zero.  A denominator smaller
-// than eps (the solve type's) becomes +-eps, the guard under which inv
-// was computed (rankone._cauchy_inv): the reference's kernel has none, and
-// a root closer than eps to its pole then gives an unnormalized column.
+// than `guard` becomes +-guard, the guard under which inv was computed
+// (rankone._cauchy_inv; eigvec_update/ref.py::_denominators gives its
+// value: offset_guard(T) in offset form, eps for tau = 0): the
+// reference's kernel has none, and a root closer than eps to its pole
+// then gives an unnormalized column.
 //
 // Pruning contract (the reference's _tile_counts, without a host read):
 // the active count m is read by pointer; output tiles whose row or column
@@ -44,9 +49,10 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 eigvec_rotate_kernel(const T* __restrict__ u, const T* __restrict__ z,
                      const double* __restrict__ d,
-                     const double* __restrict__ lam,
+                     const double* __restrict__ org,
+                     const double* __restrict__ tau,
                      const T* __restrict__ inv, const int* __restrict__ m_ptr,
-                     T* __restrict__ out, int n, double eps) {
+                     T* __restrict__ out, int n, double guard) {
   const int m = repro::active_count(m_ptr, n);
   const int g = (m + kTile - 1) / kTile;     // active tiles per axis
   const int row0 = blockIdx.y * kTile;
@@ -79,7 +85,7 @@ eigvec_rotate_kernel(const T* __restrict__ u, const T* __restrict__ z,
       const int gr = row0 + r, gk = k0 + kk;
       us[kk][r] = (gr < n && gk < m) ? u[(size_t)gr * n + gk] : T(0);
     }
-    // W slab, generated from z, d, lam (rows >= m contribute nothing).
+    // W slab, generated from z, d, org, tau (rows >= m contribute nothing).
 #pragma unroll
     for (int i = 0; i < kTile * kSlab / kThreads; ++i) {
       const int c = threadIdx.x % kTile;
@@ -87,8 +93,8 @@ eigvec_rotate_kernel(const T* __restrict__ u, const T* __restrict__ z,
       const int gc = col0 + c, gk = k0 + kk;
       T w = T(0);
       if (gc < n && gk < m) {
-        double den = d[gk] - lam[gc];
-        if (fabs(den) < eps) den = den < 0 ? -eps : eps;
+        double den = (d[gk] - org[gc]) - tau[gc];
+        if (fabs(den) < guard) den = den < 0 ? -guard : guard;
         w = z[gk] / static_cast<T>(den);
       }
       ws[kk][c] = w;
@@ -121,17 +127,18 @@ eigvec_rotate_kernel(const T* __restrict__ u, const T* __restrict__ z,
 }
 
 template <typename T>
-int launch(const void* u, const void* z, const void* d, const void* lam,
-           const void* inv, const void* m, void* out, int n, double eps,
-           void* stream) {
+int launch(const void* u, const void* z, const void* d, const void* org,
+           const void* tau, const void* inv, const void* m, void* out, int n,
+           double guard, void* stream) {
   const int tiles = (n + kTile - 1) / kTile;
   if (n > 0) {
     eigvec_rotate_kernel<T><<<dim3(tiles, tiles), kThreads, 0,
                               static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(u), static_cast<const T*>(z),
-        static_cast<const double*>(d), static_cast<const double*>(lam),
-        static_cast<const T*>(inv), static_cast<const int*>(m),
-        static_cast<T*>(out), n, eps);
+        static_cast<const double*>(d), static_cast<const double*>(org),
+        static_cast<const double*>(tau), static_cast<const T*>(inv),
+        static_cast<const int*>(m),
+        static_cast<T*>(out), n, guard);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -139,15 +146,15 @@ int launch(const void* u, const void* z, const void* d, const void* lam,
 }  // namespace
 
 extern "C" int eigvec_rotate_f32(const void* u, const void* z, const void* d,
-                                 const void* lam, const void* inv,
-                                 const void* m, void* out, int n,
-                                 double eps, void* stream) {
-  return launch<float>(u, z, d, lam, inv, m, out, n, eps, stream);
+                                 const void* org, const void* tau,
+                                 const void* inv, const void* m, void* out,
+                                 int n, double guard, void* stream) {
+  return launch<float>(u, z, d, org, tau, inv, m, out, n, guard, stream);
 }
 
 extern "C" int eigvec_rotate_f64(const void* u, const void* z, const void* d,
-                                 const void* lam, const void* inv,
-                                 const void* m, void* out, int n,
-                                 double eps, void* stream) {
-  return launch<double>(u, z, d, lam, inv, m, out, n, eps, stream);
+                                 const void* org, const void* tau,
+                                 const void* inv, const void* m, void* out,
+                                 int n, double guard, void* stream) {
+  return launch<double>(u, z, d, org, tau, inv, m, out, n, guard, stream);
 }

@@ -26,8 +26,9 @@ import torch
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("errors.cu", "eigvec_rotate.cu", "eigvec_project.cu",
-           "krow_project.cu", "transform_project.cu")
+SOURCES = ("errors.cu", "eigvec_rotate.cu", "eigvec_rotate2.cu",
+           "eigvec_project.cu", "krow_project.cu", "transform_project.cu",
+           "scaled_gram.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -35,10 +36,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # C signature of each entry point (the _f32/_f64 pair share one).
 SIGNATURES = {
-    "eigvec_rotate": (P, P, P, P, P, P, P, I, F, P),
+    "eigvec_rotate": (P, P, P, P, P, P, P, P, I, F, P),
+    "eigvec_rotate2": (P,) * 16 + (I, F, P),
     "eigvec_project": (P, P, P, P, I, I, P),
     "krow_project": (P, P, P, P, P, P, P, I, I, I, I, F, F, P),
     "transform_project": (P, P, P, P, P, P, I, I, I, I, I, F, F, P),
+    "scaled_gram": (P, P, P, I, I, P),
 }
 
 # Launches per kernel since the last ``reset_launches`` — a plain count,

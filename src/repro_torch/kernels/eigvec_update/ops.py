@@ -2,7 +2,8 @@
 
 The tensor's device picks the route: a CPU tensor runs the plain version
 in ``ref.py``; a CUDA tensor launches the kernel of
-``csrc/eigvec_rotate.cu`` / ``csrc/eigvec_project.cu`` or raises.
+``csrc/eigvec_rotate.cu`` / ``csrc/eigvec_rotate2.cu`` /
+``csrc/eigvec_project.cu`` or raises.
 """
 from __future__ import annotations
 
@@ -10,20 +11,24 @@ import torch
 
 from repro_torch.kernels import cuda
 from repro_torch.kernels.eigvec_update.ref import (eigvec_project_ref,
-                                                   eigvec_rotate_ref)
+                                                   eigvec_rotate2_ref,
+                                                   eigvec_rotate_ref,
+                                                   offset_guard)
 
 Tensor = torch.Tensor
 
 ROTATE_TILE = 64    # output tile of eigvec_rotate: its pruning granule
 PROJECT_SLAB = 32   # columns of U per eigvec_project block
 NPROJ = 8           # most columns eigvec_project takes
+ROTATE2_TILE = 64   # output tile of eigvec_rotate2: its pruning granule
 
 
 def rotate_vectors(u: Tensor, zhat: Tensor, d: Tensor, lam: Tensor,
-                   inv: Tensor, num_active=None) -> Tensor:
-    """C = U @ (zhat[:,None] / (d[:,None] - lam[None,:])) * inv, with the
-    denominators formed in float64 and eps-guarded (``ref.eigvec_rotate_ref``
-    says why).
+                   inv: Tensor, num_active=None, *,
+                   tau: Tensor | None = None) -> Tensor:
+    """C = U @ (zhat[:,None] / ((d[:,None] - lam[None,:]) - tau)) * inv,
+    with the denominators formed in float64 and eps-guarded
+    (``ref.eigvec_rotate_ref`` says why); ``tau`` is zero when omitted.
 
     On the card the factor is generated tile by tile and never stored;
     with ``num_active`` = m the reduction stops at row m of the factor and
@@ -32,20 +37,77 @@ def rotate_vectors(u: Tensor, zhat: Tensor, d: Tensor, lam: Tensor,
     the padding contract).
     """
     if u.device.type == "cpu":
-        return eigvec_rotate_ref(u, zhat, d, lam, inv)
+        return eigvec_rotate_ref(u, zhat, d, lam, inv, tau)
     dtype = cuda.check_operands("eigvec_rotate", u, zhat, inv)
-    eps = torch.finfo(d.dtype).eps   # the guard of ref.eigvec_rotate_ref
+    # The guard of ref._denominators.
+    guard = torch.finfo(d.dtype).eps if tau is None else offset_guard(dtype)
     d = d.to(torch.float64)          # denominators in float64: see ref.py
     lam = lam.to(torch.float64)
-    cuda.check_operands("eigvec_rotate", d, lam)
+    tau = (torch.zeros_like(lam) if tau is None
+           else tau.to(torch.float64))
+    cuda.check_operands("eigvec_rotate", d, lam, tau)
     n = u.shape[0]
-    if u.shape != (n, n) or any(v.shape != (n,) for v in (zhat, d, lam, inv)):
-        raise ValueError(f"eigvec_rotate: need u (n, n) and four (n,) "
+    if u.shape != (n, n) or any(v.shape != (n,)
+                                for v in (zhat, d, lam, inv, tau)):
+        raise ValueError(f"eigvec_rotate: need u (n, n) and five (n,) "
                          f"vectors, got {u.shape}")
     m = cuda.active_count(n if num_active is None else num_active, u.device)
     out = torch.empty_like(u)
-    cuda.launch("eigvec_rotate", dtype, u, zhat, d, lam, inv, m, out, n,
-                eps)
+    cuda.launch("eigvec_rotate", dtype, u, zhat, d, lam, tau, inv, m, out,
+                n, guard)
+    return out
+
+
+def rotate_vectors2(u: Tensor,
+                    z1: Tensor, d1: Tensor, lam1: Tensor, inv1: Tensor,
+                    defl1: Tensor, cid1: Tensor,
+                    z2: Tensor, d2: Tensor, lam2: Tensor, inv2: Tensor,
+                    defl2: Tensor, cid2: Tensor, num_active=None, *,
+                    tau1: Tensor | None = None,
+                    tau2: Tensor | None = None) -> Tensor:
+    """Fused double rotation C = U @ W1n @ W2n (``ref.eigvec_rotate2_ref``):
+    each factor W[k, j] = z[k]·inv[j]/((d[k] - lam[j]) - tau[j]), deflated
+    columns (defl[j] != 0) the identity column e_{cid[j]}.
+
+    On the card the factors are generated slab by slab and multiplied
+    first, W12 = W1n @ W2n into an (n, n) scratch this wrapper allocates,
+    then C = U @ W12 (``csrc/eigvec_rotate2.cu`` says why); U @ W1n never
+    exists.  With ``num_active`` = m the reductions stop at m and output
+    tiles beyond ceil(m/64) in either axis are written as exact zeros
+    (inactive columns inside the active tiles come out 0: the caller
+    keeps U's own).
+    """
+    if (tau1 is None) != (tau2 is None):
+        raise ValueError("eigvec_rotate2: pass both offsets or neither")
+    if u.device.type == "cpu":
+        return eigvec_rotate2_ref(u, z1, d1, lam1, inv1, defl1, cid1,
+                                  z2, d2, lam2, inv2, defl2, cid2,
+                                  tau1=tau1, tau2=tau2)
+    dtype = cuda.check_operands("eigvec_rotate2", u, z1, inv1, z2, inv2)
+    # The guard of ref._denominators (both factors share one form).
+    guard = torch.finfo(d1.dtype).eps if tau1 is None else offset_guard(dtype)
+    n = u.shape[0]
+
+    def factor(d, lam, tau, defl, cid):
+        d, lam = d.to(torch.float64), lam.to(torch.float64)
+        tau = (torch.zeros_like(lam) if tau is None
+               else tau.to(torch.float64))
+        cuda.check_operands("eigvec_rotate2", d, lam, tau)
+        ecol = torch.where(defl > 0, cid.to(torch.int32),
+                           torch.full_like(cid, -1, dtype=torch.int32))
+        return d, lam, tau, ecol.contiguous()
+
+    d1, lam1, tau1, e1 = factor(d1, lam1, tau1, defl1, cid1)
+    d2, lam2, tau2, e2 = factor(d2, lam2, tau2, defl2, cid2)
+    if u.shape != (n, n) or any(v.shape != (n,) for v in (
+            z1, d1, lam1, tau1, inv1, e1, z2, d2, lam2, tau2, inv2, e2)):
+        raise ValueError(f"eigvec_rotate2: need u (n, n) and (n,) factor "
+                         f"vectors, got {u.shape}")
+    m = cuda.active_count(n if num_active is None else num_active, u.device)
+    w12 = torch.empty_like(u)
+    out = torch.empty_like(u)
+    cuda.launch("eigvec_rotate2", dtype, u, z1, d1, lam1, tau1, inv1, e1,
+                z2, d2, lam2, tau2, inv2, e2, m, w12, out, n, guard)
     return out
 
 

@@ -11,9 +11,11 @@ Tensor = torch.Tensor
 
 
 def eigvec_rotate_ref(u: Tensor, zhat: Tensor, d: Tensor, lam: Tensor,
-                      inv: Tensor) -> Tensor:
-    """C = (U @ W) * inv with W[k, j] = zhat[k] / (d[k] - lam[j]),
-    W materialized (the kernel generates it tile by tile).
+                      inv: Tensor, tau: Tensor | None = None) -> Tensor:
+    """C = (U @ W) * inv with W[k, j] = zhat[k] / ((d[k] - lam[j]) - tau[j]),
+    W materialized (the kernel generates it tile by tile).  ``tau`` (zero
+    when omitted, the reference's form) is the roots' offset from their
+    origin poles ``lam``; ``rankone._Roots`` says why.
 
     Two guards the reference's ``eigvec_rotate`` lacks:
 
@@ -21,18 +23,44 @@ def eigvec_rotate_ref(u: Tensor, zhat: Tensor, d: Tensor, lam: Tensor,
       secular solve's float64 for an f32 state under ``precise`` — and
       only then rounded to zhat's type.  Cast first, a root within half
       an f32 ulp of its pole rounds onto it and the division gives inf.
-    * A denominator smaller than that type's eps is replaced by ±eps, as
-      ``rankone._cauchy_inv`` (which computes ``inv``), ``cauchy_factor_ref``
-      and the reference's ``eigvec_rotate2`` do.  Unguarded, a root closer
-      than eps to its pole gives a column that ``inv`` does not normalize.
+    * The denominators are guarded as ``rankone._cauchy_inv`` (which
+      computes ``inv``) and ``cauchy_factor_ref`` guard them
+      (``_denominators``).  Unguarded, a root closer than eps to its pole
+      gives a column that ``inv`` does not normalize.
 
     Otherwise, with operands of one type, this is the reference's formula.
     """
-    den = d[:, None] - lam[None, :]
-    eps = torch.finfo(den.dtype).eps
-    den = torch.where(den.abs() < eps, torch.where(den < 0, -eps, eps), den)
+    den = _denominators(d, lam, tau, zhat.dtype)
     W = zhat[:, None] / den.to(zhat.dtype)
     return (u @ W) * inv[None, :]
+
+
+def offset_guard(dtype) -> float:
+    """The offset form's denominator guard for a result of type ``dtype``:
+    tiny/eps, far below any distance a non-deflated root keeps from its
+    pole, and large enough that z/guard cannot overflow."""
+    fi = torch.finfo(dtype)
+    return fi.tiny / fi.eps
+
+
+def _denominators(d: Tensor, lam: Tensor, tau: Tensor | None,
+                  out_dtype=None) -> Tensor:
+    """(d[k] - lam[j]) - tau[j], guarded in its own type.
+
+    Absolute roots (``tau`` None, the reference's form) are guarded at
+    ±eps, the reference's guard: such a root cannot be placed closer to
+    its pole than that.  In offset form the distance is exact to the last
+    bit however small it is, so the guard only keeps an exact zero (a
+    deflated column's own pole, coincident poles no merge joined) from
+    dividing: ±``offset_guard`` of ``out_dtype``, the type the
+    denominator is rounded to, so the rounding cannot make it zero."""
+    den = d[:, None] - lam[None, :]
+    if tau is None:
+        g = torch.finfo(den.dtype).eps
+    else:
+        den = den - tau[None, :]
+        g = offset_guard(out_dtype or den.dtype)
+    return torch.where(den.abs() < g, torch.where(den < 0, -g, g), den)
 
 
 def eigvec_project_ref(u: Tensor, v: Tensor, num_active=None,
@@ -64,19 +92,17 @@ def pruned_region_mask(R: int, M: int, m, row_offset=None, *,
 
 def cauchy_factor_ref(z: Tensor, d: Tensor, lam: Tensor, inv: Tensor,
                       defl: Tensor | None = None,
-                      cid: Tensor | None = None) -> Tensor:
+                      cid: Tensor | None = None, *,
+                      tau: Tensor | None = None) -> Tensor:
     """Dense normalized Cauchy factor with deflated identity columns.
 
-    W[k, j] = z[k]·inv[j]/(d[k]-lam[j]) with an eps guard on the
-    denominator; columns with defl[j] != 0 are replaced by e_{cid[j]}
-    (cid defaults to j).
+    W[k, j] = z[k]·inv[j]/((d[k]-lam[j]) - tau[j]) with the guard of
+    ``_denominators`` on the denominator; columns with defl[j] != 0
+    are replaced by e_{cid[j]} (cid defaults to j).
     """
     M = z.shape[0]
-    eps = torch.finfo(z.dtype).eps
-    den = d[:, None] - lam[None, :]
-    den = torch.where(den.abs() < eps,
-                      torch.where(den < 0, -eps, eps), den)
-    W = z[:, None] * inv[None, :] / den
+    den = _denominators(d, lam, tau, z.dtype)
+    W = z[:, None] * inv[None, :] / den.to(z.dtype)
     if defl is None:
         return W
     idx = torch.arange(M, device=z.device)
@@ -84,3 +110,20 @@ def cauchy_factor_ref(z: Tensor, d: Tensor, lam: Tensor, inv: Tensor,
         cid = idx
     E = (idx[:, None] == cid[None, :]).to(W.dtype)
     return torch.where(defl[None, :] > 0, E, W)
+
+
+def eigvec_rotate2_ref(u: Tensor,
+                       z1: Tensor, d1: Tensor, lam1: Tensor, inv1: Tensor,
+                       defl1: Tensor, cid1: Tensor,
+                       z2: Tensor, d2: Tensor, lam2: Tensor, inv2: Tensor,
+                       defl2: Tensor, cid2: Tensor, *,
+                       tau1: Tensor | None = None,
+                       tau2: Tensor | None = None) -> Tensor:
+    """C = (U @ W1) @ W2 with both normalized Cauchy factors materialized
+    (``cauchy_factor_ref``; the kernel generates their tiles): the fused
+    ±sigma pair's double rotation.  ``tau1``/``tau2`` are the roots'
+    offsets from ``lam1``/``lam2`` (zero when omitted, the reference's
+    form)."""
+    W1 = cauchy_factor_ref(z1, d1, lam1, inv1, defl1, cid1, tau=tau1)
+    W2 = cauchy_factor_ref(z2, d2, lam2, inv2, defl2, cid2, tau=tau2)
+    return (u @ W1.to(u.dtype)) @ W2.to(u.dtype)

@@ -1,18 +1,37 @@
-"""Wrapper for the fused batched-transform kernel: a CPU tensor runs
+"""Wrappers for the Nyström reconstruction and the fused batched-transform
+kernels: a CPU tensor runs ``ref.scaled_gram_ref`` /
 ``ref.transform_project_ref``, a CUDA tensor launches
-``csrc/transform_project.cu`` or raises."""
+``csrc/scaled_gram.cu`` / ``csrc/transform_project.cu`` or raises."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import kernels_fn as kf
 from repro_torch.kernels import cuda
-from repro_torch.kernels.nystrom_recon.ref import transform_project_ref
+from repro_torch.kernels.nystrom_recon.ref import (scaled_gram_ref,
+                                                   transform_project_ref)
 from repro_torch.kernels.rbf_gram.ops import fused_kind
 
 Tensor = torch.Tensor
 
 NCOMP = 8           # most projection columns transform_project takes
+
+
+def scaled_gram(b: Tensor, s: Tensor) -> Tensor:
+    """K̃ = B diag(s) Bᵀ for B (n, k) and s (k,): the scale is applied as
+    B's left slab is staged, so the scaled copy of B is never stored; the
+    sum runs in B's type (float64 for f64)."""
+    if b.device.type == "cpu":
+        return scaled_gram_ref(b, s)
+    s = s.to(b.dtype)
+    dtype = cuda.check_operands("scaled_gram", b, s)
+    if b.dim() != 2 or s.shape != (b.shape[1],):
+        raise ValueError(f"scaled_gram: need b (n, k) and s (k,), got "
+                         f"{b.shape} and {s.shape}")
+    n, k = b.shape
+    out = torch.empty((n, n), dtype=dtype, device=b.device)
+    cuda.launch("scaled_gram", dtype, b, s, out, n, k)
+    return out
 
 
 def transform_project(xq: Tensor, x: Tensor, s: Tensor, num_active, *,

@@ -1,4 +1,5 @@
-"""Plain PyTorch version of the fused query-gram + projection kernel."""
+"""Plain PyTorch versions of the Nyström reconstruction and the fused
+query-gram + projection kernels."""
 from __future__ import annotations
 
 import torch
@@ -6,6 +7,11 @@ import torch
 from repro_torch.core import kernels_fn as kf
 
 Tensor = torch.Tensor
+
+
+def scaled_gram_ref(b: Tensor, s: Tensor) -> Tensor:
+    """K̃ = B diag(s) Bᵀ with the scaled copy of B materialized."""
+    return (b * s[None, :]) @ b.T
 
 
 def transform_project_ref(xq: Tensor, x: Tensor, s: Tensor, num_active, *,

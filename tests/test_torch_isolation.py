@@ -33,6 +33,15 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     assert out.stdout.startswith("0 "), out.stdout
 
 
+def test_the_slice_modules_are_covered():
+    """The modules of each slice are among the files checked here."""
+    names = {p.relative_to(PORT).as_posix() for p in FILES if PORT in p.parents}
+    for rel in ("core/rankone.py", "core/nystrom.py", "core/convert.py",
+                "data/uci_like.py", "kernels/nystrom_recon/ops.py",
+                "kernels/eigvec_update/ops.py", "launch/serve.py"):
+        assert rel in names, rel
+
+
 def _imports(tree):
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):

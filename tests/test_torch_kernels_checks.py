@@ -20,16 +20,20 @@ from repro_torch.kernels.eigvec_update import ops as eops  # noqa: E402
 from repro_torch.kernels.eigvec_update import ref as eref  # noqa: E402
 from repro_torch.kernels.nystrom_recon import ops as nops  # noqa: E402
 from repro_torch.kernels.nystrom_recon.ref import (  # noqa: E402
-    transform_project_ref)
+    scaled_gram_ref, transform_project_ref)
 from repro_torch.kernels.rbf_gram import ops as kops  # noqa: E402
 from repro_torch.kernels.rbf_gram.ref import krow_project_ref  # noqa: E402
 
 N = 96
-NAMES = ("eigvec_rotate", "eigvec_project", "krow_project",
-         "transform_project")
+NAMES = ("eigvec_rotate", "eigvec_rotate2", "eigvec_project",
+         "krow_project", "transform_project", "scaled_gram")
 
 
 def _case(name, m, dtype=torch.float32, seed=0):
+    """``name``'s case at bucket N with m active pairs (scaled_gram: B of
+    width m, its own row count being unrelated to the bucket)."""
+    if name == "scaled_gram":
+        return checks.gram_cases(N, m, dtype, "cpu", seed=seed)[0]
     return next(c for c in checks.cases(N, m, dtype, "cpu", seed=seed)
                 if c.name == name)
 
@@ -52,9 +56,14 @@ def _in_f64(fn):
 @pytest.mark.parametrize("name", NAMES)
 def test_a_more_accurate_evaluation_passes(monkeypatch, name, m):
     monkeypatch.setattr(eops, "rotate_vectors", _in_f64(
-        lambda u, z, d, lam, inv, m: eref.eigvec_rotate_ref(u, z, d, lam, inv)))
+        lambda u, z, d, lam, inv, m, tau=None:
+        eref.eigvec_rotate_ref(u, z, d, lam, inv, tau)))
+    monkeypatch.setattr(eops, "rotate_vectors2", _in_f64(
+        lambda u, *ops, **taus: eref.eigvec_rotate2_ref(u, *ops[:12],
+                                                        **taus)))
     monkeypatch.setattr(eops, "project_vectors",
                         _in_f64(eref.eigvec_project_ref))
+    monkeypatch.setattr(nops, "scaled_gram", _in_f64(scaled_gram_ref))
     monkeypatch.setattr(kops, "krow_project", _in_f64(krow_project_ref))
     monkeypatch.setattr(nops, "transform_project",
                         _in_f64(transform_project_ref))
@@ -84,11 +93,16 @@ def _with_column(case, output, col, fn):
     ("krow_project", 1, 0, lambda c: c * (1 + 1e-2)),
     ("krow_project", 0, None, lambda a: a * (1 + 1e-2)),
     ("eigvec_rotate", 0, 3, lambda c: c * (1 + 1e-3)),
+    ("eigvec_rotate2", 0, 5, torch.zeros_like),
+    ("eigvec_rotate2", 0, 5, lambda c: c * (1 + 1e-3)),
+    ("scaled_gram", 0, 7, torch.zeros_like),
+    ("scaled_gram", 0, 7, lambda c: c * (1 + 1e-3)),
     ("eigvec_project", 0, 1, lambda c: c * (1 + 1e-3)),
     ("transform_project", 0, 0, lambda c: c * (1 + 1e-3)),
     ("transform_project", 1, None, lambda r: r * (1 + 1e-3)),
 ], ids=["krow_P_col0_zero", "krow_P_col0_1e-2", "krow_a_1e-2",
-        "rotate_col_1e-3", "project_col_1e-3", "transform_Y_col_1e-3",
+        "rotate_col_1e-3", "rotate2_col_zero", "rotate2_col_1e-3",
+        "gram_col_zero", "gram_col_1e-3", "project_col_1e-3", "transform_Y_col_1e-3",
         "transform_rowsum_1e-3"])
 def test_a_wrong_column_is_refused(name, output, col, fn):
     case = _case(name, 90)
