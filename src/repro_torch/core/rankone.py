@@ -31,7 +31,7 @@ import torch
 
 from repro_torch.kernels.eigvec_update import ops as eigvec_ops
 from repro_torch.kernels.eigvec_update.ref import (cauchy_factor_ref,
-                                                   offset_guard)
+                                                   guard_zero)
 
 Tensor = torch.Tensor
 
@@ -241,8 +241,7 @@ def _guarded(den: Tensor) -> Tensor:
     absolute roots at ±eps; in offset form a root's distance to its pole
     is exact however small, and a guard at eps would overwrite it
     (``eigvec_update.ref._denominators``)."""
-    g = offset_guard(den.dtype)
-    return torch.where(den.abs() < g, torch.where(den < 0, -g, g), den)
+    return guard_zero(den, den.dtype)
 
 
 def _cauchy_inv(d: Tensor, roots: _Roots, zhat: Tensor) -> Tensor:

@@ -344,7 +344,9 @@ def gram_cases(n: int, k: int, dtype, device, seed: int = 0) -> list[Case]:
         tol_reason="2(k+2)eps·((|B||s|)|B|ᵀ)_ij per entry: two length-k "
                    "dot products (Higham gamma_k), the scale rounded alike",
         bytes=item * (n * k + k + n * n),
-        flops=2.0 * n * n * k)]
+        # K̃ is symmetric: the function needs the n(n+1)/2 dot products of
+        # one triangle, though the kernel computes both.
+        flops=1.0 * n * (n + 1) * k)]
 
 
 def compare(case: Case) -> dict:

@@ -14,10 +14,9 @@
 // and then rounded to T, because a root within half an f32 ulp of its pole
 // would otherwise round onto it and divide by zero.  A denominator smaller
 // than `guard` becomes +-guard, the guard under which inv was computed
-// (rankone._cauchy_inv; eigvec_update/ref.py::_denominators gives its
-// value: offset_guard(T) in offset form, eps for tau = 0): the
-// reference's kernel has none, and a root closer than eps to its pole
-// then gives an unnormalized column.
+// (rankone._cauchy_inv; eigvec_update/ref.py::offset_guard gives its
+// value): the reference's kernel has none, and a root that rounds onto
+// its pole then divides by zero.
 //
 // Pruning contract (the reference's _tile_counts, without a host read):
 // the active count m is read by pointer; output tiles whose row or column

@@ -13,9 +13,10 @@
 // kernel accumulates in float32 even for f64 B, preferred_element_type at
 // :31; ROADMAP.md, "Faults found".)
 //
-// What bounds it on an H100: operations, 2 n^2 k (17 GFLOP at n = 4096,
-// k = 512) against 4 n k + 4 n^2 bytes, at the FP32 (or FP64) CUDA-core
-// rate; TF32 tensor cores would miss the f32 tolerances.  Design: the
+// What bounds it on an H100: operations.  K~ is symmetric, so the function
+// needs n (n + 1) k flops (8.6 GFLOP at n = 4096, k = 512) against
+// 4 n k + 4 n^2 bytes, at the FP32 (or FP64) CUDA-core rate; TF32 tensor
+// cores would miss the f32 tolerances.  This kernel does 2 n^2 k.  Design: the
 // classic SIMT tiling, a TILE x TILE output tile per block of 256 threads
 // (f32: 128 x 128, 8 x 8 per thread; f64: 64 x 64, 4 x 4), the reduction
 // in 16-wide slabs of both operands staged in shared memory.  Both tiles

@@ -24,11 +24,10 @@ ROTATE2_TILE = 64   # output tile of eigvec_rotate2: its pruning granule
 
 
 def rotate_vectors(u: Tensor, zhat: Tensor, d: Tensor, lam: Tensor,
-                   inv: Tensor, num_active=None, *,
-                   tau: Tensor | None = None) -> Tensor:
+                   inv: Tensor, num_active=None, *, tau: Tensor) -> Tensor:
     """C = U @ (zhat[:,None] / ((d[:,None] - lam[None,:]) - tau)) * inv,
-    with the denominators formed in float64 and eps-guarded
-    (``ref.eigvec_rotate_ref`` says why); ``tau`` is zero when omitted.
+    with the denominators formed in float64 and guarded
+    (``ref.eigvec_rotate_ref`` says why).
 
     On the card the factor is generated tile by tile and never stored;
     with ``num_active`` = m the reduction stops at row m of the factor and
@@ -39,12 +38,9 @@ def rotate_vectors(u: Tensor, zhat: Tensor, d: Tensor, lam: Tensor,
     if u.device.type == "cpu":
         return eigvec_rotate_ref(u, zhat, d, lam, inv, tau)
     dtype = cuda.check_operands("eigvec_rotate", u, zhat, inv)
-    # The guard of ref._denominators.
-    guard = torch.finfo(d.dtype).eps if tau is None else offset_guard(dtype)
     d = d.to(torch.float64)          # denominators in float64: see ref.py
     lam = lam.to(torch.float64)
-    tau = (torch.zeros_like(lam) if tau is None
-           else tau.to(torch.float64))
+    tau = tau.to(torch.float64)
     cuda.check_operands("eigvec_rotate", d, lam, tau)
     n = u.shape[0]
     if u.shape != (n, n) or any(v.shape != (n,)
@@ -54,7 +50,7 @@ def rotate_vectors(u: Tensor, zhat: Tensor, d: Tensor, lam: Tensor,
     m = cuda.active_count(n if num_active is None else num_active, u.device)
     out = torch.empty_like(u)
     cuda.launch("eigvec_rotate", dtype, u, zhat, d, lam, tau, inv, m, out,
-                n, guard)
+                n, offset_guard(dtype))
     return out
 
 
@@ -63,8 +59,7 @@ def rotate_vectors2(u: Tensor,
                     defl1: Tensor, cid1: Tensor,
                     z2: Tensor, d2: Tensor, lam2: Tensor, inv2: Tensor,
                     defl2: Tensor, cid2: Tensor, num_active=None, *,
-                    tau1: Tensor | None = None,
-                    tau2: Tensor | None = None) -> Tensor:
+                    tau1: Tensor, tau2: Tensor) -> Tensor:
     """Fused double rotation C = U @ W1n @ W2n (``ref.eigvec_rotate2_ref``):
     each factor W[k, j] = z[k]·inv[j]/((d[k] - lam[j]) - tau[j]), deflated
     columns (defl[j] != 0) the identity column e_{cid[j]}.
@@ -77,21 +72,16 @@ def rotate_vectors2(u: Tensor,
     (inactive columns inside the active tiles come out 0: the caller
     keeps U's own).
     """
-    if (tau1 is None) != (tau2 is None):
-        raise ValueError("eigvec_rotate2: pass both offsets or neither")
     if u.device.type == "cpu":
         return eigvec_rotate2_ref(u, z1, d1, lam1, inv1, defl1, cid1,
                                   z2, d2, lam2, inv2, defl2, cid2,
                                   tau1=tau1, tau2=tau2)
     dtype = cuda.check_operands("eigvec_rotate2", u, z1, inv1, z2, inv2)
-    # The guard of ref._denominators (both factors share one form).
-    guard = torch.finfo(d1.dtype).eps if tau1 is None else offset_guard(dtype)
     n = u.shape[0]
 
     def factor(d, lam, tau, defl, cid):
         d, lam = d.to(torch.float64), lam.to(torch.float64)
-        tau = (torch.zeros_like(lam) if tau is None
-               else tau.to(torch.float64))
+        tau = tau.to(torch.float64)
         cuda.check_operands("eigvec_rotate2", d, lam, tau)
         ecol = torch.where(defl > 0, cid.to(torch.int32),
                            torch.full_like(cid, -1, dtype=torch.int32))
@@ -107,7 +97,8 @@ def rotate_vectors2(u: Tensor,
     w12 = torch.empty_like(u)
     out = torch.empty_like(u)
     cuda.launch("eigvec_rotate2", dtype, u, z1, d1, lam1, tau1, inv1, e1,
-                z2, d2, lam2, tau2, inv2, e2, m, w12, out, n, guard)
+                z2, d2, lam2, tau2, inv2, e2, m, w12, out, n,
+                offset_guard(dtype))
     return out
 
 

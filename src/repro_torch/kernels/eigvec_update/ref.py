@@ -11,11 +11,12 @@ Tensor = torch.Tensor
 
 
 def eigvec_rotate_ref(u: Tensor, zhat: Tensor, d: Tensor, lam: Tensor,
-                      inv: Tensor, tau: Tensor | None = None) -> Tensor:
+                      inv: Tensor, tau: Tensor) -> Tensor:
     """C = (U @ W) * inv with W[k, j] = zhat[k] / ((d[k] - lam[j]) - tau[j]),
-    W materialized (the kernel generates it tile by tile).  ``tau`` (zero
-    when omitted, the reference's form) is the roots' offset from their
-    origin poles ``lam``; ``rankone._Roots`` says why.
+    W materialized (the kernel generates it tile by tile).  ``tau`` is the
+    roots' offset from their origin poles ``lam``; ``rankone._Roots`` says
+    why.  (Absolute roots, the reference's form, are ``lam`` with a zero
+    ``tau``.)
 
     Two guards the reference's ``eigvec_rotate`` lacks:
 
@@ -25,8 +26,8 @@ def eigvec_rotate_ref(u: Tensor, zhat: Tensor, d: Tensor, lam: Tensor,
       an f32 ulp of its pole rounds onto it and the division gives inf.
     * The denominators are guarded as ``rankone._cauchy_inv`` (which
       computes ``inv``) and ``cauchy_factor_ref`` guard them
-      (``_denominators``).  Unguarded, a root closer than eps to its pole
-      gives a column that ``inv`` does not normalize.
+      (``_denominators``).  Unguarded, an exact zero (a deflated
+      column's own pole) divides.
 
     Otherwise, with operands of one type, this is the reference's formula.
     """
@@ -43,23 +44,26 @@ def offset_guard(dtype) -> float:
     return fi.tiny / fi.eps
 
 
-def _denominators(d: Tensor, lam: Tensor, tau: Tensor | None,
-                  out_dtype=None) -> Tensor:
+def _denominators(d: Tensor, lam: Tensor, tau: Tensor,
+                  out_dtype) -> Tensor:
     """(d[k] - lam[j]) - tau[j], guarded in its own type.
 
-    Absolute roots (``tau`` None, the reference's form) are guarded at
-    ±eps, the reference's guard: such a root cannot be placed closer to
-    its pole than that.  In offset form the distance is exact to the last
-    bit however small it is, so the guard only keeps an exact zero (a
-    deflated column's own pole, coincident poles no merge joined) from
-    dividing: ±``offset_guard`` of ``out_dtype``, the type the
-    denominator is rounded to, so the rounding cannot make it zero."""
-    den = d[:, None] - lam[None, :]
-    if tau is None:
-        g = torch.finfo(den.dtype).eps
-    else:
-        den = den - tau[None, :]
-        g = offset_guard(out_dtype or den.dtype)
+    In offset form the distance is exact to the last bit however small it
+    is, so the guard only keeps an exact zero (a deflated column's own
+    pole, coincident poles no merge joined) from dividing: ±``offset_guard``
+    of ``out_dtype``, the type the denominator is rounded to, so the
+    rounding cannot make it zero.  (The reference guards its absolute
+    roots at ±eps.)"""
+    return guard_zero((d[:, None] - lam[None, :]) - tau[None, :], out_dtype)
+
+
+def guard_zero(den: Tensor, out_dtype) -> Tensor:
+    """``den`` with entries below ``offset_guard(out_dtype)`` in magnitude
+    replaced by ±guard.  The guard is a tensor of den's type: as a Python
+    float, ``torch.where`` would round it to the default float32, where
+    the float64 guard underflows to 0."""
+    g = torch.tensor(offset_guard(out_dtype), dtype=den.dtype,
+                     device=den.device)
     return torch.where(den.abs() < g, torch.where(den < 0, -g, g), den)
 
 
@@ -93,7 +97,7 @@ def pruned_region_mask(R: int, M: int, m, row_offset=None, *,
 def cauchy_factor_ref(z: Tensor, d: Tensor, lam: Tensor, inv: Tensor,
                       defl: Tensor | None = None,
                       cid: Tensor | None = None, *,
-                      tau: Tensor | None = None) -> Tensor:
+                      tau: Tensor) -> Tensor:
     """Dense normalized Cauchy factor with deflated identity columns.
 
     W[k, j] = z[k]·inv[j]/((d[k]-lam[j]) - tau[j]) with the guard of
@@ -117,13 +121,11 @@ def eigvec_rotate2_ref(u: Tensor,
                        defl1: Tensor, cid1: Tensor,
                        z2: Tensor, d2: Tensor, lam2: Tensor, inv2: Tensor,
                        defl2: Tensor, cid2: Tensor, *,
-                       tau1: Tensor | None = None,
-                       tau2: Tensor | None = None) -> Tensor:
+                       tau1: Tensor, tau2: Tensor) -> Tensor:
     """C = (U @ W1) @ W2 with both normalized Cauchy factors materialized
     (``cauchy_factor_ref``; the kernel generates their tiles): the fused
     ±sigma pair's double rotation.  ``tau1``/``tau2`` are the roots'
-    offsets from ``lam1``/``lam2`` (zero when omitted, the reference's
-    form)."""
+    offsets from ``lam1``/``lam2``."""
     W1 = cauchy_factor_ref(z1, d1, lam1, inv1, defl1, cid1, tau=tau1)
     W2 = cauchy_factor_ref(z2, d2, lam2, inv2, defl2, cid2, tau=tau2)
     return (u @ W1.to(u.dtype)) @ W2.to(u.dtype)

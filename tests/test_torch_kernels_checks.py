@@ -56,7 +56,7 @@ def _in_f64(fn):
 @pytest.mark.parametrize("name", NAMES)
 def test_a_more_accurate_evaluation_passes(monkeypatch, name, m):
     monkeypatch.setattr(eops, "rotate_vectors", _in_f64(
-        lambda u, z, d, lam, inv, m, tau=None:
+        lambda u, z, d, lam, inv, m, *, tau:
         eref.eigvec_rotate_ref(u, z, d, lam, inv, tau)))
     monkeypatch.setattr(eops, "rotate_vectors2", _in_f64(
         lambda u, *ops, **taus: eref.eigvec_rotate2_ref(u, *ops[:12],

@@ -152,8 +152,9 @@ def test_wrappers_refuse_bad_operands(device):
         nops.scaled_gram(u, torch.ones(5, device=device))
     v = torch.zeros(8, device=device)
     i = torch.zeros(8, dtype=torch.int32, device=device)
-    with pytest.raises(ValueError, match="both offsets"):
+    with pytest.raises(TypeError, match="tau2"):
         eops.rotate_vectors2(u, v, v, v, v, v, i, v, v, v, v, v, i, 4,
                              tau1=v.double())
     with pytest.raises(ValueError, match="factor vectors"):
-        eops.rotate_vectors2(u, v, v, v, v, v, i, v[:4], v, v, v, v, i, 4)
+        eops.rotate_vectors2(u, v, v, v, v, v, i, v[:4], v, v, v, v, i, 4,
+                             tau1=v, tau2=v)

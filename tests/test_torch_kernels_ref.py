@@ -58,7 +58,9 @@ def test_eigvec_rotate_plain_matches_reference(m, dt):
     np_dtype, t_dtype, j_dtype, rtol = DTYPES[dt]
     args = _rotation_inputs(m, np_dtype)
     want = jref.eigvec_rotate_ref(*[jnp.asarray(a, j_dtype) for a in args])
-    got = eops.rotate_vectors(*[torch.from_numpy(a) for a in args], m)
+    # The reference's absolute roots are the offset form with tau = 0.
+    got = eops.rotate_vectors(*[torch.from_numpy(a) for a in args], m,
+                              tau=torch.zeros(M, dtype=t_dtype))
     assert got.dtype == t_dtype
     _close(got, want, rtol)
 
@@ -69,7 +71,8 @@ def test_rotation_is_zero_outside_the_pruned_region(m):
     on contract inputs the plain product is zero there too, so the pruned
     kernel and the unpruned product agree everywhere."""
     args = _rotation_inputs(m, np.float64)
-    out = tref.eigvec_rotate_ref(*[torch.from_numpy(a) for a in args])
+    out = tref.eigvec_rotate_ref(*[torch.from_numpy(a) for a in args],
+                                 torch.zeros(M, dtype=torch.float64))
     rows, cols = tref.pruned_region_mask(M, M, m,
                                          block=eops.ROTATE_TILE)
     outside = ~(rows[:, None] & cols[None, :])
@@ -100,19 +103,32 @@ def test_eigvec_project_plain_matches_reference(m, dt):
 
 
 def test_cauchy_factor_plain_matches_reference():
+    """The reference's absolute roots are the offset form with tau = 0.
+    Off the ties the factors agree to rounding; on an exact tie each
+    guards the zero denominator with its own rule, the reference at +eps
+    and the port at +``offset_guard``, so there the entries differ by the
+    ratio of the two guards."""
     rng = np.random.default_rng(2)
     n = 24
     z, inv = rng.normal(size=n), rng.uniform(0.5, 2.0, size=n)
     d = np.sort(rng.normal(size=n))
-    lam = d + np.where(np.arange(n) % 5 == 0, 0.0, 0.3)   # eps-guarded ties
+    lam = d + np.where(np.arange(n) % 5 == 0, 0.0, 0.3)   # guarded ties
     defl = (np.arange(n) % 7 == 3).astype(np.float64)
     cid = rng.permutation(n).astype(np.int32)
+    tie = d[:, None] == lam[None, :]
+    assert tie.any()
+    ratio = np.finfo(np.float64).eps / tref.offset_guard(torch.float64)
     for extra in ((), (defl,), (defl, cid)):
-        want = jref.cauchy_factor_ref(*[jnp.asarray(a) for a in
-                                        (z, d, lam, inv) + extra])
-        got = tref.cauchy_factor_ref(*[torch.from_numpy(a) for a in
-                                       (z, d, lam, inv) + extra])
-        _close(got, want, 1e-12)
+        want = np.asarray(jref.cauchy_factor_ref(
+            *[jnp.asarray(a) for a in (z, d, lam, inv) + extra]))
+        got = tref.cauchy_factor_ref(
+            *[torch.from_numpy(a) for a in (z, d, lam, inv) + extra],
+            tau=torch.zeros(n, dtype=torch.float64)).numpy()
+        on_tie = tie & (defl[None, :] == 0) if extra else tie
+        _close(np.where(on_tie, 0.0, got), np.where(on_tie, 0.0, want),
+               1e-12)
+        np.testing.assert_allclose(got[on_tie], want[on_tie] * ratio,
+                                   rtol=1e-12)
 
 
 def _point_inputs(np_dtype, seed=3, d=6):

@@ -65,7 +65,10 @@ def test_eigvec_rotate2_plain_matches_reference(dt, rtol, rtol_kernel):
     M, m = 200, 70
     np_dtype = np.float64 if dt == "f64" else np.float32
     args = _rotation2_inputs(M, m, np_dtype)
-    got = eops.rotate_vectors2(*[torch.from_numpy(a) for a in args], m)
+    # The reference's absolute roots are the offset form with tau = 0.
+    zero = torch.zeros(M, dtype=torch.float64)
+    got = eops.rotate_vectors2(*[torch.from_numpy(a) for a in args], m,
+                               tau1=zero, tau2=zero)
     assert got.dtype == torch.from_numpy(args[0]).dtype
     got = got.double().numpy()
     jargs = [jnp.asarray(a) for a in args]
@@ -81,7 +84,8 @@ def test_eigvec_rotate2_plain_matches_reference(dt, rtol, rtol_kernel):
 
 def test_eigvec_rotate2_offset_form_is_the_absolute_form():
     """With tau the roots' offsets from lam, the plain version equals the
-    reference's form at lam + tau wherever the sum is exact."""
+    reference's absolute form, lam + tau with a zero offset, wherever the
+    sum is exact."""
     M, m = 64, 40
     args = [torch.from_numpy(a) for a in _rotation2_inputs(M, m, np.float64)]
     tau1 = torch.where(torch.arange(M) < m, 0.25, 0.0).double()
@@ -89,10 +93,12 @@ def test_eigvec_rotate2_offset_form_is_the_absolute_form():
     shifted = list(args)
     shifted[3] = args[3] + tau1
     shifted[9] = args[9] + tau2
+    zero = torch.zeros(M, dtype=torch.float64)
     np.testing.assert_allclose(
         eops.rotate_vectors2(*args, m, tau1=tau1, tau2=tau2).numpy(),
-        eops.rotate_vectors2(*shifted, m).numpy(), rtol=1e-12, atol=1e-12)
-    with pytest.raises(ValueError, match="both offsets"):
+        eops.rotate_vectors2(*shifted, m, tau1=zero, tau2=zero).numpy(),
+        rtol=1e-12, atol=1e-12)
+    with pytest.raises(TypeError, match="tau2"):
         eops.rotate_vectors2(*args, m, tau1=tau1)
 
 
