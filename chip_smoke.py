@@ -11,8 +11,10 @@ Phases, each printing one JSON line per row:
    CUDA inputs (capacity bucket 1024 with m = 1000 and m = 300 for the
    KPCA kernels, the fused pair with deflated columns under a permuted
    cid; n = 4096 rows of width 512 and 200 for ``scaled_gram``; f32 and
-   f64), each output entry within its own bound as
-   ``repro_torch.kernels.checks`` states it.
+   f64; ``rbf_gram`` at the roofline's 1024 x 1024, d = 64 in f32 and f64,
+   the Fig. 2 data's full 4096 x 4096 gram, d = 10, in f64 and the ragged
+   1000 x 300, d = 16 and 130 x 129, d = 3 in f32), each output entry
+   within its own bound as ``repro_torch.kernels.checks`` states it.
 3. ``service`` — the KPCA service, ``repro_torch.launch.serve --mode
    kpca`` (Algorithm 2, fused k-row prologue, bucketed dispatch), on the
    sequential route (``--matmul pallas``) and on the fused-pair route
@@ -39,7 +41,22 @@ Phases, each printing one JSON line per row:
    the plain (B·s) @ Bᵀ entry by entry, the trace norm of K - K̃ from
    ``approximation_error`` against ``trace_error`` (K - K̃ is PSD: the
    same quantity), and the trace error non-increasing (nested sets).
-6. ``timing`` — at the kernel phase's shapes, each kernel's device time
+6. ``window`` — the sliding-window service, ``serve --mode kpca --window
+   W``: f32 on the sequential route at capacity 1024, W = 1000, d = 16,
+   4 seed + 1296 points (about 300 steady-state evict + ingest steps at
+   the full bucket), queries of 64 every 16 points; f64 on the fused-pair
+   route at capacity 256, W = 200, 4 + 396 points.  Launches against the
+   reckoning (a growth point as in the service; a steady-state point adds
+   the downdate's two inverse pairs: 8 rotations on the sequential route),
+   the state's rows exactly the last W streamed points in arrival order
+   with consecutive ages, the eigensystem against eigh of those W points,
+   and the update latency split into growth and steady state.
+7. ``roofline`` — ``repro_torch.launch.roofline`` at the reference
+   driver's shapes: a STREAM triad on the card, one row per kernel with
+   its rate against it, and the fused-against-unfused ingest and query.
+   It is ``rbf_gram``'s path: that kernel's launches are counted around
+   it.
+8. ``timing`` — at the kernel phase's shapes, each kernel's device time
    (profiler records) beside the plain version's, one library call's and
    its bound, and each call's event-timed time, host work included.  It
    runs last so that the profiler is never attached to a service.
@@ -62,6 +79,11 @@ sys.path.insert(0, str(ROOT / "src"))
 
 MAIN_N, MAIN_M = 1024, 1000
 GRAM_N, GRAM_K = 4096, (512, 200)   # scaled_gram: Fig. 2 rows, widths
+# rbf_gram (n, m, d, dtype): the roofline's gram in both types first (its
+# f32 row is the kernel's main-path row), then ragged edges.  Fig. 2's
+# full gram is added from the magic_like data.
+RBF_SHAPES = ((1024, 1024, 64, "float32"), (1024, 1024, 64, "float64"),
+              (1000, 300, 16, "float32"), (130, 129, 3, "float32"))
 # Final-state bars against the eigh oracle (top-8 eigenvalues' largest
 # relative error, smallest cosine of the principal angles between the
 # top-8 subspaces).  On this data the port's stream, run on a CPU, is
@@ -127,7 +149,11 @@ def kernel_phase(torch, checks, cuda) -> dict:
 
 def all_cases(torch, checks):
     """(dtype, n, m, case) for every kernel at the phases' shapes: the KPCA
-    kernels at bucket 1024, scaled_gram at n = 4096 (m is B's width)."""
+    kernels at bucket 1024, scaled_gram at n = 4096 (m is B's width),
+    rbf_gram at ``RBF_SHAPES`` and the Fig. 2 data's full gram."""
+    from repro_torch.core import kernels_fn as kf
+    from repro_torch.data.uci_like import load_dataset
+
     for dtype in (torch.float32, torch.float64):
         for m in (MAIN_M, 300):
             for case in checks.cases(MAIN_N, m, dtype, "cuda"):
@@ -135,6 +161,14 @@ def all_cases(torch, checks):
         for k in GRAM_K:
             for case in checks.gram_cases(GRAM_N, k, dtype, "cuda"):
                 yield dtype, GRAM_N, k, case
+    for n, m, dim, dtype_name in RBF_SHAPES:
+        dtype = getattr(torch, dtype_name)
+        for case in checks.rbf_gram_cases(n, m, dim, dtype, "cuda"):
+            yield dtype, n, m, case
+    X = torch.as_tensor(load_dataset("magic", n=GRAM_N, seed=0),
+                        device="cuda")
+    sigma = float(kf.median_heuristic(X))
+    yield torch.float64, GRAM_N, GRAM_N, checks.rbf_gram_case(X, X, sigma)
 
 
 def timing_phase(torch, checks) -> dict:
@@ -208,7 +242,7 @@ def service_phase(torch, cuda, serve, capacity: int, points: int,
     expect = {"eigvec_rotate": 4 * points, "eigvec_rotate2": 0,
               "krow_project": points, "eigvec_project": points,
               "transform_project": points // args.transform_every,
-              "scaled_gram": 0}
+              "scaled_gram": 0, "rbf_gram": 0}
     if matmul == "pallas2":
         expect.update(pair_reckoning(launches, 2 * points))
     if launches != expect:
@@ -280,7 +314,7 @@ def nystrom_phase(torch, cuda, serve, dtype_name: str) -> dict:
     launches = dict(cuda.LAUNCHES)
     adm = capacity - 1 - 4
     expect = {"eigvec_project": 0, "krow_project": adm,
-              "transform_project": 0, "scaled_gram": 0,
+              "transform_project": 0, "scaled_gram": 0, "rbf_gram": 0,
               **pair_reckoning(launches, adm)}
     if result["admitted"] != adm or launches != expect:
         raise AssertionError(f"nystrom: {result['admitted']} admissions, "
@@ -384,12 +418,92 @@ def fig2_phase(torch, cuda, checks) -> dict:
     grown = max(checkpoints) - m0
     expect = {"eigvec_project": 0, "krow_project": grown,
               "transform_project": 0, "scaled_gram": len(checkpoints),
-              **pair_reckoning(launches, grown)}
+              "rbf_gram": 0, **pair_reckoning(launches, grown)}
     if launches != expect:
         raise AssertionError(f"fig2 launch counts {launches} != {expect}")
     row = {"phase": "fig2", "n": n, "sigma": spec.sigma,
            "checkpoints": rows, "launches": launches,
            "total_s": time.perf_counter() - t0}
+    emit(row)
+    return row
+
+
+def window_phase(torch, cuda, serve, capacity: int, window: int,
+                 points: int, dtype_name: str, matmul: str) -> dict:
+    """The sliding-window service through its entry point: launches
+    against the reckoning, the window's rows and ages exactly, the final
+    eigensystem against eigh of the window's points, and the latency of
+    growth and steady-state points apart."""
+    import numpy as np
+
+    args = serve.parse_args([
+        "--mode", "kpca", "--device", "cuda", "--dtype", dtype_name,
+        "--capacity", str(capacity), "--window", str(window),
+        "--points", str(points), "--dim", "16", "--batch", "64",
+        "--transform-every", "16", "--matmul", matmul])
+    cuda.reset_launches()
+    result, stream = serve.kpca_service(args)
+    torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    growth, steady = window - 4, points - (window - 4)
+    # A growth point is the service's (2 pairs); a steady-state point adds
+    # the downdate's two inverse pairs.  Each point: 1 k-row pass and 1
+    # projection; 1 transform per query batch.
+    expect = {"eigvec_rotate": 4 * growth + 8 * steady, "eigvec_rotate2": 0,
+              "krow_project": points, "eigvec_project": points,
+              "transform_project": points // args.transform_every,
+              "scaled_gram": 0, "rbf_gram": 0}
+    if matmul == "pallas2":
+        expect.update(pair_reckoning(launches, 2 * growth + 4 * steady))
+    if launches != expect:
+        raise AssertionError(f"window {matmul} launch counts {launches} != "
+                             f"{expect}")
+    if (result["growth_points"], result["steady_points"]) != (growth,
+                                                              steady):
+        raise AssertionError(f"window phases {result['growth_points']} / "
+                             f"{result['steady_points']} != {growth} / "
+                             f"{steady}")
+    st = stream.kpca_state
+    x0, draws = serve.kpca_draws(args)
+    last = np.concatenate([x0, [x for x, _ in draws]])[-window:]
+    want = torch.as_tensor(last, dtype=st.X.dtype, device=st.X.device)
+    ages = stream.state.ages[:window].tolist()
+    if not (result["finite"] and result["m_final"] == window
+            and torch.equal(st.X[:window], want)
+            and ages == list(range(4 + points - window, 4 + points))):
+        raise AssertionError(f"window {matmul}: m {result['m_final']}, the "
+                             f"rows are not the last {window} points in "
+                             f"arrival order, or the ages are not "
+                             f"consecutive ({ages[:3]}...{ages[-3:]})")
+    keep = [f"{p}_update_ms_{q}" for p in ("growth", "steady")
+            for q in ("p50", "p90", "p99", "max")]
+    keep += ["m_final", "update_ms_p50", "query_ms_p50", "query_ms_p99",
+             "transforms_served", "total_s"]
+    row = {"phase": "window", "matmul": matmul, "dtype": dtype_name,
+           "capacity": capacity, "window": window, "points": points,
+           "growth_points": growth, "steady_points": steady,
+           **{k: result[k] for k in keep}, "launches": launches,
+           "merge_fallback_pairs": launches["eigvec_rotate"] // 2
+           if matmul == "pallas2" else None,
+           **oracle_check(torch, st, stream.spec, True, dtype_name)}
+    emit(row)
+    return row
+
+
+def roofline_phase(torch, cuda) -> dict:
+    """``launch/roofline.main`` at the reference driver's shapes, nothing
+    written; the kernels' launches are counted around it."""
+    from repro_torch.launch import roofline
+
+    cuda.reset_launches()
+    res = roofline.main(out=None)
+    torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    for r in res["kernels"]:
+        emit({"phase": "roofline", **r})
+    row = {"phase": "roofline", "device": res["device"],
+           "peak_gbps": res["peak_gbps"], "triad_bytes": res["triad_bytes"],
+           "fused": res["fused"], "launches": launches}
     emit(row)
     return row
 
@@ -422,6 +536,9 @@ def main() -> int:
     nystrom_phase(torch, cuda, serve, "float32")
     nystrom_phase(torch, cuda, serve, "float64")
     runs["fig2"] = fig2_phase(torch, cuda, checks)
+    window_phase(torch, cuda, serve, 1024, 1000, 1296, "float32", "pallas")
+    window_phase(torch, cuda, serve, 256, 200, 396, "float64", "pallas2")
+    runs["roofline"] = roofline_phase(torch, cuda)
     timed = timing_phase(torch, checks)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -431,11 +548,14 @@ def main() -> int:
     # Each kernel's launches are read from the run of the path it belongs
     # to (counts reset just before that run): the sequential service for
     # the single rotation and the prologue/projection/transform kernels,
-    # the fused-pair service for rotate2, the Fig. 2 loop for scaled_gram.
-    path_of = {"eigvec_rotate2": "pallas2", "scaled_gram": "fig2"}
+    # the fused-pair service for rotate2, the Fig. 2 loop for scaled_gram,
+    # the roofline for rbf_gram.
+    path_of = {"eigvec_rotate2": "pallas2", "scaled_gram": "fig2",
+               "rbf_gram": "roofline"}
+    main_m_of = {"scaled_gram": GRAM_K[0], "rbf_gram": RBF_SHAPES[0][1]}
     kernels = []
     for name, (source, replaces) in checks.SOURCES.items():
-        main_m = GRAM_K[0] if name == "scaled_gram" else MAIN_M
+        main_m = main_m_of.get(name, MAIN_M)
         key = (name, "float32", main_m)
         r = timed[key]
         launches = runs[path_of.get(name, "pallas")]["launches"][name]

@@ -1,12 +1,14 @@
-"""Carry a ``KPCAState`` or a ``NystromState`` across packages as numpy
-arrays.
+"""Carry a ``KPCAState``, a ``WindowState`` or a ``NystromState`` across
+packages as numpy arrays.
 
 ``state_from_numpy`` turns the fields of the reference's ``KPCAState``
 (``L, U, m, S, K1, X``, each as a numpy array or scalar) into the port's
 state on ``device``, so a stream started in JAX continues here;
 ``state_to_numpy`` is the reverse.  ``nystrom_from_numpy`` and
 ``nystrom_to_numpy`` do the same for a ``NystromState``: the KPCA fields
-plus ``Knm`` and, for a grow_rows state, ``Xrows``.
+plus ``Knm`` and, for a grow_rows state, ``Xrows``;
+``window_from_numpy`` and ``window_to_numpy`` for a ``WindowState``: the
+KPCA fields plus the arrival ring ``ages`` and ``clock``.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.inkpca import KPCAState
 from repro_torch.core.nystrom import NystromState
+from repro_torch.core.window import AGE_DTYPE, WindowState, age_sentinel
 
 FIELDS = ("L", "U", "m", "S", "K1", "X")
 
@@ -75,4 +78,37 @@ def nystrom_to_numpy(state: NystromState) -> dict:
     out["Knm"] = state.Knm.detach().cpu().numpy()
     out["Xrows"] = (None if state.Xrows is None
                     else state.Xrows.detach().cpu().numpy())
+    return out
+
+
+def window_from_numpy(fields: dict, device=None) -> WindowState:
+    """Port window state from the KPCA fields plus ``ages`` and ``clock``.
+    The rows at and beyond m are inactive and take the port's int64
+    sentinel, whatever integer type and sentinel the ring came in."""
+    missing = [k for k in ("ages", "clock") if k not in fields]
+    if missing:
+        raise ValueError(f"state fields missing: {missing}")
+    kpca = state_from_numpy(fields, device)
+    M, m = kpca.L.shape[0], int(kpca.m)
+    ages = np.array(fields["ages"]).astype(np.int64)
+    clock = int(np.asarray(fields["clock"]))
+    live = ages[:m]
+    if ages.shape != (M,) or (m and not (0 <= live.min()
+                                         and live.max() < clock)):
+        raise ValueError(f"inconsistent window: ages {ages.shape} for "
+                         f"capacity {M}, clock {clock}")
+    ages[m:] = age_sentinel()
+    dev = kpca.L.device
+    return WindowState(kpca=kpca,
+                       ages=torch.as_tensor(ages, device=dev),
+                       clock=torch.tensor(clock, dtype=AGE_DTYPE,
+                                          device=dev))
+
+
+def window_to_numpy(state: WindowState) -> dict:
+    """The window state's fields as numpy arrays (``ages``/``clock``
+    int64)."""
+    out = state_to_numpy(state.kpca)
+    out["ages"] = state.ages.detach().cpu().numpy()
+    out["clock"] = state.clock.detach().cpu().numpy()
     return out

@@ -2,7 +2,9 @@
 
 ``UpdatePlan`` describes how updates run, with the reference's field names
 and defaults, so one plan's values drive both packages.  ``Engine`` owns
-bucket selection, slicing and scatter for one append-only stream.
+bucket selection, slicing and scatter for one stream, append-only or
+windowed: ``step``/``step_block`` advance a ``StreamState`` bundle, whose
+arrival ring (present for a sliding window) selects the evict stage.
 
 Bucket geometry (the reference's invariants): L is ascending with the
 sentinels strictly above the active spectrum, inactive columns of U are
@@ -10,12 +12,14 @@ identity columns and active columns vanish on rows >= m, and K1 / X are
 zero beyond m.  So the leading M_b×M_b block of a state with m < M_b
 active pairs is itself a valid capacity-M_b state (``slice_state``), and
 ``scatter_state`` writes an updated bucket back.  Bucket choice uses the
-host's count of active pairs, which the caller passes (``KPCAStream``
+host's count of active pairs, which the caller may pass (``KPCAStream``
 mirrors it), so a step reads nothing back from the card.
 
-Not ported yet, each raising ``NotImplementedError`` from ``check_plan``
-or from the call: sliding windows, health and metrics lanes, the
-leverage landmark policy — see ROADMAP.md, "Open items".
+Torch has no ``lax.scan``: a block is a Python loop over its points, at
+one bucket per chunk (sliced once, scattered once).  Not ported yet, each
+raising ``NotImplementedError`` from ``check_plan`` or from the call: the
+health and metrics lanes and the leverage landmark policy — see
+ROADMAP.md, "Open items".
 """
 from __future__ import annotations
 
@@ -88,9 +92,8 @@ def check_plan(plan: UpdatePlan) -> None:
     naming the ROADMAP.md item that ports each."""
     if plan.inner_matmul not in ("jnp", "pallas"):
         raise ValueError(f"unknown matmul route {plan.matmul!r}")
-    if plan.window is not None:
-        raise NotImplementedError("sliding windows are not ported yet: "
-                                  "ROADMAP.md, Open items §1 item 5")
+    if plan.window is not None and plan.window < 2:
+        raise ValueError(f"window must be at least 2, got {plan.window}")
     if plan.health is not None or plan.metrics:
         raise NotImplementedError("health and metrics lanes are not ported "
                                   "yet: ROADMAP.md, Open items §1 item 7")
@@ -255,10 +258,79 @@ def _ingest(st, x_new: Tensor, spec: kf.KernelSpec, adjusted: bool,
     return fn(st, a, k_new, x_new, plan=plan)
 
 
+def _scan_chunk(sub, xs: Tensor, spec: kf.KernelSpec, adjusted: bool,
+                plan: UpdatePlan):
+    """Fold a chunk that fits inside one bucket, point by point (the
+    reference's ``lax.scan``)."""
+    for x_new in xs:
+        sub = _ingest(sub, x_new, spec, adjusted, plan)
+    return sub
+
+
+def _window_pair(st, victim: Tensor, x_new: Tensor, spec: kf.KernelSpec,
+                 adjusted: bool, plan: UpdatePlan):
+    """The steady-state evict|ingest pair at m ≡ W: the inverse ±sigma
+    pair(s) and the contraction on the victim row, then one Algorithm-1/2
+    ingest."""
+    from repro_torch.core import downdate as dd
+
+    st = dd.downdate(st, victim, spec, adjusted=adjusted, plan=plan)
+    return _ingest(st, x_new, spec, adjusted, plan)
+
+
+def _window_scan_chunk(sub, ages: Tensor, clock: Tensor, xs: Tensor,
+                       spec: kf.KernelSpec, adjusted: bool,
+                       plan: UpdatePlan):
+    """Steady-state sliding-window loop: every step evicts the oldest point
+    and ingests one new one at m ≡ W.  The ring advances on the device:
+    the victim is argmin(ages), the survivors' order is
+    ``downdate.boundary_perm``'s and the new point takes the clock's stamp,
+    so the loop reads nothing back from the card."""
+    from repro_torch.core import downdate as dd
+
+    for x_new in xs:
+        victim = torch.argmin(ages)
+        order = dd.boundary_perm(victim, sub.m, ages.shape[0])
+        # No sentinel write for the evicted slot: at m ≡ W the freed
+        # boundary row W−1 is where the new point lands.
+        sub = _window_pair(sub, victim, x_new, spec, adjusted, plan)
+        ages = rankone.index_set(ages[order], sub.m - 1, clock)
+        clock = clock + 1
+    return sub, ages, clock
+
+
+# ------------------------------------------------------- stream bundle --
+class StreamState(NamedTuple):
+    """The bundle ``Engine.step``/``step_block`` advance: the eigensystem
+    plus the optional members that select stages — ``ages``/``clock``, the
+    sliding window's arrival ring (the evict stage), and ``health`` /
+    ``metrics``, whose lanes are not ported yet (a bundle carrying either
+    raises; ROADMAP.md, Open items §1 item 7)."""
+
+    kpca: object
+    ages: object = None
+    clock: object = None
+    health: object = None
+    metrics: object = None
+
+    @property
+    def windowed(self) -> bool:
+        return self.ages is not None
+
+
+def make_stream(state, *, health=None, metrics=None) -> StreamState:
+    """Wrap a ``KPCAState`` or a ``window.WindowState`` into a bundle."""
+    if hasattr(state, "kpca"):                         # WindowState
+        return StreamState(kpca=state.kpca, ages=state.ages,
+                           clock=state.clock, health=health, metrics=metrics)
+    return StreamState(kpca=state, health=health, metrics=metrics)
+
+
 class Engine:
-    """Bucket selection → slice → ingest → scatter for one append-only
-    stream, under an ``UpdatePlan``.  Stateless with respect to the stream
-    (states go in and out)."""
+    """Bucket selection → slice → update → scatter for one stream, under an
+    ``UpdatePlan``.  Stateless with respect to the stream (states go in and
+    out).  Methods that take ``m`` accept the host's count of active pairs
+    so that they read nothing back; None reads it from the card."""
 
     def __init__(self, spec: kf.KernelSpec, plan: UpdatePlan = DEFAULT_PLAN,
                  *, adjusted: bool = True):
@@ -267,11 +339,62 @@ class Engine:
         self.plan = plan
         self.adjusted = adjusted
 
-    def step(self, state, x_new: Tensor, *, m: int | None = None):
+    def _bucket(self, capacity: int, need: int) -> int:
+        if self.plan.dispatch != "bucketed":
+            return capacity
+        return bucket_for(need, capacity, self.plan.min_bucket)
+
+    # ---- composed stream step ---------------------------------------------
+    def _stream_window(self, stream: StreamState,
+                       window: int | None) -> int | None:
+        if stream.health is not None or stream.metrics is not None:
+            raise NotImplementedError("health and metrics lanes are not "
+                                      "ported yet: ROADMAP.md, Open items "
+                                      "§1 item 7")
+        if window is None:
+            window = self.plan.window
+        if stream.ages is not None and window is None:
+            raise ValueError(
+                "windowed StreamState needs a window size — pass window= "
+                "or build the engine with UpdatePlan(window=W)")
+        return window if stream.ages is not None else None
+
+    def step(self, stream: StreamState, x_new: Tensor, *,
+             window: int | None = None, m: int | None = None
+             ) -> StreamState:
+        """Advance the bundle by one point: evict the oldest point first if
+        the bundle is windowed and its window is full, then ingest."""
+        from repro_torch.core import window as wnd
+
+        window = self._stream_window(stream, window)
+        if stream.ages is None:
+            return stream._replace(kpca=self._ingest_point(
+                stream.kpca, x_new, m=m))
+        w = self._window_point(wnd.WindowState(stream.kpca, stream.ages,
+                                               stream.clock),
+                               x_new, window=window, m=m)
+        return stream._replace(kpca=w.kpca, ages=w.ages, clock=w.clock)
+
+    def step_block(self, stream: StreamState, xs: Tensor, *,
+                   window: int | None = None) -> StreamState:
+        """Fold a (T, d) block, the block mirror of ``step``: chunks at one
+        bucket each, and a windowed bundle's steady state in one loop at
+        the window's bucket with the ring advanced on the device."""
+        from repro_torch.core import window as wnd
+
+        window = self._stream_window(stream, window)
+        if stream.ages is None:
+            return stream._replace(kpca=self._ingest_block(stream.kpca, xs))
+        w = self._window_block(wnd.WindowState(stream.kpca, stream.ages,
+                                               stream.clock),
+                               xs, window=window)
+        return stream._replace(kpca=w.kpca, ages=w.ages, clock=w.clock)
+
+    # ---- plain ingest -----------------------------------------------------
+    def _ingest_point(self, state, x_new: Tensor, *, m: int | None = None):
         """Fold one point into ``state`` at the smallest bucket holding
-        m + 1 active pairs.  ``m`` is the host's count of active pairs;
-        None reads it from the card (one sync).  Raises when the state is
-        full, under either dispatch."""
+        m + 1 active pairs.  Raises when the state is full, under either
+        dispatch."""
         M = state.L.shape[0]
         if m is None:
             m = int(state.m)
@@ -281,6 +404,139 @@ class Engine:
         sub = slice_state(state, Mb) if Mb < M else state
         sub = _ingest(sub, x_new, self.spec, self.adjusted, self.plan)
         return scatter_state(state, sub) if Mb < M else sub
+
+    def _ingest_block(self, state, xs: Tensor):
+        """Stream a block: one chunk per bucket, cut at the crossings (and
+        at the top bucket, so exhaustion raises); fixed dispatch folds the
+        whole block at capacity."""
+        M = state.L.shape[0]
+        n = xs.shape[0]
+        i = 0
+        while i < n:
+            m = int(state.m)
+            if self.plan.dispatch == "bucketed":
+                Mb = bucket_for(m + 1, M, self.plan.min_bucket)
+                take = min(Mb - m, n - i)
+            else:
+                bucket_for(m + n - i, M)        # raises past capacity
+                Mb, take = M, n - i
+            sub = slice_state(state, Mb) if Mb < M else state
+            sub = _scan_chunk(sub, xs[i:i + take], self.spec, self.adjusted,
+                              self.plan)
+            state = scatter_state(state, sub) if Mb < M else sub
+            i += take
+        return state
+
+    def update(self, state, x_new: Tensor, *, m: int | None = None):
+        """Fold one point into a bare eigensystem state (``step`` on an
+        append-only bundle)."""
+        return self.step(StreamState(kpca=state), x_new, m=m).kpca
+
+    def update_block(self, state, xs: Tensor):
+        """Fold a (T, d) block into a bare eigensystem state."""
+        return self.step_block(StreamState(kpca=state), xs).kpca
+
+    # ---- decremental path ---------------------------------------------------
+    def downdate(self, state, i, *, m: int | None = None):
+        """Remove point ``i`` (a physical row: an int, checked against the
+        active range, or a 0-d device tensor) at the bucket holding the
+        current m, the decremental mirror of ``update``; the next call
+        re-buckets downward.  Requires m ≥ 2."""
+        from repro_torch.core import downdate as dd
+
+        M = state.L.shape[0]
+        if m is None:
+            m = int(state.m)
+        if m < 2:
+            raise ValueError(f"downdate needs at least 2 active points, "
+                             f"got m={m}")
+        if not torch.is_tensor(i) and not 0 <= i < m:
+            raise ValueError(f"point index {i} outside active range "
+                             f"[0, {m})")
+        Mb = self._bucket(M, m)
+        sub = slice_state(state, Mb) if Mb < M else state
+        i = torch.as_tensor(i, dtype=torch.int32, device=state.L.device)
+        sub = dd.downdate(sub, i, self.spec, adjusted=self.adjusted,
+                          plan=self.plan)
+        return scatter_state(state, sub) if Mb < M else sub
+
+    def replace(self, state, i, x_new: Tensor, *, m: int | None = None):
+        """Swap point ``i`` for ``x_new``: downdate, then update (works on
+        a full state: the downdate frees the slot)."""
+        if m is None:
+            m = int(state.m)
+        state = self.downdate(state, i, m=m)
+        return self.update(state, x_new, m=m - 1)
+
+    # ---- sliding window -----------------------------------------------------
+    def _window_point(self, wstate, x_new: Tensor, *, window: int,
+                      m: int | None = None):
+        """Point-wise evict|ingest: append-only below a full window, else
+        evict the oldest point (argmin of the ring, on the card) and
+        ingest."""
+        from repro_torch.core import window as wnd
+
+        if m is None:
+            m = int(wstate.kpca.m)
+        wstate = wnd.maybe_rebase(wstate)
+        if m >= window:
+            wstate = wnd.evict(self, wstate, torch.argmin(wstate.ages), m=m)
+            m -= 1
+        kpca = self._ingest_point(wstate.kpca, x_new, m=m)
+        ages = rankone.index_set(wstate.ages, wstate.kpca.m, wstate.clock)
+        return wnd.WindowState(kpca=kpca, ages=ages, clock=wstate.clock + 1)
+
+    def _window_block(self, wstate, xs: Tensor, *, window: int):
+        """Fold a (T, d) block into a windowed stream.  The growth points
+        (m < W) fold append-only through ``_ingest_block`` and are stamped
+        with one slice write; the steady-state rest runs one loop at the
+        window's bucket (``_window_scan_chunk``), sliced and scattered
+        once.  The rebase check is hoisted to once per block (the clock
+        advances by exactly T)."""
+        from repro_torch.core import window as wnd
+
+        T = xs.shape[0]
+        if T == 0:
+            return wstate
+        m = int(wstate.kpca.m)
+        if m > window:
+            raise ValueError(f"active count {m} exceeds window {window}")
+        if int(wstate.clock) + T >= wnd.age_sentinel() - 1:
+            wstate = wnd.rebase_ages(wstate)
+        i = 0
+        if m < window:
+            g = min(window - m, T)
+            grown = self._ingest_block(wstate.kpca, xs[:g])
+            wstate = wnd.stamp_grown_ages(wstate, grown, g)
+            i = g
+        if i == T:
+            return wstate
+        # The downdate runs at m = W and the ingest grows m = W−1 back to
+        # W, so a steady-state step fits the bucket holding W.
+        M = wstate.kpca.L.shape[0]
+        Mb = self._bucket(M, window)
+        sub = slice_state(wstate.kpca, Mb) if Mb < M else wstate.kpca
+        sub, ages_sub, clock = _window_scan_chunk(
+            sub, wstate.ages[:Mb], wstate.clock, xs[i:], self.spec,
+            self.adjusted, self.plan)
+        if Mb < M:
+            kpca = scatter_state(wstate.kpca, sub)
+            ages = wstate.ages.clone()
+            ages[:Mb] = ages_sub
+        else:
+            kpca, ages = sub, ages_sub
+        return wnd.WindowState(kpca=kpca, ages=ages, clock=clock)
+
+    def window_step(self, wstate, x_new: Tensor, *, window: int):
+        """One sliding-window step as a length-1 ``window_block``."""
+        return self.window_block(wstate, x_new[None], window=window)
+
+    def window_block(self, wstate, xs: Tensor, *, window: int):
+        """``step_block`` on a windowed bundle, unwrapped."""
+        from repro_torch.core import window as wnd
+
+        s = self.step_block(make_stream(wstate), xs, window=window)
+        return wnd.WindowState(kpca=s.kpca, ages=s.ages, clock=s.clock)
 
     # ---- Nyström landmarks ------------------------------------------------
     def add_landmark(self, state, x_all, x_new: Tensor):

@@ -266,9 +266,16 @@ class KPCAStream:
 
     Dispatch decisions live in the ``UpdatePlan``; pass one via ``plan=``
     or use the keyword spellings (``method``/``matmul``/``iters``/
-    ``dispatch``/``min_bucket``), folded into a plan here.  ``m`` is the
-    host mirror of the active count.  On CUDA a plan with ``fuse_krow``
-    needs a kernel the fused epilogues implement (RBF, Matern-3/2).
+    ``dispatch``/``min_bucket``/``window``), folded into a plan here.  ``m``
+    is the host mirror of the active count.  On CUDA a plan with
+    ``fuse_krow`` needs a kernel the fused epilogues implement (RBF,
+    Matern-3/2).
+
+    ``window=W`` makes the stream a sliding window over the trailing W
+    points: past a full window each new point first evicts the oldest one
+    (``core/downdate.py``).  ``self.state`` is then a
+    ``window.WindowState`` (the eigensystem plus the FIFO arrival ring);
+    ``kpca_state`` is always the inner ``KPCAState``.
     """
 
     def __init__(self, x0, capacity: int, spec: kf.KernelSpec, *,
@@ -277,6 +284,8 @@ class KPCAStream:
                  iters: int | None = None, dtype=torch.float32,
                  dispatch: str = "fixed", min_bucket: int | None = None,
                  window: int | None = None, device=None):
+        from repro_torch.core import window as wnd
+
         self.device = resolve_device(device)
         if plan is None:
             plan = eng.UpdatePlan(
@@ -284,6 +293,8 @@ class KPCAStream:
                 min_bucket=(min_bucket if min_bucket is not None
                             else eng.DEFAULT_MIN_BUCKET),
                 window=window)
+        if window is None:
+            window = plan.window
         self.engine = eng.Engine(spec, plan, adjusted=adjusted)
         if self.device.type == "cuda" and plan.fuse_krow:
             from repro_torch.kernels.rbf_gram.ops import fused_kind
@@ -291,32 +302,94 @@ class KPCAStream:
         self.spec = spec
         self.adjusted = adjusted
         self.plan = plan
+        self.window = window
         x0 = torch.as_tensor(x0, device=self.device)
-        self.state = init_state(x0, capacity, spec, adjusted=adjusted,
-                                dtype=dtype)
         self.m = int(x0.shape[0])
+        if window is not None:
+            if not 2 <= window <= capacity:
+                raise ValueError(f"window must be in [2, capacity], got "
+                                 f"{window} (capacity {capacity})")
+            if self.m > window:
+                raise ValueError(f"seed size {self.m} exceeds window "
+                                 f"{window}")
+            self.state = wnd.init_window(x0, capacity, spec,
+                                         adjusted=adjusted, dtype=dtype)
+        else:
+            self.state = init_state(x0, capacity, spec, adjusted=adjusted,
+                                    dtype=dtype)
 
-    def update(self, x_new) -> KPCAState:
-        """Fold one point into the stream."""
-        x_new = torch.as_tensor(x_new, dtype=self.state.X.dtype,
+    @property
+    def kpca_state(self) -> KPCAState:
+        """The eigensystem state, windowed or not."""
+        return self.state.kpca if self.window is not None else self.state
+
+    def _bundle(self) -> eng.StreamState:
+        return eng.make_stream(self.state)
+
+    def _unbundle(self, s: eng.StreamState):
+        """Write an advanced bundle back; returns ``self.state``."""
+        if self.window is not None:
+            from repro_torch.core import window as wnd
+            self.state = wnd.WindowState(kpca=s.kpca, ages=s.ages,
+                                         clock=s.clock)
+        else:
+            self.state = s.kpca
+        return self.state
+
+    def _grown(self, count: int) -> int:
+        m = self.m + count
+        return m if self.window is None else min(m, self.window)
+
+    def update(self, x_new):
+        """Fold one point into the stream (evicting the oldest first when a
+        window is full)."""
+        x_new = torch.as_tensor(x_new, dtype=self.kpca_state.X.dtype,
                                 device=self.device)
-        self.state = self.engine.step(self.state, x_new, m=self.m)
-        self.m += 1
+        self._unbundle(self.engine.step(self._bundle(), x_new,
+                                        window=self.window, m=self.m))
+        self.m = self._grown(1)
         return self.state
 
-    def update_block(self, xs) -> KPCAState:
-        """Fold a (T, d) block point by point (the reference scans it; the
-        semantics are the same sequential ones)."""
-        for x in xs:
-            self.update(x)
+    def downdate(self, i: int):
+        """Remove the point in physical row ``i`` from the stream."""
+        if self.window is not None:
+            from repro_torch.core import window as wnd
+            self.state = wnd.evict(self.engine, self.state, i, m=self.m)
+        else:
+            self.state = self.engine.downdate(self.state, i, m=self.m)
+        self.m -= 1
         return self.state
+
+    def update_block(self, xs):
+        """Fold a (T, d) block with the per-point semantics: one loop per
+        bucket chunk, and a full window's evict+ingest steps in one loop
+        at the window's bucket."""
+        xs = torch.as_tensor(xs, dtype=self.kpca_state.X.dtype,
+                             device=self.device)
+        self._unbundle(self.engine.step_block(self._bundle(), xs,
+                                              window=self.window))
+        self.m = self._grown(xs.shape[0])
+        return self.state
+
+    partial_fit_block = update_block
+
+    def truncate(self, k: int, *, compact: bool | None = None):
+        """Keeping only the k dominant eigenpairs is not ported yet
+        (ROADMAP.md, Open items §1 item 5); on a windowed stream it is
+        refused outright, as in the reference: the window bounds the
+        state."""
+        if self.window is not None:
+            raise ValueError("truncate is not supported on a windowed "
+                             "stream — the window itself bounds the state")
+        raise NotImplementedError("truncate is not ported yet: ROADMAP.md, "
+                                  "Open items §1 item 5")
 
     def eigpairs(self) -> tuple[Tensor, Tensor]:
         """Active (descending) eigenvalues and eigenvectors."""
-        return eng.eigpairs(self.state)
+        return eng.eigpairs(self.kpca_state)
 
     def reconstruction(self) -> Tensor:
-        st = self.state
+        st = self.kpca_state
         return rankone.reconstruct(st.L, st.U, st.m)
 
     def transform(self, x, n_components: int) -> Tensor:
@@ -325,7 +398,7 @@ class KPCAStream:
         Under ``plan.fuse_krow`` with bucketed dispatch the state is first
         sliced to the smallest bucket holding the active set (lossless),
         so the fused transform costs O(Q·m_b·(d+k)), not O(Q·M·(d+k))."""
-        st = self.state
+        st = self.kpca_state
         x = torch.as_tensor(x, dtype=st.X.dtype, device=self.device)
         if self.plan.fuse_krow and self.plan.dispatch == "bucketed":
             need = max(self.m, n_components, 1)

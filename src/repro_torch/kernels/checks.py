@@ -5,7 +5,9 @@ the inputs the main path hands it at capacity-bucket ``n`` with ``m``
 active pairs (a real solved rotation factor or fused pair with deflated
 columns, an orthonormal active block of U, stored points and queries as
 the service draws them), and ``gram_cases(n, k, dtype, device)`` those of
-the Nyström reconstruction (B of n rows and width k); each returns a
+the Nyström reconstruction (B of n rows and width k), and
+``rbf_gram_cases(n, m, dim, dtype, device)`` those of the dense RBF gram
+(the roofline's k(X, X) where n = m); each returns a
 ``Case`` per kernel: the kernel call, its plain version, the one PyTorch
 call that computes the same function where there is one, the tolerance
 the comparison is held to and why, and the bound on its time.
@@ -51,7 +53,7 @@ from repro_torch.kernels.nystrom_recon import ops as nops
 from repro_torch.kernels.nystrom_recon import ref as nref
 from repro_torch.kernels.nystrom_recon.ref import transform_project_ref
 from repro_torch.kernels.rbf_gram import ops as kops
-from repro_torch.kernels.rbf_gram.ref import krow_project_ref
+from repro_torch.kernels.rbf_gram.ref import krow_project_ref, rbf_gram_ref
 
 Tensor = torch.Tensor
 
@@ -72,6 +74,8 @@ SOURCES = {
         "src/repro/kernels/nystrom_recon/transform_batch.py:72"),
     "scaled_gram": ("src/repro_torch/kernels/csrc/scaled_gram.cu",
                     "src/repro/kernels/nystrom_recon/nystrom_recon.py:39"),
+    "rbf_gram": ("src/repro_torch/kernels/csrc/rbf_gram.cu",
+                 "src/repro/kernels/rbf_gram/rbf_gram.py:46"),
 }
 
 N_QUERIES, N_COMPONENTS, DIM = 64, 8, 16
@@ -347,6 +351,56 @@ def gram_cases(n: int, k: int, dtype, device, seed: int = 0) -> list[Case]:
         # K̃ is symmetric: the function needs the n(n+1)/2 dot products of
         # one triangle, though the kernel computes both.
         flops=1.0 * n * (n + 1) * k)]
+
+
+def rbf_gram_tol(x: Tensor, y: Tensor, sigma: float, dtype) -> Tensor:
+    """Per-entry bound on two evaluations of exp(-max(d2, 0)/sigma) by the
+    norm expansion: each rounds d2 by at most (d+2)eps·(|x_i| + |y_j|)²
+    (the length-d sums of |x_i|², |y_j|² and x_i·y_j, and the expansion's
+    two additions), and exp of an argument off by t moves G by G·(e^t - 1)
+    ≈ G·t.  So ``_epilogue_tol``'s bound on |Δk|, weighted by G: an entry
+    far from the diagonal (G small) is held to its own small bound.  Its
+    8 eps covers the two exp evaluations (CUDA's expf is within 2 ulp);
+    the type's smallest normal number covers subnormal outputs."""
+    xd, yd = x.double(), y.double()
+    terms = ((xd * xd).sum(1).sqrt()[:, None]
+             + (yd * yd).sum(1).sqrt()[None, :]) ** 2
+    G = rbf_gram_ref(xd, yd, sigma)
+    spec = kf.KernelSpec(name="rbf", sigma=float(sigma))
+    return (G * _epilogue_tol(terms, spec, x.shape[1], dtype)
+            + torch.finfo(dtype).tiny)
+
+
+def rbf_gram_case(x: Tensor, y: Tensor, sigma: float) -> Case:
+    """The dense RBF gram of x (n, d) against y (m, d)."""
+    n, dim = x.shape
+    m = y.shape[0]
+    item = x.element_size()
+    return Case(
+        name="rbf_gram",
+        kernel=lambda: (kops.gram(x, y, sigma),),
+        plain=lambda: (rbf_gram_ref(x, y, sigma),),
+        library=None,
+        tols=(rbf_gram_tol(x, y, sigma, x.dtype),),
+        tol_reason="per entry G_ij·(2(d+4)eps·(|x_i|+|y_j|)²/sigma + 8eps) "
+                   "+ tiny: each evaluation rounds d2 by (d+2)eps·(|x_i|+"
+                   "|y_j|)², which moves exp(-d2/sigma) by G_ij times that "
+                   "over sigma; exp itself within 2 ulp",
+        bytes=item * (n * dim + m * dim + n * m),
+        flops=2.0 * n * m * (dim + 2))
+
+
+def rbf_gram_cases(n: int, m: int, dim: int, dtype, device, seed: int = 0
+                   ) -> list[Case]:
+    """x (n, d) standard normal and sigma = d, as the roofline draws them;
+    y is x itself where n = m (the roofline's gram k(X, X), whose diagonal
+    is a clamped rounding residue), else a second draw."""
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.normal(size=(n, dim)), dtype=dtype,
+                        device=device)
+    y = x if n == m else torch.as_tensor(rng.normal(size=(m, dim)),
+                                         dtype=dtype, device=device)
+    return [rbf_gram_case(x, y, float(dim))]
 
 
 def compare(case: Case) -> dict:

@@ -28,7 +28,7 @@ CSRC = Path(__file__).with_name("csrc")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("errors.cu", "eigvec_rotate.cu", "eigvec_rotate2.cu",
            "eigvec_project.cu", "krow_project.cu", "transform_project.cu",
-           "scaled_gram.cu")
+           "scaled_gram.cu", "rbf_gram.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -42,6 +42,7 @@ SIGNATURES = {
     "krow_project": (P, P, P, P, P, P, P, I, I, I, I, F, F, P),
     "transform_project": (P, P, P, P, P, P, I, I, I, I, I, F, F, P),
     "scaled_gram": (P, P, P, I, I, P),
+    "rbf_gram": (P, P, P, I, I, I, F, P),
 }
 
 # Launches per kernel since the last ``reset_launches`` — a plain count,

@@ -1,13 +1,14 @@
-"""Wrapper for the fused kernel-row + projection kernel (the ingest
-prologue): a CPU tensor runs ``ref.krow_project_ref``, a CUDA tensor
-launches ``csrc/krow_project.cu`` or raises."""
+"""Wrappers for the RBF gram kernel and the fused kernel-row + projection
+kernel (the ingest prologue): a CPU tensor runs ``ref.rbf_gram_ref`` /
+``ref.krow_project_ref``, a CUDA tensor launches ``csrc/rbf_gram.cu`` /
+``csrc/krow_project.cu`` or raises."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import kernels_fn as kf
 from repro_torch.kernels import cuda
-from repro_torch.kernels.rbf_gram.ref import krow_project_ref
+from repro_torch.kernels.rbf_gram.ref import krow_project_ref, rbf_gram_ref
 
 Tensor = torch.Tensor
 
@@ -23,6 +24,23 @@ def fused_kind(spec: kf.KernelSpec, name: str) -> int:
         raise ValueError(f"{name}: the fused CUDA kernel implements "
                          f"{sorted(FUSED_KERNELS)}, not {spec.name!r}")
     return FUSED_KERNELS[spec.name]
+
+
+def gram(x: Tensor, y: Tensor, sigma) -> Tensor:
+    """G = exp(-|x_i - y_j|²/sigma) for x (n, d) and y (m, d) by the norm
+    expansion, the norms and the exp epilogue in the same kernel; sums in
+    the operands' type (float64 for f64)."""
+    if x.device.type == "cpu":
+        return rbf_gram_ref(x, y, sigma)
+    dtype = cuda.check_operands("rbf_gram", x, y)
+    if x.dim() != 2 or y.dim() != 2 or x.shape[1] != y.shape[1]:
+        raise ValueError(f"rbf_gram: need x (n, d) and y (m, d), got "
+                         f"{tuple(x.shape)} and {tuple(y.shape)}")
+    n, dim = x.shape
+    m = y.shape[0]
+    out = torch.empty((n, m), dtype=dtype, device=x.device)
+    cuda.launch("rbf_gram", dtype, x, y, out, n, m, dim, float(sigma))
+    return out
 
 
 def krow_project(u: Tensor, x: Tensor, x_new: Tensor, aux: Tensor,

@@ -1,4 +1,5 @@
-"""Plain PyTorch version of the fused kernel-row + projection kernel."""
+"""Plain PyTorch versions of the RBF gram and the fused kernel-row +
+projection kernels."""
 from __future__ import annotations
 
 import torch
@@ -6,6 +7,16 @@ import torch
 from repro_torch.core import kernels_fn as kf
 
 Tensor = torch.Tensor
+
+
+def rbf_gram_ref(x: Tensor, y: Tensor, sigma) -> Tensor:
+    """G = exp(-max(|x_i|² + |y_j|² - 2 x_i·y_j, 0) / sigma) for x (n, d)
+    and y (m, d), summed in the operands' type; no output scale, like the
+    kernel it stands beside."""
+    xn = torch.sum(x * x, dim=-1)[:, None]
+    yn = torch.sum(y * y, dim=-1)[None, :]
+    d2 = torch.clamp_min(xn + yn - 2.0 * (x @ y.T), 0.0)
+    return torch.exp(-d2 / sigma)
 
 
 def krow_project_ref(u: Tensor, x: Tensor, x_new: Tensor, aux: Tensor,

@@ -4,6 +4,10 @@
   at a time; each is folded into the eigendecomposition (Algorithm 2) and
   every ``--transform-every`` points a batch of ``--batch`` queries is
   projected on the current principal components.
+  ``--window W`` makes the stream a sliding window over the trailing W
+  points: past a full window each point first evicts the oldest one
+  through the decremental pipeline (``core/downdate.py``), so the service
+  runs on an unbounded stream in bounded memory.
 * ``--mode nystrom``: the incremental Nyström landmark service (paper §4,
   grow_rows): each point becomes an observed row and is offered as a
   landmark; ``--landmark-policy append`` admits every offer until the
@@ -19,6 +23,8 @@ rotation), the fused kernel-row prologue and query transform
         --capacity 1024 --points 1000 --batch 64 --matmul pallas2
     PYTHONPATH=src python -m repro_torch.launch.serve --mode kpca \\
         --device cpu --capacity 64 --points 40 --dim 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode kpca \\
+        --device cpu --capacity 64 --window 24 --points 60 --dim 8
     PYTHONPATH=src python -m repro_torch.launch.serve --mode nystrom \\
         --device cpu --capacity 64 --points 80 --dim 8 --matmul pallas2
 
@@ -50,39 +56,62 @@ def make_plan(args) -> eng.UpdatePlan:
                           metrics=args.metrics)
 
 
+def kpca_draws(args):
+    """(x0, draws): the service's numpy inputs from ``--seed``, in the
+    reference driver's order — the 4 seed points, then for each streamed
+    point the point and, every ``--transform-every`` points, the query
+    batch drawn after it (else None)."""
+    rng = np.random.default_rng(args.seed)
+    x0 = rng.normal(size=(4, args.dim))
+
+    def draws():
+        for i in range(args.points):
+            x = rng.normal(size=(args.dim,))
+            q = (rng.normal(size=(args.batch, args.dim))
+                 if (i + 1) % args.transform_every == 0 else None)
+            yield x, q
+
+    return x0, draws()
+
+
 def kpca_service(args) -> tuple[dict, inkpca.KPCAStream]:
-    """Run the service loop; returns the result dict and the stream."""
+    """Run the service loop; returns the result dict and the stream.  With
+    ``--window`` the update latencies are also split by phase: growth
+    (m < W, append-only) and steady state (evict + ingest)."""
     device = resolve_device(args.device)
     dtype = DTYPES[args.dtype]
-    rng = np.random.default_rng(args.seed)
     d = args.dim
-    x0 = torch.as_tensor(rng.normal(size=(4, d)), dtype=dtype, device=device)
+    x0, draws = kpca_draws(args)
     spec = kf.KernelSpec(name="rbf", sigma=float(d))
     plan = make_plan(args)
-    stream = inkpca.KPCAStream(x0, args.capacity, spec, adjusted=True,
+    stream = inkpca.KPCAStream(torch.as_tensor(x0, dtype=dtype,
+                                               device=device),
+                               args.capacity, spec, adjusted=True,
                                plan=plan, dtype=dtype, device=device)
 
     upd, qry = LatencyHistogram("update_ms"), LatencyHistogram("query_ms")
+    phases = {"growth": LatencyHistogram(), "steady": LatencyHistogram()}
     n_served = 0
     t_total = time.perf_counter()
-    for i in range(args.points):
-        # Drawn point by point, interleaved with the queries, as the
-        # reference driver draws them: one seed gives both the same data.
-        x = torch.as_tensor(rng.normal(size=(d,)), dtype=dtype, device=device)
-        rung = (eng.bucket_for(stream.m + 1, args.capacity, plan.min_bucket)
+    for x, q in draws:
+        x = torch.as_tensor(x, dtype=dtype, device=device)
+        steady = args.window is not None and stream.m >= args.window
+        need = args.window if steady else stream.m + 1
+        rung = (eng.bucket_for(need, args.capacity, plan.min_bucket)
                 if args.dispatch == "bucketed" else -1)
         with upd.timed(key=rung) as t:
-            t.sync(stream.update(x).L)
-        if (i + 1) % args.transform_every == 0:
-            q = torch.as_tensor(rng.normal(size=(args.batch, d)),
-                                dtype=dtype, device=device)
+            stream.update(x)
+            t.sync(stream.kpca_state.L)
+        phases["steady" if steady else "growth"].add(upd.last_ms, key=rung)
+        if q is not None:
+            q = torch.as_tensor(q, dtype=dtype, device=device)
             n_comp = min(8, stream.m)
             with qry.timed(key=n_comp) as t:
                 t.sync(stream.transform(q, n_components=n_comp))
             n_served += args.batch
     t_total = time.perf_counter() - t_total
 
-    st = stream.state
+    st = stream.kpca_state
     result = {
         "mode": "kpca", "dispatch": args.dispatch, "capacity": args.capacity,
         "window": args.window, "points": args.points,
@@ -96,6 +125,10 @@ def kpca_service(args) -> tuple[dict, inkpca.KPCAStream]:
                    if device.type == "cuda" else "cpu"),
         "dtype": args.dtype,
     }
+    if args.window is not None:
+        for name, hist in phases.items():
+            result.update(hist.summary(f"{name}_update_ms"))
+            result[f"{name}_points"] = len(hist.ms) + len(hist.compile_ms)
     return result, stream
 
 
@@ -184,7 +217,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                     default=True,
                     help="fused kernel-row prologue and query transform")
     ap.add_argument("--window", type=int, default=None,
-                    help="sliding window (not ported yet: raises)")
+                    help="sliding-window size W: evict the oldest point "
+                         "before ingesting past a full window (kpca mode)")
     ap.add_argument("--health", action="store_true",
                     help="health lane (not ported yet: raises)")
     ap.add_argument("--metrics", action="store_true",

@@ -34,8 +34,10 @@ class LatencyHistogram:
         self.ms: list[float] = []
         self.compile_ms: list[float] = []
         self._seen: set = set()
+        self.last_ms: float | None = None
 
     def add(self, sample_ms: float, key=None) -> None:
+        self.last_ms = sample_ms
         if key not in self._seen:
             self._seen.add(key)
             self.compile_ms.append(sample_ms)

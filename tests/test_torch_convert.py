@@ -51,7 +51,7 @@ def test_jax_stream_continues_in_the_port():
     engine = teng.Engine(tkf.KernelSpec(sigma=sigma), teng.UpdatePlan(**PLAN))
     for i, x in enumerate(X[24:]):
         js.update(jnp.asarray(x))
-        st = engine.step(st, torch.tensor(x), m=24 + i)
+        st = engine.update(st, torch.tensor(x), m=24 + i)
 
     m = 44
     assert int(st.m) == int(js.state.m) == m

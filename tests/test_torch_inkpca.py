@@ -250,7 +250,7 @@ def test_unfused_fixed_plan_matches_fused_bucketed():
 def test_unported_plans_raise_with_their_roadmap_item():
     spec = tkf.KernelSpec()
     x0 = np.zeros((2, 3))
-    for plan, item in ((teng.UpdatePlan(window=8), "item 5"),
+    for plan, item in ((teng.UpdatePlan(health=True), "item 7"),
                        (teng.UpdatePlan(metrics=True), "item 7")):
         with pytest.raises(NotImplementedError, match=item):
             tink.KPCAStream(x0, 8, spec, plan=plan, device="cpu")

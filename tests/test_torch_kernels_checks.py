@@ -22,18 +22,22 @@ from repro_torch.kernels.nystrom_recon import ops as nops  # noqa: E402
 from repro_torch.kernels.nystrom_recon.ref import (  # noqa: E402
     scaled_gram_ref, transform_project_ref)
 from repro_torch.kernels.rbf_gram import ops as kops  # noqa: E402
-from repro_torch.kernels.rbf_gram.ref import krow_project_ref  # noqa: E402
+from repro_torch.kernels.rbf_gram.ref import (  # noqa: E402
+    krow_project_ref, rbf_gram_ref)
 
 N = 96
 NAMES = ("eigvec_rotate", "eigvec_rotate2", "eigvec_project",
-         "krow_project", "transform_project", "scaled_gram")
+         "krow_project", "transform_project", "scaled_gram", "rbf_gram")
 
 
 def _case(name, m, dtype=torch.float32, seed=0):
     """``name``'s case at bucket N with m active pairs (scaled_gram: B of
-    width m, its own row count being unrelated to the bucket)."""
+    width m, its own row count being unrelated to the bucket; rbf_gram:
+    the gram of N points against m, of 16 features)."""
     if name == "scaled_gram":
         return checks.gram_cases(N, m, dtype, "cpu", seed=seed)[0]
+    if name == "rbf_gram":
+        return checks.rbf_gram_cases(N, m, 16, dtype, "cpu", seed=seed)[0]
     return next(c for c in checks.cases(N, m, dtype, "cpu", seed=seed)
                 if c.name == name)
 
@@ -67,6 +71,7 @@ def test_a_more_accurate_evaluation_passes(monkeypatch, name, m):
     monkeypatch.setattr(kops, "krow_project", _in_f64(krow_project_ref))
     monkeypatch.setattr(nops, "transform_project",
                         _in_f64(transform_project_ref))
+    monkeypatch.setattr(kops, "gram", _in_f64(rbf_gram_ref))
     case = _case(name, m)
     res = checks.compare(case)
     assert 0.0 <= res["max_err_over_tol"] <= 1.0
@@ -100,10 +105,12 @@ def _with_column(case, output, col, fn):
     ("eigvec_project", 0, 1, lambda c: c * (1 + 1e-3)),
     ("transform_project", 0, 0, lambda c: c * (1 + 1e-3)),
     ("transform_project", 1, None, lambda r: r * (1 + 1e-3)),
+    ("rbf_gram", 0, 7, torch.zeros_like),
+    ("rbf_gram", 0, 7, lambda c: c * (1 + 1e-4)),
 ], ids=["krow_P_col0_zero", "krow_P_col0_1e-2", "krow_a_1e-2",
         "rotate_col_1e-3", "rotate2_col_zero", "rotate2_col_1e-3",
         "gram_col_zero", "gram_col_1e-3", "project_col_1e-3", "transform_Y_col_1e-3",
-        "transform_rowsum_1e-3"])
+        "transform_rowsum_1e-3", "rbf_gram_col_zero", "rbf_gram_col_1e-4"])
 def test_a_wrong_column_is_refused(name, output, col, fn):
     case = _case(name, 90)
     checks.compare(case)

@@ -62,7 +62,8 @@ def test_stream_on_cuda_matches_cpu(device):
                          s.transform(Q, 4).abs().cpu().numpy())
     assert cuda.LAUNCHES == {"eigvec_rotate": 160, "eigvec_rotate2": 0,
                              "krow_project": 40, "eigvec_project": 40,
-                             "transform_project": 1, "scaled_gram": 0}
+                             "transform_project": 1, "scaled_gram": 0,
+                             "rbf_gram": 0}
     K = kf.gram_block(torch.tensor(X), torch.tensor(X), spec=spec)
     lam_ref = batch.batch_kpca(K, adjusted=True)[0].numpy()
     scale = max(1.0, np.abs(lam_ref).max())
@@ -78,6 +79,17 @@ def test_stream_on_cuda_matches_cpu(device):
 def test_scaled_gram_matches_plain_version(device, n, k, dtype):
     for case in checks.gram_cases(n, k, getattr(torch, dtype), device,
                                   seed=n + k):
+        checks.compare(case)
+
+
+@pytest.mark.parametrize("n,m,dim", [(1, 1, 1), (130, 129, 3), (64, 64, 16),
+                                     (65, 200, 17), (300, 300, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_rbf_gram_matches_plain_version(device, n, m, dim, dtype):
+    """Ragged edges of the 64-wide tiles and the 16-wide slabs of d; n = m
+    is the gram of x with itself (its diagonal a clamped residue)."""
+    for case in checks.rbf_gram_cases(n, m, dim, getattr(torch, dtype),
+                                      device, seed=n + m + dim):
         checks.compare(case)
 
 
@@ -138,6 +150,45 @@ def test_nystrom_on_cuda_matches_cpu(device):
     np.testing.assert_allclose(t_gpu, t_cpu, rtol=1e-8)
 
 
+@pytest.mark.parametrize("matmul", ["pallas", "pallas2"])
+def test_window_stream_on_cuda_matches_cpu(device, matmul):
+    """A windowed stream past its first evictions (the downdate's inverse
+    pairs on the rotation kernels) on the card against the CPU, f64, at
+    the bars of ``test_stream_on_cuda_matches_cpu``; the card's launches
+    follow the reckoning: a growth point is one pair of pairs, a
+    steady-state point two more for the evicted one."""
+    rng = np.random.default_rng(3)
+    X = rng.normal(size=(44, 5))
+    W = 20
+    spec = kf.KernelSpec(sigma=10.0)
+    plan = engine.UpdatePlan(matmul=matmul, fuse_krow=True,
+                             dispatch="bucketed", min_bucket=16, window=W)
+    out = {}
+    for dev in ("cpu", device):
+        cuda.reset_launches()
+        s = inkpca.KPCAStream(X[:4], 32, spec, plan=plan,
+                              dtype=torch.float64, device=dev)
+        for x in X[4:]:
+            s.update(x)
+        st = s.kpca_state
+        out[str(dev)] = (torch.sort(st.L[:W]).values.cpu().numpy(),
+                         st.X[:W].cpu().numpy(), s.state.ages[:W].cpu())
+    pairs = 2 * (W - 4) + 4 * (44 - W)
+    got = cuda.LAUNCHES
+    assert got["eigvec_rotate2"] + got["eigvec_rotate"] / 2 == pairs
+    assert got["krow_project"] == got["eigvec_project"] == 40
+    Xw = torch.tensor(X[44 - W:])
+    lam_ref = batch.batch_kpca(kf.gram_block(Xw, Xw, spec=spec),
+                               adjusted=True)[0].numpy()
+    scale = max(1.0, np.abs(lam_ref).max())
+    for lam, rows, ages in out.values():
+        assert np.abs(lam - lam_ref).max() / scale < 5e-5
+        np.testing.assert_array_equal(rows, X[44 - W:])
+        assert ages.tolist() == list(range(44 - W, 44))
+    np.testing.assert_allclose(out[str(device)][0], out["cpu"][0],
+                               atol=1e-6 * scale)
+
+
 def test_wrappers_refuse_bad_operands(device):
     from repro_torch.kernels.eigvec_update import ops as eops
     u = torch.eye(8, device=device)
@@ -158,3 +209,8 @@ def test_wrappers_refuse_bad_operands(device):
     with pytest.raises(ValueError, match="factor vectors"):
         eops.rotate_vectors2(u, v, v, v, v, v, i, v[:4], v, v, v, v, i, 4,
                              tau1=v, tau2=v)
+    from repro_torch.kernels.rbf_gram import ops as kops
+    with pytest.raises(ValueError, match="need x"):
+        kops.gram(u, torch.zeros(3, 5, device=device), 1.0)
+    with pytest.raises(TypeError, match="mixed"):
+        kops.gram(u, u.double(), 1.0)

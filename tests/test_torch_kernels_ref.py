@@ -16,7 +16,10 @@ from repro.core import kernels_fn as jkf  # noqa: E402
 from repro.kernels.eigvec_update import ref as jref  # noqa: E402
 from repro.kernels.nystrom_recon.ref import \
     transform_project_ref as j_transform  # noqa: E402
+from repro.kernels.rbf_gram.rbf_gram import \
+    rbf_gram as j_rbf_kernel  # noqa: E402
 from repro.kernels.rbf_gram.ref import krow_project_ref as j_krow  # noqa: E402
+from repro.kernels.rbf_gram.ref import rbf_gram_ref as j_rbf_ref  # noqa: E402
 from repro_torch.core import kernels_fn as tkf  # noqa: E402
 from repro_torch.kernels.eigvec_update import ops as eops  # noqa: E402
 from repro_torch.kernels.eigvec_update import ref as tref  # noqa: E402
@@ -199,3 +202,62 @@ def test_fused_kernels_refuse_other_kernels_on_cuda():
     with pytest.raises(ValueError, match="fused CUDA kernel"):
         kops.fused_kind(tkf.KernelSpec(name="poly"), "krow_project")
     assert kops.fused_kind(tkf.KernelSpec(name="matern32"), "x") == 1
+
+
+# ------------------------------------------------------------- rbf_gram --
+RBF_SHAPES = [(100, 100, 16), (130, 129, 3), (37, 200, 1), (64, 65, 10)]
+
+
+def _rbf_inputs(n, m, dim, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, dim))
+    y = x if n == m else rng.normal(size=(m, dim))
+    return x, y, float(dim)
+
+
+@pytest.mark.parametrize("n,m,dim", RBF_SHAPES)
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_rbf_gram_plain_matches_reference(n, m, dim, dt):
+    """The plain version through ``ops.gram`` against the reference's
+    ``rbf_gram_ref`` (same norm expansion and clamp) at ragged shapes,
+    d = 1 and 3 included; n = m is the gram of x with itself."""
+    np_dtype, t_dtype, j_dtype, rtol = DTYPES[dt]
+    x, y, sigma = _rbf_inputs(n, m, dim)
+    want = j_rbf_ref(jnp.asarray(x, j_dtype), jnp.asarray(y, j_dtype),
+                     sigma)
+    got = kops.gram(torch.as_tensor(x, dtype=t_dtype),
+                    torch.as_tensor(y, dtype=t_dtype), sigma)
+    assert got.dtype == t_dtype and got.shape == (n, m)
+    _close(got.numpy(), want, rtol)
+
+
+@pytest.mark.parametrize("n,m,dim", RBF_SHAPES)
+def test_rbf_gram_plain_matches_the_interpreted_kernel_f32(n, m, dim):
+    """f32 against the reference's Pallas kernel in interpret mode (which
+    pads n, m to 128 and d to a multiple of 8), rtol 1e-5."""
+    x, y, sigma = _rbf_inputs(n, m, dim, seed=1)
+    want = np.asarray(j_rbf_kernel(jnp.asarray(x, jnp.float32),
+                                   jnp.asarray(y, jnp.float32),
+                                   jnp.asarray(sigma, jnp.float32),
+                                   interpret=True))
+    got = kops.gram(torch.as_tensor(x, dtype=torch.float32),
+                    torch.as_tensor(y, dtype=torch.float32), sigma)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+
+
+def test_reference_rbf_gram_accumulates_f64_in_f32():
+    """Witness (ROADMAP.md, "Faults found"): the reference's kernel sums
+    f64 operands in float32 (``preferred_element_type=jnp.float32``, f32
+    scratch, 1/sigma cast to f32), so its f64 gram is off its own f64
+    oracle by more than 1e-9; the port's plain version sums in f64 and
+    holds 1e-12.  Once the reference is fixed, this test fails and goes
+    with the fix."""
+    x, y, sigma = _rbf_inputs(130, 129, 16, seed=2)
+    xj, yj = jnp.asarray(x), jnp.asarray(y)
+    want = np.asarray(j_rbf_ref(xj, yj, sigma))
+    kern = np.asarray(j_rbf_kernel(xj, yj, jnp.asarray(sigma),
+                                   interpret=True))
+    assert kern.dtype == np.float64
+    assert np.abs(kern - want).max() > 1e-9
+    got = kops.gram(torch.from_numpy(x), torch.from_numpy(y), sigma).numpy()
+    assert np.abs(got - want).max() <= 1e-12
