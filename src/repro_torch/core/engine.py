@@ -15,8 +15,8 @@ active pairs is itself a valid capacity-M_b state (``slice_state``), and
 host's count of active pairs, which the caller may pass (``KPCAStream``
 mirrors it), so a step reads nothing back from the card.
 
-Torch has no ``lax.scan``: a block is a Python loop over its points, at
-one bucket per chunk (sliced once, scattered once).  Not ported yet, each
+Torch has no ``lax.scan``: a block is a Python loop over ``step``, with
+the active count tracked on the host.  Not ported yet, each
 raising ``NotImplementedError`` from ``check_plan`` or from the call: the
 health and metrics lanes and the leverage landmark policy — see
 ROADMAP.md, "Open items".
@@ -258,47 +258,6 @@ def _ingest(st, x_new: Tensor, spec: kf.KernelSpec, adjusted: bool,
     return fn(st, a, k_new, x_new, plan=plan)
 
 
-def _scan_chunk(sub, xs: Tensor, spec: kf.KernelSpec, adjusted: bool,
-                plan: UpdatePlan):
-    """Fold a chunk that fits inside one bucket, point by point (the
-    reference's ``lax.scan``)."""
-    for x_new in xs:
-        sub = _ingest(sub, x_new, spec, adjusted, plan)
-    return sub
-
-
-def _window_pair(st, victim: Tensor, x_new: Tensor, spec: kf.KernelSpec,
-                 adjusted: bool, plan: UpdatePlan):
-    """The steady-state evict|ingest pair at m ≡ W: the inverse ±sigma
-    pair(s) and the contraction on the victim row, then one Algorithm-1/2
-    ingest."""
-    from repro_torch.core import downdate as dd
-
-    st = dd.downdate(st, victim, spec, adjusted=adjusted, plan=plan)
-    return _ingest(st, x_new, spec, adjusted, plan)
-
-
-def _window_scan_chunk(sub, ages: Tensor, clock: Tensor, xs: Tensor,
-                       spec: kf.KernelSpec, adjusted: bool,
-                       plan: UpdatePlan):
-    """Steady-state sliding-window loop: every step evicts the oldest point
-    and ingests one new one at m ≡ W.  The ring advances on the device:
-    the victim is argmin(ages), the survivors' order is
-    ``downdate.boundary_perm``'s and the new point takes the clock's stamp,
-    so the loop reads nothing back from the card."""
-    from repro_torch.core import downdate as dd
-
-    for x_new in xs:
-        victim = torch.argmin(ages)
-        order = dd.boundary_perm(victim, sub.m, ages.shape[0])
-        # No sentinel write for the evicted slot: at m ≡ W the freed
-        # boundary row W−1 is where the new point lands.
-        sub = _window_pair(sub, victim, x_new, spec, adjusted, plan)
-        ages = rankone.index_set(ages[order], sub.m - 1, clock)
-        clock = clock + 1
-    return sub, ages, clock
-
-
 # ------------------------------------------------------- stream bundle --
 class StreamState(NamedTuple):
     """The bundle ``Engine.step``/``step_block`` advance: the eigensystem
@@ -363,7 +322,8 @@ class Engine:
              window: int | None = None, m: int | None = None
              ) -> StreamState:
         """Advance the bundle by one point: evict the oldest point first if
-        the bundle is windowed and its window is full, then ingest."""
+        the bundle is windowed and its window is full, then ingest.  ``m``
+        is the host's active count (None reads it)."""
         from repro_torch.core import window as wnd
 
         window = self._stream_window(stream, window)
@@ -377,18 +337,16 @@ class Engine:
 
     def step_block(self, stream: StreamState, xs: Tensor, *,
                    window: int | None = None) -> StreamState:
-        """Fold a (T, d) block, the block mirror of ``step``: chunks at one
-        bucket each, and a windowed bundle's steady state in one loop at
-        the window's bucket with the ring advanced on the device."""
-        from repro_torch.core import window as wnd
-
+        """Fold a (T, d) block, a loop over ``step``: the active count is
+        read once and then tracked on the host, so the loop reads nothing
+        back from the card."""
         window = self._stream_window(stream, window)
-        if stream.ages is None:
-            return stream._replace(kpca=self._ingest_block(stream.kpca, xs))
-        w = self._window_block(wnd.WindowState(stream.kpca, stream.ages,
-                                               stream.clock),
-                               xs, window=window)
-        return stream._replace(kpca=w.kpca, ages=w.ages, clock=w.clock)
+        m = int(stream.kpca.m)
+        for x_new in xs:
+            stream = self.step(stream, x_new, window=window, m=m)
+            if window is None or m < window:
+                m += 1
+        return stream
 
     # ---- plain ingest -----------------------------------------------------
     def _ingest_point(self, state, x_new: Tensor, *, m: int | None = None):
@@ -404,28 +362,6 @@ class Engine:
         sub = slice_state(state, Mb) if Mb < M else state
         sub = _ingest(sub, x_new, self.spec, self.adjusted, self.plan)
         return scatter_state(state, sub) if Mb < M else sub
-
-    def _ingest_block(self, state, xs: Tensor):
-        """Stream a block: one chunk per bucket, cut at the crossings (and
-        at the top bucket, so exhaustion raises); fixed dispatch folds the
-        whole block at capacity."""
-        M = state.L.shape[0]
-        n = xs.shape[0]
-        i = 0
-        while i < n:
-            m = int(state.m)
-            if self.plan.dispatch == "bucketed":
-                Mb = bucket_for(m + 1, M, self.plan.min_bucket)
-                take = min(Mb - m, n - i)
-            else:
-                bucket_for(m + n - i, M)        # raises past capacity
-                Mb, take = M, n - i
-            sub = slice_state(state, Mb) if Mb < M else state
-            sub = _scan_chunk(sub, xs[i:i + take], self.spec, self.adjusted,
-                              self.plan)
-            state = scatter_state(state, sub) if Mb < M else sub
-            i += take
-        return state
 
     def update(self, state, x_new: Tensor, *, m: int | None = None):
         """Fold one point into a bare eigensystem state (``step`` on an
@@ -486,50 +422,11 @@ class Engine:
         ages = rankone.index_set(wstate.ages, wstate.kpca.m, wstate.clock)
         return wnd.WindowState(kpca=kpca, ages=ages, clock=wstate.clock + 1)
 
-    def _window_block(self, wstate, xs: Tensor, *, window: int):
-        """Fold a (T, d) block into a windowed stream.  The growth points
-        (m < W) fold append-only through ``_ingest_block`` and are stamped
-        with one slice write; the steady-state rest runs one loop at the
-        window's bucket (``_window_scan_chunk``), sliced and scattered
-        once.  The rebase check is hoisted to once per block (the clock
-        advances by exactly T)."""
+    def window_step(self, wstate, x_new: Tensor, *, window: int):
+        """``step`` on a windowed bundle, unwrapped (``window.ingest``)."""
         from repro_torch.core import window as wnd
 
-        T = xs.shape[0]
-        if T == 0:
-            return wstate
-        m = int(wstate.kpca.m)
-        if m > window:
-            raise ValueError(f"active count {m} exceeds window {window}")
-        if int(wstate.clock) + T >= wnd.age_sentinel() - 1:
-            wstate = wnd.rebase_ages(wstate)
-        i = 0
-        if m < window:
-            g = min(window - m, T)
-            grown = self._ingest_block(wstate.kpca, xs[:g])
-            wstate = wnd.stamp_grown_ages(wstate, grown, g)
-            i = g
-        if i == T:
-            return wstate
-        # The downdate runs at m = W and the ingest grows m = W−1 back to
-        # W, so a steady-state step fits the bucket holding W.
-        M = wstate.kpca.L.shape[0]
-        Mb = self._bucket(M, window)
-        sub = slice_state(wstate.kpca, Mb) if Mb < M else wstate.kpca
-        sub, ages_sub, clock = _window_scan_chunk(
-            sub, wstate.ages[:Mb], wstate.clock, xs[i:], self.spec,
-            self.adjusted, self.plan)
-        if Mb < M:
-            kpca = scatter_state(wstate.kpca, sub)
-            ages = wstate.ages.clone()
-            ages[:Mb] = ages_sub
-        else:
-            kpca, ages = sub, ages_sub
-        return wnd.WindowState(kpca=kpca, ages=ages, clock=clock)
-
-    def window_step(self, wstate, x_new: Tensor, *, window: int):
-        """One sliding-window step as a length-1 ``window_block``."""
-        return self.window_block(wstate, x_new[None], window=window)
+        return wnd.ingest(self, wstate, x_new, window=window)
 
     def window_block(self, wstate, xs: Tensor, *, window: int):
         """``step_block`` on a windowed bundle, unwrapped."""

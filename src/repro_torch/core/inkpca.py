@@ -361,9 +361,8 @@ class KPCAStream:
         return self.state
 
     def update_block(self, xs):
-        """Fold a (T, d) block with the per-point semantics: one loop per
-        bucket chunk, and a full window's evict+ingest steps in one loop
-        at the window's bucket."""
+        """Fold a (T, d) block: ``Engine.step_block``, a loop over the
+        per-point step."""
         xs = torch.as_tensor(xs, dtype=self.kpca_state.X.dtype,
                              device=self.device)
         self._unbundle(self.engine.step_block(self._bundle(), xs,

@@ -100,17 +100,6 @@ def maybe_rebase(wstate: WindowState) -> WindowState:
                            clock=torch.where(need, reb.clock, wstate.clock))
 
 
-def stamp_grown_ages(wstate: WindowState, grown, count: int) -> WindowState:
-    """Stamp arrival indices for ``count`` append-only points just folded
-    into ``grown`` (a ``KPCAState``): one slice write at the pre-growth
-    active count (read on the host)."""
-    m0 = int(wstate.kpca.m)
-    ages = wstate.ages.clone()
-    ages[m0:m0 + count] = wstate.clock + torch.arange(
-        count, dtype=AGE_DTYPE, device=ages.device)
-    return WindowState(kpca=grown, ages=ages, clock=wstate.clock + count)
-
-
 def ingest(engine, wstate: WindowState, x_new: Tensor, *, window: int
            ) -> WindowState:
     """One sliding-window step: evict the oldest point if the window is

@@ -372,10 +372,13 @@ def rbf_gram_tol(x: Tensor, y: Tensor, sigma: float, dtype) -> Tensor:
 
 
 def rbf_gram_case(x: Tensor, y: Tensor, sigma: float) -> Case:
-    """The dense RBF gram of x (n, d) against y (m, d)."""
+    """The dense RBF gram of x (n, d) against y (m, d).  Where y is x the
+    gram is symmetric: the function reads x once and needs the n(n+1)/2
+    entries of one triangle, though the kernel computes both."""
     n, dim = x.shape
     m = y.shape[0]
     item = x.element_size()
+    sym = y is x
     return Case(
         name="rbf_gram",
         kernel=lambda: (kops.gram(x, y, sigma),),
@@ -386,8 +389,8 @@ def rbf_gram_case(x: Tensor, y: Tensor, sigma: float) -> Case:
                    "+ tiny: each evaluation rounds d2 by (d+2)eps·(|x_i|+"
                    "|y_j|)², which moves exp(-d2/sigma) by G_ij times that "
                    "over sigma; exp itself within 2 ulp",
-        bytes=item * (n * dim + m * dim + n * m),
-        flops=2.0 * n * m * (dim + 2))
+        bytes=item * (n * dim + (0 if sym else m * dim) + n * m),
+        flops=(1.0 * n * (n + 1) if sym else 2.0 * n * m) * (dim + 2))
 
 
 def rbf_gram_cases(n: int, m: int, dim: int, dtype, device, seed: int = 0

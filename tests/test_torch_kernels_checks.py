@@ -128,3 +128,26 @@ def test_krow_column_bounds_follow_their_own_scale():
     col0 = P[:90, 0].abs()
     assert float(tol[:90, 0].max()) < 1e-2 * float(col0.median())
     assert float(tol[:, 0].max()) < 1e-2 * float(tol[:, 2].max())
+
+
+@pytest.mark.parametrize("n, m, dim, dtype, want_ms, want_by", [
+    # The roofline's k(X, X): x read once, one triangle of dot products;
+    # 4.46 MB at 3.35 TB/s against 69.3 MFLOP at 67 TFLOP/s.
+    (1024, 1024, 64, torch.float32, 4 * (1024 * 64 + 1024**2) / 3.35e9,
+     "bytes"),
+    # Two inputs: both read, every entry a dot product (operations).
+    (1024, 512, 64, torch.float32, 2 * 1024 * 512 * 66 / 67e9,
+     "operations"),
+], ids=["symmetric", "rectangular"])
+def test_rbf_gram_bound_counts_the_work_its_call_needs(n, m, dim, dtype,
+                                                       want_ms, want_by):
+    """Where y is x the gram is symmetric: its bound reads x once and
+    counts n(n+1)/2 dot products; a second input is read and every entry
+    counted."""
+    case = checks.rbf_gram_cases(n, m, dim, dtype, "cpu")[0]
+    sym = n == m
+    assert case.bytes == 4 * (n * dim + (0 if sym else m * dim) + n * m)
+    assert case.flops == (n * (n + 1) if sym else 2 * n * m) * (dim + 2)
+    ms, by = case.bound(dtype)
+    assert by == want_by
+    assert ms == pytest.approx(want_ms, rel=1e-12)

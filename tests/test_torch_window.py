@@ -109,8 +109,8 @@ def test_stream_downdate_matches_reference(window):
 @pytest.mark.parametrize("adjusted", [False, True])
 @pytest.mark.parametrize("dispatch", ["fixed", "bucketed"])
 def test_window_block_matches_pointwise_every_step(adjusted, dispatch):
-    """``update_block`` (growth chunks, then the steady-state loop at the
-    window's bucket) equals the port's point-wise loop (1e-10, ring
+    """``update_block`` (a loop over ``Engine.step`` with the active count
+    tracked on the host) equals the port's point-wise loop (1e-10, ring
     exactly) and the reference's block, over cuts that cover growth only,
     the growth→steady transition and steady state."""
     X = np.random.default_rng(61).normal(size=(40, 4))
@@ -138,7 +138,7 @@ def test_window_block_matches_pointwise_every_step(adjusted, dispatch):
 
 
 def test_engine_window_step_matches_ingest():
-    """The block spelling of one step equals ``window.ingest`` (and the
+    """``Engine.window_step`` equals ``window.ingest`` (and the
     reference's ``window.ingest``) below and at a full window."""
     X = np.random.default_rng(71).normal(size=(20, 3))
     plan = dict(dispatch="bucketed", min_bucket=8)
