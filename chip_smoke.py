@@ -13,8 +13,14 @@ Phases, each printing one JSON line per row:
    cid; n = 4096 rows of width 512 and 200 for ``scaled_gram``; f32 and
    f64; ``rbf_gram`` at the roofline's 1024 x 1024, d = 64 in f32 and f64,
    the Fig. 2 data's full 4096 x 4096 gram, d = 10, in f64 and the ragged
-   1000 x 300, d = 16 and 130 x 129, d = 3 in f32), each output entry
-   within its own bound as ``repro_torch.kernels.checks`` states it.
+   1000 x 300, d = 16 and 130 x 129, d = 3 in f32; ``flash_attention``
+   at the LM prefill's B = 1, T = 4096, 64 q heads over 8 kv heads,
+   hd = 128 in bf16, at T = 1000 (not a multiple of the tile) in bf16 and
+   at a small f32 shape; ``ssd_intra_chunk`` at the prefill's 16 chunks of
+   256, N = 128, 256 heads of 64 with bf16 x and f32 cum, and at a small
+   f32 shape), each output entry within its own bound as
+   ``repro_torch.kernels.checks`` states it.  A row's ``n`` and ``m`` are
+   T and H for the LM kernels (G·Q and H for the intra-chunk term).
 3. ``service`` — the KPCA service, ``repro_torch.launch.serve --mode
    kpca`` (Algorithm 2, fused k-row prologue, bucketed dispatch), on the
    sequential route (``--matmul pallas``) and on the fused-pair route
@@ -56,7 +62,21 @@ Phases, each printing one JSON line per row:
    its rate against it, and the fused-against-unfused ingest and query.
    It is ``rbf_gram``'s path: that kernel's launches are counted around
    it.
-8. ``timing`` — at the kernel phase's shapes, each kernel's device time
+8. ``lm``      — the LM zoo's serving path at the full width of
+   Jamba-1.5-Large, one period (8 layers: 7 mamba + 1 attention), without
+   experts (every layer its dense FFN: 8.9 B parameters, 16.6 GiB bf16),
+   parameters drawn on the card from seed 0.  ``make_prefill_step`` at
+   B = 1, T = 4096: 3 warm-up and 10 timed calls (host clock around
+   synchronised calls: p50, p99, tokens/s, peak memory), launches held to
+   the reckoning (1 ``flash_attention`` and 7 ``ssd_intra_chunk`` per
+   forward); then the forward over a 256-token prompt against
+   ``decode_step`` teacher-forced over the same tokens (no kernel
+   launch), logits finite and within ``LM_BAR``; then ``lm_main`` as
+   ``serve --mode lm`` runs it (batch 4, prompt 16, gen 32): decode
+   tokens/s, tokens in the vocabulary, finite logits, no kernel launch;
+   last, one prefill under the profiler: device time by kernel group
+   (the two LM kernels, cuBLAS's matmuls, the rest) and the idle share.
+9. ``timing`` — at the kernel phase's shapes, each kernel's device time
    (profiler records) beside the plain version's, one library call's and
    its bound, and each call's event-timed time, host work included.  It
    runs last so that the profiler is never attached to a service.
@@ -106,6 +126,33 @@ BARS = {"float32": (1e-3, 0.999), "float64": (1e-6, 1.0 - 1e-8)}
 # KPCA bars above.
 NYSTROM_BARS = {"float32": 5e-3, "float64": 1e-6}
 FIG2_REL = 1e-8          # approximation_error's trace vs trace_error
+# The LM kernels (B, T, H, Hkv, hd) and (G, Q, N, H, P) with their types:
+# the prefill's shape first (its row is the kernel's main-path row), then
+# the others.
+FLASH_SHAPES = (((1, 4096, 64, 8, 128), "bfloat16"),
+                ((1, 1000, 8, 2, 128), "bfloat16"),
+                ((2, 256, 4, 2, 64), "float32"))
+SSD_SHAPES = (((16, 256, 128, 256, 64), "bfloat16"),
+              ((3, 32, 16, 4, 8), "float32"))
+LM_T, LM_DECODE_T, LM_WARMUP, LM_TIMED = 4096, 256, 3, 10
+# Prefill against decode (bf16): both round every product and sum they
+# keep to bf16 (unit roundoff u = 2^-8), at different places (the prefill
+# sums the chunk state and the attention in f32 inside the kernels; decode
+# rounds the Mamba state S to bf16 at each of the prompt's steps and each
+# matmul over one token, not T).  Roundings on the path from the
+# embedding to the logits: ~10 per layer, 2 around the head, and the 256
+# state updates: R = 10·8 + 2 + 256.  Taken as independent, each of at
+# most one ulp (2u) of the hidden state, they add in quadrature:
+# 2u·sqrt(R) = 0.144 of the logits' largest magnitude, for the last
+# position and for the worst position alike.
+LM_BAR = 2 * 2.0 ** -8 * (10 * 8 + 2 + LM_DECODE_T) ** 0.5
+# Device records of a prefill by what launched them (lower-case substrings
+# of the kernel names; cuBLAS's GEMMs run as nvjet, sm90 xmma or cutlass
+# kernels).
+LM_GROUPS = (("flash_attention", ("flash_attention_kernel",)),
+             ("ssd_intra_chunk", ("ssd_intra_chunk_kernel",)),
+             ("matmul", ("gemm", "xmma", "cutlass", "gemv", "splitk",
+                         "nvjet")))
 
 
 def emit(obj) -> None:
@@ -169,6 +216,14 @@ def all_cases(torch, checks):
                         device="cuda")
     sigma = float(kf.median_heuristic(X))
     yield torch.float64, GRAM_N, GRAM_N, checks.rbf_gram_case(X, X, sigma)
+    for (B, T, H, Hkv, hd), dtype_name in FLASH_SHAPES:
+        dtype = getattr(torch, dtype_name)
+        yield dtype, T, H, checks.flash_attention_case(B, T, H, Hkv, hd,
+                                                       dtype, "cuda")
+    for (G, Q, N, H, P), dtype_name in SSD_SHAPES:
+        dtype = getattr(torch, dtype_name)
+        yield dtype, G * Q, H, checks.ssd_intra_chunk_case(G, Q, N, H, P,
+                                                           dtype, "cuda")
 
 
 def timing_phase(torch, checks) -> dict:
@@ -242,7 +297,8 @@ def service_phase(torch, cuda, serve, capacity: int, points: int,
     expect = {"eigvec_rotate": 4 * points, "eigvec_rotate2": 0,
               "krow_project": points, "eigvec_project": points,
               "transform_project": points // args.transform_every,
-              "scaled_gram": 0, "rbf_gram": 0}
+              "scaled_gram": 0, "rbf_gram": 0, "flash_attention": 0,
+              "ssd_intra_chunk": 0}
     if matmul == "pallas2":
         expect.update(pair_reckoning(launches, 2 * points))
     if launches != expect:
@@ -315,6 +371,7 @@ def nystrom_phase(torch, cuda, serve, dtype_name: str) -> dict:
     adm = capacity - 1 - 4
     expect = {"eigvec_project": 0, "krow_project": adm,
               "transform_project": 0, "scaled_gram": 0, "rbf_gram": 0,
+              "flash_attention": 0, "ssd_intra_chunk": 0,
               **pair_reckoning(launches, adm)}
     if result["admitted"] != adm or launches != expect:
         raise AssertionError(f"nystrom: {result['admitted']} admissions, "
@@ -418,7 +475,8 @@ def fig2_phase(torch, cuda, checks) -> dict:
     grown = max(checkpoints) - m0
     expect = {"eigvec_project": 0, "krow_project": grown,
               "transform_project": 0, "scaled_gram": len(checkpoints),
-              "rbf_gram": 0, **pair_reckoning(launches, grown)}
+              "rbf_gram": 0, "flash_attention": 0, "ssd_intra_chunk": 0,
+              **pair_reckoning(launches, grown)}
     if launches != expect:
         raise AssertionError(f"fig2 launch counts {launches} != {expect}")
     row = {"phase": "fig2", "n": n, "sigma": spec.sigma,
@@ -452,7 +510,8 @@ def window_phase(torch, cuda, serve, capacity: int, window: int,
     expect = {"eigvec_rotate": 4 * growth + 8 * steady, "eigvec_rotate2": 0,
               "krow_project": points, "eigvec_project": points,
               "transform_project": points // args.transform_every,
-              "scaled_gram": 0, "rbf_gram": 0}
+              "scaled_gram": 0, "rbf_gram": 0, "flash_attention": 0,
+              "ssd_intra_chunk": 0}
     if matmul == "pallas2":
         expect.update(pair_reckoning(launches, 2 * growth + 4 * steady))
     if launches != expect:
@@ -508,6 +567,135 @@ def roofline_phase(torch, cuda) -> dict:
     return row
 
 
+def lm_phase(torch, cuda, checks) -> dict:
+    """The LM serving path at Jamba-1.5-Large's full width (one period, no
+    experts, bf16): the prefill step timed with its launches reckoned, the
+    prefill held against teacher-forced decode, and ``serve --mode lm``."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import lm
+    from repro_torch.models.config import param_count
+
+    cfg = dataclasses.replace(get_config("jamba_1_5_large_398b"),
+                              n_layers=8)
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = sum(p.numel() * p.element_size() for p in params.parameters())
+    kinds = [cfg.block_kind(i) for i in range(cfg.n_layers)]
+    per_forward = {"flash_attention": kinds.count("attn"),
+                   "ssd_intra_chunk": kinds.count("mamba")}
+
+    # 1. The prefill step, B = 1, T = 4096.
+    prefill = steps.make_prefill_step(cfg)
+    tokens = TokenStream(vocab=cfg.vocab, seq_len=LM_T, global_batch=1,
+                         seed=0).batch_at(0, "cuda")["tokens"]
+    torch.cuda.reset_peak_memory_stats()
+    calls = LM_WARMUP + LM_TIMED
+    times = []
+    cuda.reset_launches()
+    for i in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        if i >= LM_WARMUP:
+            times.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(cuda.LAUNCHES)
+    expect = {name: calls * per_forward.get(name, 0) for name in launches}
+    if launches != expect:
+        raise AssertionError(f"lm prefill launches {launches} != {expect} "
+                             f"({calls} forwards of {per_forward})")
+    if (tuple(logits.shape) != (1, LM_T, cfg.vocab)
+            or not torch.isfinite(logits).all()):
+        raise AssertionError(f"lm prefill logits {tuple(logits.shape)} "
+                             f"or not finite")
+    peak = torch.cuda.max_memory_allocated()
+    del logits
+    p50 = float(np.percentile(times, 50))
+
+    # 2. Prefill against teacher-forced decode over a 256-token prompt.
+    prompt = tokens[:, :LM_DECODE_T]
+    full = lm.forward(params, cfg, prompt).float()
+    cuda.reset_launches()
+    caches = lm.init_caches(params, cfg, 1, LM_DECODE_T)
+    dec = []
+    for t in range(LM_DECODE_T):
+        lg, caches = lm.decode_step(params, cfg, caches, prompt[:, t:t + 1],
+                                    torch.full((1, 1), t, device="cuda"))
+        dec.append(lg.float())
+    dec = torch.cat(dec, dim=1)
+    torch.cuda.synchronize()
+    dec_launches = sum(cuda.LAUNCHES.values())
+    scale = float(full.abs().max())
+    diff = (full - dec).abs()
+    last_rel = float(diff[:, -1].max()) / scale
+    max_rel = float(diff.max()) / scale
+    mean_rel = float(diff.mean()) / scale
+    argmax_agree = float((full.argmax(-1) == dec.argmax(-1)).float().mean())
+    finite = bool(torch.isfinite(full).all() and torch.isfinite(dec).all())
+    del full, dec, diff, caches
+    if not (finite and dec_launches == 0 and last_rel <= LM_BAR
+            and max_rel <= LM_BAR):
+        raise AssertionError(f"lm prefill vs decode: last position "
+                             f"{last_rel:.3e}, worst position {max_rel:.3e} "
+                             f"of max |logit| {scale!r} (bar {LM_BAR:.3e}); "
+                             f"finite {finite}; {dec_launches} kernel "
+                             f"launches in decode")
+
+    # 3. serve --mode lm: batch 4, prompt 16, gen 32.
+    cuda.reset_launches()
+    served = serve.lm_main(cfg, batch=4, prompt_len=16, gen=32, seed=0,
+                           device="cuda", params=params)
+    serve_launches = sum(cuda.LAUNCHES.values())
+    if not (served["finite"] and served["tokens_in_vocab"]
+            and serve_launches == 0):
+        raise AssertionError(f"lm serve: {served}, {serve_launches} kernel "
+                             f"launches")
+    # 4. Where one prefill's device time goes: one call under the
+    #    profiler, last, so that it is attached to no timed run.
+    records, wall = checks.device_breakdown(
+        lambda: prefill(params, {"tokens": tokens}))
+    breakdown = {}
+    for name, ms in records.items():
+        group = next((g for g, keys in LM_GROUPS if any(
+            k in name.lower() for k in keys)), "other")
+        breakdown[group] = breakdown.get(group, 0.0) + ms
+    busy = sum(records.values())
+    top = sorted(records.items(), key=lambda kv: -kv[1])[:8]
+    del params
+    torch.cuda.empty_cache()
+    row = {"phase": "lm", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "moe": None, "dtype": cfg.dtype, "params": param_count(cfg),
+           "weights_gib": weights / 2 ** 30, "init_s": init_s,
+           "prefill_B": 1, "prefill_T": LM_T, "prefill_calls": calls,
+           "prefill_ms_p50": p50,
+           "prefill_ms_p99": float(np.percentile(times, 99)),
+           "prefill_ms": times, "prefill_tokens_per_s": LM_T / p50 * 1e3,
+           "max_memory_allocated_gib": peak / 2 ** 30,
+           "profiled_wall_ms": wall, "device_busy_ms": busy,
+           "idle_share": 1.0 - busy / wall, "device_ms_by_group": breakdown,
+           "top_device_records_ms": dict(top),
+           "launches": launches, "launches_per_forward": per_forward,
+           "decode_check": {"prompt": LM_DECODE_T, "max_abs_logit": scale,
+                            "last_position_rel": last_rel,
+                            "worst_position_rel": max_rel,
+                            "mean_rel": mean_rel,
+                            "argmax_agreement": argmax_agree,
+                            "bar": LM_BAR, "kernel_launches": dec_launches},
+           "serve": {**served, "kernel_launches": serve_launches},
+           "total_s": time.perf_counter() - t_phase}
+    emit(row)
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -539,6 +727,7 @@ def main() -> int:
     window_phase(torch, cuda, serve, 1024, 1000, 1296, "float32", "pallas")
     window_phase(torch, cuda, serve, 256, 200, 396, "float64", "pallas2")
     runs["roofline"] = roofline_phase(torch, cuda)
+    runs["lm"] = lm_phase(torch, cuda, checks)
     timed = timing_phase(torch, checks)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -549,14 +738,19 @@ def main() -> int:
     # to (counts reset just before that run): the sequential service for
     # the single rotation and the prologue/projection/transform kernels,
     # the fused-pair service for rotate2, the Fig. 2 loop for scaled_gram,
-    # the roofline for rbf_gram.
+    # the roofline for rbf_gram, the LM prefill for the LM kernels.
     path_of = {"eigvec_rotate2": "pallas2", "scaled_gram": "fig2",
-               "rbf_gram": "roofline"}
-    main_m_of = {"scaled_gram": GRAM_K[0], "rbf_gram": RBF_SHAPES[0][1]}
+               "rbf_gram": "roofline", "flash_attention": "lm",
+               "ssd_intra_chunk": "lm"}
+    main_key_of = {"scaled_gram": ("float32", GRAM_K[0]),
+                   "rbf_gram": ("float32", RBF_SHAPES[0][1]),
+                   "flash_attention": (FLASH_SHAPES[0][1],
+                                       FLASH_SHAPES[0][0][2]),
+                   "ssd_intra_chunk": (SSD_SHAPES[0][1],
+                                       SSD_SHAPES[0][0][3])}
     kernels = []
     for name, (source, replaces) in checks.SOURCES.items():
-        main_m = main_m_of.get(name, MAIN_M)
-        key = (name, "float32", main_m)
+        key = (name, *main_key_of.get(name, ("float32", MAIN_M)))
         r = timed[key]
         launches = runs[path_of.get(name, "pallas")]["launches"][name]
         if not launches:

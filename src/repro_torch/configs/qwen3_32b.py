@@ -1,0 +1,21 @@
+"""qwen3-32b [dense] — GQA with qk-norm (hf:Qwen/Qwen3-32B family).
+
+64L d_model=5120 64H (GQA kv=8, head_dim=128) d_ff=25600 vocab=151936.
+"""
+from repro_torch.models.config import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen3-32b",
+    family="dense",
+    n_layers=64,
+    d_model=5120,
+    n_heads=64,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=25600,
+    vocab=151936,
+    qk_norm=True,
+    rope_theta=1_000_000.0,
+    act="swiglu",
+    dtype="bfloat16",
+)

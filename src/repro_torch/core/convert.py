@@ -9,6 +9,8 @@ state on ``device``, so a stream started in JAX continues here;
 plus ``Knm`` and, for a grow_rows state, ``Xrows``;
 ``window_from_numpy`` and ``window_to_numpy`` for a ``WindowState``: the
 KPCA fields plus the arrival ring ``ages`` and ``clock``.
+``lm_params_from_numpy`` turns the reference's LM parameter tree (as
+numpy arrays) into the port's ``models.lm.LM``.
 """
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ from repro_torch import resolve_device
 from repro_torch.core.inkpca import KPCAState
 from repro_torch.core.nystrom import NystromState
 from repro_torch.core.window import AGE_DTYPE, WindowState, age_sentinel
+from repro_torch.models import lm
+from repro_torch.models.config import ArchConfig
 
 FIELDS = ("L", "U", "m", "S", "K1", "X")
 
@@ -112,3 +116,64 @@ def window_to_numpy(state: WindowState) -> dict:
     out["ages"] = state.ages.detach().cpu().numpy()
     out["clock"] = state.clock.detach().cpu().numpy()
     return out
+
+
+def _leaves(tree: dict, prefix: str = ""):
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from _leaves(val, f"{prefix}{key}.")
+        else:
+            yield f"{prefix}{key}", val
+
+
+def _tensor(arr) -> torch.Tensor:
+    """A numpy leaf as a CPU tensor of its own type; bfloat16 (which numpy
+    holds as the ``ml_dtypes`` extension type) goes through float32,
+    exactly."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
+
+
+def load_numpy_(module: torch.nn.Module, tree: dict, device=None
+                ) -> torch.nn.Module:
+    """Replace every parameter of ``module`` by the leaf of the same dotted
+    path in the nested dict ``tree`` (the reference's parameter tree of
+    the same layer, as numpy arrays), on ``device``, each leaf keeping its
+    type; returns the module.  A leaf the module lacks, a parameter no
+    leaf fills, or a shape that differs raises."""
+    dev = resolve_device(device)
+    flat = dict(_leaves(tree))
+    names = dict(module.named_parameters())
+    if set(names) != set(flat):
+        raise ValueError(f"parameter trees differ: module only "
+                         f"{sorted(set(names) - set(flat))[:5]}, reference "
+                         f"only {sorted(set(flat) - set(names))[:5]}")
+    for name, arr in flat.items():
+        t = _tensor(arr)
+        if t.shape != names[name].shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != "
+                             f"{tuple(names[name].shape)}")
+        mod_name, _, leaf = name.rpartition(".")
+        setattr(module.get_submodule(mod_name), leaf,
+                torch.nn.Parameter(t.to(dev), requires_grad=False))
+    return module
+
+
+def lm_params_from_numpy(params: dict, cfg: ArchConfig, device=None
+                         ) -> lm.LM:
+    """The port's ``LM`` from the reference's ``lm.init_params`` tree as
+    numpy arrays: ``{'embed', 'slots': {'slot{j}': leaves stacked over
+    periods}, 'final_norm'}``.  Layer i takes period i // period of slot
+    i % period; every leaf keeps its type (``dt_bias``, ``a_log`` and
+    ``d_skip`` are float32 in a bfloat16 model)."""
+    tree = {"embed": params["embed"], "final_norm": params["final_norm"],
+            "layers": {}}
+    for i in range(cfg.n_layers):
+        period, slot = divmod(i, cfg.period)
+        tree["layers"][str(i)] = {
+            k: np.asarray(v)[period]
+            for k, v in _leaves(params["slots"][f"slot{slot}"])}
+    model = lm.LM(cfg, torch.device("meta"))
+    return load_numpy_(model, tree, device)

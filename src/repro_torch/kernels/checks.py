@@ -7,7 +7,9 @@ columns, an orthonormal active block of U, stored points and queries as
 the service draws them), and ``gram_cases(n, k, dtype, device)`` those of
 the Nyström reconstruction (B of n rows and width k), and
 ``rbf_gram_cases(n, m, dim, dtype, device)`` those of the dense RBF gram
-(the roofline's k(X, X) where n = m); each returns a
+(the roofline's k(X, X) where n = m), ``flash_attention_case`` and
+``ssd_intra_chunk_case`` those of the LM prefill's two kernels at a
+given shape; each returns a
 ``Case`` per kernel: the kernel call, its plain version, the one PyTorch
 call that computes the same function where there is one, the tolerance
 the comparison is held to and why, and the bound on its time.
@@ -24,9 +26,10 @@ by entry).  Each entry is held to its own bound, so a small column (the
 k-row projection's Uᵀa beside Uᵀk1) is not judged by a large one.
 
 Time bounds use the H100 SXM data sheet at 700 W: 3.35 TB/s of HBM,
-67 TFLOP/s in float32 (CUDA cores; TF32 is not allowed) and 67 TFLOP/s in
-float64 (the FP64 tensor cores, full IEEE float64; a bound takes the
-card's peak for the type, whatever unit the kernel uses).  Bytes count
+67 TFLOP/s in float32 (CUDA cores; TF32 is not allowed), 67 TFLOP/s in
+float64 (the FP64 tensor cores, full IEEE float64) and 989 TFLOP/s in
+bfloat16 (dense tensor cores); a bound takes the card's peak for the
+type, whatever unit the kernel uses.  Bytes count
 each input read once and each output written once; operations count what
 these inputs need (the active m, not the capacity).
 
@@ -38,6 +41,7 @@ launch latency included, as the main path pays them.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Callable
 
@@ -46,6 +50,8 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+import torch.nn.functional as F
+
 from repro_torch.core import engine, kernels_fn as kf, rankone
 from repro_torch.kernels.eigvec_update import ops as eops
 from repro_torch.kernels.eigvec_update import ref as eref
@@ -53,12 +59,17 @@ from repro_torch.kernels.nystrom_recon import ops as nops
 from repro_torch.kernels.nystrom_recon import ref as nref
 from repro_torch.kernels.nystrom_recon.ref import transform_project_ref
 from repro_torch.kernels.rbf_gram import ops as kops
+from repro_torch.kernels.flash_attn import ops as fops
+from repro_torch.kernels.flash_attn.ref import flash_attention_ref
 from repro_torch.kernels.rbf_gram.ref import krow_project_ref, rbf_gram_ref
+from repro_torch.kernels.ssd_chunk import ops as sops
+from repro_torch.kernels.ssd_chunk.ref import ssd_intra_chunk_ref
 
 Tensor = torch.Tensor
 
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12,
+              torch.bfloat16: 989e12}
 
 SOURCES = {
     "eigvec_rotate": ("src/repro_torch/kernels/csrc/eigvec_rotate.cu",
@@ -76,6 +87,10 @@ SOURCES = {
                     "src/repro/kernels/nystrom_recon/nystrom_recon.py:39"),
     "rbf_gram": ("src/repro_torch/kernels/csrc/rbf_gram.cu",
                  "src/repro/kernels/rbf_gram/rbf_gram.py:46"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attn/flash_attn.py:73"),
+    "ssd_intra_chunk": ("src/repro_torch/kernels/csrc/ssd_intra_chunk.cu",
+                        "src/repro/kernels/ssd_chunk/ssd_chunk.py:48"),
 }
 
 N_QUERIES, N_COMPONENTS, DIM = 64, 8, 16
@@ -406,6 +421,162 @@ def rbf_gram_cases(n: int, m: int, dim: int, dtype, device, seed: int = 0
     return [rbf_gram_case(x, y, float(dim))]
 
 
+def _unit_roundoff(dtype) -> float:
+    """Half the type's eps; 0 for float32 and wider, where the LM kernels'
+    casts to the operand type are exact."""
+    return 0.0 if dtype in (torch.float32, torch.float64) else (
+        torch.finfo(dtype).eps / 2)
+
+
+def flash_attention_tol(q: Tensor, k: Tensor, v: Tensor) -> Tensor:
+    """Per-entry bound on two evaluations of causal attention (layout
+    (B, T, H, hd), kv head h // (H / Hkv)) that sum in float32 and round p
+    and the output to the operands' type u.  With w the softmax weights
+    and a_tc = Σ_s w_ts |v_sc|:
+      - p and the output rounded to the type: 2u + 2u, each times a;
+      - float32 sums of T terms (the PV product and l): 4(T+2)eps;
+      - exp and its argument s - m (|s - m| < 64 where p matters), and one
+        rescale by exp(m_old - m_new) per 64-key tile: (64 + 8 T/64)eps;
+      - the scores, length-hd dot products scaled by 1/sqrt(hd), differ by
+        at most δ_t = 2(hd+2)eps·scale·max_s (|q_t|·|k_s|); softmax moves
+        each weight by at most a factor e^{±2δ}, so o by 2δ_t·a.
+    Computed one kv head (its group of q heads) at a time, in float32."""
+    B, T, H, hd = q.shape
+    Hkv = k.shape[2]
+    g = H // Hkv
+    eps = torch.finfo(torch.float32).eps
+    u = _unit_roundoff(q.dtype)
+    scale = 1.0 / hd ** 0.5
+    rel = 4 * u + (4 * (T + 2) + 64 + 8 * -(-T // 64)) * eps
+    causal = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
+    tol = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    for j in range(Hkv):
+        qj = q[:, :, j * g:(j + 1) * g].float()
+        kj, vj = k[:, :, j].float(), v[:, :, j].float().abs()
+        s = torch.einsum("btgd,bsd->bgts", qj, kj) * scale
+        w = torch.softmax(torch.where(causal, s, -torch.inf), dim=-1)
+        del s
+        a = torch.einsum("bgts,bsd->btgd", w, vj)
+        del w
+        qk = torch.einsum("btgd,bsd->bgts", qj.abs(), kj.abs())
+        delta = 2 * (hd + 2) * eps * scale * torch.where(
+            causal, qk, 0.0).amax(dim=-1)                    # (B, g, T)
+        del qk
+        tol[:, :, j * g:(j + 1) * g] = a * (
+            rel + 2 * delta.permute(0, 2, 1)[..., None])
+    return tol + torch.finfo(torch.float32).tiny
+
+
+def flash_attention_work(B: int, T: int, H: int, Hkv: int, hd: int,
+                         item: int) -> tuple[float, float]:
+    """(bytes, flops) the causal function needs: q, k, v read once and out
+    written once; 4 hd flops (QKᵀ and PV) for each pair s <= t of each
+    head."""
+    return (item * B * T * hd * (2 * H + 2 * Hkv),
+            4.0 * hd * H * B * T * (T + 1) / 2)
+
+
+def ssd_intra_chunk_work(G: int, Q: int, N: int, H: int, P: int,
+                         item: int) -> tuple[float, float]:
+    """(bytes, flops) the intra-chunk term needs: c, b, x (``item`` bytes
+    each entry) and cum (float32) read once, y written once; per pair
+    s <= t the score once (2N, shared by the heads) and per head the
+    decay, its product and the apply (2P + 2)."""
+    return (item * (2 * G * Q * N + 2 * G * Q * H * P) + 4 * G * Q * H,
+            1.0 * G * Q * (Q + 1) / 2 * (2 * N + H * (2 * P + 2)))
+
+
+def flash_attention_case(B: int, T: int, H: int, Hkv: int, hd: int, dtype,
+                         device, seed: int = 0) -> Case:
+    """Causal attention at (B, T, H, Hkv, hd): q, k, v standard normal, as
+    an unnormalised projection of a normed hidden state gives them
+    (scores of unit spread after the 1/sqrt(hd) scale).  The library call
+    is ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
+    on the (B, H, T, hd) views, timed as a yardstick only."""
+    rng = np.random.default_rng(seed)
+
+    def draw(h):
+        return torch.as_tensor(rng.normal(size=(B, T, h, hd)),
+                               dtype=torch.float32).to(dtype).to(device)
+
+    q, k, v = draw(H), draw(Hkv), draw(Hkv)
+    item = q.element_size()
+    return Case(
+        name="flash_attention",
+        kernel=lambda: (fops.causal_attention(q, k, v),),
+        plain=lambda: (flash_attention_ref(q, k, v),),
+        library=lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True),
+        tols=(flash_attention_tol(q, k, v),),
+        tol_reason="per entry a_tc·(4u + (4(T+2) + 64 + 8T/64)eps32 + "
+                   "2δ_t), a_tc = Σ_s w_ts|v_sc|, u the operands' unit "
+                   "roundoff (p and the output rounded), δ_t = 2(hd+2)"
+                   "eps32·max_s(|q_t|·|k_s|)/sqrt(hd) the scores' error "
+                   "through the softmax",
+        **dict(zip(("bytes", "flops"),
+                   flash_attention_work(B, T, H, Hkv, hd, item))))
+
+
+def ssd_intra_chunk_tol(c: Tensor, b: Tensor, x: Tensor, cum: Tensor
+                        ) -> Tensor:
+    """Per-entry bound on two evaluations of the intra-chunk term that sum
+    in float32 and round m and y to x's type u.  With D the decay
+    exp(cum_t - cum_s) (s <= t, else 0) and M = (c·b)∘D:
+      - m rounded to the type in each and its float32 product and exp
+        (within 4 ulp): (2u + 12 eps)|M|;
+      - the scores, length-N float32 dot products: 2(N+2)eps(|c||b|ᵀ)∘D;
+      - y, a float32 sum of Q terms, then rounded: 2(Q+2)eps + 2u;
+    so tol = ((4u + (2Q+16)eps)|M| + 2(N+2)eps(|c||b|ᵀ)∘D) @ |x|, per
+    chunk and head, in float64, one chunk at a time."""
+    G, Q, N = c.shape
+    eps = torch.finfo(torch.float32).eps
+    u = _unit_roundoff(x.dtype)
+    causal = torch.ones((Q, Q), dtype=torch.bool, device=c.device).tril()
+    tol = torch.empty(x.shape, dtype=torch.float64, device=x.device)
+    for gi in range(G):
+        cg, bg = c[gi].double(), b[gi].double()
+        ldiff = cum[gi].double()[:, None, :] - cum[gi].double()[None, :, :]
+        D = torch.where(causal[..., None],
+                        torch.exp(torch.where(causal[..., None], ldiff, 0.0)),
+                        0.0)                                   # (Q, Q, H)
+        weight = ((4 * u + (2 * Q + 16) * eps) * (cg @ bg.T).abs()[..., None]
+                  + 2 * (N + 2) * eps * (cg.abs() @ bg.abs().T)[..., None]
+                  ) * D
+        tol[gi] = torch.einsum("tsh,shp->thp", weight, x[gi].double().abs())
+    return tol + torch.finfo(torch.float32).tiny
+
+
+def ssd_intra_chunk_case(G: int, Q: int, N: int, H: int, P: int, dtype,
+                         device, seed: int = 0) -> Case:
+    """The intra-chunk term at (G, Q, N, H, P): c, b of spread 0.3 and x
+    standard normal in ``dtype``, cum float32 falling by uniform(0, 0.2)
+    per step (the reference's test inputs).  No single PyTorch call
+    computes the function."""
+    rng = np.random.default_rng(seed)
+
+    def draw(*shape, scale=1.0):
+        return torch.as_tensor(rng.normal(size=shape) * scale,
+                               dtype=torch.float32).to(dtype).to(device)
+
+    c, b = draw(G, Q, N, scale=0.3), draw(G, Q, N, scale=0.3)
+    x = draw(G, Q, H, P)
+    cum = torch.as_tensor(-np.cumsum(rng.uniform(0, 0.2, (G, Q, H)), axis=1),
+                          dtype=torch.float32, device=device)
+    item = x.element_size()
+    return Case(
+        name="ssd_intra_chunk",
+        kernel=lambda: (sops.intra_chunk(c, b, x, cum),),
+        plain=lambda: (ssd_intra_chunk_ref(c, b, x, cum),),
+        library=None,
+        tols=(ssd_intra_chunk_tol(c, b, x, cum),),
+        tol_reason="per entry ((4u + (2Q+16)eps32)|M| + 2(N+2)eps32"
+                   "(|c||b|ᵀ)∘D) @ |x|, M = (c·b)∘D, D the decay below "
+                   "the diagonal, u x's unit roundoff (m and y rounded)",
+        **dict(zip(("bytes", "flops"),
+                   ssd_intra_chunk_work(G, Q, N, H, P, item))))
+
+
 def compare(case: Case) -> dict:
     """Run the kernel and its plain version on the same inputs; raise if
     any entry of an output is off by more than its own tolerance or a
@@ -444,17 +615,20 @@ def compare(case: Case) -> dict:
 
 def device_ms(fn: Callable[[], object], reps: int = 25, warmup: int = 3,
               attempts: int = 3) -> tuple[float, float]:
-    """(device ms per call, device launches per call) of ``fn``: the sum
-    of the device activity records (kernels, copies, sets) of ``reps``
-    calls under ``torch.profiler``, divided by ``reps``, after ``warmup``
-    calls.  Gaps between launches and the host's work are not counted.
-    Operands stay in L2 between calls, as on the main path, where the
-    previous step just wrote them.
+    """(device ms per call, device launches per call) of ``fn``: the device
+    activity records (kernels, copies, sets) of ``reps`` calls under
+    ``torch.profiler``, after ``warmup`` calls, per call.  Gaps between
+    launches and the host's work are not counted.  Operands stay in L2
+    between calls, as on the main path, where the previous step just
+    wrote them.
 
-    Every call issues the same device work, so the record count is a
-    multiple of ``reps``; a profile that recorded nothing or lost records
-    (CUPTI drops a whole buffer now and then) is taken again, up to
-    ``attempts`` times, and then raises."""
+    Every call issues the same device work, so each record name comes
+    ``k`` times a call: a name's per-call time is ``k`` times the mean of
+    its records.  A record that the profiler did not attribute now and
+    then (one of 25 after the LM phase on an H100) is so made up by its
+    name's others; a profile that recorded nothing, or lost more than a
+    tenth of a name's records (CUPTI drops a whole buffer now and then),
+    is taken again, up to ``attempts`` times, and then raises."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -464,12 +638,42 @@ def device_ms(fn: Callable[[], object], reps: int = 25, warmup: int = 3,
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        spans = [e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA]
-        if spans and len(spans) % reps == 0:
-            return sum(spans) / reps / 1e3, len(spans) / reps
-    raise RuntimeError(f"the profiler recorded {len(spans)} device records "
-                       f"for {reps} calls in each of {attempts} attempts")
+        by_name: dict[str, list[float]] = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name.setdefault(e.name, []).append(
+                    e.time_range.elapsed_us())
+        per_call = {n: max(1, round(len(v) / reps))
+                    for n, v in by_name.items()}
+        if by_name and all(abs(len(v) - per_call[n] * reps) <= reps // 10
+                           for n, v in by_name.items()):
+            ms = sum(per_call[n] * float(np.mean(v))
+                     for n, v in by_name.items()) / 1e3
+            return ms, float(sum(per_call.values()))
+    raise RuntimeError(f"the profiler recorded "
+                       f"{ {n: len(v) for n, v in by_name.items()} } device "
+                       f"records for {reps} calls in each of {attempts} "
+                       f"attempts")
+
+
+def device_breakdown(fn: Callable[[], object]) -> tuple[dict, float]:
+    """({device record name: summed ms}, wall ms) of one call of ``fn``
+    under ``torch.profiler`` (after one warm-up call), the wall time
+    between two synchronisations around it.  The records' sum against the
+    wall time gives the device's busy share."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    out: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return out, wall
 
 
 def call_ms(fn: Callable[[], object], reps: int = 25, warmup: int = 3

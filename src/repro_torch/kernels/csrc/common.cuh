@@ -1,6 +1,7 @@
 // Shared device helpers of the port's CUDA kernels.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace repro {
@@ -26,6 +27,38 @@ __device__ __forceinline__ T kernel_epilogue(T d2, int kind, T sigma,
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
   for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// Operand types of the LM kernels, read into and written from float.
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T from_float(float v);
+template <>
+__device__ __forceinline__ float from_float<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);               // round to nearest even
+}
+// v rounded to T's precision (as torch's .to(T) rounds it), kept as float.
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  return to_float(from_float<T>(v));
+}
+
+// Largest (or sum) over the 16 lanes of a half warp (every lane of the
+// half gets it): the lanes that hold one row of a 16-wide thread tile.
+__device__ __forceinline__ float half_warp_max(float v) {
+  for (int off = 8; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+__device__ __forceinline__ float half_warp_sum(float v) {
+  for (int off = 8; off > 0; off >>= 1)
     v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }

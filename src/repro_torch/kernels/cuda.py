@@ -28,13 +28,14 @@ CSRC = Path(__file__).with_name("csrc")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("errors.cu", "eigvec_rotate.cu", "eigvec_rotate2.cu",
            "eigvec_project.cu", "krow_project.cu", "transform_project.cu",
-           "scaled_gram.cu", "rbf_gram.cu")
+           "scaled_gram.cu", "rbf_gram.cu", "flash_attention.cu",
+           "ssd_intra_chunk.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-# C signature of each entry point (the _f32/_f64 pair share one).
+# C signature of each entry point (its typed variants share one).
 SIGNATURES = {
     "eigvec_rotate": (P, P, P, P, P, P, P, P, I, F, P),
     "eigvec_rotate2": (P,) * 16 + (I, F, P),
@@ -43,7 +44,16 @@ SIGNATURES = {
     "transform_project": (P, P, P, P, P, P, I, I, I, I, I, F, F, P),
     "scaled_gram": (P, P, P, I, I, P),
     "rbf_gram": (P, P, P, I, I, I, F, P),
+    "flash_attention": (P, P, P, P, I, I, I, I, I, F, P),
+    "ssd_intra_chunk": (P, P, P, P, P, I, I, I, I, I, P),
 }
+# The typed variants of each entry point, by the operands' type; the LM
+# kernels take float32 and bfloat16, the others float32 and float64.
+SUFFIXES = {torch.float32: "_f32", torch.float64: "_f64",
+            torch.bfloat16: "_bf16"}
+TYPES = {name: (torch.float32, torch.float64) for name in SIGNATURES}
+TYPES.update(flash_attention=(torch.float32, torch.bfloat16),
+             ssd_intra_chunk=(torch.float32, torch.bfloat16))
 
 # Launches per kernel since the last ``reset_launches`` — a plain count,
 # incremented only where a kernel is launched.
@@ -117,8 +127,8 @@ def library() -> ctypes.CDLL:
         build()
         lib = ctypes.CDLL(str(_build_dir() / "librepro_torch_kernels.so"))
         for name, args in SIGNATURES.items():
-            for suffix in ("_f32", "_f64"):
-                fn = getattr(lib, name + suffix)
+            for dtype in TYPES[name]:
+                fn = getattr(lib, name + SUFFIXES[dtype])
                 fn.argtypes = list(args)
                 fn.restype = ctypes.c_int
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
@@ -129,11 +139,12 @@ def library() -> ctypes.CDLL:
 
 def check_operands(name: str, *tensors: torch.Tensor) -> torch.dtype:
     """Raise unless every operand is a contiguous CUDA tensor of one float
-    type (f32 or f64) on one device; returns that type."""
+    type that ``name`` takes (``TYPES``) on one device; returns that
+    type."""
     dtype = tensors[0].dtype
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"{name}: CUDA kernel takes float32 or float64, "
-                        f"got {dtype}")
+    if dtype not in TYPES[name]:
+        raise TypeError(f"{name}: CUDA kernel takes "
+                        f"{' or '.join(map(str, TYPES[name]))}, got {dtype}")
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev or t.device.type != "cuda":
@@ -160,7 +171,7 @@ def launch(name: str, dtype: torch.dtype, *args) -> None:
     """Call ``name``'s C entry point for ``dtype`` on the current stream;
     tensors pass as pointers.  Raises if the launch was refused."""
     lib = library()
-    fn = getattr(lib, name + ("_f32" if dtype == torch.float32 else "_f64"))
+    fn = getattr(lib, name + SUFFIXES[dtype])
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     rc = fn(*conv, torch.cuda.current_stream().cuda_stream)
     if rc != 0:

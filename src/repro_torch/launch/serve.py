@@ -1,4 +1,17 @@
-"""Streaming services of the port.
+"""Serving drivers of the port.
+
+* ``--mode lm``: the LM decode loop with KV and recurrent caches, as the
+  reference's ``serve --mode lm``: the prompt is fed through teacher-forced
+  decode steps (cache warm-up), then ``--gen`` tokens are decoded greedily.
+  Parameters are drawn from ``--seed`` on the device; ``--smoke`` takes
+  the architecture's reduced config.
+
+      PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \\
+          --device cpu --arch jamba_1_5_large_398b --smoke
+
+  The port runs an architecture with experts with ``moe=None``: every
+  layer takes its dense FFN (``configs``; the experts are ROADMAP.md §1
+  item 11).
 
 * ``--mode kpca``: incremental-KPCA ingest + transform.  Points arrive one
   at a time; each is folded into the eigendecomposition (Algorithm 2) and
@@ -40,9 +53,13 @@ import time
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import configs, resolve_device
 from repro_torch.core import engine as eng
 from repro_torch.core import inkpca, kernels_fn as kf, nystrom
+from repro_torch.data.synthetic import TokenStream
+from repro_torch.launch import steps
+from repro_torch.models import lm
+from repro_torch.models.config import ArchConfig
 from repro_torch.obs import LatencyHistogram
 
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
@@ -196,11 +213,73 @@ def nystrom_main(args) -> dict:
     return result
 
 
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def lm_main(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 16,
+            gen: int = 32, seed: int = 0, device=None,
+            params: lm.LM | None = None) -> dict:
+    """The LM decode service: ``batch`` prompts of ``prompt_len`` tokens
+    from the synthetic stream, fed through teacher-forced decode steps,
+    then ``gen`` greedy decode steps.  ``params`` defaults to the model
+    drawn from ``seed`` on ``device``.  Times are host clock around work
+    that ends in a device synchronize."""
+    dev = resolve_device(device)
+    if params is None:
+        params = lm.init_params(cfg, seed, dev)
+    serve_step = steps.make_serve_step(cfg)
+    max_seq = prompt_len + gen
+    stream = TokenStream(vocab=cfg.vocab, seq_len=prompt_len,
+                         global_batch=batch, seed=seed)
+    prompts = stream.batch_at(0, dev)["tokens"]
+    caches = lm.init_caches(params, cfg, batch, max_seq)
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    for t in range(prompt_len):       # prefill: teacher-forced decode
+        pos = torch.full((batch, 1), t, dtype=torch.int64, device=dev)
+        nxt, logits, caches = serve_step(params, caches,
+                                         prompts[:, t:t + 1], pos)
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+
+    generated = []
+    tok = nxt
+    t0 = time.perf_counter()
+    for t in range(prompt_len, max_seq):      # greedy continuation
+        pos = torch.full((batch, 1), t, dtype=torch.int64, device=dev)
+        tok, logits, caches = serve_step(params, caches, tok, pos)
+        generated.append(tok)
+    _sync(dev)
+    t_decode = time.perf_counter() - t0
+
+    out = torch.cat(generated, dim=1)
+    result = {"arch": cfg.name, "n_layers": cfg.n_layers, "device": dev.type,
+              "prefill_s": t_prefill, "decode_s": t_decode,
+              "tokens_per_s": batch * gen / max(t_decode, 1e-9),
+              "generated_shape": tuple(out.shape),
+              "finite": bool(torch.isfinite(logits).all()),
+              "tokens_in_vocab": bool(((out >= 0) & (out < cfg.vocab)).all())}
+    print(f"[serve/lm] {cfg.name}: served {batch}x{gen} tokens on "
+          f"{dev.type}: {result['tokens_per_s']:.1f} tok/s  {result}")
+    return result
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--mode", choices=("kpca", "nystrom"), default="kpca")
+    ap.add_argument("--mode", choices=("lm", "kpca", "nystrom"),
+                    default="kpca")
+    ap.add_argument("--arch", default="qwen3_32b",
+                    help="lm mode: architecture id (repro_torch.configs)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="lm mode: the architecture's reduced config")
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--batch", type=int, default=4,
-                    help="queries per transform batch")
+                    help="queries per transform batch (kpca); sequences "
+                         "(lm)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--capacity", type=int, default=512)
     ap.add_argument("--points", type=int, default=100)
@@ -237,6 +316,10 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
+    if args.mode == "lm":
+        return lm_main(configs.get_config(args.arch, smoke=args.smoke),
+                       batch=args.batch, prompt_len=args.prompt_len,
+                       gen=args.gen, seed=args.seed, device=args.device)
     return nystrom_main(args) if args.mode == "nystrom" else kpca_main(args)
 
 

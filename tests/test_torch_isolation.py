@@ -38,7 +38,13 @@ def test_the_slice_modules_are_covered():
     names = {p.relative_to(PORT).as_posix() for p in FILES if PORT in p.parents}
     for rel in ("core/rankone.py", "core/nystrom.py", "core/convert.py",
                 "data/uci_like.py", "kernels/nystrom_recon/ops.py",
-                "kernels/eigvec_update/ops.py", "launch/serve.py"):
+                "kernels/eigvec_update/ops.py", "launch/serve.py",
+                "models/config.py", "models/layers.py", "models/ssm.py",
+                "models/lm.py", "configs/__init__.py",
+                "configs/jamba_1_5_large_398b.py", "launch/steps.py",
+                "data/synthetic.py", "kernels/flash_attn/ops.py",
+                "kernels/flash_attn/ref.py", "kernels/ssd_chunk/ops.py",
+                "kernels/ssd_chunk/ref.py"):
         assert rel in names, rel
 
 

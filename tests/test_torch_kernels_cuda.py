@@ -63,7 +63,8 @@ def test_stream_on_cuda_matches_cpu(device):
     assert cuda.LAUNCHES == {"eigvec_rotate": 160, "eigvec_rotate2": 0,
                              "krow_project": 40, "eigvec_project": 40,
                              "transform_project": 1, "scaled_gram": 0,
-                             "rbf_gram": 0}
+                             "rbf_gram": 0, "flash_attention": 0,
+                             "ssd_intra_chunk": 0}
     K = kf.gram_block(torch.tensor(X), torch.tensor(X), spec=spec)
     lam_ref = batch.batch_kpca(K, adjusted=True)[0].numpy()
     scale = max(1.0, np.abs(lam_ref).max())
@@ -214,3 +215,81 @@ def test_wrappers_refuse_bad_operands(device):
         kops.gram(u, torch.zeros(3, 5, device=device), 1.0)
     with pytest.raises(TypeError, match="mixed"):
         kops.gram(u, u.double(), 1.0)
+
+
+@pytest.mark.parametrize("B,T,H,Hkv,hd", [
+    (1, 1, 2, 1, 64), (2, 77, 6, 3, 100), (1, 130, 4, 4, 128),
+    (1, 64, 8, 2, 32), (1, 1000, 8, 2, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_matches_plain_version(device, B, T, H, Hkv, hd,
+                                               dtype):
+    """Odd T (not a multiple of the 64-row tile), T = 1, head dims short of
+    a float4 (100) and up to the largest (128), GQA groups of 1 to 4."""
+    checks.compare(checks.flash_attention_case(
+        B, T, H, Hkv, hd, getattr(torch, dtype), device, seed=T + H))
+
+
+@pytest.mark.parametrize("G,Q,N,H,P", [
+    (1, 1, 8, 3, 8), (3, 40, 16, 5, 8), (2, 256, 128, 20, 64),
+    (2, 100, 33, 17, 63)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_intra_chunk_matches_plain_version(device, G, Q, N, H, P,
+                                               dtype):
+    """Head counts that are no multiple of the kernel's group of 16, Q not
+    a multiple of its 64-row tile, N not a multiple of its 32-wide slab."""
+    checks.compare(checks.ssd_intra_chunk_case(
+        G, Q, N, H, P, getattr(torch, dtype), device, seed=G + Q + H))
+
+
+def test_lm_on_cuda_matches_cpu(device):
+    """Jamba's smoke config (7 mamba + 1 attention layers, float32) on the
+    card and on the CPU from the same weights: the forward (1
+    flash_attention and 7 ssd_intra_chunk launches) and a decode step agree
+    at the reference's flash-vs-naive bar, 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    cfg = get_config("jamba_1_5_large_398b", smoke=True)
+    cpu = lm.init_params(cfg, seed=0)
+    gpu = lm.init_params(cfg, seed=0, device=device)
+    gpu.load_state_dict(cpu.state_dict())
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 16)))
+    cuda.reset_launches()
+    got = lm.forward(gpu, cfg, tokens.to(device))
+    torch.cuda.synchronize()
+    assert (cuda.LAUNCHES["flash_attention"],
+            cuda.LAUNCHES["ssd_intra_chunk"]) == (1, 7)
+    want = lm.forward(cpu, cfg, tokens)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4)
+    outs = []
+    for params, dev in ((gpu, device), (cpu, "cpu")):
+        caches = lm.init_caches(params, cfg, 2, 16)
+        lg, _ = lm.decode_step(params, cfg, caches, tokens[:, :1].to(dev),
+                               torch.zeros((2, 1), dtype=torch.int64,
+                                           device=dev))
+        outs.append(lg.cpu().numpy())
+    np.testing.assert_allclose(outs[0], outs[1], atol=1e-4)
+
+
+def test_lm_wrappers_refuse_bad_operands(device):
+    from repro_torch.kernels.flash_attn import ops as fops
+    from repro_torch.kernels.ssd_chunk import ops as sops
+    q = torch.zeros(1, 8, 4, 16, device=device)
+    with pytest.raises(ValueError, match="flash_attention"):
+        fops.causal_attention(q, q[:, :, :3].contiguous(),
+                              q[:, :, :3].contiguous())
+    with pytest.raises(TypeError):
+        fops.causal_attention(q.double(), q.double(), q.double())
+    with pytest.raises(ValueError, match="head dim"):
+        z = torch.zeros(1, 8, 1, 256, device=device)
+        fops.causal_attention(z, z, z)
+    c = torch.zeros(2, 8, 4, device=device)
+    x = torch.zeros(2, 8, 3, 16, device=device)
+    with pytest.raises(ValueError, match="cum is float32"):
+        sops.intra_chunk(c, c, x,
+                         torch.zeros(2, 8, 3, device=device).bfloat16())
+    with pytest.raises(ValueError, match="chunk"):
+        big = torch.zeros(1, 300, 4, device=device)
+        sops.intra_chunk(big, big, torch.zeros(1, 300, 1, 8, device=device),
+                         torch.zeros(1, 300, 1, device=device))

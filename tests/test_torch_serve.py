@@ -1,5 +1,5 @@
-"""The port's ``launch/serve.py`` (``--mode kpca`` and ``--mode nystrom``) at
-a small size on the CPU."""
+"""The port's ``launch/serve.py`` (``--mode kpca``, ``--mode nystrom`` and
+``--mode lm``) at a small size on the CPU."""
 import math
 
 import pytest
@@ -103,3 +103,35 @@ def test_roofline_smoke_runs_on_cpu():
     assert set(res["fused"]["ingest_ms"]) == {
         "unfused_fixed", "unfused_bucketed", "fused_bucketed"}
     assert res["ingest_speedup_fused"] > 0
+
+
+def test_serve_lm_runs_on_cpu():
+    """``--mode lm`` on Jamba's smoke config without experts: the prompt
+    through teacher-forced decode steps, then greedy decode; the tokens lie
+    in the vocabulary and the logits are finite."""
+    res = serve.main(["--mode", "lm", "--device", "cpu", "--arch",
+                      "jamba_1_5_large_398b", "--smoke", "--batch", "2",
+                      "--prompt-len", "8", "--gen", "6"])
+    assert res["generated_shape"] == (2, 6) and res["device"] == "cpu"
+    assert res["finite"] and res["tokens_in_vocab"] and res["n_layers"] == 8
+    assert math.isfinite(res["tokens_per_s"]) and res["tokens_per_s"] > 0
+
+
+def test_serve_lm_is_deterministic_in_the_seed():
+    """Two runs from one seed decode the same tokens (parameters and
+    prompts both come from ``--seed``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+
+    cfg = get_config("qwen3_32b", smoke=True)
+    outs = []
+    for _ in range(2):
+        params = lm.init_params(cfg, seed=3)
+        step = steps.make_serve_step(cfg)
+        caches = lm.init_caches(params, cfg, 1, 4)
+        tok = torch.zeros((1, 1), dtype=torch.int64)
+        for t in range(4):
+            tok, _, caches = step(params, caches, tok, torch.full((1, 1), t))
+        outs.append(int(tok))
+    assert outs[0] == outs[1]
