@@ -6,7 +6,9 @@
 Phases, each printing one JSON line per row:
 
 1. ``build``   — compile the CUDA kernels from ``src/repro_torch/kernels/
-   csrc`` with nvcc (one process per source, all at once) into ``build/``.
+   csrc`` with nvcc (one process per source, all at once) into ``build/``;
+   each kernel's registers and spills (``ptxas -v``) and its count of
+   tensor-core instructions (HGMMA, DMMA) in its SASS (``cuobjdump``).
 2. ``kernels`` — each kernel against its plain PyTorch version on the same
    CUDA inputs (capacity bucket 1024 with m = 1000 and m = 300 for the
    KPCA kernels, the fused pair with deflated columns under a permuted
@@ -15,8 +17,9 @@ Phases, each printing one JSON line per row:
    the Fig. 2 data's full 4096 x 4096 gram, d = 10, in f64 and the ragged
    1000 x 300, d = 16 and 130 x 129, d = 3 in f32; ``flash_attention``
    at the LM prefill's B = 1, T = 4096, 64 q heads over 8 kv heads,
-   hd = 128 in bf16, at T = 1000 (not a multiple of the tile) in bf16 and
-   at a small f32 shape; ``ssd_intra_chunk`` at the prefill's 16 chunks of
+   hd = 128 in bf16, at T = 1000 (not a multiple of the tile) and at
+   B = 2, T = 2048, 16 / 4 heads, hd = 64 in bf16, and at a small f32
+   shape; ``ssd_intra_chunk`` at the prefill's 16 chunks of
    256, N = 128, 256 heads of 64 with bf16 x and f32 cum, and at a small
    f32 shape), each output entry within its own bound as
    ``repro_torch.kernels.checks`` states it.  A row's ``n`` and ``m`` are
@@ -73,13 +76,17 @@ Phases, each printing one JSON line per row:
    ``decode_step`` teacher-forced over the same tokens (no kernel
    launch), logits finite and within ``LM_BAR``; then ``lm_main`` as
    ``serve --mode lm`` runs it (batch 4, prompt 16, gen 32): decode
-   tokens/s, tokens in the vocabulary, finite logits, no kernel launch;
-   last, one prefill under the profiler: device time by kernel group
-   (the two LM kernels, cuBLAS's matmuls, the rest) and the idle share.
+   tokens/s, tokens in the vocabulary, finite logits, no kernel launch.
 9. ``timing`` — at the kernel phase's shapes, each kernel's device time
-   (profiler records) beside the plain version's, one library call's and
-   its bound, and each call's event-timed time, host work included.  It
-   runs last so that the profiler is never attached to a service.
+   (profiler records; where the profiler records nothing, CUDA events
+   around calls queued behind a spin kernel) beside the plain version's,
+   one library call's and its bound, and each call's event-timed time,
+   host work included.  It runs after the services so that the profiler
+   is never attached to one.
+10. ``lm_profile`` — one prefill of the ``lm`` phase under the profiler:
+   device time by kernel group (the two LM kernels, cuBLAS's matmuls, the
+   rest) and the idle share.  It runs last: on one H100 host the
+   profiler recorded no device activity after a prefill had been profiled.
 
 Then the card's name and power limit, the kernels' summary line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -93,6 +100,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Callable
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -131,6 +139,7 @@ FIG2_REL = 1e-8          # approximation_error's trace vs trace_error
 # the others.
 FLASH_SHAPES = (((1, 4096, 64, 8, 128), "bfloat16"),
                 ((1, 1000, 8, 2, 128), "bfloat16"),
+                ((2, 2048, 16, 4, 64), "bfloat16"),
                 ((2, 256, 4, 2, 64), "float32"))
 SSD_SHAPES = (((16, 256, 128, 256, 64), "bfloat16"),
               ((3, 32, 16, 4, 8), "float32"))
@@ -231,9 +240,10 @@ def timing_phase(torch, checks) -> dict:
     and its bound, at the shapes of the kernel phase.  Runs after the
     service, so the profiler (CUPTI) is never attached while the main path
     is timed.  ``ms``, ``plain_ms`` and ``library_ms`` are device time per
-    call (the profiler's CUDA activity records); the ``*call_ms`` twins
-    time whole calls between CUDA events, the wrapper's host work
-    included."""
+    call (the profiler's CUDA activity records, or ``checks.queued_ms``
+    where the profiler records nothing: ``timed_by`` says which); the
+    ``*call_ms`` twins time whole calls between CUDA events, the wrapper's
+    host work included."""
     rows = {}
     for dtype, n, m, case in all_cases(torch, checks):
         ms, per_call = checks.device_ms(case.kernel)
@@ -241,7 +251,9 @@ def timing_phase(torch, checks) -> dict:
         bound_ms, bound_by = case.bound(dtype)
         row = {"phase": "timing", "name": case.name,
                "dtype": str(dtype).removeprefix("torch."), "n": n, "m": m,
-               "ms": ms, "device_launches_per_call": per_call,
+               "ms": ms, "timed_by": ("profiler" if per_call is not None
+                                      else "queued events"),
+               "device_launches_per_call": per_call,
                "call_ms": checks.call_ms(case.kernel),
                "plain_ms": plain_ms,
                "plain_device_launches_per_call": plain_per_call,
@@ -567,10 +579,12 @@ def roofline_phase(torch, cuda) -> dict:
     return row
 
 
-def lm_phase(torch, cuda, checks) -> dict:
+def lm_phase(torch, cuda) -> tuple[dict, Callable[[], object]]:
     """The LM serving path at Jamba-1.5-Large's full width (one period, no
     experts, bf16): the prefill step timed with its launches reckoned, the
-    prefill held against teacher-forced decode, and ``serve --mode lm``."""
+    prefill held against teacher-forced decode, and ``serve --mode lm``.
+    Returns the row and one prefill call on the same parameters, for
+    ``lm_profile_phase``."""
     import dataclasses
 
     import numpy as np
@@ -659,19 +673,6 @@ def lm_phase(torch, cuda, checks) -> dict:
             and serve_launches == 0):
         raise AssertionError(f"lm serve: {served}, {serve_launches} kernel "
                              f"launches")
-    # 4. Where one prefill's device time goes: one call under the
-    #    profiler, last, so that it is attached to no timed run.
-    records, wall = checks.device_breakdown(
-        lambda: prefill(params, {"tokens": tokens}))
-    breakdown = {}
-    for name, ms in records.items():
-        group = next((g for g, keys in LM_GROUPS if any(
-            k in name.lower() for k in keys)), "other")
-        breakdown[group] = breakdown.get(group, 0.0) + ms
-    busy = sum(records.values())
-    top = sorted(records.items(), key=lambda kv: -kv[1])[:8]
-    del params
-    torch.cuda.empty_cache()
     row = {"phase": "lm", "arch": cfg.name, "n_layers": cfg.n_layers,
            "moe": None, "dtype": cfg.dtype, "params": param_count(cfg),
            "weights_gib": weights / 2 ** 30, "init_s": init_s,
@@ -680,9 +681,6 @@ def lm_phase(torch, cuda, checks) -> dict:
            "prefill_ms_p99": float(np.percentile(times, 99)),
            "prefill_ms": times, "prefill_tokens_per_s": LM_T / p50 * 1e3,
            "max_memory_allocated_gib": peak / 2 ** 30,
-           "profiled_wall_ms": wall, "device_busy_ms": busy,
-           "idle_share": 1.0 - busy / wall, "device_ms_by_group": breakdown,
-           "top_device_records_ms": dict(top),
            "launches": launches, "launches_per_forward": per_forward,
            "decode_check": {"prompt": LM_DECODE_T, "max_abs_logit": scale,
                             "last_position_rel": last_rel,
@@ -692,6 +690,30 @@ def lm_phase(torch, cuda, checks) -> dict:
                             "bar": LM_BAR, "kernel_launches": dec_launches},
            "serve": {**served, "kernel_launches": serve_launches},
            "total_s": time.perf_counter() - t_phase}
+    emit(row)
+    return row, lambda: prefill(params, {"tokens": tokens})
+
+
+def lm_profile_phase(checks, prefill_call) -> dict:
+    """Where one prefill's device time goes: one call under the profiler
+    (device records by kernel group, the device's busy and idle share).
+    It runs after the timing phase: on one H100 host the profiler recorded
+    no device activity at all in the timing phase once a prefill had been
+    profiled before it.  Where it records none here, the breakdown and the
+    idle share are None: not measured."""
+    records, wall = checks.device_breakdown(prefill_call)
+    breakdown = {}
+    for name, ms in records.items():
+        group = next((g for g, keys in LM_GROUPS if any(
+            k in name.lower() for k in keys)), "other")
+        breakdown[group] = breakdown.get(group, 0.0) + ms
+    busy = sum(records.values()) if records else None
+    top = sorted(records.items(), key=lambda kv: -kv[1])[:8]
+    row = {"phase": "lm_profile", "profiled_wall_ms": wall,
+           "device_busy_ms": busy,
+           "idle_share": None if busy is None else 1.0 - busy / wall,
+           "device_ms_by_group": breakdown or None,
+           "top_device_records_ms": dict(top) or None}
     emit(row)
     return row
 
@@ -712,7 +734,8 @@ def main() -> int:
     cuda.library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": info["seconds"], "cached": info["cached"],
-          "ptxas_registers": ptxas_summary(info.get("ptxas", {}))})
+          "ptxas_registers": ptxas_summary(info.get("ptxas", {})),
+          "sass_mma": cuda.sass_counts()})
 
     checked = kernel_phase(torch, checks, cuda)
     runs = {"pallas": service_phase(torch, cuda, serve, 1024, 1000,
@@ -727,8 +750,11 @@ def main() -> int:
     window_phase(torch, cuda, serve, 1024, 1000, 1296, "float32", "pallas")
     window_phase(torch, cuda, serve, 256, 200, 396, "float64", "pallas2")
     runs["roofline"] = roofline_phase(torch, cuda)
-    runs["lm"] = lm_phase(torch, cuda, checks)
+    runs["lm"], prefill_call = lm_phase(torch, cuda)
     timed = timing_phase(torch, checks)
+    lm_profile_phase(checks, prefill_call)
+    del prefill_call
+    torch.cuda.empty_cache()
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

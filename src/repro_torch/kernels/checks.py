@@ -35,7 +35,10 @@ these inputs need (the active m, not the capacity).
 
 Times are device times: ``device_ms`` reads the kernels' own start and end
 from the profiler's CUDA activity records (CUPTI), so the host's work in a
-wrapper (operand checks, allocation, the ctypes call) is not counted.
+wrapper (operand checks, allocation, the ctypes call) is not counted;
+where the profiler records nothing, ``queued_ms`` times the calls between
+CUDA events, queued behind a spin kernel so that the host's work is
+hidden.
 ``call_ms`` times whole calls between two CUDA events, host work and
 launch latency included, as the main path pays them.
 """
@@ -216,7 +219,9 @@ def _rotate2_case(U, L, m, rng, dtype) -> Case:
                    "length-m product carries the first one's error "
                    "(Higham gamma_m twice), both factors generated in the "
                    "working type alike",
-        bytes=item * (mi * mi + n * n + 4 * n) + 8 * 6 * n + 4 * 2 * n,
+        # U's active block and C, z, inv and defl of both factors in T; d,
+        # org and tau in f64; cid in int32.
+        bytes=item * (mi * mi + n * n + 6 * n) + 8 * 6 * n + 4 * 2 * n,
         flops=4.0 * mi ** 3 + 2.0 * mi * mi,
         exact_zero=~(rows[:, None] & cols[None, :]) & mask[None, :],
         # rank_one_update_pair puts U's own column in place of inactive
@@ -614,7 +619,7 @@ def compare(case: Case) -> dict:
 
 
 def device_ms(fn: Callable[[], object], reps: int = 25, warmup: int = 3,
-              attempts: int = 3) -> tuple[float, float]:
+              attempts: int = 3) -> tuple[float, float | None]:
     """(device ms per call, device launches per call) of ``fn``: the device
     activity records (kernels, copies, sets) of ``reps`` calls under
     ``torch.profiler``, after ``warmup`` calls, per call.  Gaps between
@@ -628,7 +633,10 @@ def device_ms(fn: Callable[[], object], reps: int = 25, warmup: int = 3,
     then (one of 25 after the LM phase on an H100) is so made up by its
     name's others; a profile that recorded nothing, or lost more than a
     tenth of a name's records (CUPTI drops a whole buffer now and then),
-    is taken again, up to ``attempts`` times, and then raises."""
+    is taken again, up to ``attempts`` times.  If every attempt failed
+    (on one H100 host the profiler recorded no device activity at all once
+    a prefill had been profiled), the time is ``queued_ms``'s instead and
+    the launches per call are None: not measured."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -650,17 +658,46 @@ def device_ms(fn: Callable[[], object], reps: int = 25, warmup: int = 3,
             ms = sum(per_call[n] * float(np.mean(v))
                      for n, v in by_name.items()) / 1e3
             return ms, float(sum(per_call.values()))
-    raise RuntimeError(f"the profiler recorded "
-                       f"{ {n: len(v) for n, v in by_name.items()} } device "
-                       f"records for {reps} calls in each of {attempts} "
-                       f"attempts")
+    return queued_ms(fn, reps=reps, warmup=0), None
+
+
+def queued_ms(fn: Callable[[], object], reps: int = 25, warmup: int = 3
+              ) -> float:
+    """Device ms per call of ``fn`` between two CUDA events, with the
+    ``reps`` calls queued behind a spin kernel: the host launches them all
+    while the device spins, so the events time the device running them
+    back to back and not the host's work between launches.  The gaps
+    between consecutive launches on the device (about a microsecond each)
+    are counted, unlike in ``device_ms``'s records.  A call that waits for
+    the device on the host (a ``.item()``) ends the queue early and is
+    timed as ``call_ms`` times it."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    # Spin twice the host's time for the calls at up to 2 GHz, and 1 ms
+    # more.
+    torch.cuda._sleep(int(4e9 * host_s) + 2_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / reps
 
 
 def device_breakdown(fn: Callable[[], object]) -> tuple[dict, float]:
     """({device record name: summed ms}, wall ms) of one call of ``fn``
     under ``torch.profiler`` (after one warm-up call), the wall time
     between two synchronisations around it.  The records' sum against the
-    wall time gives the device's busy share."""
+    wall time gives the device's busy share.  The dict is empty where the
+    profiler recorded no device activity."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,

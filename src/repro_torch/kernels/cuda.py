@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -30,7 +31,7 @@ SOURCES = ("errors.cu", "eigvec_rotate.cu", "eigvec_rotate2.cu",
            "eigvec_project.cu", "krow_project.cu", "transform_project.cu",
            "scaled_gram.cu", "rbf_gram.cu", "flash_attention.cu",
            "ssd_intra_chunk.cu")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "hopper.cuh", "rotate_tile.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,7 +39,7 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # C signature of each entry point (its typed variants share one).
 SIGNATURES = {
     "eigvec_rotate": (P, P, P, P, P, P, P, P, I, F, P),
-    "eigvec_rotate2": (P,) * 16 + (I, F, P),
+    "eigvec_rotate2": (P,) * 18 + (I, F, P),
     "eigvec_project": (P, P, P, P, I, I, P),
     "krow_project": (P, P, P, P, P, P, P, I, I, I, I, F, F, P),
     "transform_project": (P, P, P, P, P, P, I, I, I, I, I, F, F, P),
@@ -118,6 +119,38 @@ def build() -> dict:
     os.replace(tmp, so)
     return {"seconds": time.perf_counter() - t0, "cached": False,
             "dir": str(out), "ptxas": reports}
+
+
+def sass_counts() -> dict:
+    """Per kernel of the built library, how many tensor-core instructions
+    its SASS holds (``cuobjdump -sass``): HGMMA is a wgmma, DMMA a float64
+    tensor-core product.  Keys are the kernels' demangled names without
+    their parameter lists."""
+    ops = ("HGMMA", "DMMA")
+    so = _build_dir() / "librepro_torch_kernels.so"
+    tools = Path(_nvcc()).parent
+    text = subprocess.run([str(tools / "cuobjdump"), "-sass", str(so)],
+                          capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in text.splitlines():
+        hit = re.match(r"\s*Function : (\S+)", line)
+        if hit:
+            name = hit.group(1)
+            counts[name] = dict.fromkeys(ops, 0)
+        elif name:
+            for op in ops:
+                counts[name][op] += len(re.findall(rf"\b{op}\b", line))
+    names = list(counts)
+    filt = tools / "cu++filt"
+    if filt.exists() and names:
+        out = subprocess.run([str(filt)], input="\n".join(names),
+                             capture_output=True, text=True).stdout
+        plain = out.splitlines()
+        if len(plain) == len(names):
+            names = [re.sub(r"\((?:int|bool)\)|\(anonymous namespace\)::|"
+                            r"<unnamed>::", "", p)
+                     .removeprefix("void ").split("(")[0] for p in plain]
+    return dict(zip(names, counts.values()))
 
 
 def library() -> ctypes.CDLL:

@@ -64,9 +64,10 @@ def rotate_vectors2(u: Tensor,
     each factor W[k, j] = z[k]·inv[j]/((d[k] - lam[j]) - tau[j]), deflated
     columns (defl[j] != 0) the identity column e_{cid[j]}.
 
-    On the card the factors are generated slab by slab and multiplied
-    first, W12 = W1n @ W2n into an (n, n) scratch this wrapper allocates,
-    then C = U @ W12 (``csrc/eigvec_rotate2.cu`` says why); U @ W1n never
+    On the card each factor entry is formed once into scratch this
+    wrapper allocates (W1n, W2n and W12, three (n, n) matrices), the
+    factors are multiplied first, W12 = W1n @ W2n, then C = U @ W12
+    (``csrc/eigvec_rotate2.cu`` says why): three launches; U @ W1n never
     exists.  With ``num_active`` = m the reductions stop at m and output
     tiles beyond ceil(m/64) in either axis are written as exact zeros
     (inactive columns inside the active tiles come out 0: the caller
@@ -83,22 +84,26 @@ def rotate_vectors2(u: Tensor,
         d, lam = d.to(torch.float64), lam.to(torch.float64)
         tau = tau.to(torch.float64)
         cuda.check_operands("eigvec_rotate2", d, lam, tau)
-        ecol = torch.where(defl > 0, cid.to(torch.int32),
-                           torch.full_like(cid, -1, dtype=torch.int32))
-        return d, lam, tau, ecol.contiguous()
+        defl = defl.to(dtype).contiguous()
+        cuda.check_operands("eigvec_rotate2", u, defl)
+        if cid.device != u.device:
+            raise ValueError(f"eigvec_rotate2: cid on {cid.device}, u on "
+                             f"{u.device}")
+        return d, lam, tau, defl, cid.to(torch.int32).contiguous()
 
-    d1, lam1, tau1, e1 = factor(d1, lam1, tau1, defl1, cid1)
-    d2, lam2, tau2, e2 = factor(d2, lam2, tau2, defl2, cid2)
+    d1, lam1, tau1, defl1, cid1 = factor(d1, lam1, tau1, defl1, cid1)
+    d2, lam2, tau2, defl2, cid2 = factor(d2, lam2, tau2, defl2, cid2)
     if u.shape != (n, n) or any(v.shape != (n,) for v in (
-            z1, d1, lam1, tau1, inv1, e1, z2, d2, lam2, tau2, inv2, e2)):
+            z1, d1, lam1, tau1, inv1, defl1, cid1,
+            z2, d2, lam2, tau2, inv2, defl2, cid2)):
         raise ValueError(f"eigvec_rotate2: need u (n, n) and (n,) factor "
                          f"vectors, got {u.shape}")
     m = cuda.active_count(n if num_active is None else num_active, u.device)
-    w12 = torch.empty_like(u)
+    scratch = torch.empty((3, n, n), dtype=dtype, device=u.device)
     out = torch.empty_like(u)
-    cuda.launch("eigvec_rotate2", dtype, u, z1, d1, lam1, tau1, inv1, e1,
-                z2, d2, lam2, tau2, inv2, e2, m, w12, out, n,
-                offset_guard(dtype))
+    cuda.launch("eigvec_rotate2", dtype, u, z1, d1, lam1, tau1, inv1, defl1,
+                cid1, z2, d2, lam2, tau2, inv2, defl2, cid2, m, scratch, out,
+                n, offset_guard(dtype))
     return out
 
 

@@ -1,0 +1,74 @@
+"""Device time of chosen kernels at chosen shapes, on the card.
+
+    PYTHONPATH=src python -m repro_torch.launch.kernel_times \\
+        --kpca 1024:1000:float32 256:200:float64 \\
+        --flash 1:4096:64:8:128:bfloat16
+
+``--kpca n:m:dtype`` times the KPCA path's kernels named by ``--kernels``
+(default ``eigvec_rotate2``) at capacity bucket n with m active pairs;
+``--flash B:T:H:Hkv:hd:dtype`` times ``flash_attention``.  The inputs and
+bounds are ``kernels/checks.py``'s.  Each row is one JSON line: the
+kernel's device ms per call and device launches per call
+(``checks.device_ms``: profiler records, the wrapper's own elementwise
+work included), the library call's device ms, the bound and what bounds
+it, and the card's name.  Each kernel is first checked against its plain
+version.  The script reaches the kernels only through ``checks``, so run
+as a file with another tree's ``src`` first on ``PYTHONPATH`` it times
+that tree's kernels: two commits compared within one chip call.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+
+import torch
+
+from repro_torch.kernels import checks
+
+
+def _row(case, dtype, label: dict) -> dict:
+    res = checks.compare(case)
+    ms, launches = checks.device_ms(case.kernel)
+    bound_ms, bound_by = case.bound(dtype)
+    return {**label, "name": case.name,
+            "dtype": str(dtype).removeprefix("torch."), "ms": ms,
+            "device_launches_per_call": launches,
+            "library_ms": (checks.device_ms(case.library)[0]
+                           if case.library else None),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_err_over_tol": res["max_err_over_tol"],
+            "device": torch.cuda.get_device_name(0)}
+
+
+def main(argv=None) -> list[dict]:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kpca", nargs="*", default=(),
+                    help="n:m:dtype shapes of the KPCA kernels")
+    ap.add_argument("--kernels", nargs="*", default=("eigvec_rotate2",))
+    ap.add_argument("--flash", nargs="*", default=(),
+                    help="B:T:H:Hkv:hd:dtype shapes of flash_attention")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_times: needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = []
+    for spec in args.kpca:
+        n, m, dtype_name = spec.split(":")
+        dtype = getattr(torch, dtype_name)
+        for case in checks.cases(int(n), int(m), dtype, "cuda"):
+            if case.name in args.kernels:
+                rows.append(_row(case, dtype, {"n": int(n), "m": int(m)}))
+                print(json.dumps(rows[-1]), flush=True)
+    for spec in args.flash:
+        *shape, dtype_name = spec.split(":")
+        B, T, H, Hkv, hd = map(int, shape)
+        dtype = getattr(torch, dtype_name)
+        case = checks.flash_attention_case(B, T, H, Hkv, hd, dtype, "cuda")
+        rows.append(_row(case, dtype, {"B": B, "T": T, "H": H, "Hkv": Hkv,
+                                       "hd": hd}))
+        print(json.dumps(rows[-1]), flush=True)
+    return rows
+
+
+if __name__ == "__main__":
+    main()

@@ -39,6 +39,58 @@ def test_kernels_match_plain_versions(device, n, m, dtype):
         checks.compare(case)
 
 
+@pytest.mark.parametrize("n,m", [(200, 1), (200, 65), (300, 129),
+                                 (256, 256), (130, 130), (131, 100)])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_rotate2_matches_plain_version(device, n, m, dtype):
+    """The fused pair at m = 1, one past a 64 granule (65) and past a
+    128-row tile (129), m = n, and capacities whose rows are no multiple of
+    16 bytes (130 in float32, 131 in both: one value per copy)."""
+    rot2 = [c for c in checks.cases(n, m, getattr(torch, dtype), device,
+                                    seed=n + m) if c.name == "eigvec_rotate2"]
+    checks.compare(rot2[0])
+
+
+def test_flash_attention_bf16_runs_on_the_tensor_cores(device):
+    """The bfloat16 attention kernel's SASS holds wgmma instructions."""
+    cuda.library()
+    counts = cuda.sass_counts()
+    wgmma = {k: v for k, v in counts.items()
+             if "flash_attention_kernel_wgmma" in k}
+    assert wgmma and all(v["HGMMA"] > 0 for v in wgmma.values()), counts
+
+
+def test_device_ms_falls_back_to_queued_events(device, monkeypatch):
+    """Where the profiler records no device activity, ``device_ms`` times
+    the calls queued behind a spin kernel, with the launches not measured;
+    that time agrees with the profiler's records where it has them (the
+    events also count the gaps between the fused pair's three launches)."""
+    case = next(c for c in checks.cases(1024, 1000, torch.float32, device,
+                                        seed=0)
+                if c.name == "eigvec_rotate2")
+    prof_ms, launches = checks.device_ms(case.kernel)
+    assert launches == 3
+
+    class Silent:
+        def __init__(self, *args, **kwargs):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def events(self):
+            return []
+
+    monkeypatch.setattr(checks, "profile", Silent)
+    queued, none = checks.device_ms(case.kernel)
+    assert none is None
+    assert 0.8 * prof_ms <= queued <= 1.25 * prof_ms + 0.01, (queued,
+                                                              prof_ms)
+
+
 def test_stream_on_cuda_matches_cpu(device):
     """The slice's plan on the card (all four kernels) against the same
     stream on the CPU (their plain versions), f64, 40 points.  The two
@@ -219,12 +271,15 @@ def test_wrappers_refuse_bad_operands(device):
 
 @pytest.mark.parametrize("B,T,H,Hkv,hd", [
     (1, 1, 2, 1, 64), (2, 77, 6, 3, 100), (1, 130, 4, 4, 128),
-    (1, 64, 8, 2, 32), (1, 1000, 8, 2, 128)])
+    (1, 64, 8, 2, 32), (1, 1000, 8, 2, 128), (1, 129, 4, 2, 128),
+    (1, 255, 8, 8, 64), (3, 200, 6, 2, 128)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_matches_plain_version(device, B, T, H, Hkv, hd,
                                                dtype):
-    """Odd T (not a multiple of the 64-row tile), T = 1, head dims short of
-    a float4 (100) and up to the largest (128), GQA groups of 1 to 4."""
+    """Odd T (not a multiple of the 64-row float32 tile or the 128-row
+    bfloat16 tile: 129 one row past it, 255 one short of two), T = 1, head
+    dims the bfloat16 kernel pads (32, 100) and up to the largest (128),
+    GQA groups of 1 to 4 (Hkv = H among them), B = 3."""
     checks.compare(checks.flash_attention_case(
         B, T, H, Hkv, hd, getattr(torch, dtype), device, seed=T + H))
 
