@@ -13,8 +13,9 @@ given shape; each returns a
 ``Case`` per kernel: the kernel call, its plain version, the one PyTorch
 call that computes the same function where there is one, the tolerance
 the comparison is held to and why, and the bound on its time.
-``compare`` runs both versions and checks them.  Used by
-``chip_smoke.py`` and ``tests/test_torch_kernels_cuda.py``.
+``compare`` runs both versions and checks them; ``error_vs_exact`` holds
+both to a float64 product of the same operands where the case has one.
+Used by ``chip_smoke.py`` and ``tests/test_torch_kernels_cuda.py``.
 
 Tolerances are per output entry, from the componentwise forward error
 bound of a length-K dot product (Higham's gamma_K = K·eps per term
@@ -26,12 +27,19 @@ by entry).  Each entry is held to its own bound, so a small column (the
 k-row projection's Uᵀa beside Uᵀk1) is not judged by a large one.
 
 Time bounds use the H100 SXM data sheet at 700 W: 3.35 TB/s of HBM,
-67 TFLOP/s in float32 (CUDA cores; TF32 is not allowed), 67 TFLOP/s in
-float64 (the FP64 tensor cores, full IEEE float64) and 989 TFLOP/s in
-bfloat16 (dense tensor cores); a bound takes the card's peak for the
-type, whatever unit the kernel uses.  Bytes count
+67 TFLOP/s in float32 (CUDA cores; one TF32 pass misses the float32
+bars), 67 TFLOP/s in float64 (the FP64 tensor cores, full IEEE float64)
+and 989 TFLOP/s in bfloat16 (dense tensor cores); a bound takes the card's
+peak for the type, whatever unit the kernel uses, except where a case
+names its own: float32 ``eigvec_rotate`` counts its three TF32 products
+at 495 TFLOP/s (the float32-accurate split the kernel runs; below the
+float32 roof).  Bytes count
 each input read once and each output written once; operations count what
 these inputs need (the active m, not the capacity).
+
+``cases`` also holds one row-block case of ``eigvec_rotate`` and of
+``eigvec_project`` (rows n/4 .. 3n/4 of the state, ``Case.variant`` names
+them), after the main path's square ones.
 
 Times are device times: ``device_ms`` reads the kernels' own start and end
 from the profiler's CUDA activity records (CUPTI), so the host's work in a
@@ -73,6 +81,7 @@ Tensor = torch.Tensor
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12,
               torch.bfloat16: 989e12}
+TF32_FLOPS = 495e12          # dense TF32 tensor cores
 
 SOURCES = {
     "eigvec_rotate": ("src/repro_torch/kernels/csrc/eigvec_rotate.cu",
@@ -111,13 +120,19 @@ class Case:
     flops: float
     exact_zero: Tensor | None = None   # mask of output 0 the kernel prunes
     keep: Tensor | None = None         # columns of output 0 the caller keeps
+    variant: str = ""                  # "" for the main path's shape
+    peak: float | None = None          # flop/s of the bound, else the type's
+    ops_label: str = "operations"      # what bounds it when operations do
+    # Output 0 in float64 from the same rounded operands: the exact product
+    # the kernel's and the plain version's errors are measured against.
+    exact: Callable[[], Tensor] | None = None
 
     def bound(self, dtype) -> tuple[float, str]:
         """(least time in ms, what bounds it) on an H100 SXM at 700 W."""
         t_bytes = self.bytes / HBM_BYTES_PER_S
-        t_ops = self.flops / PEAK_FLOPS[dtype]
+        t_ops = self.flops / (self.peak or PEAK_FLOPS[dtype])
         return (max(t_bytes, t_ops) * 1e3,
-                "bytes" if t_bytes >= t_ops else "operations")
+                "bytes" if t_bytes >= t_ops else self.ops_label)
 
 
 def _gamma(K: int, dtype) -> float:
@@ -142,7 +157,9 @@ def _state(n: int, m: int, dtype, device, seed: int):
     return U.to(dtype), L.to(dtype), mt, X.to(dtype), rng
 
 
-def _rotate_case(U, L, m, rng, dtype) -> Case:
+def _rotate_case(U, L, m, rng, dtype, block=None) -> Case:
+    """A solved rotation factor applied to U, or with ``block`` = (R, r0)
+    to its rows r0 .. r0 + R (the row-block form)."""
     n = U.shape[0]
     mi = int(m)
     mask = rankone.active_mask(n, m)
@@ -158,29 +175,46 @@ def _rotate_case(U, L, m, rng, dtype) -> Case:
                               method="gu", precise=True)
     zk, dk, orgk, invk, tauk = rankone.kernel_operands(f, mask, dtype)
     ops = (zk, dk, orgk, invk)
-    Wn = eref.eigvec_rotate_ref(torch.eye(n, dtype=dtype, device=U.device),
-                                *ops, tauk)             # W * inv, stored
+    eye = torch.eye(n, dtype=dtype, device=U.device)
+    Wn = eref.eigvec_rotate_ref(eye, *ops, tauk)             # W * inv, stored
+    W = eref.eigvec_rotate_ref(eye, zk, dk, orgk, torch.ones_like(invk),
+                               tauk)                         # W as rounded
     one = torch.ones(n, dtype=torch.float64, device=U.device)
     W64 = torch.where(~f.defl[None, :], eref.eigvec_rotate_ref(
         torch.diag(one), zk.double(), dk, orgk, one, tauk), 0.0)
-    mag = (U.double().abs() @ W64.abs()) * invk.double().abs()
-    rows, cols = eref.pruned_region_mask(n, n, mi, block=eops.ROTATE_TILE)
-    outside = ~(rows[:, None] & cols[None, :]).to(U.device) & ~f.defl[None, :]
+    R, r0 = block or (n, 0)
+    Ub = U[r0:r0 + R]
+    rn = min(max(mi - r0, 0), R)                # rows the function needs
+    mag = (Ub.double().abs() @ W64.abs()) * invk.double().abs()
+    rows, cols = eref.pruned_region_mask(R, n, mi, r0, block=eops.ROTATE_TILE,
+                                         device=U.device)
+    live = rows[:, None] & cols[None, :]
+    outside = ~live & ~f.defl[None, :]
     item = U.element_size()
+    f32 = dtype == torch.float32
+    at = dict(row_offset=r0) if block else {}
     return Case(
         name="eigvec_rotate",
-        kernel=lambda: (eops.rotate_vectors(U, *ops, m, tau=tauk),),
-        plain=lambda: (eref.eigvec_rotate_ref(U, *ops, tauk),),
-        library=lambda: torch.matmul(U, Wn),
+        variant=f"rows {r0}:{r0 + R}" if block else "",
+        kernel=lambda: (eops.rotate_vectors(Ub, *ops, m, tau=tauk, **at),),
+        plain=lambda: (eref.eigvec_rotate_ref(Ub, *ops, tauk, m,
+                                              at.get("row_offset")),),
+        library=lambda: torch.matmul(Ub, Wn),
         tols=(_gamma(mi, dtype) * mag,),
         tol_reason="2(m+2)eps·(|U||W|)_ij·|inv_j| per entry: two length-m "
-                   "dot products (Higham gamma_m), W generated in the "
-                   "working type",
-        bytes=item * (mi * mi + n * n + 4 * n),
-        flops=2.0 * mi ** 3 + mi * mi,
+                   "dot products (Higham gamma_m), W formed in the working "
+                   "type",
+        bytes=item * (rn * mi + R * n + 4 * n),
+        # float32: three TF32 products on the tensor cores (the split that
+        # keeps float32's accuracy); float64: one product on the CUDA cores.
+        flops=(6.0 if f32 else 2.0) * rn * mi * mi + (0 if f32 else rn * mi),
+        peak=TF32_FLOPS if f32 else None,
+        ops_label="operations, 3×TF32" if f32 else "operations",
         exact_zero=outside,
         # _apply_factor puts U's own column in place of deflated ones.
-        keep=~f.defl)
+        keep=~f.defl,
+        exact=lambda: torch.where(live, (Ub.double() @ W.double())
+                                  * invk.double(), 0.0))
 
 
 def _rotate2_case(U, L, m, rng, dtype) -> Case:
@@ -229,25 +263,33 @@ def _rotate2_case(U, L, m, rng, dtype) -> Case:
         keep=mask)
 
 
-def _project_case(U, m, rng, dtype) -> Case:
+def _project_case(U, m, rng, dtype, block=None) -> Case:
+    """Uᵀ V over two columns, or with ``block`` = (R, r0) the partial of
+    U's rows r0 .. r0 + R (the row-block form)."""
     n = U.shape[0]
     mi = int(m)
-    V = torch.as_tensor(rng.normal(size=(n, 2)), dtype=dtype, device=U.device)
-    Vm = torch.where(rankone.active_mask(n, m)[:, None], V, 0.0)
-    mag = U.double().abs().T @ Vm.double().abs()
+    R, r0 = block or (n, 0)
+    Ub = U[r0:r0 + R]
+    rn = min(max(mi - r0, 0), R)                # rows the function sums
+    V = torch.as_tensor(rng.normal(size=(R, 2)), dtype=dtype, device=U.device)
+    Vm = torch.where((torch.arange(R, device=U.device) < rn)[:, None], V, 0.0)
+    mag = Ub.double().abs().T @ Vm.double().abs()
     live = torch.arange(n, device=U.device) < (
         -(-mi // eops.PROJECT_SLAB) * eops.PROJECT_SLAB)
     item = U.element_size()
+    at = dict(row_offset=r0) if block else {}
     return Case(
         name="eigvec_project",
-        kernel=lambda: (eops.project_vectors(U, V, m),),
-        plain=lambda: (eref.eigvec_project_ref(U, V, m),),
-        library=lambda: U.T @ Vm,
-        tols=(_gamma(mi, dtype) * mag,),
-        tol_reason="2(m+2)eps·(|U|ᵀ|V|)_ij per entry: two length-m dot "
-                   "products",
-        bytes=item * (mi * mi + 2 * mi + 2 * n),
-        flops=2.0 * mi * mi * 2,
+        variant=f"rows {r0}:{r0 + R}" if block else "",
+        kernel=lambda: (eops.project_vectors(Ub, V, m, **at),),
+        plain=lambda: (eref.eigvec_project_ref(Ub, V, m,
+                                               at.get("row_offset")),),
+        library=lambda: Ub.T @ Vm,
+        tols=(_gamma(rn, dtype) * mag,),
+        tol_reason="2(r+2)eps·(|U|ᵀ|V|)_ij per entry: two dot products over "
+                   "the r live rows",
+        bytes=item * (rn * mi + 2 * rn + 2 * n),
+        flops=2.0 * rn * mi * 2,
         exact_zero=~live[:, None].expand(n, 2))
 
 
@@ -335,11 +377,14 @@ def cases(n: int, m: int, dtype, device, seed: int = 0) -> list[Case]:
     K1 = torch.where(rankone.active_mask(n, mt),
                      torch.as_tensor(rng.uniform(50.0, 150.0, size=n),
                                      dtype=dtype, device=device), 0.0)
+    block = (n // 2, n // 4)
     return [_rotate_case(U, L, mt, rng, dtype),
             _rotate2_case(U, L, mt, rng, dtype),
             _project_case(U, mt, rng, dtype),
             _krow_case(U, X, K1, mt, rng, spec, dtype),
-            _transform_case(U, L, X, mt, rng, spec, dtype)]
+            _transform_case(U, L, X, mt, rng, spec, dtype),
+            _rotate_case(U, L, mt, rng, dtype, block),
+            _project_case(U, mt, rng, dtype, block)]
 
 
 def scaled_gram_tol(B: Tensor, s: Tensor, dtype) -> Tensor:
@@ -616,6 +661,24 @@ def compare(case: Case) -> dict:
             "max_tols": [float(t.max()) if t.numel() else 0.0
                          for t in case.tols],
             "tol_reason": case.tol_reason}
+
+
+def error_vs_exact(case: Case) -> dict:
+    """The kernel's and the plain version's largest error against the
+    case's float64 product of the same operands (``Case.exact``), over the
+    columns the caller keeps, and their ratio."""
+    exact = case.exact()
+    cols = (case.keep if case.keep is not None
+            else torch.ones(exact.shape[1], dtype=torch.bool,
+                            device=exact.device))
+    errs = {}
+    for key, fn in (("kernel", case.kernel), ("plain", case.plain)):
+        out = fn()[0]
+        errs[key] = float((out.double() - exact)[:, cols].abs().max())
+    return {"kernel_err_vs_f64": errs["kernel"],
+            "plain_err_vs_f64": errs["plain"],
+            "err_ratio": (errs["kernel"] / errs["plain"] if errs["plain"] > 0
+                          else 0.0 if errs["kernel"] == 0 else float("inf"))}
 
 
 def device_ms(fn: Callable[[], object], reps: int = 25, warmup: int = 3,

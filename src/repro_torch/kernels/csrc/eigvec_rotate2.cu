@@ -125,13 +125,13 @@ rotate_product_kernel(const T* __restrict__ a, const T* __restrict__ b,
   const int live = live_extent(m, n);
   const int row0 = blockIdx.y * tl::kRows, col0 = blockIdx.x * tl::kCols;
   if (row0 >= live || col0 >= live) {
-    if (second) tl::store_zeros(c, n, row0, col0);
+    if (second) tl::store_zeros(c, n, n, n, row0, col0);
     return;
   }
   T acc[8][4];
   tl::product<T, Vec>(acc, reinterpret_cast<T*>(smem4), a, n,
                       second ? n : m, b, n, live, m, row0, col0);
-  tl::store<T, Vec>(acc, c, n, live, row0, col0);
+  tl::store<T, Vec>(acc, c, n, n, n, live, live, row0, col0, nullptr);
 }
 
 template <typename T, bool Vec>

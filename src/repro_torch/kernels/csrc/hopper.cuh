@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks of the port's tensor-core kernels:
-// mbarriers, TMA tile loads through a tensor map, wgmma descriptors and
-// the bf16 wgmma shapes flash_attention.cu issues.  PTX inline assembly
-// only; no library.
+// mbarriers, TMA tile loads through a tensor map, wgmma descriptors, the
+// bf16 wgmma shapes flash_attention.cu issues and the TF32 one
+// eigvec_rotate.cu issues.  PTX inline assembly only; no library.
 #pragma once
 
 #include <cuda.h>            // CUtensorMap and its enums (types only)
@@ -64,6 +64,30 @@ __device__ __forceinline__ void named_arrive(int id, int count) {
 }
 
 // --------------------------------------------------------------------- TMA
+// Box of a 2-d tensor map at coordinates (c0 innermost, c1) into shared
+// memory; completion is counted on `bar` in bytes.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
+         "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The same for a 3-d tensor map.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
+         "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // Box of a 4-d tensor map at coordinates (c0 innermost .. c3) into shared
 // memory; completion is counted on `bar` in bytes.
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
@@ -175,6 +199,34 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
       "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
       "%26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, "
       "p, 1, 1, 1;\n}\n"
+      : REPRO_F32(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+// x rounded to TF32 (10 explicit mantissa bits), to nearest with ties away
+// from zero, returned as the float32 bit pattern with the low 13 bits 0.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// d (64 x 64, f32) (+)= A (64 x 8, registers: the m64k8 TF32 fragment, in
+// warp w lane l a0 = (16 w + l / 4, l % 4), a1 = row + 8, a2 = column + 4,
+// a3 both) . B (8 x 64, smem, K-major), TF32 operands; `accumulate` 0
+// overwrites d.  TF32 takes no transpose: both operands are K-major.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32],
+                                                       const uint32_t (&a)[4],
+                                                       uint64_t b,
+                                                       int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, "
+      "p, 1, 1;\n}\n"
       : REPRO_F32(0)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
         "r"(accumulate));

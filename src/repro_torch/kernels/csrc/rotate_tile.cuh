@@ -1,5 +1,6 @@
 // The register-blocked product tile of the rotation kernels (both of
-// eigvec_rotate2.cu's products): one block computes a 128 x 64 tile of
+// eigvec_rotate2.cu's products and eigvec_rotate.cu's float64 one): one
+// block computes a 128 x 64 tile of
 // C = A[:, :kmax] @ B[:kmax, :] on the CUDA cores (float32 or float64
 // FMA), summing over k in order.
 //
@@ -182,36 +183,50 @@ __device__ __forceinline__ void product(T (&acc)[8][4], T* smem,
   }
 }
 
-// Writes the tile: entries at or beyond `live` in either axis as exact
-// zeros (`live` a multiple of 64), nothing at or beyond n.  Vec: 16-byte
-// stores (n a multiple of 16 bytes).
+// Writes the tile of C (leading dim ldc, rows x cols): entries at or beyond
+// live_rows or live_cols as exact zeros, the others times scale[column]
+// where `scale` is given; nothing at or beyond rows or cols.  Vec: 16-byte
+// stores (ldc and cols multiples of 16 bytes).
 template <typename T, bool Vec>
 __device__ __forceinline__ void store(const T (&acc)[8][4],
-                                      T* __restrict__ c, int n, int live,
-                                      int row0, int col0) {
+                                      T* __restrict__ c, int ldc, int rows,
+                                      int cols, int live_rows, int live_cols,
+                                      int row0, int col0,
+                                      const T* __restrict__ scale) {
   constexpr int kVec = Shape<T>::kVec;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  T sc[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int col = col0 + tile_col<T>(tx, j);
+    sc[j] = (scale != nullptr && col < cols) ? scale[col] : T(1);
+  }
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int r = row0 + 8 * ty + i;
-    if (r >= n) continue;
-    T* crow = c + (size_t)r * n;
-    if constexpr (Vec) {
+    if (r >= rows) continue;
+    T* crow = c + (size_t)r * ldc;
 #pragma unroll
-      for (int jv = 0; jv < 4 / kVec; ++jv) {
-        const int col = col0 + tile_col<T>(tx, jv * kVec);
-        if (col >= n) continue;
-        Vec16<T> w;
+    for (int jv = 0; jv < 4 / kVec; ++jv) {
+      const int col = col0 + tile_col<T>(tx, jv * kVec);
+      T w[kVec];
+#pragma unroll
+      for (int x = 0; x < kVec; ++x) {
+        const int j = jv * kVec + x;
+        const bool live = r < live_rows && col + x < live_cols;
+        w[x] = live ? (scale != nullptr ? acc[i][j] * sc[j] : acc[i][j])
+                    : T(0);
+      }
+      if constexpr (Vec) {
+        if (col >= cols) continue;
+        Vec16<T> v;
+#pragma unroll
+        for (int x = 0; x < kVec; ++x) v.v[x] = w[x];
+        *reinterpret_cast<Vec16<T>*>(crow + col) = v;
+      } else {
 #pragma unroll
         for (int x = 0; x < kVec; ++x)
-          w.v[x] = (r < live && col < live) ? acc[i][jv * kVec + x] : T(0);
-        *reinterpret_cast<Vec16<T>*>(crow + col) = w;
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = col0 + tile_col<T>(tx, j);
-        if (col < n) crow[col] = (r < live && col < live) ? acc[i][j] : T(0);
+          if (col + x < cols) crow[col + x] = w[x];
       }
     }
   }
@@ -219,11 +234,12 @@ __device__ __forceinline__ void store(const T (&acc)[8][4],
 
 // The zeros of a pruned tile.
 template <typename T>
-__device__ __forceinline__ void store_zeros(T* __restrict__ c, int n,
-                                            int row0, int col0) {
+__device__ __forceinline__ void store_zeros(T* __restrict__ c, int ldc,
+                                            int rows, int cols, int row0,
+                                            int col0) {
   for (int e = threadIdx.x; e < kRows * kCols; e += kThreads) {
     const int r = row0 + e / kCols, col = col0 + e % kCols;
-    if (r < n && col < n) c[(size_t)r * n + col] = T(0);
+    if (r < rows && col < cols) c[(size_t)r * ldc + col] = T(0);
   }
 }
 

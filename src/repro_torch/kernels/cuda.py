@@ -38,9 +38,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # C signature of each entry point (its typed variants share one).
 SIGNATURES = {
-    "eigvec_rotate": (P, P, P, P, P, P, P, P, I, F, P),
+    "eigvec_rotate": (P,) * 9 + (I, I, I, I, F, P),
     "eigvec_rotate2": (P,) * 18 + (I, F, P),
-    "eigvec_project": (P, P, P, P, I, I, P),
+    "eigvec_project": (P, P, P, P, I, I, I, I, P),
     "krow_project": (P, P, P, P, P, P, P, I, I, I, I, F, F, P),
     "transform_project": (P, P, P, P, P, P, I, I, I, I, I, F, F, P),
     "scaled_gram": (P, P, P, I, I, P),

@@ -1,56 +1,76 @@
 """Wrappers for the eigenvector rotation and projection kernels.
 
 The tensor's device picks the route: a CPU tensor runs the plain version
-in ``ref.py``; a CUDA tensor launches the kernel of
+in ``ref.py``; a CUDA tensor launches the kernels of
 ``csrc/eigvec_rotate.cu`` / ``csrc/eigvec_rotate2.cu`` /
 ``csrc/eigvec_project.cu`` or raises.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import cuda
-from repro_torch.kernels.eigvec_update.ref import (eigvec_project_ref,
-                                                   eigvec_rotate2_ref,
-                                                   eigvec_rotate_ref,
-                                                   offset_guard)
+# PROJECT_SLAB and ROTATE_TILE, the kernels' pruning granules, are the
+# plain versions' too.
+from repro_torch.kernels.eigvec_update.ref import (  # noqa: F401
+    PROJECT_SLAB, ROTATE_TILE, eigvec_project_ref, eigvec_rotate2_ref,
+    eigvec_rotate_ref, offset_guard)
 
 Tensor = torch.Tensor
 
-ROTATE_TILE = 64    # output tile of eigvec_rotate: its pruning granule
-PROJECT_SLAB = 32   # columns of U per eigvec_project block
 NPROJ = 8           # most columns eigvec_project takes
 ROTATE2_TILE = 64   # output tile of eigvec_rotate2: its pruning granule
 
 
 def rotate_vectors(u: Tensor, zhat: Tensor, d: Tensor, lam: Tensor,
-                   inv: Tensor, num_active=None, *, tau: Tensor) -> Tensor:
+                   inv: Tensor, num_active=None, *, tau: Tensor,
+                   row_offset: int | None = None) -> Tensor:
     """C = U @ (zhat[:,None] / ((d[:,None] - lam[None,:]) - tau)) * inv,
     with the denominators formed in float64 and guarded
     (``ref.eigvec_rotate_ref`` says why).
 
-    On the card the factor is generated tile by tile and never stored;
-    with ``num_active`` = m the reduction stops at row m of the factor and
-    output tiles beyond ceil(m/64) are written as exact zeros (the caller
-    overwrites inactive columns; pruned rows of active columns are zero by
-    the padding contract).
+    ``u`` is the (M, M) state or an (R, M) row block whose first row is
+    the state's row ``row_offset`` (a host int).  With ``num_active`` = m
+    the reduction stops at row m of the factor, and output columns at or
+    beyond ceil(m/64)·64 and rows at or beyond ceil(clamp(m - row_offset,
+    0, R)/64)·64 are written as exact zeros (the caller overwrites
+    inactive columns; pruned rows of active columns are zero by the
+    padding contract).  On the card each factor entry is formed once into
+    scratch this wrapper allocates, then multiplied: float32 as three TF32
+    products on the tensor cores, float64 on the CUDA cores
+    (``csrc/eigvec_rotate.cu``); two launches.
     """
     if u.device.type == "cpu":
-        return eigvec_rotate_ref(u, zhat, d, lam, inv, tau)
+        return eigvec_rotate_ref(u, zhat, d, lam, inv, tau, num_active,
+                                 row_offset)
     dtype = cuda.check_operands("eigvec_rotate", u, zhat, inv)
     d = d.to(torch.float64)          # denominators in float64: see ref.py
     lam = lam.to(torch.float64)
     tau = tau.to(torch.float64)
     cuda.check_operands("eigvec_rotate", d, lam, tau)
-    n = u.shape[0]
-    if u.shape != (n, n) or any(v.shape != (n,)
-                                for v in (zhat, d, lam, inv, tau)):
-        raise ValueError(f"eigvec_rotate: need u (n, n) and five (n,) "
+    n = u.shape[-1]
+    if u.dim() != 2 or any(v.shape != (n,)
+                           for v in (zhat, d, lam, inv, tau)):
+        raise ValueError(f"eigvec_rotate: need u (R, n) and five (n,) "
                          f"vectors, got {u.shape}")
+    R = u.shape[0]
+    r0 = 0 if row_offset is None else int(row_offset)
     m = cuda.active_count(n if num_active is None else num_active, u.device)
-    out = torch.empty_like(u)
-    cuda.launch("eigvec_rotate", dtype, u, zhat, d, lam, tau, inv, m, out,
-                n, offset_guard(dtype))
+    if dtype == torch.float32:
+        # TMA reads rows whose stride is a multiple of 16 bytes, from a
+        # 16-byte aligned start: otherwise U goes through a padded copy.
+        ldu = -(-n // 4) * 4
+        if ldu != n or u.data_ptr() % 16:
+            u = F.pad(u, (0, ldu - n))
+        scratch = torch.empty((2, n, -(-n // 32) * 32), dtype=dtype,
+                              device=u.device)
+    else:
+        ldu = n
+        scratch = torch.empty((n, n), dtype=dtype, device=u.device)
+    out = torch.empty((R, n), dtype=dtype, device=u.device)
+    cuda.launch("eigvec_rotate", dtype, u, zhat, d, lam, tau, inv, m,
+                scratch, out, R, n, ldu, r0, offset_guard(dtype))
     return out
 
 
@@ -107,22 +127,27 @@ def rotate_vectors2(u: Tensor,
     return out
 
 
-def project_vectors(u: Tensor, v: Tensor, num_active=None) -> Tensor:
-    """P = Uᵀ V with rows of V at or beyond ``num_active`` masked: the
-    projection of Algorithm 2's second ±sigma pair, one read of U.  Output
-    rows beyond the active slabs are exact zeros (their true value)."""
+def project_vectors(u: Tensor, v: Tensor, num_active=None, *,
+                    row_offset: int | None = None) -> Tensor:
+    """P = Uᵀ V with rows of V at or beyond ``num_active`` (global index)
+    masked: the projection of Algorithm 2's second ±sigma pair, one read
+    of U.  ``u`` (R, M) and ``v`` (R, C) may be a row block whose first
+    row is the state's row ``row_offset`` (a host int); P is then the
+    block's (M, C) partial.  Output rows at or beyond ceil(m/32)·32 are
+    exact zeros (their true value)."""
     if u.device.type == "cpu":
-        return eigvec_project_ref(u, v, num_active)
+        return eigvec_project_ref(u, v, num_active, row_offset)
     dtype = cuda.check_operands("eigvec_project", u, v)
-    n = u.shape[0]
-    if u.shape != (n, n) or v.dim() != 2 or v.shape[0] != n:
-        raise ValueError(f"eigvec_project: need u (n, n), v (n, C), got "
+    if u.dim() != 2 or v.dim() != 2 or v.shape[0] != u.shape[0]:
+        raise ValueError(f"eigvec_project: need u (R, n), v (R, C), got "
                          f"{u.shape} and {v.shape}")
+    R, n = u.shape
     ncol = v.shape[1]
     if not 1 <= ncol <= NPROJ:
         raise ValueError(f"eigvec_project takes 1..{NPROJ} columns, "
                          f"got {ncol}")
+    r0 = 0 if row_offset is None else int(row_offset)
     m = cuda.active_count(n if num_active is None else num_active, u.device)
     out = torch.empty((n, ncol), dtype=dtype, device=u.device)
-    cuda.launch("eigvec_project", dtype, u, v, m, out, n, ncol)
+    cuda.launch("eigvec_project", dtype, u, v, m, out, R, n, r0, ncol)
     return out

@@ -9,14 +9,22 @@ import torch
 
 Tensor = torch.Tensor
 
+ROTATE_TILE = 64    # eigvec_rotate's pruning granule (rows and columns)
+PROJECT_SLAB = 32   # eigvec_project's pruning granule (output rows)
+
 
 def eigvec_rotate_ref(u: Tensor, zhat: Tensor, d: Tensor, lam: Tensor,
-                      inv: Tensor, tau: Tensor) -> Tensor:
+                      inv: Tensor, tau: Tensor, num_active=None,
+                      row_offset=None) -> Tensor:
     """C = (U @ W) * inv with W[k, j] = zhat[k] / ((d[k] - lam[j]) - tau[j]),
-    W materialized (the kernel generates it tile by tile).  ``tau`` is the
-    roots' offset from their origin poles ``lam``; ``rankone._Roots`` says
-    why.  (Absolute roots, the reference's form, are ``lam`` with a zero
-    ``tau``.)
+    W materialized (the kernel forms each entry once into scratch).
+    ``tau`` is the roots' offset from their origin poles ``lam``;
+    ``rankone._Roots`` says why.  (Absolute roots, the reference's form,
+    are ``lam`` with a zero ``tau``.)  ``u`` may be an (R, M) row block
+    whose first global row is ``row_offset``; with ``num_active`` = m the
+    entries outside ``pruned_region_mask(R, M, m, row_offset,
+    block=ROTATE_TILE)`` are exact zeros, as the kernel writes them (on
+    the padding contract they are zeros anyway).
 
     Two guards the reference's ``eigvec_rotate`` lacks:
 
@@ -33,7 +41,12 @@ def eigvec_rotate_ref(u: Tensor, zhat: Tensor, d: Tensor, lam: Tensor,
     """
     den = _denominators(d, lam, tau, zhat.dtype)
     W = zhat[:, None] / den.to(zhat.dtype)
-    return (u @ W) * inv[None, :]
+    C = (u @ W) * inv[None, :]
+    if num_active is None:
+        return C
+    rows, cols = pruned_region_mask(*u.shape, num_active, row_offset,
+                                    block=ROTATE_TILE, device=u.device)
+    return torch.where(rows[:, None] & cols[None, :], C, 0.0)
 
 
 def offset_guard(dtype) -> float:
@@ -71,26 +84,34 @@ def eigvec_project_ref(u: Tensor, v: Tensor, num_active=None,
                        row_offset=None) -> Tensor:
     """P = Uᵀ V with rows >= num_active (global index) masked to zero.
     ``u``/``v`` may be a (R, ·) row block whose first global row is
-    ``row_offset``."""
-    if num_active is not None:
-        r0 = 0 if row_offset is None else row_offset
-        rows = r0 + torch.arange(u.shape[0], device=u.device)
-        v = torch.where((rows < num_active)[:, None], v, 0.0)
-    return u.T @ v
+    ``row_offset``; P is then the block's (M, C) partial.  With
+    ``num_active`` = m the output rows at or beyond ceil(m / PROJECT_SLAB)
+    · PROJECT_SLAB are exact zeros, as the kernel writes them (on the
+    padding contract they are zeros anyway)."""
+    if num_active is None:
+        return u.T @ v
+    r0 = 0 if row_offset is None else row_offset
+    m = torch.as_tensor(num_active, device=u.device)
+    live = (r0 + torch.arange(u.shape[0], device=u.device)) < m
+    P = u.T @ torch.where(live[:, None], v, 0.0)
+    cols = pruned_region_mask(*u.shape, num_active, row_offset,
+                              block=PROJECT_SLAB, device=u.device)[1]
+    return torch.where(cols[:, None], P, 0.0)
 
 
-def pruned_region_mask(R: int, M: int, m, row_offset=None, *,
-                       block: int) -> tuple[Tensor, Tensor]:
+def pruned_region_mask(R: int, M: int, m, row_offset=None, *, block: int,
+                       device=None) -> tuple[Tensor, Tensor]:
     """(row_mask (R,), col_mask (M,)) of the tiles a pruned kernel WRITES:
     True inside the active tile range (real values), False where the
-    kernel writes exact zeros.  ``block`` is the kernel's output tile."""
+    kernel writes exact zeros.  ``block`` is the kernel's output tile;
+    the masks lie on ``device`` (default the CPU)."""
     r0 = 0 if row_offset is None else row_offset
-    m = torch.as_tensor(m, dtype=torch.int32)
+    m = torch.as_tensor(m, dtype=torch.int32, device=device)
     rows_active = torch.clamp(m - r0, 0, R)
     g_rows = -(-rows_active // block)
     g_cols = -(-m // block)
-    row_mask = torch.arange(R) < g_rows * block
-    col_mask = torch.arange(M) < g_cols * block
+    row_mask = torch.arange(R, device=device) < g_rows * block
+    col_mask = torch.arange(M, device=device) < g_cols * block
     return row_mask, col_mask
 
 

@@ -5,16 +5,19 @@
         --flash 1:4096:64:8:128:bfloat16
 
 ``--kpca n:m:dtype`` times the KPCA path's kernels named by ``--kernels``
-(default ``eigvec_rotate2``) at capacity bucket n with m active pairs;
+(default ``eigvec_rotate2``) at capacity bucket n with m active pairs,
+the row-block cases among them (``variant`` names their rows);
 ``--flash B:T:H:Hkv:hd:dtype`` times ``flash_attention``.  The inputs and
 bounds are ``kernels/checks.py``'s.  Each row is one JSON line: the
 kernel's device ms per call and device launches per call
 (``checks.device_ms``: profiler records, the wrapper's own elementwise
 work included), the library call's device ms, the bound and what bounds
-it, and the card's name.  Each kernel is first checked against its plain
-version.  The script reaches the kernels only through ``checks``, so run
-as a file with another tree's ``src`` first on ``PYTHONPATH`` it times
-that tree's kernels: two commits compared within one chip call.
+it, and the card's name; where the case has a float64 product of its
+operands, the kernel's and the plain version's largest error against it
+(``checks.error_vs_exact``).  Each kernel is first checked against its
+plain version.  The script reaches the kernels only through ``checks``,
+so run as a file with another tree's ``src`` first on ``PYTHONPATH`` it
+times that tree's kernels: two commits compared within one chip call.
 """
 from __future__ import annotations
 
@@ -30,13 +33,16 @@ def _row(case, dtype, label: dict) -> dict:
     res = checks.compare(case)
     ms, launches = checks.device_ms(case.kernel)
     bound_ms, bound_by = case.bound(dtype)
+    exact = (checks.error_vs_exact(case)
+             if getattr(case, "exact", None) is not None else {})
     return {**label, "name": case.name,
+            "variant": getattr(case, "variant", ""),
             "dtype": str(dtype).removeprefix("torch."), "ms": ms,
             "device_launches_per_call": launches,
             "library_ms": (checks.device_ms(case.library)[0]
                            if case.library else None),
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "max_err_over_tol": res["max_err_over_tol"],
+            "max_err_over_tol": res["max_err_over_tol"], **exact,
             "device": torch.cuda.get_device_name(0)}
 
 

@@ -140,7 +140,8 @@ def kernel_rows(M: int, d: int, Q: int, C: int, reps: int,
                        normal(M)], dim=1)
     vpair = normal(M, 2)
     m_full = torch.tensor(M, dtype=torch.int32, device=device)
-    solved = {c.name: c for c in checks.cases(M, M, f32, device)}
+    solved = {c.name: c for c in checks.cases(M, M, f32, device)
+              if not c.variant}
     s_chunks = [s_cols[:, j:j + nops.NCOMP].contiguous()
                 for j in range(0, C, nops.NCOMP)]
 

@@ -151,3 +151,42 @@ def test_rbf_gram_bound_counts_the_work_its_call_needs(n, m, dim, dtype,
     ms, by = case.bound(dtype)
     assert by == want_by
     assert ms == pytest.approx(want_ms, rel=1e-12)
+
+
+@pytest.mark.parametrize("m", [1, 30, 64, 90, N])
+@pytest.mark.parametrize("name", ["eigvec_rotate", "eigvec_project"])
+def test_row_block_cases_pass_a_more_accurate_evaluation(monkeypatch, name,
+                                                         m):
+    """The row-block cases (rows N/4 .. 3N/4): a float64 evaluation of the
+    same function on the block passes each entry's bound and writes the
+    pruned rows and columns as exact zeros, also where m falls before the
+    block (m = 1) or inside it."""
+    monkeypatch.setattr(eops, "rotate_vectors", _in_f64(
+        lambda u, z, d, lam, inv, m, *, tau, row_offset=None:
+        eref.eigvec_rotate_ref(u, z, d, lam, inv, tau, m, row_offset)))
+    monkeypatch.setattr(eops, "project_vectors", _in_f64(
+        lambda u, v, m, *, row_offset=None: eref.eigvec_project_ref(
+            u, v, m, row_offset)))
+    case = next(c for c in checks.cases(N, m, torch.float32, "cpu")
+                if c.name == name and c.variant)
+    assert case.variant == f"rows {N // 4}:{N // 4 + N // 2}"
+    res = checks.compare(case)
+    assert 0.0 <= res["max_err_over_tol"] <= 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_rotate_bound_counts_its_products(dtype):
+    """float32: three TF32 products, 6 m³ at 495 TFLOP/s, the bound the
+    kernel's float32-accurate tensor-core product can reach; float64:
+    2 m³ + m² at the type's 67 TFLOP/s.  Both operations-bound at the
+    main path's bucket 1024, m = 1000."""
+    case = next(c for c in checks.cases(1024, 1000, dtype, "cpu")
+                if c.name == "eigvec_rotate" and not c.variant)
+    ms, by = case.bound(dtype)
+    if dtype == torch.float32:
+        assert by == "operations, 3×TF32"
+        assert ms == pytest.approx(6 * 1000 ** 3 / 495e9, rel=1e-12)
+    else:
+        assert by == "operations"
+        assert ms == pytest.approx((2 * 1000 ** 3 + 1000 ** 2) / 67e9,
+                                   rel=1e-12)

@@ -32,9 +32,12 @@ def device():
 
 
 @pytest.mark.parametrize("n,m", [(100, 0), (100, 64), (100, 100),
-                                 (200, 37), (256, 129)])
+                                 (200, 37), (256, 129), (131, 100)])
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_kernels_match_plain_versions(device, n, m, dtype):
+    """Every KPCA kernel's cases, the row blocks among them; n = 131 is no
+    multiple of 16 bytes, so the float32 rotation takes U through its
+    padded copy and the projection loads one value at a time."""
     for case in checks.cases(n, m, getattr(torch, dtype), device, seed=n + m):
         checks.compare(case)
 
@@ -58,6 +61,21 @@ def test_flash_attention_bf16_runs_on_the_tensor_cores(device):
     wgmma = {k: v for k, v in counts.items()
              if "flash_attention_kernel_wgmma" in k}
     assert wgmma and all(v["HGMMA"] > 0 for v in wgmma.values()), counts
+
+
+def test_rotate_f32_runs_on_the_tensor_cores(device):
+    """The float32 rotation's product kernel holds TF32 wgmma (HGMMA), and
+    at the main path's shape its error against the float64 product of the
+    same operands stays within ``chip_smoke.ROTATE_ERR_RATIO`` (2x) of the
+    plain float32 product's, on the square state and on a row block."""
+    cuda.library()
+    counts = cuda.sass_counts()
+    tf32 = {k: v for k, v in counts.items() if "rotate_tf32_kernel" in k}
+    assert tf32 and all(v["HGMMA"] > 0 for v in tf32.values()), counts
+    for case in checks.cases(1024, 1000, torch.float32, device, seed=0):
+        if case.name == "eigvec_rotate":
+            err = checks.error_vs_exact(case)
+            assert err["err_ratio"] <= 2.0, (case.variant, err)
 
 
 def test_device_ms_falls_back_to_queued_events(device, monkeypatch):

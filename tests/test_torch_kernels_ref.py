@@ -14,6 +14,10 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core import kernels_fn as jkf  # noqa: E402
 from repro.kernels.eigvec_update import ref as jref  # noqa: E402
+from repro.kernels.eigvec_update.eigvec_update import \
+    eigvec_project as j_project_kernel  # noqa: E402
+from repro.kernels.eigvec_update.eigvec_update import \
+    eigvec_rotate as j_rotate_kernel  # noqa: E402
 from repro.kernels.nystrom_recon.ref import \
     transform_project_ref as j_transform  # noqa: E402
 from repro.kernels.rbf_gram.rbf_gram import \
@@ -21,6 +25,7 @@ from repro.kernels.rbf_gram.rbf_gram import \
 from repro.kernels.rbf_gram.ref import krow_project_ref as j_krow  # noqa: E402
 from repro.kernels.rbf_gram.ref import rbf_gram_ref as j_rbf_ref  # noqa: E402
 from repro_torch.core import kernels_fn as tkf  # noqa: E402
+from repro_torch.kernels import checks  # noqa: E402
 from repro_torch.kernels.eigvec_update import ops as eops  # noqa: E402
 from repro_torch.kernels.eigvec_update import ref as tref  # noqa: E402
 from repro_torch.kernels.nystrom_recon import ops as nops  # noqa: E402
@@ -39,18 +44,18 @@ def _close(got, want, rtol):
     np.testing.assert_allclose(got, want, rtol=rtol, atol=rtol * scale)
 
 
-def _rotation_inputs(m, np_dtype, seed=0):
+def _rotation_inputs(m, np_dtype, seed=0, size=M):
     """Inputs on the padding contract: U identity beyond the active block,
     zhat/inv zero and d/lam sentinels beyond m."""
     rng = np.random.default_rng(seed)
-    U = np.eye(M)
+    U = np.eye(size)
     if m:
         U[:m, :m] = np.linalg.qr(rng.normal(size=(m, m)))[0]
-    live = np.arange(M) < m
-    d = np.sort(rng.normal(size=M))
-    z = np.where(live, rng.normal(size=M), 0.0)
+    live = np.arange(size) < m
+    d = np.sort(rng.normal(size=size))
+    z = np.where(live, rng.normal(size=size), 0.0)
     lam = np.where(live, d + 0.4, 1e30)
-    inv = np.where(live, rng.uniform(0.5, 2.0, size=M), 0.0)
+    inv = np.where(live, rng.uniform(0.5, 2.0, size=size), 0.0)
     d = np.where(live, d, 2e30)
     return [np.asarray(a, np_dtype) for a in (U, z, d, lam, inv)]
 
@@ -103,6 +108,150 @@ def test_eigvec_project_plain_matches_reference(m, dt):
                                    jnp.asarray(V, j_dtype), jnp.int32(m))
     got = eops.project_vectors(torch.from_numpy(U), torch.from_numpy(V), m)
     _close(got, want, rtol)
+
+
+# Row blocks (R rows from global row off) of a 200-wide state with 70
+# active pairs: the shapes of tests/test_kernels_pallas.py's row-block
+# test.
+BLOCK_M, BLOCK_ACTIVE = 200, 70
+ROW_BLOCKS = [(100, 0), (100, 100), (64, 64), (90, 30)]
+
+
+@pytest.mark.parametrize("R,off", ROW_BLOCKS)
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_eigvec_rotate_row_block_matches_reference(R, off, dt):
+    """The plain version on U's rows off .. off + R against the reference's
+    kernel in interpret mode on the same block, at f32/f64 rounding level,
+    with exact zeros outside the pruned region.  At (100, 0) in f32 the
+    oracle is the reference's ``eigvec_rotate_ref`` on the dense U (that
+    reference case fails under pytest-xdist)."""
+    np_dtype, t_dtype, j_dtype, rtol = DTYPES[dt]
+    m = BLOCK_ACTIVE
+    U, z, d, lam, inv = _rotation_inputs(m, np_dtype, size=BLOCK_M)
+    blk = U[off:off + R]
+    vecs = [jnp.asarray(a, j_dtype) for a in (z, d, lam, inv)]
+    if (R, off, dt) == (100, 0, "f32"):
+        want = jref.eigvec_rotate_ref(jnp.asarray(U, j_dtype),
+                                      *vecs)[off:off + R]
+    else:
+        want = j_rotate_kernel(jnp.asarray(blk, j_dtype), *vecs,
+                               jnp.int32(m), jnp.int32(off), interpret=True,
+                               block=eops.ROTATE_TILE)
+    got = eops.rotate_vectors(*[torch.from_numpy(a)
+                                for a in (blk, z, d, lam, inv)], m,
+                              tau=torch.zeros(BLOCK_M, dtype=t_dtype),
+                              row_offset=off)
+    assert got.dtype == t_dtype and got.shape == (R, BLOCK_M)
+    _close(got, want, rtol)
+    rows, cols = tref.pruned_region_mask(R, BLOCK_M, m, off,
+                                         block=eops.ROTATE_TILE)
+    assert torch.all(got[~(rows[:, None] & cols[None, :])] == 0)
+
+
+@pytest.mark.parametrize("R,off", ROW_BLOCKS)
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_eigvec_project_row_block_matches_reference(R, off, dt):
+    """The (M, C) partial of U's rows off .. off + R against the
+    reference's kernel in interpret mode (the same 32-row granule), rows
+    at or beyond m masked, output rows past the active slabs exact zeros."""
+    np_dtype, _, j_dtype, rtol = DTYPES[dt]
+    m = BLOCK_ACTIVE
+    U = _rotation_inputs(m, np_dtype, size=BLOCK_M)[0]
+    V = np.random.default_rng(1).normal(size=(BLOCK_M, 2)).astype(np_dtype)
+    blk, vb = U[off:off + R], V[off:off + R]
+    want = j_project_kernel(jnp.asarray(blk, j_dtype),
+                            jnp.asarray(vb, j_dtype), jnp.int32(m),
+                            jnp.int32(off), interpret=True,
+                            block=eops.PROJECT_SLAB)
+    got = eops.project_vectors(torch.from_numpy(blk), torch.from_numpy(vb),
+                               m, row_offset=off)
+    assert got.shape == (BLOCK_M, 2)
+    _close(got, want, rtol)
+    live = -(-m // eops.PROJECT_SLAB) * eops.PROJECT_SLAB
+    assert torch.all(got[live:] == 0)
+
+
+# ------------------------------------------- three-pass TF32 (the kernel) --
+def _tf32(x):
+    """float32 rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to
+    nearest, ties away from zero, over the 13 mantissa bits TF32 drops."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_rotation(passes):
+    """A stand-in for the float32 CUDA rotation that does its arithmetic:
+    W formed as the kernel forms it, each operand split into a TF32 head
+    and tail, and per 32-wide slab of k the ``passes`` products (("lo",
+    "hi") is U's tail times W's head) summed in float32 and added into a
+    float32 accumulator, then scaled by inv; the pruned region zero."""
+    def rotate(u, zhat, d, lam, inv, m, *, tau, row_offset=None):
+        n = u.shape[1]
+        W = tref.eigvec_rotate_ref(torch.eye(n, dtype=u.dtype), zhat, d, lam,
+                                   torch.ones_like(inv), tau)
+        parts = {}
+        for key, x in (("u", u), ("w", W)):
+            parts[key, "hi"] = _tf32(x)
+            parts[key, "lo"] = _tf32(x - parts[key, "hi"])
+        acc = torch.zeros((u.shape[0], n), dtype=torch.float32)
+        for k0 in range(0, n, 32):
+            ks = slice(k0, k0 + 32)
+            part = torch.zeros_like(acc)
+            for a, b in passes:
+                part += parts["u", a][:, ks] @ parts["w", b][ks]
+            acc += part
+        rows, cols = tref.pruned_region_mask(*u.shape, m, row_offset,
+                                             block=eops.ROTATE_TILE)
+        return torch.where(rows[:, None] & cols[None, :], acc * inv, 0.0)
+    return rotate
+
+
+THREE_PASS = (("lo", "hi"), ("hi", "lo"), ("hi", "hi"))
+
+
+@pytest.mark.parametrize("m", [1000, 300])
+def test_three_pass_tf32_is_as_good_as_float32(monkeypatch, m):
+    """The float32 kernel's arithmetic, modelled on the CPU at the main
+    path's bucket 1024: three TF32 products a slab at a time stay within
+    ``_rotate_case``'s per-entry bound of the plain float32 product, and
+    their largest error against the float64 product of the same operands
+    is at most 2x the plain product's."""
+    monkeypatch.setattr(eops, "rotate_vectors", _tf32_rotation(THREE_PASS))
+    case = next(c for c in checks.cases(1024, m, torch.float32, "cpu")
+                if c.name == "eigvec_rotate" and not c.variant)
+    res = checks.compare(case)
+    assert res["max_err_over_tol"] <= 1.0
+    err = checks.error_vs_exact(case)
+    assert 0 < err["kernel_err_vs_f64"] <= 2.0 * err["plain_err_vs_f64"], err
+
+
+@pytest.mark.parametrize("m", [1000, 300])
+def test_one_tf32_pass_is_not(monkeypatch, m):
+    """The head product alone (one TF32 pass) misses the float32 product's
+    accuracy by far more than 2x: why the kernel takes three."""
+    monkeypatch.setattr(eops, "rotate_vectors",
+                        _tf32_rotation((("hi", "hi"),)))
+    case = next(c for c in checks.cases(1024, m, torch.float32, "cpu")
+                if c.name == "eigvec_rotate" and not c.variant)
+    err = checks.error_vs_exact(case)
+    assert err["kernel_err_vs_f64"] > 2.0 * err["plain_err_vs_f64"], err
+
+
+def test_tf32_rounding_matches_the_conversion():
+    """``_tf32`` keeps 10 mantissa bits, rounds half away from zero, and
+    the tail of a split is exact: head + tail is x to 2^-22 relative."""
+    one = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11),
+                        1.0 + 2.0 ** -11 - 2.0 ** -20, 3.0],
+                       dtype=torch.float32)
+    assert _tf32(one).tolist() == [1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10),
+                                   1.0, 3.0]
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=1000)
+                         .astype(np.float32))
+    head = _tf32(x)
+    tail = _tf32(x - head)
+    assert torch.all((head.view(torch.int32) & 0x1FFF) == 0)
+    rel = ((head.double() + tail.double() - x.double()).abs()
+           / x.double().abs())
+    assert float(rel.max()) <= 2.0 ** -22
 
 
 def test_cauchy_factor_plain_matches_reference():
