@@ -24,10 +24,14 @@ Phases, each printing one JSON line per row:
    f32 shape), each output entry within its own bound as
    ``repro_torch.kernels.checks`` states it; ``eigvec_rotate`` and
    ``eigvec_project`` also on a row block (rows 256:768 of the bucket,
-   its own ``variant`` row).  Each f32 ``eigvec_rotate`` row (three TF32
-   products on the tensor cores) also holds the kernel's largest error
-   against the f64 product of the same operands to ``ROTATE_ERR_RATIO``
-   times the plain f32 product's.  A row's ``n`` and ``m`` are
+   its own ``variant`` row).  Each f32 row of ``eigvec_rotate`` and
+   ``scaled_gram`` (three TF32 products on the tensor cores) also holds
+   the kernel's largest error against the f64 product of the same
+   operands to ``TF32_ERR_RATIO`` times the plain f32 product's, and
+   ``scaled_gram``'s K̃ must equal its transpose bit for bit (one triangle
+   computed, the other mirrored; f64 on DMMA).  ``ssd_intra_chunk`` in
+   bf16 runs on ``wgmma`` (scores once per 64-row tile, shared by a group
+   of 16 heads), in f32 on the CUDA cores.  A row's ``n`` and ``m`` are
    T and H for the LM kernels (G·Q and H for the intra-chunk term).
 3. ``service`` — the KPCA service, ``repro_torch.launch.serve --mode
    kpca`` (Algorithm 2, fused k-row prologue, bucketed dispatch), on the
@@ -149,15 +153,17 @@ FLASH_SHAPES = (((1, 4096, 64, 8, 128), "bfloat16"),
 SSD_SHAPES = (((16, 256, 128, 256, 64), "bfloat16"),
               ((3, 32, 16, 4, 8), "float32"))
 LM_T, LM_DECODE_T, LM_WARMUP, LM_TIMED = 4096, 256, 3, 10
-# f32 eigvec_rotate against the f64 product of its operands: at most this
-# many times the plain f32 product's largest error: the bar the CPU model
-# of the arithmetic is held to (tests/test_torch_kernels_ref.py).  Three
-# TF32 products keep f32's accuracy only if their sums do; Hopper's tensor
+# The f32 kernels on three TF32 products (eigvec_rotate, scaled_gram)
+# against the f64 product of their operands: at most this many times the
+# plain f32 product's largest error: the bar the CPU model of the
+# arithmetic is held to (tests/test_torch_kernels_ref.py).  Three TF32
+# products keep f32's accuracy only if their sums do; Hopper's tensor
 # cores add with less than f32's rounding, which no CPU model shows.  With
-# the tensor-core sums folded into f32 a slab at a time the ratio is
-# 0.42-1.05; summed over all of k it was 4.08 (square) and 7.59 (row
-# block) at m = 1000 and 2.16 (square) at m = 300 (PERF.md, Findings).
-ROTATE_ERR_RATIO = 2.0
+# the tensor-core sums folded into f32 a slab at a time the rotation's
+# ratio is 0.42-1.05; summed over all of k it was 4.08 (square) and 7.59
+# (row block) at m = 1000 and 2.16 (square) at m = 300 (PERF.md,
+# Findings PR 17).
+TF32_ERR_RATIO = 2.0
 # Prefill against decode (bf16): both round every product and sum they
 # keep to bf16 (unit roundoff u = 2^-8), at different places (the prefill
 # sums the chunk state and the attention in f32 inside the kernels; decode
@@ -209,19 +215,26 @@ def kernel_phase(torch, checks, cuda) -> dict:
     for dtype, n, m, case in all_cases(torch, checks):
         before = cuda.LAUNCHES[case.name]
         res = checks.compare(case)
-        if case.name == "eigvec_rotate" and dtype == torch.float32:
+        if case.exact is not None and dtype == torch.float32:
             res.update(checks.error_vs_exact(case),
-                       bar_err_ratio=ROTATE_ERR_RATIO)
+                       bar_err_ratio=TF32_ERR_RATIO)
+        if case.name == "scaled_gram":
+            K = case.kernel()[0]
+            res["symmetric"] = bool(torch.equal(K, K.T))
+            del K
         row = {"phase": "kernels", "name": case.name,
                "variant": case.variant,
                "dtype": str(dtype).removeprefix("torch."), "n": n, "m": m,
                **res, "launches": cuda.LAUNCHES[case.name] - before}
         emit(row)
-        if not row.get("err_ratio", 0.0) <= ROTATE_ERR_RATIO:
+        if not row.get("err_ratio", 0.0) <= TF32_ERR_RATIO:
             raise AssertionError(
                 f"{case.name} {case.variant} m={m}: error against f64 "
                 f"{row['kernel_err_vs_f64']:.3e} is {row['err_ratio']:.2f}x "
-                f"the plain f32 product's (bar {ROTATE_ERR_RATIO}x)")
+                f"the plain f32 product's (bar {TF32_ERR_RATIO}x)")
+        if not row.get("symmetric", True):
+            raise AssertionError(f"{case.name} {row['dtype']} m={m}: K̃ is "
+                                 f"not exactly symmetric")
         rows[case.name, row["dtype"], m, case.variant] = row
     return rows
 
@@ -792,7 +805,7 @@ def main() -> int:
     path_of = {"eigvec_rotate2": "pallas2", "scaled_gram": "fig2",
                "rbf_gram": "roofline", "flash_attention": "lm",
                "ssd_intra_chunk": "lm"}
-    main_key_of = {"scaled_gram": ("float32", GRAM_K[0]),
+    main_key_of = {"scaled_gram": ("float64", GRAM_K[0]),   # Fig. 2's type
                    "rbf_gram": ("float32", RBF_SHAPES[0][1]),
                    "flash_attention": (FLASH_SHAPES[0][1],
                                        FLASH_SHAPES[0][0][2]),

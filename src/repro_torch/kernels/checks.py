@@ -31,9 +31,9 @@ Time bounds use the H100 SXM data sheet at 700 W: 3.35 TB/s of HBM,
 bars), 67 TFLOP/s in float64 (the FP64 tensor cores, full IEEE float64)
 and 989 TFLOP/s in bfloat16 (dense tensor cores); a bound takes the card's
 peak for the type, whatever unit the kernel uses, except where a case
-names its own: float32 ``eigvec_rotate`` counts its three TF32 products
-at 495 TFLOP/s (the float32-accurate split the kernel runs; below the
-float32 roof).  Bytes count
+names its own: float32 ``eigvec_rotate`` and ``scaled_gram`` count their
+three TF32 products at 495 TFLOP/s (the float32-accurate split the
+kernels run; below the float32 roof).  Bytes count
 each input read once and each output written once; operations count what
 these inputs need (the active m, not the capacity).
 
@@ -404,6 +404,7 @@ def gram_cases(n: int, k: int, dtype, device, seed: int = 0) -> list[Case]:
     s = torch.as_tensor(10.0 ** rng.uniform(-2.0, 2.0, size=k), dtype=dtype,
                         device=device)
     item = B.element_size()
+    f32 = dtype == torch.float32
     return [Case(
         name="scaled_gram",
         kernel=lambda: (nops.scaled_gram(B, s),),
@@ -414,8 +415,14 @@ def gram_cases(n: int, k: int, dtype, device, seed: int = 0) -> list[Case]:
                    "dot products (Higham gamma_k), the scale rounded alike",
         bytes=item * (n * k + k + n * n),
         # K̃ is symmetric: the function needs the n(n+1)/2 dot products of
-        # one triangle, though the kernel computes both.
-        flops=1.0 * n * (n + 1) * k)]
+        # one triangle.  float32: three TF32 products on the tensor cores
+        # (the split that keeps float32's accuracy); float64: one product.
+        flops=(3.0 if f32 else 1.0) * n * (n + 1) * k,
+        peak=TF32_FLOPS if f32 else None,
+        ops_label="operations, 3×TF32" if f32 else "operations",
+        # float32: the float64 product of the same rounded operands (B·s
+        # as the plain version rounds it, and B), which both are held to.
+        exact=(lambda: (B * s).double() @ B.double().T) if f32 else None)]
 
 
 def rbf_gram_tol(x: Tensor, y: Tensor, sigma: float, dtype) -> Tensor:
@@ -598,11 +605,12 @@ def ssd_intra_chunk_tol(c: Tensor, b: Tensor, x: Tensor, cum: Tensor
 
 
 def ssd_intra_chunk_case(G: int, Q: int, N: int, H: int, P: int, dtype,
-                         device, seed: int = 0) -> Case:
+                         device, seed: int = 0, decay: float = 0.2) -> Case:
     """The intra-chunk term at (G, Q, N, H, P): c, b of spread 0.3 and x
-    standard normal in ``dtype``, cum float32 falling by uniform(0, 0.2)
-    per step (the reference's test inputs).  No single PyTorch call
-    computes the function."""
+    standard normal in ``dtype``, cum float32 falling by uniform(0,
+    ``decay``) per step (0.2: the reference's test inputs; a steeper
+    decay drives exp(cum_t - cum_s) below float32's normal range).  No
+    single PyTorch call computes the function."""
     rng = np.random.default_rng(seed)
 
     def draw(*shape, scale=1.0):
@@ -611,7 +619,8 @@ def ssd_intra_chunk_case(G: int, Q: int, N: int, H: int, P: int, dtype,
 
     c, b = draw(G, Q, N, scale=0.3), draw(G, Q, N, scale=0.3)
     x = draw(G, Q, H, P)
-    cum = torch.as_tensor(-np.cumsum(rng.uniform(0, 0.2, (G, Q, H)), axis=1),
+    cum = torch.as_tensor(-np.cumsum(rng.uniform(0, decay, (G, Q, H)),
+                                     axis=1),
                           dtype=torch.float32, device=device)
     item = x.element_size()
     return Case(

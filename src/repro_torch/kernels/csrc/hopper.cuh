@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the port's tensor-core kernels:
 // mbarriers, TMA tile loads through a tensor map, wgmma descriptors, the
-// bf16 wgmma shapes flash_attention.cu issues and the TF32 one
-// eigvec_rotate.cu issues.  PTX inline assembly only; no library.
+// bf16 wgmma shapes flash_attention.cu and ssd_intra_chunk.cu issue and
+// the TF32 one eigvec_rotate.cu and scaled_gram.cu issue.  PTX inline
+// assembly only; no library.
 #pragma once
 
 #include <cuda.h>            // CUtensorMap and its enums (types only)
@@ -163,6 +164,20 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
       "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
       "%62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
       : REPRO_F32(0), REPRO_F32(32)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// The same with N = 64.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a,
+                                                   uint64_t b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : REPRO_F32(0)
       : "l"(a), "l"(b), "r"(accumulate));
 }
 

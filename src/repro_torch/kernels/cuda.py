@@ -43,7 +43,7 @@ SIGNATURES = {
     "eigvec_project": (P, P, P, P, I, I, I, I, P),
     "krow_project": (P, P, P, P, P, P, P, I, I, I, I, F, F, P),
     "transform_project": (P, P, P, P, P, P, I, I, I, I, I, F, F, P),
-    "scaled_gram": (P, P, P, I, I, P),
+    "scaled_gram": (P, P, P, P, I, I, P),
     "rbf_gram": (P, P, P, I, I, I, F, P),
     "flash_attention": (P, P, P, P, I, I, I, I, I, F, P),
     "ssd_intra_chunk": (P, P, P, P, P, I, I, I, I, I, P),

@@ -5,6 +5,7 @@ kernels: a CPU tensor runs ``ref.scaled_gram_ref`` /
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import kernels_fn as kf
 from repro_torch.kernels import cuda
@@ -15,12 +16,15 @@ from repro_torch.kernels.rbf_gram.ops import fused_kind
 Tensor = torch.Tensor
 
 NCOMP = 8           # most projection columns transform_project takes
+GRAM_SLAB = 32      # float32 scaled_gram: width of a TF32 plane's k slab
 
 
 def scaled_gram(b: Tensor, s: Tensor) -> Tensor:
-    """K̃ = B diag(s) Bᵀ for B (n, k) and s (k,): the scale is applied as
-    B's left slab is staged, so the scaled copy of B is never stored; the
-    sum runs in B's type (float64 for f64)."""
+    """K̃ = B diag(s) Bᵀ for B (n, k) and s (k,): one triangle computed, the
+    other mirrored (K̃ equals its transpose exactly), the scale applied to
+    the left operand as it is read, so the scaled copy of B is never
+    stored.  float32 runs three TF32 products on the tensor cores (B's
+    TF32 head and tail planes in scratch); float64 runs DMMA."""
     if b.device.type == "cpu":
         return scaled_gram_ref(b, s)
     s = s.to(b.dtype)
@@ -30,7 +34,19 @@ def scaled_gram(b: Tensor, s: Tensor) -> Tensor:
                          f"{b.shape} and {s.shape}")
     n, k = b.shape
     out = torch.empty((n, n), dtype=dtype, device=b.device)
-    cuda.launch("scaled_gram", dtype, b, s, out, n, k)
+    if dtype == torch.float32:
+        # TMA reads B's rows: 16-byte row strides and base.  Zero columns
+        # (and zero scales) add nothing to K̃.
+        kp = -(-k // 4) * 4
+        if kp != k:
+            b, s = F.pad(b, (0, kp - k)), F.pad(s, (0, kp - k))
+        b, s = (x.clone() if x.data_ptr() % 16 else x for x in (b, s))
+        k = kp
+        scratch = torch.empty(2 * n * -(-k // GRAM_SLAB) * GRAM_SLAB,
+                              dtype=dtype, device=b.device)
+    else:
+        scratch = b.new_empty(0)
+    cuda.launch("scaled_gram", dtype, b, s, scratch, out, n, k)
     return out
 
 

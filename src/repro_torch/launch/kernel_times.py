@@ -2,12 +2,15 @@
 
     PYTHONPATH=src python -m repro_torch.launch.kernel_times \\
         --kpca 1024:1000:float32 256:200:float64 \\
-        --flash 1:4096:64:8:128:bfloat16
+        --flash 1:4096:64:8:128:bfloat16 --gram 4096:512:float64 \\
+        --ssd 16:256:128:256:64:bfloat16
 
 ``--kpca n:m:dtype`` times the KPCA path's kernels named by ``--kernels``
 (default ``eigvec_rotate2``) at capacity bucket n with m active pairs,
 the row-block cases among them (``variant`` names their rows);
-``--flash B:T:H:Hkv:hd:dtype`` times ``flash_attention``.  The inputs and
+``--flash B:T:H:Hkv:hd:dtype`` times ``flash_attention``, ``--gram
+n:k:dtype`` ``scaled_gram`` (B of n rows and width k) and ``--ssd
+G:Q:N:H:P:dtype`` ``ssd_intra_chunk``.  The inputs and
 bounds are ``kernels/checks.py``'s.  Each row is one JSON line: the
 kernel's device ms per call and device launches per call
 (``checks.device_ms``: profiler records, the wrapper's own elementwise
@@ -53,6 +56,10 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--kernels", nargs="*", default=("eigvec_rotate2",))
     ap.add_argument("--flash", nargs="*", default=(),
                     help="B:T:H:Hkv:hd:dtype shapes of flash_attention")
+    ap.add_argument("--gram", nargs="*", default=(),
+                    help="n:k:dtype shapes of scaled_gram")
+    ap.add_argument("--ssd", nargs="*", default=(),
+                    help="G:Q:N:H:P:dtype shapes of ssd_intra_chunk")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: needs a CUDA device")
@@ -72,6 +79,20 @@ def main(argv=None) -> list[dict]:
         case = checks.flash_attention_case(B, T, H, Hkv, hd, dtype, "cuda")
         rows.append(_row(case, dtype, {"B": B, "T": T, "H": H, "Hkv": Hkv,
                                        "hd": hd}))
+        print(json.dumps(rows[-1]), flush=True)
+    for spec in args.gram:
+        n, k, dtype_name = spec.split(":")
+        dtype = getattr(torch, dtype_name)
+        for case in checks.gram_cases(int(n), int(k), dtype, "cuda"):
+            rows.append(_row(case, dtype, {"n": int(n), "k": int(k)}))
+            print(json.dumps(rows[-1]), flush=True)
+    for spec in args.ssd:
+        *shape, dtype_name = spec.split(":")
+        G, Q, N, H, P = map(int, shape)
+        dtype = getattr(torch, dtype_name)
+        case = checks.ssd_intra_chunk_case(G, Q, N, H, P, dtype, "cuda")
+        rows.append(_row(case, dtype, {"G": G, "Q": Q, "N": N, "H": H,
+                                       "P": P}))
         print(json.dumps(rows[-1]), flush=True)
     return rows
 

@@ -190,3 +190,25 @@ def test_rotate_bound_counts_its_products(dtype):
         assert by == "operations"
         assert ms == pytest.approx((2 * 1000 ** 3 + 1000 ** 2) / 67e9,
                                    rel=1e-12)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gram_bound_counts_its_products(dtype):
+    """float32: three TF32 products over one triangle, 3 n(n+1)k at
+    495 TFLOP/s, the bound the kernel's float32-accurate tensor-core
+    product can reach, and a float64 product to hold its error to;
+    float64: n(n+1)k at the type's 67 TFLOP/s (0.1282 ms).  Both
+    operations-bound at Fig. 2's n = 4096, k = 512."""
+    n, k = 4096, 512
+    case = checks.gram_cases(n, k, dtype, "cpu")[0]
+    ms, by = case.bound(dtype)
+    if dtype == torch.float32:
+        assert by == "operations, 3×TF32"
+        assert ms == pytest.approx(3 * n * (n + 1) * k / 495e9, rel=1e-12)
+        assert ms == pytest.approx(0.0521, abs=5e-5)
+        assert case.exact is not None
+    else:
+        assert by == "operations"
+        assert ms == pytest.approx(n * (n + 1) * k / 67e9, rel=1e-12)
+        assert ms == pytest.approx(0.1282, abs=5e-5)
+        assert case.exact is None

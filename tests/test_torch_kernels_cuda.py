@@ -66,7 +66,7 @@ def test_flash_attention_bf16_runs_on_the_tensor_cores(device):
 def test_rotate_f32_runs_on_the_tensor_cores(device):
     """The float32 rotation's product kernel holds TF32 wgmma (HGMMA), and
     at the main path's shape its error against the float64 product of the
-    same operands stays within ``chip_smoke.ROTATE_ERR_RATIO`` (2x) of the
+    same operands stays within ``chip_smoke.TF32_ERR_RATIO`` (2x) of the
     plain float32 product's, on the square state and on a row block."""
     cuda.library()
     counts = cuda.sass_counts()
@@ -151,6 +151,59 @@ def test_scaled_gram_matches_plain_version(device, n, k, dtype):
     for case in checks.gram_cases(n, k, getattr(torch, dtype), device,
                                   seed=n + k):
         checks.compare(case)
+
+
+def _sass_kernels(name):
+    """The SASS instruction counts of the kernels whose names hold
+    ``name``."""
+    cuda.library()
+    counts = cuda.sass_counts()
+    return {k: v for k, v in counts.items() if name in k}, counts
+
+
+def test_scaled_gram_runs_on_the_tensor_cores(device):
+    """The float32 product kernel holds TF32 wgmma (HGMMA) and the float64
+    one DMMA; at Fig. 2's n = 4096, k = 512 the float32 K̃'s error against
+    the float64 product of the same operands stays within
+    ``chip_smoke.TF32_ERR_RATIO`` (2x) of the plain float32 product's."""
+    tf32, counts = _sass_kernels("gram_tf32_kernel")
+    assert tf32 and all(v["HGMMA"] > 0 for v in tf32.values()), counts
+    dmma, _ = _sass_kernels("gram_dmma_kernel")
+    assert dmma and all(v["DMMA"] > 0 for v in dmma.values()), counts
+    case = checks.gram_cases(4096, 512, torch.float32, device, seed=0)[0]
+    err = checks.error_vs_exact(case)
+    assert err["err_ratio"] <= 2.0, err
+
+
+@pytest.mark.parametrize("n,k", [(100, 1), (130, 129), (300, 64),
+                                 (4096, 200)])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_scaled_gram_is_exactly_symmetric(device, n, k, dtype):
+    """One triangle is computed and mirrored: K̃ equals its transpose bit
+    for bit, also on cells cut by the ragged edge."""
+    case = checks.gram_cases(n, k, getattr(torch, dtype), device, seed=n)[0]
+    K = case.kernel()[0]
+    assert torch.equal(K, K.T)
+
+
+@pytest.mark.parametrize("decay", [1.0, 200.0])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_intra_chunk_steep_decay(device, decay, dtype):
+    """Steep decays: at 1.0 per step the far s tiles' exp(cum_t - cum_s)
+    falls below float32's normal range and the near ones do not, at 200
+    nearly every entry below the diagonal underflows; each entry stays
+    within its bound (subnormal decays kept, as the plain version keeps
+    them) and the output is finite."""
+    case = checks.ssd_intra_chunk_case(2, 256, 128, 20, 64,
+                                       getattr(torch, dtype), device,
+                                       seed=7, decay=decay)
+    checks.compare(case)
+
+
+def test_ssd_intra_chunk_bf16_runs_on_the_tensor_cores(device):
+    """The bfloat16 intra-chunk kernel's SASS holds wgmma instructions."""
+    wgmma, counts = _sass_kernels("ssd_intra_chunk_kernel_wgmma")
+    assert wgmma and all(v["HGMMA"] > 0 for v in wgmma.values()), counts
 
 
 @pytest.mark.parametrize("n,m,dim", [(1, 1, 1), (130, 129, 3), (64, 64, 16),

@@ -236,6 +236,58 @@ def test_one_tf32_pass_is_not(monkeypatch, m):
     assert err["kernel_err_vs_f64"] > 2.0 * err["plain_err_vs_f64"], err
 
 
+def _tf32_gram(passes):
+    """A stand-in for the float32 CUDA ``scaled_gram`` that does its
+    arithmetic: a = B·s rounded to float32 (as the plain version rounds
+    it), a and B each split into a TF32 head and tail, per 32-wide slab of
+    k the ``passes`` products (("lo", "hi") is a's tail times B's head)
+    summed in float32 and added into a float32 accumulator; the upper
+    triangle kept and mirrored, as the kernel writes it."""
+    def gram(b, s):
+        parts = {}
+        for key, x in (("a", b * s), ("b", b)):
+            parts[key, "hi"] = _tf32(x)
+            parts[key, "lo"] = _tf32(x - parts[key, "hi"])
+        n, k = b.shape
+        acc = torch.zeros((n, n), dtype=torch.float32)
+        for k0 in range(0, k, 32):
+            ks = slice(k0, k0 + 32)
+            part = torch.zeros_like(acc)
+            for pa, pb in passes:
+                part += parts["a", pa][:, ks] @ parts["b", pb][:, ks].T
+            acc += part
+        return acc.triu() + acc.triu(1).T
+    return gram
+
+
+@pytest.mark.parametrize("k", [512, 200])
+def test_three_pass_tf32_gram_is_as_good_as_float32(monkeypatch, k):
+    """The float32 ``scaled_gram`` kernel's arithmetic, modelled on the CPU
+    at n = 512: three TF32 products a slab at a time stay within
+    ``scaled_gram_tol`` of the plain float32 product entry by entry, their
+    largest error against the float64 product of the same operands is at
+    most 2x the plain product's, and the mirrored K̃ is exactly
+    symmetric."""
+    monkeypatch.setattr(nops, "scaled_gram", _tf32_gram(THREE_PASS))
+    case = checks.gram_cases(512, k, torch.float32, "cpu")[0]
+    res = checks.compare(case)
+    assert res["max_err_over_tol"] <= 1.0
+    err = checks.error_vs_exact(case)
+    assert 0 < err["kernel_err_vs_f64"] <= 2.0 * err["plain_err_vs_f64"], err
+    K = case.kernel()[0]
+    assert torch.equal(K, K.T)
+
+
+@pytest.mark.parametrize("k", [512, 200])
+def test_one_tf32_pass_gram_is_not(monkeypatch, k):
+    """The head product alone misses the float32 product's accuracy by far
+    more than 2x: why the float32 kernel takes three."""
+    monkeypatch.setattr(nops, "scaled_gram", _tf32_gram((("hi", "hi"),)))
+    case = checks.gram_cases(512, k, torch.float32, "cpu")[0]
+    err = checks.error_vs_exact(case)
+    assert err["kernel_err_vs_f64"] > 2.0 * err["plain_err_vs_f64"], err
+
+
 def test_tf32_rounding_matches_the_conversion():
     """``_tf32`` keeps 10 mantissa bits, rounds half away from zero, and
     the tail of a split is exact: head + tail is x to 2^-22 relative."""

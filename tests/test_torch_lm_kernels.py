@@ -154,6 +154,34 @@ def test_ssd_intra_chunk_plain_matches_reference(G, Q, N, H, P, dtype):
     _close(got, j_ssd_ref(jc, jb, jx, jcum), tol)
 
 
+@pytest.mark.parametrize("N,P", [(8, 16), (33, 63), (64, 8), (128, 64)])
+def test_ssd_intra_chunk_tma_padding(N, P):
+    """The bfloat16 kernel reads c and b with N zero-padded to 64 or 128
+    and x with P zero-padded to 64 (its TMA boxes): the term over the
+    padded operands is the term over the originals in the first P columns
+    and exact zeros past them.  Through the plain version with float64
+    operands (its float32 scores only gain zero terms: 1e-12)."""
+    Np = sops.tma_state_dim(N)
+    assert Np == (64 if N <= 64 else 128)
+    c, b, x, cum = (torch.from_numpy(a).double()
+                    for a in _ssd_inputs(2, 40, N, 3, P, seed=N + P))
+    cp, bp = sops.pad_last(c, Np), sops.pad_last(b, Np)
+    xp = sops.pad_last(x, sops.TMA_BOX)
+    assert (cp.shape[-1], xp.shape[-1]) == (Np, 64)
+    assert (cp is c) == (N == Np) and (xp is x) == (P == 64)
+    out = sops.intra_chunk(cp, bp, xp, cum.float())
+    np.testing.assert_allclose(out[..., :P].numpy(),
+                               sops.intra_chunk(c, b, x, cum.float()).numpy(),
+                               rtol=1e-12, atol=1e-12)
+    assert not out[..., P:].any()
+
+
+def test_ssd_intra_chunk_bf16_state_limit():
+    """States wider than two TMA boxes are refused, not truncated."""
+    with pytest.raises(ValueError, match="state"):
+        sops.tma_state_dim(sops.MAX_STATE_BF16 + 1)
+
+
 def test_ssd_intra_chunk_causality_and_no_overflow():
     """A change to the last input leaves earlier outputs as they were; a
     steep decay (exp(cum_t - cum_s) overflows float32 for s > t) gives
