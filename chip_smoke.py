@@ -22,9 +22,13 @@ Phases, each printing one JSON line per row:
    shape; ``ssd_intra_chunk`` at the prefill's 16 chunks of
    256, N = 128, 256 heads of 64 with bf16 x and f32 cum, and at a small
    f32 shape), each output entry within its own bound as
-   ``repro_torch.kernels.checks`` states it; ``eigvec_rotate`` and
-   ``eigvec_project`` also on a row block (rows 256:768 of the bucket,
-   its own ``variant`` row).  Each f32 row of ``eigvec_rotate`` and
+   ``repro_torch.kernels.checks`` states it, pruned entries exact zeros
+   and two runs of the kernel bit for bit equal; ``eigvec_rotate``,
+   ``eigvec_project`` and ``krow_project`` also on a row block (rows
+   256:768 of the bucket), ``krow_project`` without aux columns, and
+   ``transform_project`` at 20 components and at the roofline's 512
+   queries of 64, each its own ``variant`` row.  Each f32 row of
+   ``eigvec_rotate`` and
    ``scaled_gram`` (three TF32 products on the tensor cores) also holds
    the kernel's largest error against the f64 product of the same
    operands to ``TF32_ERR_RATIO`` times the plain f32 product's, and
@@ -71,9 +75,10 @@ Phases, each printing one JSON line per row:
    and the update latency split into growth and steady state.
 7. ``roofline`` — ``repro_torch.launch.roofline`` at the reference
    driver's shapes: a STREAM triad on the card, one row per kernel with
-   its rate against it, and the fused-against-unfused ingest and query.
-   It is ``rbf_gram``'s path: that kernel's launches are counted around
-   it.
+   its rate against it, and the fused-against-unfused ingest and query
+   (16 components).  It is ``rbf_gram``'s path: the kernels' launches
+   are counted around it and held to ``roofline.launch_reckoning`` (one
+   a call; C = 64 is one ``transform_project`` launch).
 8. ``lm``      — the LM zoo's serving path at the full width of
    Jamba-1.5-Large, one period (8 layers: 7 mamba + 1 attention), without
    experts (every layer its dense FFN: 8.9 B parameters, 16.6 GiB bf16),
@@ -222,6 +227,7 @@ def kernel_phase(torch, checks, cuda) -> dict:
             K = case.kernel()[0]
             res["symmetric"] = bool(torch.equal(K, K.T))
             del K
+        res["repeats_bitwise"] = checks.repeats_bitwise(case)
         row = {"phase": "kernels", "name": case.name,
                "variant": case.variant,
                "dtype": str(dtype).removeprefix("torch."), "n": n, "m": m,
@@ -235,6 +241,9 @@ def kernel_phase(torch, checks, cuda) -> dict:
         if not row.get("symmetric", True):
             raise AssertionError(f"{case.name} {row['dtype']} m={m}: K̃ is "
                                  f"not exactly symmetric")
+        if not row["repeats_bitwise"]:
+            raise AssertionError(f"{case.name} {case.variant} "
+                                 f"{row['dtype']} m={m}: two runs differ")
         rows[case.name, row["dtype"], m, case.variant] = row
     return rows
 
@@ -600,13 +609,19 @@ def window_phase(torch, cuda, serve, capacity: int, window: int,
 
 def roofline_phase(torch, cuda) -> dict:
     """``launch/roofline.main`` at the reference driver's shapes, nothing
-    written; the kernels' launches are counted around it."""
+    written; the kernels' launches are counted around it and held to
+    ``roofline.launch_reckoning`` (one launch a call: C = 64 is one
+    ``transform_project`` launch)."""
     from repro_torch.launch import roofline
 
     cuda.reset_launches()
     res = roofline.main(out=None)
     torch.cuda.synchronize()
     launches = dict(cuda.LAUNCHES)
+    expect = roofline.launch_reckoning(res, launches)
+    if launches != expect:
+        raise AssertionError(f"roofline launch counts {launches} != "
+                             f"{expect}")
     for r in res["kernels"]:
         emit({"phase": "roofline", **r})
     row = {"phase": "roofline", "device": res["device"],

@@ -296,9 +296,9 @@ def query_features(state: NystromState, xq: Tensor, n: int,
     """Nyström eigenvector rows at out-of-sample points:
     sqrt(m/n) · k(x_q, X_lm) U Λ⁺ ((nq, d) -> (nq, M), zero beyond m).
 
-    Under ``plan.fuse_krow`` the query gram is never stored: the
-    ``transform_project`` kernel contracts each kernel tile against
-    S = U diag(λ⁺), eight columns of S per launch (the kernel's width)."""
+    Under ``plan.fuse_krow`` the query gram is never stored: one
+    ``transform_project`` call contracts each kernel tile against
+    S = U diag(λ⁺), all M columns."""
     from repro_torch.kernels.nystrom_recon import ops as nops
 
     st = state.kpca
@@ -308,9 +308,8 @@ def query_features(state: NystromState, xq: Tensor, n: int,
     s_mat = (st.U * _pinv_lam(st.L, mask)[None, :]).to(st.X.dtype)
     xq = torch.as_tensor(xq, device=st.X.device).to(st.X.dtype)
     if plan is not None and plan.fuse_krow:
-        y = torch.cat([nops.transform_project(
-            xq, st.X, s_mat[:, c:c + nops.NCOMP].contiguous(), st.m,
-            spec=spec)[0] for c in range(0, M, nops.NCOMP)], dim=1)
+        y = nops.transform_project(xq, st.X, s_mat.contiguous(), st.m,
+                                   spec=spec)[0]
     else:
         kq = kf.gram_block(xq, st.X, spec=spec)
         y = torch.where(mask[None, :], kq, 0.0) @ s_mat

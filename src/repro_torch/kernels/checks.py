@@ -37,9 +37,11 @@ kernels run; below the float32 roof).  Bytes count
 each input read once and each output written once; operations count what
 these inputs need (the active m, not the capacity).
 
-``cases`` also holds one row-block case of ``eigvec_rotate`` and of
-``eigvec_project`` (rows n/4 .. 3n/4 of the state, ``Case.variant`` names
-them), after the main path's square ones.
+``cases`` also holds, after the main path's ones, a row-block case of
+``eigvec_rotate``, ``eigvec_project`` and ``krow_project`` (rows n/4 ..
+3n/4 of the state), ``krow_project`` without aux columns (Algorithm 1's
+prologue), and ``transform_project`` at 20 components and at the
+roofline's 512 queries of 64 components; ``Case.variant`` names each.
 
 Times are device times: ``device_ms`` reads the kernels' own start and end
 from the profiler's CUDA activity records (CUPTI), so the host's work in a
@@ -118,7 +120,9 @@ class Case:
     tol_reason: str
     bytes: float
     flops: float
-    exact_zero: Tensor | None = None   # mask of output 0 the kernel prunes
+    # Mask of output 0 the kernel prunes, or a tuple of one per output
+    # (None where an output prunes nothing).
+    exact_zero: Tensor | tuple[Tensor | None, ...] | None = None
     keep: Tensor | None = None         # columns of output 0 the caller keeps
     variant: str = ""                  # "" for the main path's shape
     peak: float | None = None          # flop/s of the bound, else the type's
@@ -304,44 +308,67 @@ def _epilogue_tol(sq_terms: Tensor, spec: kf.KernelSpec, dim: int,
     return 2.0 * (dim + 4) * eps * sq_terms * lip + 8.0 * eps * spec.scale
 
 
-def _krow_case(U, X, K1, m, rng, spec, dtype) -> Case:
+def _krow_case(U, X, K1, m, rng, spec, dtype, block=None,
+               aux_cols: int = 2) -> Case:
+    """The fused prologue with aux = [1 | K1] (Algorithm 2's), or with
+    ``aux_cols`` = 0 none (Algorithm 1's); with ``block`` = (R, r0) on
+    U's rows r0 .. r0 + R (the row-block form)."""
     n, dim = X.shape
     mi = int(m)
+    R, r0 = block or (n, 0)
+    rn = min(max(mi - r0, 0), R)                # live rows of the block
     x_new = torch.as_tensor(rng.normal(size=dim), dtype=dtype,
                             device=U.device)
-    aux = torch.stack([torch.ones_like(K1), K1], dim=1).contiguous()
-    Xd, xd = X.double(), x_new.double()
+    aux = torch.stack([torch.ones_like(K1), K1], dim=1)[:, :aux_cols]
+    Ub, Xb = U[r0:r0 + R], X[r0:r0 + R]
+    auxb = aux[r0:r0 + R].contiguous()
+    Xd, xd = Xb.double(), x_new.double()
     terms = (Xd * Xd).sum(1) + (xd * xd).sum() + 2 * (Xd @ xd).abs()
     # a is an exact zero on rows at or beyond m.
-    tol_a = torch.where(rankone.active_mask(n, m),
-                        _epilogue_tol(terms, spec, dim, dtype), 0.0)
-    a_ref, _ = krow_project_ref(U, X, x_new, aux, m, spec=spec)
-    V = torch.cat([a_ref[:, None], aux], 1).double()
-    V[mi:] = 0.0
-    Ua = U.double().abs()
-    tol_p = _gamma(mi, dtype) * (Ua.T @ V.abs())
+    masked = torch.arange(R, device=U.device) >= rn
+    tol_a = torch.where(~masked, _epilogue_tol(terms, spec, dim, dtype), 0.0)
+    at = dict(row_offset=r0) if block else {}
+    a_ref, _ = krow_project_ref(Ub, Xb, x_new, auxb, m, at.get("row_offset"),
+                                spec=spec)
+    V = torch.cat([a_ref[:, None], auxb], 1).double()
+    V[rn:] = 0.0
+    Ua = Ub.double().abs()
+    tol_p = _gamma(rn, dtype) * (Ua.T @ V.abs())
     tol_p[:, 0] += Ua.T @ tol_a        # a's own error, through |U|
+    pruned = torch.arange(n, device=U.device) >= (
+        -(-mi // eops.PROJECT_SLAB) * eops.PROJECT_SLAB)
     item = U.element_size()
+    ncol = 1 + aux_cols
+    variant = ", ".join(([f"rows {r0}:{r0 + R}"] if block else [])
+                        + ([f"naux {aux_cols}"] if aux_cols != 2 else []))
     return Case(
         name="krow_project",
-        kernel=lambda: kops.krow_project(U, X, x_new, aux, m, spec=spec),
-        plain=lambda: krow_project_ref(U, X, x_new, aux, m, spec=spec),
+        variant=variant,
+        kernel=lambda: kops.krow_project(Ub, Xb, x_new, auxb, m, spec=spec,
+                                         **at),
+        plain=lambda: krow_project_ref(Ub, Xb, x_new, auxb, m,
+                                       at.get("row_offset"), spec=spec),
         library=None,
         tols=(tol_a, tol_p),
         tol_reason="per entry. a_i: (d+4)eps-rounded norm expansion "
                    "times the epilogue's d2-Lipschitz constant (0 at "
-                   "i >= m); P_iq: 2(m+2)eps·(|U|ᵀ|[a|aux]|)_iq, plus "
-                   "(|U|ᵀ tol_a)_i in column 0",
-        bytes=item * (mi * mi + mi * dim + dim + 2 * mi + n + 3 * n),
-        flops=2.0 * mi * mi * 3 + mi * (3 * dim + 20))
+                   "i >= m); P_iq: 2(r+2)eps·(|U|ᵀ|[a|aux]|)_iq over the "
+                   "r live rows, plus (|U|ᵀ tol_a)_i in column 0",
+        bytes=item * (rn * mi + rn * dim + dim + aux_cols * rn + R
+                      + n * ncol),
+        flops=2.0 * rn * mi * ncol + rn * (3 * dim + 20),
+        exact_zero=(masked, pruned[:, None].expand(n, ncol)))
 
 
-def _transform_case(U, L, X, m, rng, spec, dtype) -> Case:
+def _transform_case(U, L, X, m, rng, spec, dtype, nq: int = N_QUERIES,
+                    comps: int = N_COMPONENTS) -> Case:
+    """``nq`` queries projected on the top ``comps`` components (the
+    service's 64 and 8 unless the variant names others)."""
     n, dim = X.shape
     mi = int(m)
-    xq = torch.as_tensor(rng.normal(size=(N_QUERIES, dim)), dtype=dtype,
+    xq = torch.as_tensor(rng.normal(size=(nq, dim)), dtype=dtype,
                          device=U.device)
-    C = min(N_COMPONENTS, max(mi, 1))
+    C = min(comps, max(mi, 1))
     top = torch.argsort(torch.where(rankone.active_mask(n, m), -L,
                                     torch.inf), stable=True)[:C]
     S = (U[:, top] / torch.sqrt(torch.clamp_min(L[top], 1e-6))).contiguous()
@@ -354,8 +381,11 @@ def _transform_case(U, L, X, m, rng, spec, dtype) -> Case:
     tol_y = _gamma(mi, dtype) * (Kq @ Sa) + tol_k @ Sa
     tol_r = _gamma(mi, dtype) * Kq.sum(1) + tol_k.sum(1)
     item = U.element_size()
+    variant = ", ".join(([f"Q {nq}"] if nq != N_QUERIES else [])
+                        + ([f"C {comps}"] if comps != N_COMPONENTS else []))
     return Case(
         name="transform_project",
+        variant=variant,
         kernel=lambda: nops.transform_project(xq, X, S, m, spec=spec),
         plain=lambda: transform_project_ref(xq, X, S, m, spec=spec),
         library=None,
@@ -364,9 +394,8 @@ def _transform_case(U, L, X, m, rng, spec, dtype) -> Case:
                    "(tol_Kq |S|)_ic; rowsum_i: 2(m+2)eps·(|Kq|1)_i + "
                    "(tol_Kq 1)_i, tol_Kq the epilogue error of each Kq "
                    "entry (norm expansion times d2-Lipschitz)",
-        bytes=item * (N_QUERIES * dim + mi * dim + mi * C
-                      + N_QUERIES * (C + 1)),
-        flops=N_QUERIES * mi * (3.0 * dim + 2 * C + 20))
+        bytes=item * (nq * dim + mi * dim + mi * C + nq * (C + 1)),
+        flops=nq * mi * (3.0 * dim + 2 * C + 20))
 
 
 def cases(n: int, m: int, dtype, device, seed: int = 0) -> list[Case]:
@@ -384,7 +413,12 @@ def cases(n: int, m: int, dtype, device, seed: int = 0) -> list[Case]:
             _krow_case(U, X, K1, mt, rng, spec, dtype),
             _transform_case(U, L, X, mt, rng, spec, dtype),
             _rotate_case(U, L, mt, rng, dtype, block),
-            _project_case(U, mt, rng, dtype, block)]
+            _project_case(U, mt, rng, dtype, block),
+            _krow_case(U, X, K1, mt, rng, spec, dtype, block),
+            _krow_case(U, X, K1, mt, rng, spec, dtype, aux_cols=0),
+            _transform_case(U, L, X, mt, rng, spec, dtype, comps=20),
+            _transform_case(U, L, X, mt, rng, spec, dtype, nq=512,
+                            comps=64)]
 
 
 def scaled_gram_tol(B: Tensor, s: Tensor, dtype) -> Tensor:
@@ -662,14 +696,24 @@ def compare(case: Case) -> dict:
         errs.append(float(err.max()) if err.numel() else 0.0)
         ratios.append(float((err / tol)[tol > 0].max())
                       if bool((tol > 0).any()) else 0.0)
-    if case.exact_zero is not None and torch.any(got[0][case.exact_zero]
-                                                 != 0):
-        raise AssertionError(f"{case.name}: pruned region not exact zeros")
+    zeros = (case.exact_zero if isinstance(case.exact_zero, tuple)
+             else (case.exact_zero,))
+    for k, (g, z) in enumerate(zip(got, zeros)):
+        if z is not None and torch.any(g[z.to(g.device)] != 0):
+            raise AssertionError(f"{case.name}: output {k}'s pruned region "
+                                 f"not exact zeros")
     return {"max_abs_err": max(errs), "errs": errs,
             "max_err_over_tol": max(ratios), "errs_over_tol": ratios,
             "max_tols": [float(t.max()) if t.numel() else 0.0
                          for t in case.tols],
             "tol_reason": case.tol_reason}
+
+
+def repeats_bitwise(case: Case) -> bool:
+    """Whether two runs of the kernel give bit for bit the same outputs
+    (no atomics, no order that depends on scheduling)."""
+    first, second = case.kernel(), case.kernel()
+    return all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def error_vs_exact(case: Case) -> dict:

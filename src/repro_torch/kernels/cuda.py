@@ -31,7 +31,7 @@ SOURCES = ("errors.cu", "eigvec_rotate.cu", "eigvec_rotate2.cu",
            "eigvec_project.cu", "krow_project.cu", "transform_project.cu",
            "scaled_gram.cu", "rbf_gram.cu", "flash_attention.cu",
            "ssd_intra_chunk.cu")
-HEADERS = ("common.cuh", "hopper.cuh", "rotate_tile.cuh")
+HEADERS = ("common.cuh", "hopper.cuh", "rotate_tile.cuh", "project_tile.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,8 +41,8 @@ SIGNATURES = {
     "eigvec_rotate": (P,) * 9 + (I, I, I, I, F, P),
     "eigvec_rotate2": (P,) * 18 + (I, F, P),
     "eigvec_project": (P, P, P, P, I, I, I, I, P),
-    "krow_project": (P, P, P, P, P, P, P, I, I, I, I, F, F, P),
-    "transform_project": (P, P, P, P, P, P, I, I, I, I, I, F, F, P),
+    "krow_project": (P,) * 7 + (I,) * 8 + (F, F, P),
+    "transform_project": (P,) * 6 + (I,) * 5 + (F, F) + (I,) * 6 + (P,),
     "scaled_gram": (P, P, P, P, I, I, P),
     "rbf_gram": (P, P, P, I, I, I, F, P),
     "flash_attention": (P, P, P, P, I, I, I, I, I, F, P),

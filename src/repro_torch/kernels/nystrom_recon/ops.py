@@ -4,6 +4,8 @@ kernels: a CPU tensor runs ``ref.scaled_gram_ref`` /
 ``csrc/scaled_gram.cu`` / ``csrc/transform_project.cu`` or raises."""
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
@@ -15,8 +17,63 @@ from repro_torch.kernels.rbf_gram.ops import fused_kind
 
 Tensor = torch.Tensor
 
-NCOMP = 8           # most projection columns transform_project takes
 GRAM_SLAB = 32      # float32 scaled_gram: width of a TF32 plane's k slab
+# transform_project's geometry (csrc/transform_project.cu's constants).
+TRANSFORM_QUERIES = 8       # queries per block
+TRANSFORM_RANKS = 8         # blocks of a cluster, splitting the points
+TRANSFORM_CHUNK = 64        # points a rank stages at once
+TRANSFORM_TILES = (8, 16, 32, 64)   # component tiles, one kernel each
+
+
+class TransformGeometry(NamedTuple):
+    """How ``transform_project`` spreads a call over the card: a block per
+    (query tile, component tile, rank); the ``ranks`` blocks of a tile form
+    one cluster and split the active points j < m in ``chunk``-point
+    chunks, rank r taking chunks r, r + ranks, ...; rank r finishes the
+    tile's entries e = r, r + ranks, ... of the row-major (q_tile,
+    c_tile + 1) partial (column c_tile is the row sum, written by component
+    tile 0 only)."""
+    grid: tuple[int, int]      # (ranks x query tiles, component tiles)
+    q_tile: int
+    c_tile: int
+    ranks: int
+    chunk: int
+
+    def points(self, rank: int, m: int) -> list[range]:
+        """The points rank ``rank`` sums, chunk by chunk."""
+        return [range(j, min(m, j + self.chunk))
+                for j in range(rank * self.chunk, m,
+                               self.ranks * self.chunk)]
+
+    def entries(self, bx: int, by: int, rank: int, nq: int, ncomp: int
+                ) -> list[tuple[int, int]]:
+        """The (query, column) entries the block (bx, by) of rank ``rank``
+        writes; column ``ncomp`` stands for the row sum."""
+        q0, c0 = bx // self.ranks * self.q_tile, by * self.c_tile
+        out = []
+        for e in range(rank, self.q_tile * (self.c_tile + 1), self.ranks):
+            q, c = q0 + e // (self.c_tile + 1), e % (self.c_tile + 1)
+            if q >= nq:
+                continue
+            if c == self.c_tile:
+                if by == 0:
+                    out.append((q, ncomp))
+            elif c0 + c < ncomp:
+                out.append((q, c0 + c))
+        return out
+
+
+def transform_geometry(nq: int, ncomp: int) -> TransformGeometry:
+    """The launch of ``transform_project`` for ``nq`` queries and ``ncomp``
+    components: the narrowest tile that holds them, 64 columns a tile
+    beyond 64."""
+    c_tile = next((t for t in TRANSFORM_TILES if t >= ncomp),
+                  TRANSFORM_TILES[-1])
+    return TransformGeometry(
+        grid=(TRANSFORM_RANKS * -(-nq // TRANSFORM_QUERIES),
+              -(-ncomp // c_tile)),
+        q_tile=TRANSFORM_QUERIES, c_tile=c_tile, ranks=TRANSFORM_RANKS,
+        chunk=TRANSFORM_CHUNK)
 
 
 def scaled_gram(b: Tensor, s: Tensor) -> Tensor:
@@ -54,7 +111,8 @@ def transform_project(xq: Tensor, x: Tensor, s: Tensor, num_active, *,
                       spec: kf.KernelSpec) -> tuple[Tensor, Tensor]:
     """(Y, rowsum): Y = Kq_masked @ s and rowsum = Kq_masked @ 1 for a
     query batch xq (Q, d) against stored points x (n, d) and a projection
-    s (n, C <= 8); the query gram is never stored."""
+    s (n, C), any C >= 1; the query gram is never stored.  One launch, on
+    ``transform_geometry(Q, C)``."""
     if s.device.type == "cpu":
         return transform_project_ref(xq, x, s, num_active, spec=spec)
     kind = fused_kind(spec, "transform_project")
@@ -66,12 +124,13 @@ def transform_project(xq: Tensor, x: Tensor, s: Tensor, num_active, *,
     if x.shape != (n, dim):
         raise ValueError(f"transform_project: shapes xq {xq.shape}, "
                          f"x {x.shape}, s {s.shape}")
-    if not 1 <= ncomp <= NCOMP:
-        raise ValueError(f"transform_project takes 1..{NCOMP} components, "
-                         f"got {ncomp}")
+    if ncomp < 1:
+        raise ValueError("transform_project takes at least one component")
     m = cuda.active_count(num_active, s.device)
     y = torch.empty((nq, ncomp), dtype=dtype, device=s.device)
     rs = torch.empty((nq,), dtype=dtype, device=s.device)
+    geo = transform_geometry(nq, ncomp)
     cuda.launch("transform_project", dtype, xq, x, s, m, y, rs, nq, n, dim,
-                ncomp, kind, float(spec.sigma), float(spec.scale))
+                ncomp, kind, float(spec.sigma), float(spec.scale), *geo.grid,
+                geo.q_tile, geo.c_tile, geo.ranks, geo.chunk)
     return y, rs

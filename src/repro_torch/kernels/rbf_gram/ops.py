@@ -4,6 +4,8 @@ kernel (the ingest prologue): a CPU tensor runs ``ref.rbf_gram_ref`` /
 ``csrc/krow_project.cu`` or raises."""
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.core import kernels_fn as kf
@@ -15,6 +17,55 @@ Tensor = torch.Tensor
 # Kernels the fused CUDA epilogues implement, with their code in csrc.
 FUSED_KERNELS = {"rbf": 0, "matern32": 1}
 NAUX = 8            # projected columns: the kernel row + up to 7 aux
+PROJECT_COLS = 64   # columns of U per cluster (csrc/project_tile.cuh)
+PROJECT_SLAB = 32   # its pruning granule: P's rows past ceil(m/32)·32 are 0
+
+
+class ProjectGeometry(NamedTuple):
+    """How ``krow_project`` (``csrc/project_tile.cuh``, shared with
+    ``eigvec_project``) spreads a call over the card: one cluster of
+    ``ranks`` blocks per ``cols``-column slab of U; rank q sums the live
+    rows of the block's chunks q, q + ranks, ... (``chunk`` rows each) and
+    stages their rows of a, and finishes columns q·cols/ranks .. of its
+    slab, adding the ranks' partials; slab 0's ranks also write a, its
+    masked rows as zeros (``zero_rows``).  Slabs at or beyond the live
+    columns ceil(m/32)·32 write zeros from rank 0."""
+    slabs: int
+    ranks: int = 8
+    cols: int = PROJECT_COLS
+    chunk: int = 128
+    threads: int = 256
+
+    def rows(self, rank: int, live: int) -> list[range]:
+        """The live rows rank ``rank`` sums (and, in slab 0, writes a of),
+        chunk by chunk."""
+        return [range(i, min(live, i + self.chunk))
+                for i in range(rank * self.chunk, live,
+                               self.ranks * self.chunk)]
+
+    def zero_rows(self, rank: int, live: int, R: int) -> list[int]:
+        """The masked rows of a that rank ``rank`` of slab 0 writes: its
+        threads take rows live + rank·threads + t, stepping
+        threads·ranks."""
+        return [i for i in range(live, R)
+                if (i - live) // self.threads % self.ranks == rank]
+
+    def columns(self, slab: int, rank: int, n: int, m: int) -> range:
+        """The output rows of P (columns of U) rank ``rank`` of ``slab``
+        writes, with m active columns."""
+        live = min(n, -(-m // PROJECT_SLAB) * PROJECT_SLAB)
+        c0 = slab * self.cols
+        if c0 >= live:                     # pruned: rank 0 writes zeros
+            return (range(min(c0, n), min(c0 + self.cols, n)) if rank == 0
+                    else range(0))
+        share = self.cols // self.ranks
+        c0 += rank * share
+        return range(min(c0, n), min(c0 + share, n))
+
+
+def project_geometry(n: int) -> ProjectGeometry:
+    """The launch of ``krow_project`` on a state n columns wide."""
+    return ProjectGeometry(slabs=-(-n // PROJECT_COLS))
 
 
 def fused_kind(spec: kf.KernelSpec, name: str) -> int:
@@ -44,28 +95,39 @@ def gram(x: Tensor, y: Tensor, sigma) -> Tensor:
 
 
 def krow_project(u: Tensor, x: Tensor, x_new: Tensor, aux: Tensor,
-                 num_active, *, spec: kf.KernelSpec
-                 ) -> tuple[Tensor, Tensor]:
+                 num_active, *, spec: kf.KernelSpec,
+                 row_offset: int | None = None) -> tuple[Tensor, Tensor]:
     """(a, P): the masked kernel row a = k(X, x_new)·[row < m] and
-    P = Uᵀ[a | aux·[row < m]] in one pass over U.  u (n, n), x (n, d),
-    x_new (d,), aux (n, naux) with naux <= 7; P is (n, 1 + naux)."""
+    P = Uᵀ[a | aux·[row < m]] in one pass over U.  ``u`` (R, n) may be a
+    row block whose first row is the state's row ``row_offset`` (a host
+    int; rows are masked by their global index), x (R, d), x_new (d,),
+    aux (R, naux) with 0 <= naux <= 7; a is (R,), P the block's (n, 1 +
+    naux) partial.  Masked rows of a and output rows of P at or beyond
+    ceil(m/32)·32 are exact zeros."""
     if u.device.type == "cpu":
-        return krow_project_ref(u, x, x_new, aux, num_active, spec=spec)
+        return krow_project_ref(u, x, x_new, aux, num_active, row_offset,
+                                spec=spec)
     kind = fused_kind(spec, "krow_project")
     dtype = cuda.check_operands("krow_project", u, x, x_new, aux)
-    n = u.shape[0]
+    if u.dim() != 2 or x.dim() != 2 or aux.dim() != 2:
+        raise ValueError(f"krow_project: need u (R, n), x (R, d), aux "
+                         f"(R, naux), got {u.shape}, {x.shape}, {aux.shape}")
+    R, n = u.shape
     dim = x.shape[1]
     naux = aux.shape[1]
-    if (u.shape != (n, n) or x.shape != (n, dim) or x_new.shape != (dim,)
-            or aux.shape != (n, naux)):
+    if (x.shape != (R, dim) or x_new.shape != (dim,)
+            or aux.shape != (R, naux)):
         raise ValueError(f"krow_project: shapes u {u.shape}, x {x.shape}, "
                          f"x_new {x_new.shape}, aux {aux.shape}")
     if naux + 1 > NAUX:
         raise ValueError(f"krow_project: at most {NAUX - 1} aux columns, "
                          f"got {naux}")
+    r0 = 0 if row_offset is None else int(row_offset)
     m = cuda.active_count(num_active, u.device)
-    a = torch.empty((n,), dtype=dtype, device=u.device)
+    a = torch.empty((R,), dtype=dtype, device=u.device)
     P = torch.empty((n, 1 + naux), dtype=dtype, device=u.device)
-    cuda.launch("krow_project", dtype, u, x, x_new, aux, m, a, P, n, dim,
-                naux, kind, float(spec.sigma), float(spec.scale))
+    geo = project_geometry(n)
+    cuda.launch("krow_project", dtype, u, x, x_new, aux, m, a, P, R, n, dim,
+                naux, r0, geo.slabs, geo.ranks, kind, float(spec.sigma),
+                float(spec.scale))
     return a, P

@@ -13,11 +13,10 @@ and its operation rate as a fraction of the data sheet's 67 TFLOP/s.
 
 Rows, by the reference driver's names: ``eigvec_rotate``,
 ``eigvec_rotate2``, ``rbf_gram``, ``krow_fused`` (``krow_project``),
-``eigvec_project``, ``transform_batch`` (``transform_project``, which takes
-at most 8 columns: C = 64 runs as 8 launches of 8) and ``nystrom_recon``
-(``scaled_gram``).  The rotations take their roots in offset form, so
-their operands are a solved factor as ``kernels/checks.py`` builds it for
-the main path.  On the card ``ms`` is device time (profiler records,
+``eigvec_project``, ``transform_batch`` (``transform_project``: C = 64 in
+one launch) and ``nystrom_recon`` (``scaled_gram``).  The rotations take
+their roots in offset form, so their operands are a solved factor as
+``kernels/checks.py`` builds it for the main path.  On the card ``ms`` is device time (profiler records,
 ``checks.device_ms``) and ``call_ms`` a whole call's time between CUDA
 events; with ``--device cpu`` the rows time the plain versions by the
 wall clock, for the tests, and name no device rate.
@@ -82,17 +81,27 @@ def _wall_ms(fn, reps: int, device: torch.device) -> float:
     return (time.perf_counter() - t0) / reps * 1e3
 
 
-def _times(fn, reps: int, device: torch.device) -> tuple[float, float | None]:
-    """(ms, call_ms): device time per call and the event-timed whole call
-    on the card; the wall clock and None on the CPU."""
-    out = fn()
+def _times(fn, reps: int, device: torch.device
+           ) -> tuple[float, float | None, int]:
+    """(ms, call_ms, calls): device time per call and the event-timed
+    whole call on the card, the wall clock and None on the CPU; and how
+    many times ``fn`` was called (the launch reckoning's count: the
+    profiler may take its records more than once)."""
+    calls = 0
+
+    def counted():
+        nonlocal calls
+        calls += 1
+        return fn()
+
+    out = counted()
     _sync(device)
     if not _finite(out):
         raise SystemExit("[roofline] non-finite kernel output")
     if device.type == "cuda":
-        return (checks.device_ms(fn, reps=reps)[0],
-                checks.call_ms(fn, reps=reps))
-    return _wall_ms(fn, reps, device), None
+        return (checks.device_ms(counted, reps=reps)[0],
+                checks.call_ms(counted, reps=reps), calls)
+    return _wall_ms(counted, reps, device), None, calls
 
 
 def peak_bandwidth(n: int, reps: int, device: torch.device
@@ -101,16 +110,18 @@ def peak_bandwidth(n: int, reps: int, device: torch.device
     b = torch.ones(n, dtype=torch.float32, device=device)
     c = torch.full((n,), 0.5, dtype=torch.float32, device=device)
     a = torch.empty_like(b)
-    ms, _ = _times(lambda: torch.add(b, c, alpha=1.5, out=a), reps, device)
+    ms, _, _ = _times(lambda: torch.add(b, c, alpha=1.5, out=a), reps,
+                      device)
     nbytes = 3 * n * F32                       # read b, read c, write a
     return nbytes / (ms * 1e-3) / 1e9, nbytes
 
 
-def _row(name: str, ms: float, call_ms: float | None, nbytes: float,
-         flops: float, peak_gbps: float) -> dict:
+def _row(name: str, ms: float, call_ms: float | None, calls: int,
+         nbytes: float, flops: float, peak_gbps: float) -> dict:
     gbps = nbytes / (ms * 1e-3) / 1e9
-    return {"kernel": name, "ms": ms, "call_ms": call_ms, "bytes": nbytes,
-            "flops": flops, "ai_flop_per_byte": flops / nbytes,
+    return {"kernel": name, "ms": ms, "call_ms": call_ms, "calls": calls,
+            "bytes": nbytes, "flops": flops,
+            "ai_flop_per_byte": flops / nbytes,
             "gbps": gbps, "peak_gbps": peak_gbps,
             "frac_of_peak": gbps / peak_gbps,
             "gflops": flops / (ms * 1e-3) / 1e9,
@@ -142,13 +153,6 @@ def kernel_rows(M: int, d: int, Q: int, C: int, reps: int,
     m_full = torch.tensor(M, dtype=torch.int32, device=device)
     solved = {c.name: c for c in checks.cases(M, M, f32, device)
               if not c.variant}
-    s_chunks = [s_cols[:, j:j + nops.NCOMP].contiguous()
-                for j in range(0, C, nops.NCOMP)]
-
-    def transform():
-        return [nops.transform_project(xq, x, s, m_full, spec=spec)
-                for s in s_chunks]
-
     calls = [
         ("eigvec_rotate", solved["eigvec_rotate"].kernel,
          (2 * M * M + 4 * M) * F32, 2 * M**3 + 3 * M * M),
@@ -162,7 +166,8 @@ def kernel_rows(M: int, d: int, Q: int, C: int, reps: int,
          2 * M * d + 3 * M + 6 * M * M),
         ("eigvec_project", lambda: eops.project_vectors(u, vpair, m_full),
          (M * M + 2 * M + 2 * M) * F32, 4 * M * M),
-        ("transform_batch", transform,
+        ("transform_batch",
+         lambda: nops.transform_project(xq, x, s_cols, m_full, spec=spec),
          (Q * d + M * d + M * C + Q * C + Q) * F32,
          2 * Q * M * (d + C) + 3 * Q * M),
         ("nystrom_recon", lambda: nops.scaled_gram(b_rows, s_diag),
@@ -170,6 +175,28 @@ def kernel_rows(M: int, d: int, Q: int, C: int, reps: int,
     ]
     return [_row(name, *_times(fn, reps, device), nbytes, flops, peak_gbps)
             for name, fn, nbytes, flops in calls]
+
+
+# The wrapper (``cuda.LAUNCHES`` key) behind each row whose name, the
+# reference's, differs from it.
+ROW_KERNELS = {"krow_fused": "krow_project",
+               "transform_batch": "transform_project",
+               "nystrom_recon": "scaled_gram"}
+
+
+def launch_reckoning(result: dict, names) -> dict:
+    """The kernel launches a run of ``main`` makes, by wrapper (``names``:
+    every counted wrapper): one per call of each row's function, and per
+    fused ingest one ``krow_project`` and one ``eigvec_project``, per
+    fused transform one ``transform_project`` (C = min(16, m) in one
+    launch)."""
+    expect = dict.fromkeys(names, 0)
+    for r in result["kernels"]:
+        expect[ROW_KERNELS.get(r["kernel"], r["kernel"])] += r["calls"]
+    fused = result["fused"]["fused_calls"]
+    for name in ("krow_project", "eigvec_project", "transform_project"):
+        expect[name] += fused
+    return expect
 
 
 def _state_at(m: int, capacity: int, d: int, spec, device
@@ -186,8 +213,10 @@ def _state_at(m: int, capacity: int, d: int, spec, device
 def fused_comparison(capacity: int, m: int, d: int, q_batch: int,
                      reps: int, device: torch.device) -> dict:
     """Fused against unfused at m active points in a capacity-M stream
-    (f32), by the wall clock.  The transform takes 8 components (the
-    fused kernel's most; the reference takes min(16, m))."""
+    (f32), by the wall clock.  The transform takes min(16, m) components,
+    as the reference's does.  ``fused_calls`` is how many times each fused
+    spelling ran (one ``krow_project`` and one ``eigvec_project`` launch
+    an ingest, one ``transform_project`` launch a transform)."""
     rng = np.random.default_rng(2)
     spec = kf.KernelSpec(name="rbf", sigma=float(d))
     state = _state_at(m, capacity, d, spec, device)
@@ -207,7 +236,7 @@ def fused_comparison(capacity: int, m: int, d: int, q_batch: int,
     ingest = {name: _wall_ms(lambda e=e: e.update(state, x_new, m=m).L,
                              reps, device)
               for name, e in engines.items()}
-    n_comp = min(nops.NCOMP, m)
+    n_comp = min(16, m)
     Mb = eng.bucket_for(m, capacity, plan_fused.min_bucket)
     sub = eng.slice_state(state, Mb) if Mb < capacity else state
     transform = {
@@ -219,7 +248,7 @@ def fused_comparison(capacity: int, m: int, d: int, q_batch: int,
             plan=plan_fused), reps, device),
     }
     return {"capacity": capacity, "m": m, "dim": d, "q_batch": q_batch,
-            "n_components": n_comp, "bucket": Mb,
+            "n_components": n_comp, "bucket": Mb, "fused_calls": 1 + reps,
             "ingest_ms": ingest, "transform_ms": transform,
             "ingest_speedup_fused":
                 ingest["unfused_fixed"] / ingest["fused_bucketed"],

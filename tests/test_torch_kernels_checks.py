@@ -153,25 +153,95 @@ def test_rbf_gram_bound_counts_the_work_its_call_needs(n, m, dim, dtype,
     assert ms == pytest.approx(want_ms, rel=1e-12)
 
 
-@pytest.mark.parametrize("m", [1, 30, 64, 90, N])
-@pytest.mark.parametrize("name", ["eigvec_rotate", "eigvec_project"])
-def test_row_block_cases_pass_a_more_accurate_evaluation(monkeypatch, name,
-                                                         m):
-    """The row-block cases (rows N/4 .. 3N/4): a float64 evaluation of the
-    same function on the block passes each entry's bound and writes the
-    pruned rows and columns as exact zeros, also where m falls before the
-    block (m = 1) or inside it."""
+def _f64_row_blocks(monkeypatch):
+    """The row-block wrappers evaluated in float64 on the CPU."""
     monkeypatch.setattr(eops, "rotate_vectors", _in_f64(
         lambda u, z, d, lam, inv, m, *, tau, row_offset=None:
         eref.eigvec_rotate_ref(u, z, d, lam, inv, tau, m, row_offset)))
     monkeypatch.setattr(eops, "project_vectors", _in_f64(
         lambda u, v, m, *, row_offset=None: eref.eigvec_project_ref(
             u, v, m, row_offset)))
+    monkeypatch.setattr(kops, "krow_project", _in_f64(
+        lambda u, x, xq, aux, m, *, spec, row_offset=None: krow_project_ref(
+            u, x, xq, aux, m, row_offset, spec=spec)))
+    monkeypatch.setattr(nops, "transform_project",
+                        _in_f64(transform_project_ref))
+
+
+@pytest.mark.parametrize("m", [1, 30, 64, 90, N])
+@pytest.mark.parametrize("name", ["eigvec_rotate", "eigvec_project",
+                                  "krow_project"])
+def test_row_block_cases_pass_a_more_accurate_evaluation(monkeypatch, name,
+                                                         m):
+    """The row-block cases (rows N/4 .. 3N/4): a float64 evaluation of the
+    same function on the block passes each entry's bound and writes the
+    pruned rows and columns as exact zeros, also where m falls before the
+    block (m = 1) or inside it."""
+    _f64_row_blocks(monkeypatch)
     case = next(c for c in checks.cases(N, m, torch.float32, "cpu")
                 if c.name == name and c.variant)
     assert case.variant == f"rows {N // 4}:{N // 4 + N // 2}"
     res = checks.compare(case)
     assert 0.0 <= res["max_err_over_tol"] <= 1.0
+
+
+VARIANTS = [("krow_project", "naux 0"), ("transform_project", "C 20"),
+            ("transform_project", "Q 512, C 64")]
+
+
+def _variant(name, variant, m, dtype=torch.float32):
+    return next(c for c in checks.cases(N, m, dtype, "cpu")
+                if (c.name, c.variant) == (name, variant))
+
+
+@pytest.mark.parametrize("m", [1, 64, N])
+@pytest.mark.parametrize("name,variant", VARIANTS)
+def test_variant_cases_pass_a_more_accurate_evaluation(monkeypatch, name,
+                                                       variant, m):
+    """Algorithm 1's prologue (no aux columns) and the wide transforms (20
+    components; the roofline's 512 queries of 64): a float64 evaluation
+    passes each entry's bound, and the outputs have the variant's shape
+    (C capped at m, as the case draws its components)."""
+    _f64_row_blocks(monkeypatch)
+    case = _variant(name, variant, m)
+    res = checks.compare(case)
+    assert 0.0 <= res["max_err_over_tol"] <= 1.0
+    got = case.kernel()
+    if name == "krow_project":
+        assert got[1].shape == (N, 1)
+    else:
+        nq, C = (512, 64) if "Q" in variant else (64, 20)
+        assert got[0].shape == (nq, min(C, m)) and got[1].shape == (nq,)
+
+
+@pytest.mark.parametrize("name,variant", VARIANTS)
+def test_variant_cases_refuse_a_wrong_column(name, variant):
+    case = _variant(name, variant, 90)
+    checks.compare(case)
+    col = 0 if name == "krow_project" else 13
+    with pytest.raises(AssertionError, match="exceeds its bound"):
+        checks.compare(_with_column(case, 1 if name == "krow_project" else 0,
+                                    col, lambda c: c * (1 + 1e-3)))
+
+
+@pytest.mark.parametrize("output", [0, 1])
+def test_krow_pruned_outputs_must_be_exact_zeros(output):
+    """``compare`` holds the k-row case to exact zeros on a's masked rows
+    (output 0) and on P's rows past the live slabs (output 1): a tiny
+    nonzero there is refused (those entries' bounds are 0 too), as it is
+    by the exact-zero masks alone."""
+    case = _case("krow_project", 40)
+
+    def kernel():
+        a, P = (o.clone() for o in case.kernel())
+        (a if output == 0 else P)[-1] = 1e-30
+        return a, P
+
+    with pytest.raises(AssertionError, match="exceeds its bound"):
+        checks.compare(dataclasses.replace(case, kernel=kernel))
+    loose = tuple(torch.full_like(t, float("inf")) for t in case.tols)
+    with pytest.raises(AssertionError, match=f"output {output}'s pruned"):
+        checks.compare(dataclasses.replace(case, kernel=kernel, tols=loose))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

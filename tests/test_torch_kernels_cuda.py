@@ -313,6 +313,69 @@ def test_window_stream_on_cuda_matches_cpu(device, matmul):
                                atol=1e-6 * scale)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_query_serves_16_components_on_cuda(device, dtype):
+    """``serving.query`` under ``fuse_krow`` on the card answers a snapshot
+    of 16 components (more than the 8 the kernel once took) in one
+    ``transform_project`` launch, and matches the plain route (the masked
+    query gram times S, and the affine correction) on the same snapshot."""
+    from repro_torch.core import serving
+
+    rng = np.random.default_rng(5)
+    X, Q = rng.normal(size=(60, 6)), rng.normal(size=(13, 6))
+    spec = kf.KernelSpec(sigma=10.0)
+    plan = engine.UpdatePlan(matmul="pallas", fuse_krow=True,
+                             dispatch="bucketed", min_bucket=16)
+    s = inkpca.KPCAStream(X[:4], 64, spec, plan=plan,
+                          dtype=getattr(torch, dtype), device=device)
+    s.update_block(X[4:])
+    snap = serving.publish_transform(s.kpca_state, n_components=16,
+                                     adjusted=True)
+    xq = torch.as_tensor(Q, dtype=s.kpca_state.X.dtype, device=device)
+    cuda.reset_launches()
+    got = serving.query(snap, xq, spec=spec, plan=plan)
+    torch.cuda.synchronize()
+    assert cuda.LAUNCHES["transform_project"] == 1
+    want = serving.query(snap, xq, spec=spec)
+    assert got.shape == want.shape == (13, 16)
+    tol = 1e-4 if dtype == "float32" else 1e-10
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=tol * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("nq,C", [(1, 1), (13, 9), (64, 20), (64, 64),
+                                  (37, 65), (8, 130), (64, 512)])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_transform_project_takes_any_width(device, nq, C, dtype):
+    """Any number of components in one launch: widths inside a tile (9,
+    20), at and one past the 64-column tile (64, 65), several tiles (130,
+    512), and query counts off the 8-query tile; each entry within
+    ``checks``' bound, and two runs bit for bit equal."""
+    n, m = 600, 577
+    dt = getattr(torch, dtype)
+    U, L, mt, X, rng = checks._state(n, m, dt, device, seed=nq + C)
+    case = checks._transform_case(
+        U, L, X, mt, rng, kf.KernelSpec(name="rbf", sigma=16.0), dt,
+        nq=nq, comps=C)
+    cuda.reset_launches()
+    checks.compare(case)
+    assert cuda.LAUNCHES["transform_project"] == 1
+    assert case.kernel()[0].shape == (nq, C)
+    assert checks.repeats_bitwise(case)
+
+
+@pytest.mark.parametrize("n,m", [(1024, 1000), (256, 200), (131, 100)])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_projection_kernels_repeat_bitwise(device, n, m, dtype):
+    """``krow_project`` (square, row block, no aux), ``eigvec_project`` and
+    ``transform_project`` give bit for bit the same outputs run after run:
+    the cluster sums run in rank order, with no atomics."""
+    names = ("krow_project", "eigvec_project", "transform_project")
+    for case in checks.cases(n, m, getattr(torch, dtype), device, seed=n):
+        if case.name in names:
+            assert checks.repeats_bitwise(case), (case.name, case.variant)
+
+
 def test_wrappers_refuse_bad_operands(device):
     from repro_torch.kernels.eigvec_update import ops as eops
     u = torch.eye(8, device=device)
@@ -338,6 +401,19 @@ def test_wrappers_refuse_bad_operands(device):
         kops.gram(u, torch.zeros(3, 5, device=device), 1.0)
     with pytest.raises(TypeError, match="mixed"):
         kops.gram(u, u.double(), 1.0)
+    from repro_torch.core import kernels_fn as tkf
+    spec = tkf.KernelSpec(sigma=1.0)
+    x = torch.zeros(8, 3, device=device)
+    with pytest.raises(ValueError, match="at least one component"):
+        nops.transform_project(x, x, torch.zeros(8, 0, device=device), 4,
+                               spec=spec)
+    with pytest.raises(ValueError, match="aux columns"):
+        kops.krow_project(u, x, x[0], torch.zeros(8, 8, device=device), 4,
+                          spec=spec)
+    with pytest.raises(ValueError, match="shapes"):
+        kops.krow_project(u[:4].contiguous(), x, x[0],
+                          torch.zeros(8, 2, device=device), 4, spec=spec,
+                          row_offset=2)
 
 
 @pytest.mark.parametrize("B,T,H,Hkv,hd", [

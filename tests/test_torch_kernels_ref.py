@@ -20,6 +20,10 @@ from repro.kernels.eigvec_update.eigvec_update import \
     eigvec_rotate as j_rotate_kernel  # noqa: E402
 from repro.kernels.nystrom_recon.ref import \
     transform_project_ref as j_transform  # noqa: E402
+from repro.kernels.nystrom_recon.transform_batch import \
+    transform_project as j_transform_kernel  # noqa: E402
+from repro.kernels.rbf_gram.krow_fused import \
+    krow_project as j_krow_kernel  # noqa: E402
 from repro.kernels.rbf_gram.rbf_gram import \
     rbf_gram as j_rbf_kernel  # noqa: E402
 from repro.kernels.rbf_gram.ref import krow_project_ref as j_krow  # noqa: E402
@@ -380,6 +384,132 @@ def test_transform_project_plain_matches_reference(kernel, m, dt):
                                        for a in (xq, X, S)], m, spec=tspec)
     _close(ty, jy, rtol)
     _close(trs, jrs, rtol)
+
+
+@pytest.mark.parametrize("naux", [0, 2])
+@pytest.mark.parametrize("m", [BLOCK_ACTIVE, BLOCK_M])
+@pytest.mark.parametrize("kernel", ["rbf", "matern32"])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_krow_project_row_block_matches_reference(naux, m, kernel, dt):
+    """The plain version on a rectangular row block (R = M/2 rows from
+    global row M/4) against the reference's kernel in interpret mode on the
+    same block, at f32/f64 rounding level: a on the block's rows (exact
+    zeros where r0 + i >= m) and the block's partial P = Uᵀ[a | aux], with
+    and without aux columns."""
+    np_dtype, _, j_dtype, rtol = DTYPES[dt]
+    R, r0 = BLOCK_M // 2, BLOCK_M // 4
+    U = _rotation_inputs(m, np_dtype, size=BLOCK_M)[0]
+    rng = np.random.default_rng(6)
+    X = rng.normal(size=(BLOCK_M, 6)).astype(np_dtype)
+    xq = rng.normal(size=6).astype(np_dtype)
+    aux = np.stack([np.ones(BLOCK_M), np.linspace(1.0, 9.0, BLOCK_M)],
+                   axis=1)[:, :naux].astype(np_dtype)
+    blk = [a[r0:r0 + R] for a in (U, X)] + [xq, aux[r0:r0 + R]]
+    jspec = jkf.KernelSpec(name=kernel, sigma=6.0, scale=1.5)
+    tspec = tkf.KernelSpec(name=kernel, sigma=6.0, scale=1.5)
+    ja, jP = j_krow_kernel(*[jnp.asarray(a, j_dtype) for a in blk],
+                           jnp.int32(m), jnp.int32(r0), spec=jspec,
+                           interpret=True)
+    ta, tP = kops.krow_project(*[torch.from_numpy(np.ascontiguousarray(a))
+                                 for a in blk], m, spec=tspec,
+                               row_offset=r0)
+    assert ta.shape == (R,) and tP.shape == (BLOCK_M, 1 + naux)
+    _close(ta, ja, rtol)
+    _close(tP, jP, rtol)
+    assert torch.all(ta[max(m - r0, 0):] == 0)
+    live = -(-m // eops.PROJECT_SLAB) * eops.PROJECT_SLAB
+    assert torch.all(tP[live:] == 0)
+
+
+@pytest.mark.parametrize("C", [20, 64])
+@pytest.mark.parametrize("kernel", ["rbf", "matern32"])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_transform_project_wide_matches_reference(C, kernel, dt):
+    """The plain version at C = 20 (the reference pads it to 24) and at
+    the roofline's C = 64 against the reference's kernel in interpret mode
+    (Q = 10 queries, m = 70 of 100 points active), at f32/f64 rounding
+    level."""
+    np_dtype, _, j_dtype, rtol = DTYPES[dt]
+    m = 70
+    X, _ = _point_inputs(np_dtype)
+    rng = np.random.default_rng(7)
+    xq = rng.normal(size=(10, X.shape[1])).astype(np_dtype)
+    S = np.where((np.arange(M) < m)[:, None], rng.normal(size=(M, C)),
+                 0.0).astype(np_dtype)
+    jspec = jkf.KernelSpec(name=kernel, sigma=6.0)
+    tspec = tkf.KernelSpec(name=kernel, sigma=6.0)
+    jy, jrs = j_transform_kernel(*[jnp.asarray(a, j_dtype)
+                                   for a in (xq, X, S)],
+                                 jnp.int32(m), spec=jspec, interpret=True)
+    ty, trs = nops.transform_project(*[torch.from_numpy(a)
+                                       for a in (xq, X, S)], m, spec=tspec)
+    assert ty.shape == (10, C) and trs.shape == (10,)
+    _close(ty, jy, rtol)
+    _close(trs, jrs, rtol)
+
+
+# ------------------------------------------------- the kernels' geometry --
+@pytest.mark.parametrize("nq,C,m", [
+    (64, 8, 1000), (64, 512, 512), (512, 64, 1024),     # service, Nyström,
+    (1, 1, 1), (13, 20, 37), (9, 65, 130), (64, 17, 0)])  # roofline; ragged
+def test_transform_geometry_covers_each_entry_once(nq, C, m):
+    """``transform_geometry``: the grid's blocks write every entry of Y and
+    every row sum exactly once (a cluster per query tile x component tile,
+    one rank per entry), and within a cluster the ranks sum every active
+    point exactly once."""
+    geo = nops.transform_geometry(nq, C)
+    assert geo.grid[0] % geo.ranks == 0
+    writes = np.zeros((nq, C + 1), dtype=int)
+    for bx in range(geo.grid[0]):
+        for by in range(geo.grid[1]):
+            rank = bx % geo.ranks
+            for q, c in geo.entries(bx, by, rank, nq, C):
+                writes[q, c] += 1
+    assert (writes == 1).all()
+    summed = np.zeros(m, dtype=int)
+    for rank in range(geo.ranks):
+        for chunk in geo.points(rank, m):
+            assert len(chunk) <= geo.chunk
+            summed[list(chunk)] += 1
+    assert (summed == 1).all()
+    assert geo.c_tile in nops.TRANSFORM_TILES
+    assert geo.c_tile >= min(C, nops.TRANSFORM_TILES[-1])
+    if (nq, C) == (64, 8):
+        assert geo.grid[0] * geo.grid[1] >= 64     # the card's SMs busy
+
+
+@pytest.mark.parametrize("R,n,m,r0", [
+    (1024, 1024, 1000, 0), (512, 1024, 1000, 256), (512, 512, 300, 0),
+    (100, 131, 70, 30), (64, 200, 10, 100), (1, 1, 1, 0), (90, 90, 0, 0)])
+def test_project_geometry_covers_each_entry_once(R, n, m, r0):
+    """``project_geometry`` (``krow_project``): every output row of P is
+    written exactly once (live slabs: each rank its share; pruned slabs:
+    rank 0), every entry of a exactly once (computed rows by the rank of
+    slab 0 that sums them, masked rows as zeros), and within each slab the
+    ranks sum every live row exactly once."""
+    geo = kops.project_geometry(n)
+    live_rows = min(max(m - r0, 0), R)
+    live_cols = min(n, -(-m // eops.PROJECT_SLAB) * eops.PROJECT_SLAB)
+    p_writes = np.zeros(n, dtype=int)
+    a_writes = np.zeros(R, dtype=int)
+    for slab in range(geo.slabs):
+        summed = np.zeros(R, dtype=int)
+        for rank in range(geo.ranks):
+            for col in geo.columns(slab, rank, n, m):
+                p_writes[col] += 1
+            if slab == 0:
+                a_writes[list(geo.zero_rows(rank, live_rows, R))] += 1
+            if slab * geo.cols >= live_cols:
+                continue
+            for rows in geo.rows(rank, live_rows):
+                summed[list(rows)] += 1
+                if slab == 0:
+                    a_writes[list(rows)] += 1
+        if slab * geo.cols < live_cols:
+            assert (summed[:live_rows] == 1).all()
+            assert (summed[live_rows:] == 0).all()
+    assert (p_writes == 1).all()
+    assert (a_writes == 1).all()
 
 
 @pytest.mark.parametrize("kernel", ["rbf", "matern32", "linear", "poly"])

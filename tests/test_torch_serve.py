@@ -103,6 +103,28 @@ def test_roofline_smoke_runs_on_cpu():
     assert set(res["fused"]["ingest_ms"]) == {
         "unfused_fixed", "unfused_bucketed", "fused_bucketed"}
     assert res["ingest_speedup_fused"] > 0
+    assert res["fused"]["n_components"] == 16
+
+
+def test_roofline_launch_reckoning():
+    """The launches ``chip_smoke.py`` holds the roofline to: each row's
+    calls on its wrapper (C = 64 in one ``transform_project`` call), and
+    the fused ingest's and transform's calls on theirs."""
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import roofline
+
+    res = roofline.main(smoke=True, device="cpu")
+    calls = {r["kernel"]: r["calls"] for r in res["kernels"]}
+    assert all(c >= 2 for c in calls.values())
+    fused = res["fused"]["fused_calls"]
+    expect = roofline.launch_reckoning(res, cuda.LAUNCHES)
+    assert set(expect) == set(cuda.LAUNCHES)
+    assert expect["transform_project"] == calls["transform_batch"] + fused
+    assert expect["krow_project"] == calls["krow_fused"] + fused
+    assert expect["eigvec_project"] == calls["eigvec_project"] + fused
+    assert expect["scaled_gram"] == calls["nystrom_recon"]
+    assert expect["rbf_gram"] == calls["rbf_gram"]
+    assert expect["flash_attention"] == expect["ssd_intra_chunk"] == 0
 
 
 def test_serve_lm_runs_on_cpu():
