@@ -24,16 +24,17 @@ Phases, each printing one JSON line per row:
    f32 shape), each output entry within its own bound as
    ``repro_torch.kernels.checks`` states it, pruned entries exact zeros
    and two runs of the kernel bit for bit equal; ``eigvec_rotate``,
-   ``eigvec_project`` and ``krow_project`` also on a row block (rows
-   256:768 of the bucket), ``krow_project`` without aux columns, and
-   ``transform_project`` at 20 components and at the roofline's 512
-   queries of 64, each its own ``variant`` row.  Each f32 row of
-   ``eigvec_rotate`` and
-   ``scaled_gram`` (three TF32 products on the tensor cores) also holds
-   the kernel's largest error against the f64 product of the same
-   operands to ``TF32_ERR_RATIO`` times the plain f32 product's, and
-   ``scaled_gram``'s K̃ must equal its transpose bit for bit (one triangle
-   computed, the other mirrored; f64 on DMMA).  ``ssd_intra_chunk`` in
+   ``eigvec_rotate2``, ``eigvec_project`` and ``krow_project`` also on a
+   row block (rows 256:768 of the bucket), ``eigvec_rotate2`` on rows
+   m:1024 (wholly past the active rows: exact zeros), ``krow_project``
+   without aux columns, and ``transform_project`` at 20 components and at
+   the roofline's 512 queries of 64, each its own ``variant`` row.  Each
+   f32 row of ``eigvec_rotate``, ``scaled_gram`` and ``rbf_gram`` (TF32
+   products on the tensor cores) also holds the kernel's largest error
+   against the f64 product of the same operands to ``TF32_ERR_RATIO``
+   times the plain f32 version's, and ``scaled_gram``'s K̃ and
+   ``rbf_gram``'s k(X, X) must equal their transposes bit for bit (one
+   triangle computed, the other mirrored; f64 on DMMA).  ``ssd_intra_chunk`` in
    bf16 runs on ``wgmma`` (scores once per 64-row tile, shared by a group
    of 16 heads), in f32 on the CUDA cores.  A row's ``n`` and ``m`` are
    T and H for the LM kernels (G·Q and H for the intra-chunk term).
@@ -158,10 +159,11 @@ FLASH_SHAPES = (((1, 4096, 64, 8, 128), "bfloat16"),
 SSD_SHAPES = (((16, 256, 128, 256, 64), "bfloat16"),
               ((3, 32, 16, 4, 8), "float32"))
 LM_T, LM_DECODE_T, LM_WARMUP, LM_TIMED = 4096, 256, 3, 10
-# The f32 kernels on three TF32 products (eigvec_rotate, scaled_gram)
-# against the f64 product of their operands: at most this many times the
-# plain f32 product's largest error: the bar the CPU model of the
-# arithmetic is held to (tests/test_torch_kernels_ref.py).  Three TF32
+# The f32 kernels on TF32 products (eigvec_rotate, scaled_gram: three;
+# rbf_gram: six of a three-way split) against the f64 product of their
+# operands: at most this many times the plain f32 version's largest error:
+# the bar the CPU model of the arithmetic is held to
+# (tests/test_torch_kernels_ref.py).  Three TF32
 # products keep f32's accuracy only if their sums do; Hopper's tensor
 # cores add with less than f32's rounding, which no CPU model shows.  With
 # the tensor-core sums folded into f32 a slab at a time the rotation's
@@ -223,7 +225,7 @@ def kernel_phase(torch, checks, cuda) -> dict:
         if case.exact is not None and dtype == torch.float32:
             res.update(checks.error_vs_exact(case),
                        bar_err_ratio=TF32_ERR_RATIO)
-        if case.name == "scaled_gram":
+        if case.symmetric:
             K = case.kernel()[0]
             res["symmetric"] = bool(torch.equal(K, K.T))
             del K
@@ -239,8 +241,8 @@ def kernel_phase(torch, checks, cuda) -> dict:
                 f"{row['kernel_err_vs_f64']:.3e} is {row['err_ratio']:.2f}x "
                 f"the plain f32 product's (bar {TF32_ERR_RATIO}x)")
         if not row.get("symmetric", True):
-            raise AssertionError(f"{case.name} {row['dtype']} m={m}: K̃ is "
-                                 f"not exactly symmetric")
+            raise AssertionError(f"{case.name} {row['dtype']} n={n} m={m}: "
+                                 f"the output is not exactly symmetric")
         if not row["repeats_bitwise"]:
             raise AssertionError(f"{case.name} {case.variant} "
                                  f"{row['dtype']} m={m}: two runs differ")

@@ -32,16 +32,18 @@ bars), 67 TFLOP/s in float64 (the FP64 tensor cores, full IEEE float64)
 and 989 TFLOP/s in bfloat16 (dense tensor cores); a bound takes the card's
 peak for the type, whatever unit the kernel uses, except where a case
 names its own: float32 ``eigvec_rotate`` and ``scaled_gram`` count their
-three TF32 products at 495 TFLOP/s (the float32-accurate split the
-kernels run; below the float32 roof).  Bytes count
+three TF32 products, ``rbf_gram`` its six, at 495 TFLOP/s (the
+float32-accurate splits the kernels run; below the float32 roof).  Bytes count
 each input read once and each output written once; operations count what
 these inputs need (the active m, not the capacity).
 
 ``cases`` also holds, after the main path's ones, a row-block case of
-``eigvec_rotate``, ``eigvec_project`` and ``krow_project`` (rows n/4 ..
-3n/4 of the state), ``krow_project`` without aux columns (Algorithm 1's
-prologue), and ``transform_project`` at 20 components and at the
-roofline's 512 queries of 64 components; ``Case.variant`` names each.
+``eigvec_rotate``, ``eigvec_rotate2``, ``eigvec_project`` and
+``krow_project`` (rows n/4 .. 3n/4 of the state), of ``eigvec_rotate2``
+on rows m .. n (wholly past the active rows: exact zeros), ``krow_project``
+without aux columns (Algorithm 1's prologue), and ``transform_project``
+at 20 components and at the roofline's 512 queries of 64 components;
+``Case.variant`` names each.
 
 Times are device times: ``device_ms`` reads the kernels' own start and end
 from the profiler's CUDA activity records (CUPTI), so the host's work in a
@@ -130,6 +132,7 @@ class Case:
     # Output 0 in float64 from the same rounded operands: the exact product
     # the kernel's and the plain version's errors are measured against.
     exact: Callable[[], Tensor] | None = None
+    symmetric: bool = False            # output 0 must equal its transpose
 
     def bound(self, dtype) -> tuple[float, str]:
         """(least time in ms, what bounds it) on an H100 SXM at 700 W."""
@@ -221,10 +224,12 @@ def _rotate_case(U, L, m, rng, dtype, block=None) -> Case:
                                   * invk.double(), 0.0))
 
 
-def _rotate2_case(U, L, m, rng, dtype) -> Case:
+def _rotate2_case(U, L, m, rng, dtype, block=None) -> Case:
     """A solved fused pair (sigma = +0.5 then -0.5) whose first update
     deflates every seventh direction (z1 = 0 there), so factor 1 carries
-    deflated identity columns e_{cid1[j]} under a permuted cid1."""
+    deflated identity columns e_{cid1[j]} under a permuted cid1; with
+    ``block`` = (R, r0) applied to U's rows r0 .. r0 + R (the row-block
+    form)."""
     n = U.shape[0]
     mi = int(m)
     mask = rankone.active_mask(n, m)
@@ -243,24 +248,34 @@ def _rotate2_case(U, L, m, rng, dtype) -> Case:
     taus = dict(tau1=pf.tau1, tau2=pf.tau2)
     W1 = eref.cauchy_factor_ref(*ops[:6], tau=pf.tau1)
     W2 = eref.cauchy_factor_ref(*ops[6:], tau=pf.tau2)
-    mag = (U.double().abs() @ W1.double().abs()) @ W2.double().abs()
-    rows, cols = eref.pruned_region_mask(n, n, mi, block=eops.ROTATE2_TILE)
-    rows, cols = rows.to(U.device), cols.to(U.device)
+    R, r0 = block or (n, 0)
+    Ub = U[r0:r0 + R]
+    rn = min(max(mi - r0, 0), R)                # rows the function needs
+    mag = (Ub.double().abs() @ W1.double().abs()) @ W2.double().abs()
+    rows, cols = eref.pruned_region_mask(R, n, mi, r0,
+                                         block=eops.ROTATE2_TILE,
+                                         device=U.device)
     item = U.element_size()
+    at = dict(row_offset=r0) if block else {}
     return Case(
         name="eigvec_rotate2",
-        kernel=lambda: (eops.rotate_vectors2(U, *ops, m, **taus),),
-        plain=lambda: (eref.eigvec_rotate2_ref(U, *ops, **taus),),
-        library=lambda: torch.matmul(torch.matmul(U, W1), W2),
+        variant=f"rows {r0}:{r0 + R}" if block else "",
+        kernel=lambda: (eops.rotate_vectors2(Ub, *ops, m, **taus, **at),),
+        plain=lambda: (eref.eigvec_rotate2_ref(Ub, *ops, m,
+                                               at.get("row_offset"),
+                                               **taus),),
+        library=lambda: torch.matmul(torch.matmul(Ub, W1), W2),
         tols=(_gamma(2 * mi, dtype) * mag,),
         tol_reason="2(2m+2)eps·(|U||W1||W2|)_ij per entry: the second "
                    "length-m product carries the first one's error "
                    "(Higham gamma_m twice), both factors generated in the "
                    "working type alike",
-        # U's active block and C, z, inv and defl of both factors in T; d,
-        # org and tau in f64; cid in int32.
-        bytes=item * (mi * mi + n * n + 6 * n) + 8 * 6 * n + 4 * 2 * n,
-        flops=4.0 * mi ** 3 + 2.0 * mi * mi,
+        # U's live rows of the active columns and C, z, inv and defl of
+        # both factors in T; d, org and tau in f64; cid in int32.  The
+        # function needs (U_b W1) W2 over the r live rows: 4 r m^2, and the
+        # factors' m^2 entries each.
+        bytes=item * (rn * mi + R * n + 6 * n) + 8 * 6 * n + 4 * 2 * n,
+        flops=4.0 * rn * mi * mi + 2.0 * mi * mi,
         exact_zero=~(rows[:, None] & cols[None, :]) & mask[None, :],
         # rank_one_update_pair puts U's own column in place of inactive
         # ones (the kernel writes them as zeros inside the active tiles).
@@ -407,12 +422,16 @@ def cases(n: int, m: int, dtype, device, seed: int = 0) -> list[Case]:
                      torch.as_tensor(rng.uniform(50.0, 150.0, size=n),
                                      dtype=dtype, device=device), 0.0)
     block = (n // 2, n // 4)
+    # Rows m .. n: a block wholly past the active rows (none where m = n).
+    past = [(n - m, m)] if m < n else []
     return [_rotate_case(U, L, mt, rng, dtype),
             _rotate2_case(U, L, mt, rng, dtype),
             _project_case(U, mt, rng, dtype),
             _krow_case(U, X, K1, mt, rng, spec, dtype),
             _transform_case(U, L, X, mt, rng, spec, dtype),
             _rotate_case(U, L, mt, rng, dtype, block),
+            *[_rotate2_case(U, L, mt, np.random.default_rng(seed + 1),
+                            dtype, b) for b in [block, *past]],
             _project_case(U, mt, rng, dtype, block),
             _krow_case(U, X, K1, mt, rng, spec, dtype, block),
             _krow_case(U, X, K1, mt, rng, spec, dtype, aux_cols=0),
@@ -429,17 +448,13 @@ def scaled_gram_tol(B: Tensor, s: Tensor, dtype) -> Tensor:
     return _gamma(B.shape[1], dtype) * ((Bd * s.double().abs()) @ Bd.T)
 
 
-def gram_cases(n: int, k: int, dtype, device, seed: int = 0) -> list[Case]:
-    """The Nyström reconstruction's case: B (n, k) as ``reconstruct_tilde``
-    forms it (kernel values through an orthonormal basis) and s its
-    pseudo-inverse spectrum, log-uniform over four decades."""
-    rng = np.random.default_rng(seed)
-    B = torch.as_tensor(rng.normal(size=(n, k)), dtype=dtype, device=device)
-    s = torch.as_tensor(10.0 ** rng.uniform(-2.0, 2.0, size=k), dtype=dtype,
-                        device=device)
+def scaled_gram_case(B: Tensor, s: Tensor) -> Case:
+    """K̃ = B diag(s) Bᵀ for B (n, k) and s (k,)."""
+    n, k = B.shape
+    dtype = B.dtype
     item = B.element_size()
     f32 = dtype == torch.float32
-    return [Case(
+    return Case(
         name="scaled_gram",
         kernel=lambda: (nops.scaled_gram(B, s),),
         plain=lambda: (nref.scaled_gram_ref(B, s),),
@@ -456,7 +471,19 @@ def gram_cases(n: int, k: int, dtype, device, seed: int = 0) -> list[Case]:
         ops_label="operations, 3×TF32" if f32 else "operations",
         # float32: the float64 product of the same rounded operands (B·s
         # as the plain version rounds it, and B), which both are held to.
-        exact=(lambda: (B * s).double() @ B.double().T) if f32 else None)]
+        exact=(lambda: (B * s).double() @ B.double().T) if f32 else None,
+        symmetric=True)
+
+
+def gram_cases(n: int, k: int, dtype, device, seed: int = 0) -> list[Case]:
+    """The Nyström reconstruction's case: B (n, k) as ``reconstruct_tilde``
+    forms it (kernel values through an orthonormal basis) and s its
+    pseudo-inverse spectrum, log-uniform over four decades."""
+    rng = np.random.default_rng(seed)
+    B = torch.as_tensor(rng.normal(size=(n, k)), dtype=dtype, device=device)
+    s = torch.as_tensor(10.0 ** rng.uniform(-2.0, 2.0, size=k), dtype=dtype,
+                        device=device)
+    return [scaled_gram_case(B, s)]
 
 
 def rbf_gram_tol(x: Tensor, y: Tensor, sigma: float, dtype) -> Tensor:
@@ -480,11 +507,13 @@ def rbf_gram_tol(x: Tensor, y: Tensor, sigma: float, dtype) -> Tensor:
 def rbf_gram_case(x: Tensor, y: Tensor, sigma: float) -> Case:
     """The dense RBF gram of x (n, d) against y (m, d).  Where y is x the
     gram is symmetric: the function reads x once and needs the n(n+1)/2
-    entries of one triangle, though the kernel computes both."""
+    entries of one triangle, which is what the kernel computes."""
     n, dim = x.shape
     m = y.shape[0]
     item = x.element_size()
     sym = y is x
+    f32 = x.dtype == torch.float32
+    entries = n * (n + 1) / 2 if sym else 1.0 * n * m
     return Case(
         name="rbf_gram",
         kernel=lambda: (kops.gram(x, y, sigma),),
@@ -496,7 +525,17 @@ def rbf_gram_case(x: Tensor, y: Tensor, sigma: float) -> Case:
                    "|y_j|)², which moves exp(-d2/sigma) by G_ij times that "
                    "over sigma; exp itself within 2 ulp",
         bytes=item * (n * dim + (0 if sym else m * dim) + n * m),
-        flops=(1.0 * n * (n + 1) if sym else 2.0 * n * m) * (dim + 2))
+        # Each entry a length-d dot product (float32: six TF32 products of
+        # a three-way split on the tensor cores, csrc/rbf_gram.cu says why;
+        # float64: one) and 4 flops of the norm expansion.
+        flops=entries * ((12.0 if f32 else 2.0) * dim + 4),
+        peak=TF32_FLOPS if f32 else None,
+        ops_label="operations, 6×TF32" if f32 else "operations",
+        # float32: the float64 gram of the same operands, which both are
+        # held to.
+        exact=(lambda: rbf_gram_ref(x.double(), y.double(), sigma))
+        if f32 else None,
+        symmetric=sym)
 
 
 def rbf_gram_cases(n: int, m: int, dim: int, dtype, device, seed: int = 0

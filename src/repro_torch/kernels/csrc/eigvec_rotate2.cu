@@ -9,11 +9,11 @@
 //   W[k, j] = z[k] * inv[j] / ((d[k] - org[j]) - tau[j])    (defl[j] == 0)
 //   W[k, j] = (k == cid[j])                                  (defl[j] > 0)
 // defl[j] > 0 marks a deflated column, the identity column e_{cid[j]}
-// (cid carries the sort between the two updates).  U is (n, n) row-major;
-// z, inv in T; d, org, tau in double, the secular solve's type, with root
-// j kept as its origin pole org[j] plus the offset tau[j]
-// (repro_torch/core/rankone.py, _Roots), so each denominator keeps a close
-// root's distance to its pole.  A denominator below `guard` becomes
+// (cid carries the sort between the two updates).  U is (R, n) row-major:
+// the state (R = n) or a row block (below).  z, inv in T; d, org, tau in
+// double, the secular solve's type, with root j kept as its origin pole
+// org[j] plus the offset tau[j] (repro_torch/core/rankone.py, _Roots), so
+// each denominator keeps a close root's distance to its pole.  A denominator below `guard` becomes
 // +-guard (eigvec_update/ref.py::_denominators), then it is rounded to T.
 // Accumulates in T (float for f32, double for f64: the reference's
 // promote(dtype, f32)).
@@ -37,18 +37,31 @@
 // n x n matrices) stays in the 50 MB L2 at the service's sizes.  Nothing
 // crosses blocks, so the result does not depend on scheduling.
 //
+// Row blocks (the reference's (R, M) block with row_offset): U may be
+// rows r0 .. r0 + R of the state, R x n row-major, and C is then the same
+// R rows of U @ W1 @ W2.  Launches 1 and 2 do not depend on U's rows and
+// are the same for a block as for the state; launch 3 runs over the
+// block's R / 128 row tiles.
+//
 // Pruning (the reference's _tile_counts, without a host read): the active
 // count m is read by pointer; both reductions stop at k = m (the tile's
 // copies fill past m with zeros), W12 tiles at or beyond g64 in either
 // axis are not computed (nothing reads them), and entries of C at or
-// beyond g64 in either axis are written as exact zeros.  On the padding
-// contract these are the true values of active columns; the caller puts
-// U's own columns in place of inactive ones (within the active tiles they
-// come out 0).  The pruning granule stays 64 (ops.ROTATE2_TILE).
+// beyond g64 columns, or at or beyond the block's live rows
+// 64 ceil(clamp(m - r0, 0, R) / 64), are written as exact zeros: a tile
+// wholly past either reads nothing of U.  On the padding contract these
+// are the true values of active columns; the caller puts U's own columns
+// in place of inactive ones (within the active tiles they come out 0).
+// The pruning granule stays 64 (ops.ROTATE2_TILE).
 //
-// What bounds it on an H100: operations, 4 m^3 (two m x m x m products) at
-// the FP32 (or FP64) CUDA-core rate; TF32 tensor cores would miss the f32
-// tolerances.
+// What bounds it on an H100: operations, 4 m^3 (two m x m x m products)
+// at the FP32 (or FP64) CUDA-core rate.  For a block of r live rows the
+// function needs 4 r m^2; this order does 2 m^3 + 2 r m^2.
+//
+// ptxas reports 4 bytes of spill stores, all in factor_kernel<double>: it
+// saves one register around its calls to the float64 division's slow-path
+// subroutine (in SASS an STL before the CALLs and an LDL after them).  The
+// product kernels, which the row blocks changed, do not spill.
 #include "common.cuh"
 #include "rotate_tile.cuh"
 
@@ -113,30 +126,40 @@ factor_kernel(Factor<T> f1, Factor<T> f2, const int* __restrict__ m_ptr,
   }
 }
 
-// second == false: W12 = W1[:m, :m] @ W2[:m, :g64], tiles past g64 skipped.
-// second == true: C = U[:, :m] @ W12[:m, :], entries past g64 zero.
+// Live extent of rows r0 .. r0 + rows of an operand whose rows past the
+// active count m are pruned: 64 ceil(clamp(m - r0, 0, rows) / 64), at most
+// rows.
+__device__ __forceinline__ int live_rows(int m, int r0, int rows) {
+  return live_extent(min(max(m - r0, 0), rows), rows);
+}
+
+// second == false: W12 = W1[:m, :m] @ W2[:m, :g64], tiles past g64 skipped
+// (rows = n, r0 = 0).  second == true: C = U[:, :m] @ W12[:m, :] for the
+// `rows` rows of U from the state's row r0, entries past g64 columns or
+// the live rows zero.
 template <typename T, bool Vec>
 __global__ void __launch_bounds__(tl::kThreads)
 rotate_product_kernel(const T* __restrict__ a, const T* __restrict__ b,
                       const int* __restrict__ m_ptr, T* __restrict__ c, int n,
-                      bool second) {
+                      int rows, int r0, bool second) {
   extern __shared__ float4 smem4[];
   const int m = repro::active_count(m_ptr, n);
-  const int live = live_extent(m, n);
+  const int live_c = live_extent(m, n);
+  const int live_r = live_rows(m, r0, rows);
   const int row0 = blockIdx.y * tl::kRows, col0 = blockIdx.x * tl::kCols;
-  if (row0 >= live || col0 >= live) {
-    if (second) tl::store_zeros(c, n, n, n, row0, col0);
+  if (row0 >= live_r || col0 >= live_c) {
+    if (second) tl::store_zeros(c, n, rows, n, row0, col0);
     return;
   }
   T acc[8][4];
   tl::product<T, Vec>(acc, reinterpret_cast<T*>(smem4), a, n,
-                      second ? n : m, b, n, live, m, row0, col0);
-  tl::store<T, Vec>(acc, c, n, n, n, live, live, row0, col0, nullptr);
+                      second ? live_r : m, b, n, live_c, m, row0, col0);
+  tl::store<T, Vec>(acc, c, n, rows, n, live_r, live_c, row0, col0, nullptr);
 }
 
 template <typename T, bool Vec>
 cudaError_t products(const T* u, const T* w1, const T* w2, T* w12, T* out,
-                     const int* m, int n, cudaStream_t s) {
+                     const int* m, int n, int rows, int r0, cudaStream_t s) {
   static bool attr = false;
   if (!attr) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -146,14 +169,15 @@ cudaError_t products(const T* u, const T* w1, const T* w2, T* w12, T* out,
     if (err != cudaSuccess) return err;
     attr = true;
   }
-  const dim3 grid((n + tl::kCols - 1) / tl::kCols,
-                  (n + tl::kRows - 1) / tl::kRows);
-  rotate_product_kernel<T, Vec><<<grid, tl::kThreads, tl::Shape<T>::kSmem,
-                                  s>>>(w1, w2, m, w12, n, false);
+  const int col_tiles = (n + tl::kCols - 1) / tl::kCols;
+  rotate_product_kernel<T, Vec>
+      <<<dim3(col_tiles, (n + tl::kRows - 1) / tl::kRows), tl::kThreads,
+         tl::Shape<T>::kSmem, s>>>(w1, w2, m, w12, n, n, 0, false);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  rotate_product_kernel<T, Vec><<<grid, tl::kThreads, tl::Shape<T>::kSmem,
-                                  s>>>(u, w12, m, out, n, true);
+  if (err != cudaSuccess || rows <= 0) return err;
+  rotate_product_kernel<T, Vec>
+      <<<dim3(col_tiles, (rows + tl::kRows - 1) / tl::kRows), tl::kThreads,
+         tl::Shape<T>::kSmem, s>>>(u, w12, m, out, n, rows, r0, true);
   return cudaGetLastError();
 }
 
@@ -167,15 +191,15 @@ Factor<T> factor(const void* z, const void* d, const void* org,
           static_cast<const int*>(cid)};
 }
 
-// scratch: three n x n matrices, W1, W2 and W12.
+// scratch: three n x n matrices, W1, W2 and W12.  u and out: rows x n.
 template <typename T>
 int launch(const void* u, const void* z1, const void* d1, const void* org1,
            const void* tau1, const void* inv1, const void* defl1,
            const void* cid1,
            const void* z2, const void* d2, const void* org2, const void* tau2,
            const void* inv2, const void* defl2, const void* cid2,
-           const void* m, void* scratch,
-           void* out, int n, double guard, void* stream) {
+           const void* m, void* scratch, void* out, int n, int rows, int r0,
+           double guard, void* stream) {
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   T* w1 = static_cast<T*>(scratch);
@@ -190,11 +214,12 @@ int launch(const void* u, const void* z1, const void* d1, const void* org1,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   // 16-byte copies where every row starts on a 16-byte boundary.
-  const bool vec = (n % tl::Shape<T>::kVec) == 0;
+  const bool vec = (n % tl::Shape<T>::kVec) == 0 &&
+                   reinterpret_cast<uintptr_t>(u) % 16 == 0;
   const T* up = static_cast<const T*>(u);
   T* o = static_cast<T*>(out);
-  err = vec ? products<T, true>(up, w1, w2, w12, o, mp, n, s)
-            : products<T, false>(up, w1, w2, w12, o, mp, n, s);
+  err = vec ? products<T, true>(up, w1, w2, w12, o, mp, n, rows, r0, s)
+            : products<T, false>(up, w1, w2, w12, o, mp, n, rows, r0, s);
   return static_cast<int>(err);
 }
 
@@ -207,10 +232,10 @@ int launch(const void* u, const void* z1, const void* d1, const void* org1,
                       const void* d2, const void* org2, const void* tau2,    \
                       const void* inv2, const void* defl2, const void* cid2, \
                       const void* m, void* scratch, void* out, int n,        \
-                      double guard, void* stream) {                          \
+                      int rows, int r0, double guard, void* stream) {        \
     return launch<T>(u, z1, d1, org1, tau1, inv1, defl1, cid1, z2, d2, org2, \
-                     tau2, inv2, defl2, cid2, m, scratch, out, n, guard,     \
-                     stream);                                                \
+                     tau2, inv2, defl2, cid2, m, scratch, out, n, rows, r0,  \
+                     guard, stream);                                         \
   }
 
 REPRO_ROTATE2_ENTRY(eigvec_rotate2_f32, float)

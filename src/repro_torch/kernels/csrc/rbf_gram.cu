@@ -6,126 +6,605 @@
 //   src/repro/kernels/rbf_gram/rbf_gram.py::rbf_gram
 //   (pallas_call at :61, body _kernel :23).
 //
-// x is (n, d) and y (m, d), row-major; the output (n, m) row-major.  Unlike
-// the TPU wrapper, which computes the row norms outside its pallas_call
-// (:56-57) and pads n, m to 128 and d to a multiple of 8 with zeros, this
-// kernel squares the staged tiles itself (one launch per call) and masks
-// the ragged edges: rows and columns beyond n, m and features beyond d are
-// staged as zeros, which add nothing to a norm or a dot product, and are
-// never written.  Everything sums in T, and 1/sigma is formed in T: float
-// for f32, double for f64.  (The TPU kernel sums in float32 even for f64
-// operands and casts 1/sigma to float32, :35, :58, :73; ROADMAP.md,
-// "Faults found".)  The library exp/expf, no fast math.
+// x is (n, d) and y (m, d), row-major; the output (n, m) row-major.  The
+// TPU wrapper forms the row norms outside its pallas_call (:56-57) and pads
+// n, m to 128 and d to a multiple of 8 with zeros; here each block sums the
+// norms of its rows from the operands as it stages them (one launch per
+// call) and masks the ragged edges: rows past n, m and features past d are
+// staged as zeros, which add nothing to a norm or a dot product, and
+// nothing is written outside (n, m).  Everything sums in T, and 1/sigma is
+// formed in T: float for f32, double for f64.  (The TPU kernel sums in
+// float32 even for f64 operands and casts 1/sigma to float32, :35, :58,
+// :73; ROADMAP.md, "Faults found".)  The library exp/expf, no fast math.
 //
-// What bounds it on an H100: at the roofline shape (n = m = 1024, d = 64,
-// f32) operations, 2 n m (d + 2) flops against (2 n d + n m) 4 bytes, and a
-// launch costs more than either; at Fig. 2's full gram (n = m = 4096,
-// d = 10, f64) the bytes of G.  Design: the classic SIMT tiling, a 64 x 64
-// output tile per block of 256 threads, 4 x 4 outputs per thread, the
-// reduction over d in 16-wide slabs of both operands staged in shared
-// memory.  Threads 0-63 square the staged x rows and 64-127 the y rows as
-// the slabs pass, so each norm is summed once per block.  A warp writes two
-// rows of 16 consecutive outputs.  Tensor cores (TF32 would miss the f32
-// tolerances; f64 DMMA) are later work.
+// What bounds it on an H100: the bytes of G.  At the roofline's k(X, X)
+// (n = m = 1024, d = 64, f32) 4.2 MB of G and 0.26 MB of x, 1.33 us at
+// 3.35 TB/s, against one triangle's 6 n (n + 1) d TF32 flops (six
+// products, below: 0.81 us at 495 TFLOP/s); at Fig. 2's full gram
+// (n = m = 4096, d = 10, f64) 134 MB, 40 us, while its 8.4 M f64 exps
+// must hide behind those stores.  Measured, what holds it is latency: a
+// cell is one block's chain of load, split, products and epilogue, about
+// 5 us at 1024^2 by clock stamps, with 136 cells for the 132 SMs: about
+// one cell an SM, nothing to overlap the chain with (PERF.md, Findings
+// PR 20).
+//
+// One triangle.  The output is cut into 64 x 64 cells, one a block.  Where
+// y is x (`sym`: the wrapper passes the same storage) the grid holds only
+// the cells (I, J) with J >= I, a linear block index walking them row by
+// row: n (n + 1) / 2 dot products and exps instead of n^2, x read once.  A
+// cell above the diagonal writes each entry and its mirror, a diagonal
+// cell the entries on and above its diagonal and their mirrors, so G
+// equals its transpose bit for bit (scaled_gram.cu's schedule, at 64 x 64
+// cells: 136 blocks at n = 1024, where 128 x 64 tiles give 72 for the 132
+// SMs).  Otherwise the grid is every cell, with no mirror.  The stores go
+// straight from the accumulators, two adjacent columns a thread: a warp's
+// direct store writes 8 rows x 32 bytes (f32) or 64 bytes (f64), a
+// mirrored one 4 rows x 32 or 64 bytes, so every 32-byte sector is
+// written whole.
+//
+// Staging.  Slabs of 128 bytes of d (32 floats, 16 doubles) of the cell's
+// x rows and y rows arrive in shared memory by cp.async (16-byte copies
+// where d fills 16-byte rows, else one value a copy over the live columns
+// only; rows past n, m and chunks past d are stored as zeros directly: no
+// padded copy of the operands).  Where d takes more than one slab, two
+// (f32) or four (f64) are in flight.  Threads 0-63 square the staged x
+// rows and 64-127 the y rows as the slabs pass, in k order: each norm
+// from the unsplit values, the same sum for a row as x and as y.
+//
+// float32: on the tensor cores in TF32, the design of eigvec_rotate.cu and
+// scaled_gram.cu (see their notes), with one more piece.  Each operand is
+// split exactly into three TF32 pieces, x = x_h + x_m + x_l, and the six
+// products of pieces at least 2^-22 of x y (hh, hm, mh, mm, hl, lh) miss
+// x y by O(2^-32 |x y|).  Two pieces (x_h y_h + x_h y_l + x_l y_h, the
+// rotation's and scaled_gram's three products) miss it by up to a few
+// float32 eps: at d = 3 that is most of a dot product's error, and a CPU
+// model of it read up to 2.9x the plain float32 gram's error against
+// float64 (tests/test_torch_kernels_ref.py), where the bar is 2x.  Each
+// 8-wide k-step's six products start from a zeroed fragment, and its sum
+// is added into float32 registers once done: Hopper's tensor cores add
+// with less than float32's rounding, and folded once a 32-wide slab the
+// six products read 1.81-2.45x the plain error on the card (PERF.md,
+// Findings PR 20); folded each step, 1.00-1.33x.  k-steps whose columns
+// all lie past d are skipped (d < 8).  Two warpgroups, each 32 columns of
+// the cell (wgmma m64n32k8): x's fragments are loaded from the staged
+// slab and split in registers; the block splits the staged y slab into
+// three planes in the 128-byte-swizzled K-major layout wgmma reads, k
+// permuted within the slab so that a thread's x values are two 16-byte
+// vectors of its row (as scaled_gram's split_planes_kernel), and fences
+// them to the async proxy.  126-128 registers a thread, no spills: two
+// blocks an SM.
+//
+// float64: on the FP64 tensor cores (DMMA), mma.sync m16n8k8 with f64
+// operands and accumulators, each product an IEEE float64 FMA
+// (scaled_gram.cu's gram_dmma_kernel): sixteen warps of 16 x 16, two m16n8
+// fragments each, rows padded to 20 doubles (fragment loads free of bank
+// conflicts); every slab of d <= 64 in flight at once, one wait.  d = 10
+// is one slab.  Two blocks an SM, so their exps and stores overlap.
 #include "common.cuh"
+#include "hopper.cuh"
+#include "rotate_tile.cuh"
 
 namespace {
 
-constexpr int kTile = 64;
-constexpr int kSlab = 16;
+namespace hw = repro::hopper;
+using repro::tile::cp_async_commit;
+using repro::tile::cp_async_zfill;
+
+constexpr int kCell = 64;           // output cells of 64 x 64, one a block
+
+__host__ __device__ __forceinline__ int cdiv(int a, int b) {
+  return (a + b - 1) / b;
+}
+
+// Cells of the launch: where sym, the cells (I, J), J >= I, of the n x n
+// gram (row I holds nc - I of them); else every cell of the n x m gram.
+__host__ __device__ __forceinline__ int cell_count(int n, int m, bool sym) {
+  const int nc = cdiv(m, kCell);
+  return sym ? nc * (nc + 1) / 2 : cdiv(n, kCell) * nc;
+}
+__device__ __forceinline__ void cell_of(int b, int m, bool sym, int& I,
+                                        int& J) {
+  const int nc = cdiv(m, kCell);
+  if (!sym) {
+    I = b / nc;
+    J = b % nc;
+    return;
+  }
+  I = 0;
+  for (int cnt = nc; b >= cnt; --cnt) {
+    b -= cnt;
+    ++I;
+  }
+  J = I + b;
+}
 
 template <typename T>
-__global__ void __launch_bounds__(256)
-rbf_gram_kernel(const T* __restrict__ x, const T* __restrict__ y,
-                T* __restrict__ out, int n, int m, int d, double sigma) {
-  constexpr int TM = kTile / 16;            // outputs per thread per axis
-  __shared__ T xs[kSlab][kTile + 1];        // xs[kk][i] = x[i0+i, k0+kk]
-  __shared__ T ys[kSlab][kTile + 1];        // ys[kk][j] = y[j0+j, k0+kk]
-  __shared__ T xn[kTile], yn[kTile];
-  const int i0 = blockIdx.y * kTile;
-  const int j0 = blockIdx.x * kTile;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const int nr = threadIdx.x % kTile;       // the row this thread squares
+struct Pair;
+template <>
+struct Pair<float> { using type = float2; };
+template <>
+struct Pair<double> { using type = double2; };
 
-  T acc[TM][TM];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TM; ++j) acc[i][j] = T(0);
-  T norm = T(0);
+// G's entry from the dot product a and the two squared norms.
+template <typename T>
+__device__ __forceinline__ T gram_entry(T a, T xr, T yc, T inv_sigma) {
+  return exp(-max(xr + yc - T(2) * a, T(0)) * inv_sigma);
+}
 
-  for (int k0 = 0; k0 < d; k0 += kSlab) {
-    for (int e = threadIdx.x; e < kTile * kSlab; e += 256) {
-      const int r = e / kSlab, kk = e % kSlab;
-      const int gk = k0 + kk;
-      const bool kin = gk < d;
-      const int gi = i0 + r, gj = j0 + r;
-      xs[kk][r] = (kin && gi < n) ? x[(size_t)gi * d + gk] : T(0);
-      ys[kk][r] = (kin && gj < m) ? y[(size_t)gj * d + gk] : T(0);
+// Entries (r, c) and (r, c + 1) of G (global indices, c even) from the dot
+// products a0, a1, the norms xr of row r and yc0, yc1 of the columns.
+// Where sym, a diagonal cell (diag) keeps the entries with r <= column and
+// writes each with its mirror; any other cell writes both directly and,
+// where sym, mirrored.  vec: m even (two adjacent entries one store).
+template <typename T>
+__device__ __forceinline__ void put_pair(T* __restrict__ out, int n, int m,
+                                         bool sym, bool diag, bool vec,
+                                         int r, int c, T a0, T a1, T xr,
+                                         T yc0, T yc1, T inv_sigma) {
+  const T g0 = gram_entry(a0, xr, yc0, inv_sigma);
+  const T g1 = gram_entry(a1, xr, yc1, inv_sigma);
+  if (r >= n) return;
+  if (diag) {
+    const T g[2] = {g0, g1};
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int cc = c + e;
+      if (cc < r || cc >= m) continue;
+      out[(size_t)r * m + cc] = g[e];
+      if (cc != r) out[(size_t)cc * m + r] = g[e];
     }
-    __syncthreads();
-    if (threadIdx.x < 2 * kTile) {
-      const T (*src)[kTile + 1] = threadIdx.x < kTile ? xs : ys;
-#pragma unroll
-      for (int kk = 0; kk < kSlab; ++kk)
-        norm = fma(src[kk][nr], src[kk][nr], norm);
-    }
-#pragma unroll
-    for (int kk = 0; kk < kSlab; ++kk) {
-      T a[TM], c[TM];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = xs[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < TM; ++j) c[j] = ys[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TM; ++j) acc[i][j] = fma(a[i], c[j], acc[i][j]);
-    }
-    __syncthreads();
+    return;
   }
-  if (threadIdx.x < kTile) xn[nr] = norm;
-  else if (threadIdx.x < 2 * kTile) yn[nr] = norm;
-  __syncthreads();
+  T* row = out + (size_t)r * m;
+  if (vec && c + 1 < m) {
+    using P = typename Pair<T>::type;
+    P v;
+    v.x = g0;
+    v.y = g1;
+    *reinterpret_cast<P*>(row + c) = v;
+  } else {
+    if (c < m) row[c] = g0;
+    if (c + 1 < m) row[c + 1] = g1;
+  }
+  if (sym) {
+    if (c < m) out[(size_t)c * m + r] = g0;
+    if (c + 1 < m) out[(size_t)(c + 1) * m + r] = g1;
+  }
+}
 
-  const T inv_sigma = T(1) / T(sigma);
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int li = ty + 16 * i;
-    const int r = i0 + li;
-#pragma unroll
-    for (int j = 0; j < TM; ++j) {
-      const int lj = tx + 16 * j;
-      const int c = j0 + lj;
-      if (r < n && c < m) {
-        const T d2 = max(xn[li] + yn[lj] - T(2) * acc[i][j], T(0));
-        out[(size_t)r * m + c] = exp(-d2 * inv_sigma);
-      }
+// Slab q of the cell's x rows (row0 ..) and y rows (col0 ..) into the
+// stage's tiles (leading dims ldl, ldr), by `Threads` threads.  The live
+// values arrive by cp.async, 16 bytes a copy where Vec (d fills 16-byte
+// rows, both bases 16-byte aligned), else one value a copy over the
+// slab's first ceil(live / 16 bytes) chunks; rows past n, m and the chunks
+// past d are stored as zeros directly.
+template <typename T, bool Vec, int Threads>
+__device__ __forceinline__ void load_slab(T* ls, int ldl, T* rs, int ldr,
+                                          const T* __restrict__ x,
+                                          const T* __restrict__ y, int n,
+                                          int m, int d, int row0, int col0,
+                                          int q) {
+  constexpr int kDepth = 128 / sizeof(T);
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kChunks = kDepth / kVec;
+  const int k0 = q * kDepth;
+  auto at = [&](int r, int k) -> T* {
+    return r < kCell ? ls + r * ldl + k : rs + (r - kCell) * ldr + k;
+  };
+  auto source = [&](int r, int k) -> const T* {
+    const bool left = r < kCell;
+    const int gr = left ? row0 + r : col0 + r - kCell;
+    return gr < (left ? n : m) ? (left ? x : y) + (size_t)gr * d + k0 + k
+                               : nullptr;
+  };
+  const int live = min(max(d - k0, 0), kDepth);   // live values of a row
+  if constexpr (Vec) {
+    for (int e = threadIdx.x; e < 2 * kCell * kChunks; e += Threads) {
+      const int r = e / kChunks, k = (e % kChunks) * kVec;
+      const T* src = source(r, k);
+      if (src && k < live)
+        cp_async_zfill<16>(at(r, k), src, 16);
+      else
+        *reinterpret_cast<uint4*>(at(r, k)) = make_uint4(0, 0, 0, 0);
+    }
+  } else {
+    const int chunks = (live + kVec - 1) / kVec, width = chunks * kVec;
+    for (int e = threadIdx.x; e < 2 * kCell * width; e += Threads) {
+      const int r = e / width, k = e % width;
+      const T* src = source(r, k);
+      if (src && k < live)
+        cp_async_zfill<static_cast<int>(sizeof(T))>(at(r, k), src,
+                                                     sizeof(T));
+      else
+        *at(r, k) = T(0);
+    }
+    for (int e = threadIdx.x; e < 2 * kCell * (kChunks - chunks);
+         e += Threads) {
+      const int r = e / (kChunks - chunks);
+      const int k = (chunks + e % (kChunks - chunks)) * kVec;
+      *reinterpret_cast<uint4*>(at(r, k)) = make_uint4(0, 0, 0, 0);
     }
   }
 }
 
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// norm += the squares of a staged row, in k order, one 16-byte vector at
+// a time.
+__device__ __forceinline__ void add_squares(float& norm, const float* row) {
+#pragma unroll
+  for (int k = 0; k < 32; k += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(row + k);
+    norm = fmaf(v.x, v.x, norm);
+    norm = fmaf(v.y, v.y, norm);
+    norm = fmaf(v.z, v.z, norm);
+    norm = fmaf(v.w, v.w, norm);
+  }
+}
+__device__ __forceinline__ void add_squares(double& norm, const double* row) {
+#pragma unroll
+  for (int k = 0; k < 16; k += 2) {
+    const double2 v = *reinterpret_cast<const double2*>(row + k);
+    norm = fma(v.x, v.x, norm);
+    norm = fma(v.y, v.y, norm);
+  }
+}
+
+// ------------------------------------------ float32: six TF32 products
+namespace tc {
+
+constexpr int kThreads = 256;       // two warpgroups
+constexpr int kDepth = 32;          // slab of d: one 128-byte row
+constexpr int kLdL = kDepth + 4;    // x rows: fragment loads conflict-free
+constexpr int kLdR = kDepth + 8;    // y rows: the planes' gathers too
+constexpr int kStrip = kCell / 2;   // a warpgroup's columns
+
+struct Stage {
+  float l[kCell * kLdL];
+  float r[kCell * kLdR];
+};
+template <int S>
+struct Smem {
+  float plane[3][kCell * kDepth];   // y's pieces: head, mid, low (1024-
+                                    // aligned, 128-byte swizzled)
+  Stage st[S];
+  float xn[kCell], yn[kCell];
+};
+template <int S>
+constexpr size_t smem_bytes() { return sizeof(Smem<S>) + 1024; }
+
+// Warpgroup wg computes columns 32 wg .. 32 wg + 31 of the cell: in its
+// thread (warp w, lane l) accumulator entry 4 c + 2 i + e is row
+// 16 w + l / 4 + 8 i, column 32 wg + 8 c + 2 (l % 4) + e.  S: slabs in
+// flight (1 where d fills one).
+template <bool Vec, int S>
+__global__ void __launch_bounds__(kThreads, 2)
+rbf_gram_tf32_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                     float* __restrict__ out, int n, int m, int d,
+                     float inv_sigma, bool sym) {
+  int I, J;
+  cell_of(blockIdx.x, m, sym, I, J);
+  const int row0 = I * kCell, col0 = J * kCell;
+  extern __shared__ uint8_t smem_raw[];
+  Smem<S>& sm = *reinterpret_cast<Smem<S>*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int slabs = cdiv(d, kDepth);
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int ra = 16 * warp + g;              // cell rows ra and ra + 8
+  // Threads 0-63 square the cell's x rows, 64-127 its y rows.
+  const int nr = threadIdx.x % kCell;
+  const bool squares = threadIdx.x < 2 * kCell;
+  const bool squares_x = threadIdx.x < kCell;
+
+  float acc[16], part[2][16];
+#pragma unroll
+  for (int e = 0; e < 16; ++e) acc[e] = part[0][e] = part[1][e] = 0.f;
+  float norm = 0.f;
+
+  auto load = [&](int q) {
+    if (q < slabs)
+      load_slab<float, Vec, kThreads>(sm.st[q % S].l, kLdL, sm.st[q % S].r,
+                                      kLdR, x, y, n, m, d, row0, col0, q);
+    cp_async_commit();                 // possibly empty: keeps the count
+  };
+#pragma unroll
+  for (int q = 0; q < S; ++q) load(q);
+  const bool ring = slabs > S;
+  for (int q = 0; q < slabs; ++q) {
+    cp_async_wait<S - 1>();            // slab q has landed
+    __syncthreads();                   // ... for every thread; the planes
+                                       // of slab q - 1 are read
+    const float* ls = sm.st[q % S].l;
+    const float* rs = sm.st[q % S].r;
+    if (squares)
+      add_squares(norm, squares_x ? ls + nr * kLdL : rs + nr * kLdR);
+    // y's planes: plane position L of row j holds slab column
+    // 8 (L % 4) + 2 (L / 8) + (L / 4) % 2, so 16-byte chunk c of a row
+    // gathers columns c, c + 8, c + 16, c + 24; the 128-byte swizzle puts
+    // chunk c of row j at chunk c ^ (j % 8).
+#pragma unroll
+    for (int it = 0; it < kCell * 8 / kThreads; ++it) {
+      const int e = threadIdx.x + it * kThreads;
+      const int j = e / 8, c = e % 8;
+      const float* src = rs + j * kLdR + c;
+      uint32_t p[3][4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        hw::split3_tf32(src[8 * u], p[0][u], p[1][u], p[2][u]);
+      const int at = j * kDepth + ((c ^ (j % 8)) * 4);
+#pragma unroll
+      for (int q3 = 0; q3 < 3; ++q3)
+        *reinterpret_cast<uint4*>(sm.plane[q3] + at) =
+            make_uint4(p[q3][0], p[q3][1], p[q3][2], p[q3][3]);
+    }
+    hw::fence_proxy_async();           // the planes, to wgmma's reads
+    // x's fragments of both rows in three pieces: frag[p][kk] is piece p
+    // (head, mid, low) of k-step kk (a thread's k-step kk holds columns
+    // 8 t + 2 kk and 8 t + 2 kk + 1 of the slab; the planes are permuted
+    // to match); a0 .. a3 are rows ra, ra + 8 of the first, then of the
+    // second.
+    uint32_t frag[3][4][4];
+    {
+      float v[2][8];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const float* row = ls + (ra + 8 * rr) * kLdL + 8 * t;
+        const float4 c0 = *reinterpret_cast<const float4*>(row);
+        const float4 c1 = *reinterpret_cast<const float4*>(row + 4);
+        v[rr][0] = c0.x; v[rr][1] = c0.y; v[rr][2] = c0.z; v[rr][3] = c0.w;
+        v[rr][4] = c1.x; v[rr][5] = c1.y; v[rr][6] = c1.z; v[rr][7] = c1.w;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+          hw::split3_tf32(v[a % 2][2 * kk + a / 2], frag[0][kk][a],
+                          frag[1][kk][a], frag[2][kk][a]);
+    }
+    __syncthreads();                   // the planes are whole
+    // Per k-step the six products of pieces whose size is at least 2^-22
+    // of x y, smallest first, the first overwriting part[kk % 2]; the
+    // step's sum is folded into acc once done, while the next step's run.
+    // The warpgroup's 32 rows of each plane start 32 wg rows in; k-steps
+    // whose columns all lie past d are skipped (d < 8).
+    const int rest = d - q * kDepth;
+    const int steps = rest >= 8 ? 4 : (rest + 1) / 2;
+    const uint32_t ph = hw::smem_u32(sm.plane[0]) + 128 * kStrip * wg;
+    const uint32_t pm = hw::smem_u32(sm.plane[1]) + 128 * kStrip * wg;
+    const uint32_t pl = hw::smem_u32(sm.plane[2]) + 128 * kStrip * wg;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (kk >= steps) break;
+      float (&pk)[16] = part[kk % 2];
+      const uint64_t dh = hw::sw128_desc(ph + 32 * kk, 16, 1024);
+      const uint64_t dmid = hw::sw128_desc(pm + 32 * kk, 16, 1024);
+      const uint64_t dl = hw::sw128_desc(pl + 32 * kk, 16, 1024);
+      hw::fence_operands(pk);
+      hw::wgmma_fence();
+      hw::wgmma_m64n32k8_tf32_rs(pk, frag[2][kk], dh, 0);
+      hw::wgmma_m64n32k8_tf32_rs(pk, frag[0][kk], dl, 1);
+      hw::wgmma_m64n32k8_tf32_rs(pk, frag[1][kk], dmid, 1);
+      hw::wgmma_m64n32k8_tf32_rs(pk, frag[1][kk], dh, 1);
+      hw::wgmma_m64n32k8_tf32_rs(pk, frag[0][kk], dmid, 1);
+      hw::wgmma_m64n32k8_tf32_rs(pk, frag[0][kk], dh, 1);
+      hw::wgmma_commit();
+      if (kk > 0) {
+        float (&prev)[16] = part[(kk - 1) % 2];
+        hw::wgmma_wait_one();
+        hw::fence_operands(prev);
+#pragma unroll
+        for (int e = 0; e < 16; ++e) acc[e] += prev[e];
+      }
+    }
+    hw::wgmma_wait_all();
+    hw::fence_operands(part[0]);
+    hw::fence_operands(part[1]);
+    const bool even = (steps - 1) % 2 == 0;   // the last step's part
+#pragma unroll
+    for (int e = 0; e < 16; ++e) acc[e] += even ? part[0][e] : part[1][e];
+    if (ring) {
+      __syncthreads();                 // stage q is read
+      load(q + S);
+    }
+  }
+  if (squares) (squares_x ? sm.xn : sm.yn)[nr] = norm;
+  __syncthreads();
+
+  const bool diag = sym && I == J, vec = m % 2 == 0;
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int rr = ra + 8 * i, cc = kStrip * wg + 8 * c + 2 * t;
+      put_pair(out, n, m, sym, diag, vec, row0 + rr, col0 + cc,
+               acc[4 * c + 2 * i], acc[4 * c + 2 * i + 1], sm.xn[rr],
+               sm.yn[cc], sm.yn[cc + 1], inv_sigma);
+    }
+}
+
+}  // namespace tc
+
+// ------------------------------------------------- float64: DMMA product
+namespace dm {
+
+constexpr int kThreads = 512;       // sixteen warps
+constexpr int kDepth = 16;          // slab of d: 128 bytes of a row
+constexpr int kLd = kDepth + 4;     // padded row (20 doubles)
+
+struct Stage {
+  double l[kCell * kLd];
+  double r[kCell * kLd];
+};
+template <int S>
+struct Smem {
+  Stage st[S];
+  double xn[kCell], yn[kCell];
+};
+template <int S>
+constexpr size_t smem_bytes() { return sizeof(Smem<S>); }
+
+// Sixteen warps of 16 x 16: warp w holds rows 16 (w % 4) .., columns
+// 16 (w / 4) .. of the cell as two m16n8 fragments.  S: slabs in flight.
+template <bool Vec, int S>
+__global__ void __launch_bounds__(kThreads, 2)
+rbf_gram_dmma_kernel(const double* __restrict__ x,
+                     const double* __restrict__ y, double* __restrict__ out,
+                     int n, int m, int d, double inv_sigma, bool sym) {
+  extern __shared__ float4 smem4[];
+  Smem<S>& sm = *reinterpret_cast<Smem<S>*>(smem4);
+  int I, J;
+  cell_of(blockIdx.x, m, sym, I, J);
+  const int row0 = I * kCell, col0 = J * kCell;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wr = 16 * (warp % 4), wc = 16 * (warp / 4);   // warp's origin
+  const int nr = threadIdx.x % kCell;
+  const bool squares = threadIdx.x < 2 * kCell;
+  const bool squares_x = threadIdx.x < kCell;
+  const int slabs = cdiv(d, kDepth);
+
+  double acc[2][4];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0;
+  double norm = 0.0;
+
+  auto load = [&](int q) {
+    if (q < slabs)
+      load_slab<double, Vec, kThreads>(sm.st[q % S].l, kLd, sm.st[q % S].r,
+                                       kLd, x, y, n, m, d, row0, col0, q);
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int q = 0; q < S; ++q) load(q);
+  // Where every slab has a stage, one wait for all of them; else a ring.
+  const bool ring = slabs > S;
+  for (int q = 0; q < slabs; ++q) {
+    if (ring) {
+      cp_async_wait<S - 1>();          // slab q has landed
+      __syncthreads();                 // ... for every thread
+    } else if (q == 0) {
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    const double* ls = sm.st[q % S].l;
+    const double* rs = sm.st[q % S].r;
+#pragma unroll
+    for (int kb = 0; kb < kDepth; kb += 8) {
+      const double* ar = ls + (wr + g) * kLd + kb + t;
+      const double af[4] = {ar[0], ar[8 * kLd], ar[4], ar[8 * kLd + 4]};
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const double* br = rs + (wc + 8 * j + g) * kLd + kb + t;
+        const double bf[2] = {br[0], br[4]};
+        hw::dmma_m16n8k8(acc[j], af, bf);
+      }
+    }
+    if (squares) add_squares(norm, (squares_x ? ls : rs) + nr * kLd);
+    if (ring) {
+      __syncthreads();                 // stage q is read
+      load(q + S);
+    }
+  }
+  if (squares) (squares_x ? sm.xn : sm.yn)[nr] = norm;
+  __syncthreads();
+
+  const bool diag = sym && I == J, vec = m % 2 == 0;
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int rr = wr + g + 8 * h, cc = wc + 8 * j + 2 * t;
+      put_pair(out, n, m, sym, diag, vec, row0 + rr, col0 + cc,
+               acc[j][2 * h], acc[j][2 * h + 1], sm.xn[rr], sm.yn[cc],
+               sm.yn[cc + 1], inv_sigma);
+    }
+}
+
+}  // namespace dm
+
+template <typename Kernel>
+cudaError_t set_smem(Kernel kernel, size_t bytes, bool& done) {
+  if (done) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  done = err == cudaSuccess;
+  return err;
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+template <bool Vec, int S>
+cudaError_t run(const float* x, const float* y, float* out, int n, int m,
+                int d, float inv_sigma, bool sym, cudaStream_t st) {
+  static bool attr = false;
+  const cudaError_t err = set_smem(tc::rbf_gram_tf32_kernel<Vec, S>,
+                                   tc::smem_bytes<S>(), attr);
+  if (err != cudaSuccess) return err;
+  tc::rbf_gram_tf32_kernel<Vec, S>
+      <<<cell_count(n, m, sym), tc::kThreads, tc::smem_bytes<S>(), st>>>(
+          x, y, out, n, m, d, inv_sigma, sym);
+  return cudaGetLastError();
+}
+
+template <bool Vec, int S>
+cudaError_t run(const double* x, const double* y, double* out, int n, int m,
+                int d, double inv_sigma, bool sym, cudaStream_t st) {
+  static bool attr = false;
+  const cudaError_t err = set_smem(dm::rbf_gram_dmma_kernel<Vec, S>,
+                                   dm::smem_bytes<S>(), attr);
+  if (err != cudaSuccess) return err;
+  dm::rbf_gram_dmma_kernel<Vec, S>
+      <<<cell_count(n, m, sym), dm::kThreads, dm::smem_bytes<S>(), st>>>(
+          x, y, out, n, m, d, inv_sigma, sym);
+  return cudaGetLastError();
+}
+
+// One launch: 16-byte copies where d fills 16-byte rows and both operands
+// start on 16 bytes; where d takes more than one slab, two (float32) or
+// four (float64) slabs in flight, else one stage.
 template <typename T>
 int launch(const void* x, const void* y, void* out, int n, int m, int d,
-           double sigma, void* stream) {
-  if (n > 0 && m > 0) {
-    const dim3 grid((m + kTile - 1) / kTile, (n + kTile - 1) / kTile);
-    rbf_gram_kernel<T><<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(x), static_cast<const T*>(y),
-        static_cast<T*>(out), n, m, d, sigma);
-  }
-  return static_cast<int>(cudaGetLastError());
+           double sigma, int sym, void* stream) {
+  if (n <= 0 || m <= 0) return static_cast<int>(cudaGetLastError());
+  if (sym && n != m) return static_cast<int>(cudaErrorInvalidValue);
+  const T* xp = static_cast<const T*>(x);
+  const T* yp = static_cast<const T*>(y);
+  T* o = static_cast<T*>(out);
+  const T inv = T(1) / static_cast<T>(sigma);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool vec = d % (16 / (int)sizeof(T)) == 0 && aligned16(x) &&
+                   aligned16(y);
+  constexpr int kDeep = sizeof(T) == 4 ? 2 : 4;
+  const bool deep = d > 128 / (int)sizeof(T);
+  const cudaError_t err =
+      vec ? (deep ? run<true, kDeep>(xp, yp, o, n, m, d, inv, sym != 0, st)
+                  : run<true, 1>(xp, yp, o, n, m, d, inv, sym != 0, st))
+          : (deep ? run<false, kDeep>(xp, yp, o, n, m, d, inv, sym != 0, st)
+                  : run<false, 1>(xp, yp, o, n, m, d, inv, sym != 0, st));
+  return static_cast<int>(err);
 }
 
 }  // namespace
 
+// sym: y is x (same storage, n == m); the kernel then computes one
+// triangle and mirrors it.
 extern "C" int rbf_gram_f32(const void* x, const void* y, void* out, int n,
-                            int m, int d, double sigma, void* stream) {
-  return launch<float>(x, y, out, n, m, d, sigma, stream);
+                            int m, int d, double sigma, int sym,
+                            void* stream) {
+  return launch<float>(x, y, out, n, m, d, sigma, sym, stream);
 }
 
 extern "C" int rbf_gram_f64(const void* x, const void* y, void* out, int n,
-                            int m, int d, double sigma, void* stream) {
-  return launch<double>(x, y, out, n, m, d, sigma, stream);
+                            int m, int d, double sigma, int sym,
+                            void* stream) {
+  return launch<double>(x, y, out, n, m, d, sigma, sym, stream);
 }

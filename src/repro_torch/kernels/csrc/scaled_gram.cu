@@ -145,12 +145,6 @@ split_planes_kernel(const float* __restrict__ b, float* __restrict__ planes,
       __uint_as_float(hw::to_tf32(v - __uint_as_float(head)));
 }
 
-__device__ __forceinline__ void split(float x, uint32_t& head,
-                                      uint32_t& tail) {
-  head = hw::to_tf32(x);
-  tail = hw::to_tf32(x - __uint_as_float(head));
-}
-
 // Accumulator fragments (wgmma m64n64, float32): in warpgroup thread
 // (warp w, lane l) entry 4 c + 2 i + e is row 16 w + l / 4 + 8 i, column
 // 8 c + 2 (l % 4) + e of the warpgroup's 64 x 64 cell.
@@ -227,10 +221,10 @@ gram_tf32_kernel(const __grid_constant__ CUtensorMap bmap,
     }
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      split(x[0][2 * kk], head[kk][0], tail[kk][0]);
-      split(x[1][2 * kk], head[kk][1], tail[kk][1]);
-      split(x[0][2 * kk + 1], head[kk][2], tail[kk][2]);
-      split(x[1][2 * kk + 1], head[kk][3], tail[kk][3]);
+      hw::split_tf32(x[0][2 * kk], head[kk][0], tail[kk][0]);
+      hw::split_tf32(x[1][2 * kk], head[kk][1], tail[kk][1]);
+      hw::split_tf32(x[0][2 * kk + 1], head[kk][2], tail[kk][2]);
+      hw::split_tf32(x[1][2 * kk + 1], head[kk][3], tail[kk][3]);
     }
   };
   // Slab q's 12 products into `part`, the first of them overwriting it.
@@ -328,20 +322,6 @@ struct Stage {
 };
 constexpr size_t kSmem = kStages * sizeof(Stage);
 
-// d (16 x 8) += a (16 x 8, row) . b (8 x 8, col), float64: in lane
-// (g = l / 4, t = l % 4) a_q holds row g + 8 (q % 2), column t + 4 (q / 2);
-// b_q row t + 4 q, column g; d_q row g + 8 (q / 2), column 2 t + q % 2.
-__device__ __forceinline__ void dmma_m16n8k8(double (&d)[4],
-                                             const double (&a)[4],
-                                             const double (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
-      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
-}
-
 // dst[0 .. bytes) = src, the rest of the `Size` bytes zero.
 template <int Size>
 __device__ __forceinline__ void cp_async_zfill(void* dst, const void* src,
@@ -434,7 +414,7 @@ gram_dmma_kernel(const double* __restrict__ b, const double* __restrict__ s,
         const double af[4] = {ar[0] * s0, ar[8 * kLd] * s0, ar[4] * s1,
                               ar[8 * kLd + 4] * s1};
 #pragma unroll
-        for (int j = 0; j < 4; ++j) dmma_m16n8k8(acc[i][j], af, bf[j]);
+        for (int j = 0; j < 4; ++j) hw::dmma_m16n8k8(acc[i][j], af, bf[j]);
       }
     }
   }

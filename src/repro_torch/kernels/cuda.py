@@ -39,12 +39,12 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # C signature of each entry point (its typed variants share one).
 SIGNATURES = {
     "eigvec_rotate": (P,) * 9 + (I, I, I, I, F, P),
-    "eigvec_rotate2": (P,) * 18 + (I, F, P),
+    "eigvec_rotate2": (P,) * 18 + (I, I, I, F, P),
     "eigvec_project": (P, P, P, P, I, I, I, I, P),
     "krow_project": (P,) * 7 + (I,) * 8 + (F, F, P),
     "transform_project": (P,) * 6 + (I,) * 5 + (F, F) + (I,) * 6 + (P,),
     "scaled_gram": (P, P, P, P, I, I, P),
-    "rbf_gram": (P, P, P, I, I, I, F, P),
+    "rbf_gram": (P, P, P, I, I, I, F, I, P),
     "flash_attention": (P, P, P, P, I, I, I, I, I, F, P),
     "ssd_intra_chunk": (P, P, P, P, P, I, I, I, I, I, P),
 }

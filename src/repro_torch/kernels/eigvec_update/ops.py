@@ -11,16 +11,15 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import cuda
-# PROJECT_SLAB and ROTATE_TILE, the kernels' pruning granules, are the
-# plain versions' too.
+# PROJECT_SLAB, ROTATE_TILE and ROTATE2_TILE, the kernels' pruning
+# granules, are the plain versions' too.
 from repro_torch.kernels.eigvec_update.ref import (  # noqa: F401
-    PROJECT_SLAB, ROTATE_TILE, eigvec_project_ref, eigvec_rotate2_ref,
-    eigvec_rotate_ref, offset_guard)
+    PROJECT_SLAB, ROTATE2_TILE, ROTATE_TILE, eigvec_project_ref,
+    eigvec_rotate2_ref, eigvec_rotate_ref, offset_guard)
 
 Tensor = torch.Tensor
 
 NPROJ = 8           # most columns eigvec_project takes
-ROTATE2_TILE = 64   # output tile of eigvec_rotate2: its pruning granule
 
 
 def rotate_vectors(u: Tensor, zhat: Tensor, d: Tensor, lam: Tensor,
@@ -79,26 +78,31 @@ def rotate_vectors2(u: Tensor,
                     defl1: Tensor, cid1: Tensor,
                     z2: Tensor, d2: Tensor, lam2: Tensor, inv2: Tensor,
                     defl2: Tensor, cid2: Tensor, num_active=None, *,
-                    tau1: Tensor, tau2: Tensor) -> Tensor:
+                    tau1: Tensor, tau2: Tensor,
+                    row_offset: int | None = None) -> Tensor:
     """Fused double rotation C = U @ W1n @ W2n (``ref.eigvec_rotate2_ref``):
     each factor W[k, j] = z[k]·inv[j]/((d[k] - lam[j]) - tau[j]), deflated
     columns (defl[j] != 0) the identity column e_{cid[j]}.
 
-    On the card each factor entry is formed once into scratch this
-    wrapper allocates (W1n, W2n and W12, three (n, n) matrices), the
-    factors are multiplied first, W12 = W1n @ W2n, then C = U @ W12
-    (``csrc/eigvec_rotate2.cu`` says why): three launches; U @ W1n never
-    exists.  With ``num_active`` = m the reductions stop at m and output
-    tiles beyond ceil(m/64) in either axis are written as exact zeros
-    (inactive columns inside the active tiles come out 0: the caller
-    keeps U's own).
+    ``u`` is the (n, n) state or an (R, n) row block whose first row is
+    the state's row ``row_offset`` (a host int); C has u's shape.  On the
+    card each factor entry is formed once into scratch this wrapper
+    allocates (W1n, W2n and W12, three (n, n) matrices), the factors are
+    multiplied first, W12 = W1n @ W2n, then C = U @ W12
+    (``csrc/eigvec_rotate2.cu`` says why): three launches, the first two
+    the same for any rows; U @ W1n never exists.  With ``num_active`` = m
+    the reductions stop at m, and output columns at or beyond
+    ceil(m/64)·64 and rows at or beyond ceil(clamp(m - row_offset, 0,
+    R)/64)·64 are written as exact zeros (inactive columns inside the
+    active tiles come out 0: the caller keeps U's own).
     """
     if u.device.type == "cpu":
         return eigvec_rotate2_ref(u, z1, d1, lam1, inv1, defl1, cid1,
                                   z2, d2, lam2, inv2, defl2, cid2,
+                                  num_active, row_offset,
                                   tau1=tau1, tau2=tau2)
     dtype = cuda.check_operands("eigvec_rotate2", u, z1, inv1, z2, inv2)
-    n = u.shape[0]
+    n = u.shape[-1]
 
     def factor(d, lam, tau, defl, cid):
         d, lam = d.to(torch.float64), lam.to(torch.float64)
@@ -113,17 +117,19 @@ def rotate_vectors2(u: Tensor,
 
     d1, lam1, tau1, defl1, cid1 = factor(d1, lam1, tau1, defl1, cid1)
     d2, lam2, tau2, defl2, cid2 = factor(d2, lam2, tau2, defl2, cid2)
-    if u.shape != (n, n) or any(v.shape != (n,) for v in (
+    if u.dim() != 2 or any(v.shape != (n,) for v in (
             z1, d1, lam1, tau1, inv1, defl1, cid1,
             z2, d2, lam2, tau2, inv2, defl2, cid2)):
-        raise ValueError(f"eigvec_rotate2: need u (n, n) and (n,) factor "
+        raise ValueError(f"eigvec_rotate2: need u (R, n) and (n,) factor "
                          f"vectors, got {u.shape}")
+    R = u.shape[0]
+    r0 = 0 if row_offset is None else int(row_offset)
     m = cuda.active_count(n if num_active is None else num_active, u.device)
     scratch = torch.empty((3, n, n), dtype=dtype, device=u.device)
     out = torch.empty_like(u)
     cuda.launch("eigvec_rotate2", dtype, u, z1, d1, lam1, tau1, inv1, defl1,
                 cid1, z2, d2, lam2, tau2, inv2, defl2, cid2, m, scratch, out,
-                n, offset_guard(dtype))
+                n, R, r0, offset_guard(dtype))
     return out
 
 

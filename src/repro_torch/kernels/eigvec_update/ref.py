@@ -10,6 +10,7 @@ import torch
 Tensor = torch.Tensor
 
 ROTATE_TILE = 64    # eigvec_rotate's pruning granule (rows and columns)
+ROTATE2_TILE = 64   # eigvec_rotate2's (its output tiles' granule)
 PROJECT_SLAB = 32   # eigvec_project's pruning granule (output rows)
 
 
@@ -141,12 +142,22 @@ def eigvec_rotate2_ref(u: Tensor,
                        z1: Tensor, d1: Tensor, lam1: Tensor, inv1: Tensor,
                        defl1: Tensor, cid1: Tensor,
                        z2: Tensor, d2: Tensor, lam2: Tensor, inv2: Tensor,
-                       defl2: Tensor, cid2: Tensor, *,
+                       defl2: Tensor, cid2: Tensor, num_active=None,
+                       row_offset=None, *,
                        tau1: Tensor, tau2: Tensor) -> Tensor:
     """C = (U @ W1) @ W2 with both normalized Cauchy factors materialized
     (``cauchy_factor_ref``; the kernel generates their tiles): the fused
     ±sigma pair's double rotation.  ``tau1``/``tau2`` are the roots'
-    offsets from ``lam1``/``lam2``."""
+    offsets from ``lam1``/``lam2``.  ``u`` may be an (R, M) row block
+    whose first global row is ``row_offset``; with ``num_active`` = m the
+    entries outside ``pruned_region_mask(R, M, m, row_offset,
+    block=ROTATE2_TILE)`` are exact zeros, as the kernel writes them (on
+    the padding contract they are zeros anyway)."""
     W1 = cauchy_factor_ref(z1, d1, lam1, inv1, defl1, cid1, tau=tau1)
     W2 = cauchy_factor_ref(z2, d2, lam2, inv2, defl2, cid2, tau=tau2)
-    return (u @ W1.to(u.dtype)) @ W2.to(u.dtype)
+    C = (u @ W1.to(u.dtype)) @ W2.to(u.dtype)
+    if num_active is None:
+        return C
+    rows, cols = pruned_region_mask(*u.shape, num_active, row_offset,
+                                    block=ROTATE2_TILE, device=u.device)
+    return torch.where(rows[:, None] & cols[None, :], C, 0.0)

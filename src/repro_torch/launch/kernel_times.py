@@ -9,8 +9,10 @@
 (default ``eigvec_rotate2``) at capacity bucket n with m active pairs,
 the row-block cases among them (``variant`` names their rows);
 ``--flash B:T:H:Hkv:hd:dtype`` times ``flash_attention``, ``--gram
-n:k:dtype`` ``scaled_gram`` (B of n rows and width k) and ``--ssd
-G:Q:N:H:P:dtype`` ``ssd_intra_chunk``.  The inputs and
+n:k:dtype`` ``scaled_gram`` (B of n rows and width k), ``--ssd
+G:Q:N:H:P:dtype`` ``ssd_intra_chunk``, ``--rbf n:m:d:dtype``
+``rbf_gram`` (n = m is k(X, X)) and ``--magic`` ``rbf_gram`` on Fig. 2's
+full gram (``magic_like``, 4096², d = 10, f64).  The inputs and
 bounds are ``kernels/checks.py``'s.  Each row is one JSON line: the
 kernel's device ms per call and device launches per call
 (``checks.device_ms``: profiler records, the wrapper's own elementwise
@@ -60,6 +62,11 @@ def main(argv=None) -> list[dict]:
                     help="n:k:dtype shapes of scaled_gram")
     ap.add_argument("--ssd", nargs="*", default=(),
                     help="G:Q:N:H:P:dtype shapes of ssd_intra_chunk")
+    ap.add_argument("--rbf", nargs="*", default=(),
+                    help="n:m:d:dtype shapes of rbf_gram (n = m: k(X, X))")
+    ap.add_argument("--magic", action="store_true",
+                    help="rbf_gram on Fig. 2's full gram (magic_like, "
+                         "4096 x 4096, d = 10, f64)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: needs a CUDA device")
@@ -93,6 +100,24 @@ def main(argv=None) -> list[dict]:
         case = checks.ssd_intra_chunk_case(G, Q, N, H, P, dtype, "cuda")
         rows.append(_row(case, dtype, {"G": G, "Q": Q, "N": N, "H": H,
                                        "P": P}))
+        print(json.dumps(rows[-1]), flush=True)
+    for spec in args.rbf:
+        n, m, dim, dtype_name = spec.split(":")
+        dtype = getattr(torch, dtype_name)
+        for case in checks.rbf_gram_cases(int(n), int(m), int(dim), dtype,
+                                          "cuda"):
+            rows.append(_row(case, dtype, {"n": int(n), "m": int(m),
+                                           "d": int(dim)}))
+            print(json.dumps(rows[-1]), flush=True)
+    if args.magic:
+        from repro_torch.core import kernels_fn as kf
+        from repro_torch.data.uci_like import load_dataset
+
+        X = torch.as_tensor(load_dataset("magic", n=4096, seed=0),
+                            device="cuda")
+        case = checks.rbf_gram_case(X, X, float(kf.median_heuristic(X)))
+        rows.append(_row(case, torch.float64, {"n": 4096, "m": 4096,
+                                               "d": X.shape[1]}))
         print(json.dumps(rows[-1]), flush=True)
     return rows
 

@@ -9,7 +9,11 @@ must move (operands in, results out, once) and its useful operations.
 The peak is measured, not quoted: a triad a = b + 1.5·c over float32
 arrays of 1 << 24 entries (64 MB each, beyond the 50 MB L2) gives the
 card's reachable rate, and each row reports its rate as a fraction of it
-and its operation rate as a fraction of the data sheet's 67 TFLOP/s.
+and its operation rate as a fraction of the data sheet's peak for its
+route (``peak_flops``): 67 TFLOP/s, or 495 TFLOP/s for the two grams,
+whose float32 runs on TF32 products on the tensor cores.  The two
+grams count their work as ``kernels/checks.py``'s cases do: one
+triangle of the symmetric output, its operand read once.
 
 Rows, by the reference driver's names: ``eigvec_rotate``,
 ``eigvec_rotate2``, ``rbf_gram``, ``krow_fused`` (``krow_project``),
@@ -117,7 +121,8 @@ def peak_bandwidth(n: int, reps: int, device: torch.device
 
 
 def _row(name: str, ms: float, call_ms: float | None, calls: int,
-         nbytes: float, flops: float, peak_gbps: float) -> dict:
+         nbytes: float, flops: float, peak_gbps: float,
+         peak_flops: float) -> dict:
     gbps = nbytes / (ms * 1e-3) / 1e9
     return {"kernel": name, "ms": ms, "call_ms": call_ms, "calls": calls,
             "bytes": nbytes, "flops": flops,
@@ -125,7 +130,8 @@ def _row(name: str, ms: float, call_ms: float | None, calls: int,
             "gbps": gbps, "peak_gbps": peak_gbps,
             "frac_of_peak": gbps / peak_gbps,
             "gflops": flops / (ms * 1e-3) / 1e9,
-            "frac_of_peak_flops": flops / (ms * 1e-3) / PEAK_FLOPS}
+            "peak_flops": peak_flops,
+            "frac_of_peak_flops": flops / (ms * 1e-3) / peak_flops}
 
 
 def kernel_rows(M: int, d: int, Q: int, C: int, reps: int,
@@ -153,28 +159,32 @@ def kernel_rows(M: int, d: int, Q: int, C: int, reps: int,
     m_full = torch.tensor(M, dtype=torch.int32, device=device)
     solved = {c.name: c for c in checks.cases(M, M, f32, device)
               if not c.variant}
+    # The two grams' work and peak as ``checks`` counts them: one triangle
+    # (the operand read once), TF32 products on the tensor cores.
+    rbf = checks.rbf_gram_case(x, x, spec.sigma)
+    recon = checks.scaled_gram_case(b_rows, s_diag)
     calls = [
         ("eigvec_rotate", solved["eigvec_rotate"].kernel,
-         (2 * M * M + 4 * M) * F32, 2 * M**3 + 3 * M * M),
+         (2 * M * M + 4 * M) * F32, 2 * M**3 + 3 * M * M, PEAK_FLOPS),
         ("eigvec_rotate2", solved["eigvec_rotate2"].kernel,
-         (2 * M * M + 12 * M) * F32, 4 * M**3 + 6 * M * M),
-        ("rbf_gram", lambda: kops.gram(x, x, spec.sigma),
-         (2 * M * d + M * M) * F32, 2 * M * M * (d + 2)),
+         (2 * M * M + 12 * M) * F32, 4 * M**3 + 6 * M * M, PEAK_FLOPS),
+        ("rbf_gram", rbf.kernel, rbf.bytes, rbf.flops, rbf.peak),
         ("krow_fused", lambda: kops.krow_project(u, x, x_new, aux, m_full,
                                                  spec=spec),
          (M * M + M * d + 2 * M + M + 3 * M) * F32,
-         2 * M * d + 3 * M + 6 * M * M),
+         2 * M * d + 3 * M + 6 * M * M, PEAK_FLOPS),
         ("eigvec_project", lambda: eops.project_vectors(u, vpair, m_full),
-         (M * M + 2 * M + 2 * M) * F32, 4 * M * M),
+         (M * M + 2 * M + 2 * M) * F32, 4 * M * M, PEAK_FLOPS),
         ("transform_batch",
          lambda: nops.transform_project(xq, x, s_cols, m_full, spec=spec),
          (Q * d + M * d + M * C + Q * C + Q) * F32,
-         2 * Q * M * (d + C) + 3 * Q * M),
-        ("nystrom_recon", lambda: nops.scaled_gram(b_rows, s_diag),
-         (Q * M + M + Q * Q) * F32, 2 * Q * Q * M + Q * M),
+         2 * Q * M * (d + C) + 3 * Q * M, PEAK_FLOPS),
+        ("nystrom_recon", recon.kernel, recon.bytes, recon.flops,
+         recon.peak),
     ]
-    return [_row(name, *_times(fn, reps, device), nbytes, flops, peak_gbps)
-            for name, fn, nbytes, flops in calls]
+    return [_row(name, *_times(fn, reps, device), nbytes, flops, peak_gbps,
+                 peak_flops)
+            for name, fn, nbytes, flops, peak_flops in calls]
 
 
 # The wrapper (``cuda.LAUNCHES`` key) behind each row whose name, the
@@ -286,7 +296,7 @@ def main(smoke: bool = False, device=None, out: Path | None = OUT_PATH
     rows = kernel_rows(M, d, Q, C, reps, peak_gbps, device)
     print(f"[roofline] per kernel at M={M}, d={d}, Q={Q}, C={C} (f32)")
     print(f"{'kernel':>16s} {'ms':>9s} {'call ms':>9s} {'GB/s':>8s} "
-          f"{'triad%':>7s} {'AI f/B':>7s} {'GFLOP/s':>9s} {'67TF%':>6s}")
+          f"{'triad%':>7s} {'AI f/B':>7s} {'GFLOP/s':>9s} {'peak%':>6s}")
     for r in rows:
         call = "-" if r["call_ms"] is None else f"{r['call_ms']:9.4f}"
         print(f"{r['kernel']:>16s} {r['ms']:9.4f} {call:>9s} "

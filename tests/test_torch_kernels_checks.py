@@ -132,25 +132,94 @@ def test_krow_column_bounds_follow_their_own_scale():
 
 @pytest.mark.parametrize("n, m, dim, dtype, want_ms, want_by", [
     # The roofline's k(X, X): x read once, one triangle of dot products;
-    # 4.46 MB at 3.35 TB/s against 69.3 MFLOP at 67 TFLOP/s.
+    # 4.46 MB at 3.35 TB/s against 405 MFLOP (six TF32 products) at
+    # 495 TFLOP/s.
     (1024, 1024, 64, torch.float32, 4 * (1024 * 64 + 1024**2) / 3.35e9,
      "bytes"),
-    # Two inputs: both read, every entry a dot product (operations).
-    (1024, 512, 64, torch.float32, 2 * 1024 * 512 * 66 / 67e9,
+    # Two inputs: both read, every entry a dot product; with half the
+    # entries of output the six products bind.
+    (1024, 512, 64, torch.float32, 1024 * 512 * (12 * 64 + 4) / 495e9,
+     "operations, 6×TF32"),
+    # float64 at a width where the products bind, on DMMA's 67 TFLOP/s.
+    (1024, 512, 256, torch.float64, 1024 * 512 * (2 * 256 + 4) / 67e9,
      "operations"),
-], ids=["symmetric", "rectangular"])
+], ids=["symmetric", "rectangular", "rectangular_f64_wide"])
 def test_rbf_gram_bound_counts_the_work_its_call_needs(n, m, dim, dtype,
                                                        want_ms, want_by):
     """Where y is x the gram is symmetric: its bound reads x once and
     counts n(n+1)/2 dot products; a second input is read and every entry
-    counted."""
+    counted.  A float32 dot product is six TF32 products at 495 TFLOP/s,
+    a float64 one a DMMA product at 67; each entry adds 4 flops of the
+    norm expansion."""
     case = checks.rbf_gram_cases(n, m, dim, dtype, "cpu")[0]
     sym = n == m
-    assert case.bytes == 4 * (n * dim + (0 if sym else m * dim) + n * m)
-    assert case.flops == (n * (n + 1) if sym else 2 * n * m) * (dim + 2)
+    item = 4 if dtype == torch.float32 else 8
+    assert case.bytes == item * (n * dim + (0 if sym else m * dim) + n * m)
+    entries = n * (n + 1) / 2 if sym else n * m
+    per_entry = (12 if dtype == torch.float32 else 2) * dim + 4
+    assert case.flops == entries * per_entry
     ms, by = case.bound(dtype)
     assert by == want_by
     assert ms == pytest.approx(want_ms, rel=1e-12)
+
+
+def test_roofline_counts_the_grams_as_the_checks_do():
+    """The roofline's ``rbf_gram`` (k(X, X)) and ``nystrom_recon`` rows
+    count the bytes and operations of ``checks``' cases on the same
+    operands (one triangle, the operand read once) against the peak of the
+    route the kernels run (495 TFLOP/s: TF32 products); the other rows
+    keep the float32 67 TFLOP/s."""
+    from repro_torch.launch import roofline
+
+    M, d, Q, C = 64, 16, 32, 8
+    rows = {r["kernel"]: r for r in roofline.kernel_rows(
+        M, d, Q, C, reps=1, peak_gbps=1.0, device=torch.device("cpu"))}
+    x = torch.zeros(M, d)
+    b, s = torch.zeros(Q, M), torch.ones(M)
+    for name, case in (("rbf_gram", checks.rbf_gram_case(x, x, d)),
+                       ("nystrom_recon", checks.scaled_gram_case(b, s))):
+        r = rows[name]
+        assert (r["bytes"], r["flops"], r["peak_flops"]) == (
+            case.bytes, case.flops, checks.TF32_FLOPS)
+    assert rows["rbf_gram"]["bytes"] == 4 * (M * d + M * M)
+    assert rows["rbf_gram"]["flops"] == M * (M + 1) / 2 * (12 * d + 4)
+    assert rows["nystrom_recon"]["bytes"] == 4 * (Q * M + M + Q * Q)
+    assert rows["nystrom_recon"]["flops"] == 3 * Q * (Q + 1) * M
+    assert rows["eigvec_rotate"]["peak_flops"] == 67e12
+
+
+@pytest.mark.parametrize("n,m,sym", [
+    (1, 1, True), (63, 63, True), (64, 64, True), (65, 65, True),
+    (1024, 1024, True), (4096, 4096, True),
+    (1, 1, False), (65, 63, False), (1000, 300, False), (130, 129, False)])
+def test_rbf_gram_cells_write_each_entry_once(n, m, sym):
+    """``kops.GramGeometry`` mirrors the kernels' walk over 64 x 64 cells:
+    where y is x the triangle's cells (136 blocks at n = 1024, where the
+    square takes 256), each entry written with its mirror, cover every
+    entry of G exactly once, counting mirrors, and nothing outside (n, m);
+    otherwise every cell, no mirror.  The threads' stores of adjacent
+    entries (both kernels' fragment layouts) cover a cell once."""
+    geo = kops.GramGeometry(n, m, sym)
+    nc = -(-m // 64)
+    assert geo.blocks == (nc * (nc + 1) // 2 if sym else -(-n // 64) * nc)
+    assert n != 1024 or geo.blocks == 136
+    cells = [geo.cell_of(b) for b in range(geo.blocks)]
+    assert len(set(cells)) == geo.blocks
+    assert not sym or all(j >= i for i, j in cells)
+    counts = torch.zeros((n + 64, m + 64), dtype=torch.int32)
+    for b in range(geo.blocks):
+        r, c = geo.writes(b)
+        counts.index_put_((r, c), torch.ones_like(r, dtype=torch.int32),
+                          accumulate=True)
+    assert torch.all(counts[:n, :m] == 1)
+    assert int(counts.sum()) == n * m
+    for dtype in (torch.float32, torch.float64):
+        cover = torch.zeros((64, 64), dtype=torch.int32)
+        origins = kops.GramGeometry.store_units(dtype)
+        assert len(origins) * 2 == 64 * 64
+        for r, c in origins:
+            cover[r, c:c + 2] += 1
+        assert torch.all(cover == 1)
 
 
 def _f64_row_blocks(monkeypatch):
@@ -158,6 +227,9 @@ def _f64_row_blocks(monkeypatch):
     monkeypatch.setattr(eops, "rotate_vectors", _in_f64(
         lambda u, z, d, lam, inv, m, *, tau, row_offset=None:
         eref.eigvec_rotate_ref(u, z, d, lam, inv, tau, m, row_offset)))
+    monkeypatch.setattr(eops, "rotate_vectors2", _in_f64(
+        lambda u, *ops, tau1, tau2, row_offset=None: eref.eigvec_rotate2_ref(
+            u, *ops, row_offset, tau1=tau1, tau2=tau2)))
     monkeypatch.setattr(eops, "project_vectors", _in_f64(
         lambda u, v, m, *, row_offset=None: eref.eigvec_project_ref(
             u, v, m, row_offset)))
@@ -169,8 +241,8 @@ def _f64_row_blocks(monkeypatch):
 
 
 @pytest.mark.parametrize("m", [1, 30, 64, 90, N])
-@pytest.mark.parametrize("name", ["eigvec_rotate", "eigvec_project",
-                                  "krow_project"])
+@pytest.mark.parametrize("name", ["eigvec_rotate", "eigvec_rotate2",
+                                  "eigvec_project", "krow_project"])
 def test_row_block_cases_pass_a_more_accurate_evaluation(monkeypatch, name,
                                                          m):
     """The row-block cases (rows N/4 .. 3N/4): a float64 evaluation of the
@@ -183,6 +255,28 @@ def test_row_block_cases_pass_a_more_accurate_evaluation(monkeypatch, name,
     assert case.variant == f"rows {N // 4}:{N // 4 + N // 2}"
     res = checks.compare(case)
     assert 0.0 <= res["max_err_over_tol"] <= 1.0
+
+
+@pytest.mark.parametrize("m", [1, 30, 64, 90])
+def test_rotate2_block_past_m_is_zeros(monkeypatch, m):
+    """The fused pair on rows m .. N, wholly past the active rows: the
+    case exists for every m < N, its float64 evaluation passes, and every
+    entry must be an exact zero (``compare`` refuses a tiny nonzero)."""
+    _f64_row_blocks(monkeypatch)
+    case = next(c for c in checks.cases(N, m, torch.float32, "cpu")
+                if (c.name, c.variant) == ("eigvec_rotate2", f"rows {m}:{N}"))
+    checks.compare(case)
+    (C,) = case.kernel()
+    assert C.shape == (N - m, N) and torch.all(C == 0)
+
+    def kernel():
+        (C,) = case.kernel()
+        C = C.clone()
+        C[0, 0] = 1e-30
+        return (C,)
+
+    with pytest.raises(AssertionError):
+        checks.compare(dataclasses.replace(case, kernel=kernel))
 
 
 VARIANTS = [("krow_project", "naux 0"), ("transform_project", "C 20"),

@@ -217,6 +217,55 @@ def test_rbf_gram_matches_plain_version(device, n, m, dim, dtype):
         checks.compare(case)
 
 
+def test_rbf_gram_runs_on_the_tensor_cores(device):
+    """The float32 gram kernel holds TF32 wgmma (HGMMA) and the float64 one
+    DMMA; at the roofline's k(X, X) (1024², d = 64) the float32 G's error
+    against the float64 gram of the same operands stays within
+    ``chip_smoke.TF32_ERR_RATIO`` (2x) of the plain float32 version's."""
+    tf32, counts = _sass_kernels("rbf_gram_tf32_kernel")
+    assert tf32 and all(v["HGMMA"] > 0 for v in tf32.values()), counts
+    dmma, _ = _sass_kernels("rbf_gram_dmma_kernel")
+    assert dmma and all(v["DMMA"] > 0 for v in dmma.values()), counts
+    case = checks.rbf_gram_cases(1024, 1024, 64, torch.float32, device)[0]
+    err = checks.error_vs_exact(case)
+    assert err["err_ratio"] <= 2.0, err
+
+
+@pytest.mark.parametrize("n,dim", [(1, 1), (63, 3), (65, 10), (130, 17),
+                                   (1000, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_rbf_gram_is_exactly_symmetric(device, n, dim, dtype):
+    """k(X, X) computes one triangle and mirrors it: G equals its transpose
+    bit for bit, also on cells cut by the ragged edge, and its entries
+    stay within their bounds of the plain version."""
+    case = checks.rbf_gram_cases(n, n, dim, getattr(torch, dtype), device,
+                                 seed=n + dim)[0]
+    G = case.kernel()[0]
+    assert torch.equal(G, G.T)
+    checks.compare(case)
+
+
+@pytest.mark.parametrize("n,m", [(200, 1), (200, 65), (300, 129),
+                                 (256, 256), (131, 100), (1024, 1000)])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_rotate2_row_blocks_match_plain_version(device, n, m, dtype):
+    """The fused pair on row blocks: rows n/4 .. 3n/4 and rows m .. n
+    (wholly past the active rows: all zeros, nothing of U read), each
+    entry within its bound of the plain version, pruned rows and columns
+    exact zeros, two runs bit for bit equal."""
+    blocks = [c for c in checks.cases(n, m, getattr(torch, dtype), device,
+                                      seed=n + m)
+              if c.name == "eigvec_rotate2" and c.variant]
+    assert [c.variant for c in blocks] == (
+        [f"rows {n // 4}:{n // 4 + n // 2}"]
+        + ([f"rows {m}:{n}"] if m < n else []))
+    for case in blocks:
+        checks.compare(case)
+        assert checks.repeats_bitwise(case)
+        if case.variant == f"rows {m}:{n}":
+            assert torch.all(case.kernel()[0] == 0)
+
+
 @pytest.mark.parametrize("adjusted", [True, False])
 def test_pallas2_stream_on_cuda_matches_cpu(device, adjusted):
     """The fused-pair plan on the card (rotate2, or two rotations where a

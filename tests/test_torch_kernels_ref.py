@@ -18,6 +18,8 @@ from repro.kernels.eigvec_update.eigvec_update import \
     eigvec_project as j_project_kernel  # noqa: E402
 from repro.kernels.eigvec_update.eigvec_update import \
     eigvec_rotate as j_rotate_kernel  # noqa: E402
+from repro.kernels.eigvec_update.eigvec_update import \
+    eigvec_rotate2 as j_rotate2_kernel  # noqa: E402
 from repro.kernels.nystrom_recon.ref import \
     transform_project_ref as j_transform  # noqa: E402
 from repro.kernels.nystrom_recon.transform_batch import \
@@ -175,6 +177,52 @@ def test_eigvec_project_row_block_matches_reference(R, off, dt):
     assert torch.all(got[live:] == 0)
 
 
+def _rotation2_inputs(m, np_dtype, size=BLOCK_M):
+    """Two factors on the padding contract (the inputs of
+    tests/test_kernels_pallas.py's row-block test): factor 1's column 5
+    deflated onto e_12, factor 2's column 9 onto e_9."""
+    U, z1, d1, lam1, inv1 = _rotation_inputs(m, np_dtype, seed=0, size=size)
+    _, z2, d2, lam2, inv2 = _rotation_inputs(m, np_dtype, seed=1, size=size)
+    lam2 = np.where(np.arange(size) < m, d2 + 0.9, lam2).astype(np_dtype)
+    defl1, defl2 = np.zeros(size, np_dtype), np.zeros(size, np_dtype)
+    defl1[5], defl2[9] = 1.0, 1.0
+    cid1, cid2 = (np.arange(size, dtype=np.int32) for _ in range(2))
+    cid1[5] = 12
+    return U, [z1, d1, lam1, inv1, defl1, cid1, z2, d2, lam2, inv2, defl2,
+               cid2]
+
+
+@pytest.mark.parametrize("R,off", [(100, 0), (100, 100), (90, 30),
+                                   (64, 136)])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_eigvec_rotate2_row_block_matches_reference(R, off, dt):
+    """The fused pair's plain version on U's rows off .. off + R against
+    the reference's kernel in interpret mode on the same block (its
+    64-wide tiles, the port's granule), deflated columns included, at
+    f32/f64 rounding level; entries outside the pruned region are exact
+    zeros, and a block wholly past m ((100, 100), (64, 136) at m = 70) is
+    all zeros."""
+    np_dtype, t_dtype, j_dtype, rtol = DTYPES[dt]
+    m = BLOCK_ACTIVE
+    U, vecs = _rotation2_inputs(m, np_dtype)
+    blk = U[off:off + R]
+    want = j_rotate2_kernel(jnp.asarray(blk, j_dtype),
+                            *[jnp.asarray(v) for v in vecs], jnp.int32(m),
+                            jnp.int32(off), interpret=True,
+                            block=eops.ROTATE2_TILE)
+    zero = torch.zeros(BLOCK_M, dtype=torch.float64)
+    got = eops.rotate_vectors2(torch.from_numpy(blk),
+                               *[torch.from_numpy(v) for v in vecs], m,
+                               tau1=zero, tau2=zero, row_offset=off)
+    assert got.dtype == t_dtype and got.shape == (R, BLOCK_M)
+    _close(got, want, rtol)
+    rows, cols = tref.pruned_region_mask(R, BLOCK_M, m, off,
+                                         block=eops.ROTATE2_TILE)
+    assert torch.all(got[~(rows[:, None] & cols[None, :])] == 0)
+    if off >= m:
+        assert not rows.any() and torch.all(got == 0)
+
+
 # ------------------------------------------- three-pass TF32 (the kernel) --
 def _tf32(x):
     """float32 rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to
@@ -288,6 +336,79 @@ def test_one_tf32_pass_gram_is_not(monkeypatch, k):
     more than 2x: why the float32 kernel takes three."""
     monkeypatch.setattr(nops, "scaled_gram", _tf32_gram((("hi", "hi"),)))
     case = checks.gram_cases(512, k, torch.float32, "cpu")[0]
+    err = checks.error_vs_exact(case)
+    assert err["kernel_err_vs_f64"] > 2.0 * err["plain_err_vs_f64"], err
+
+
+def _tf32_rbf_gram(pieces, passes, step=8):
+    """A stand-in for the float32 CUDA ``rbf_gram`` that does its
+    arithmetic: the norms summed in float32 from the unsplit values, x and
+    y each split into ``pieces`` TF32 pieces ("hi", "mid", "lo": each the
+    TF32 rounding of what the earlier ones miss), per ``step`` of d (the
+    kernel's 8-wide k-step; 32 for the rotation's 32-wide slab) the
+    ``passes`` products summed in float32 and added into a float32
+    accumulator, then exp(-max(d2, 0)·(1/sigma)) with 1/sigma in float32;
+    where y is x the upper triangle kept and mirrored."""
+    names = ("hi", "lo") if pieces == 2 else ("hi", "mid", "lo")
+
+    def gram(x, y, sigma):
+        parts = {}
+        for key, v in (("x", x), ("y", y)):
+            rest = v
+            for name in names:
+                parts[key, name] = _tf32(rest)
+                rest = rest - parts[key, name]
+        acc = torch.zeros((x.shape[0], y.shape[0]), dtype=torch.float32)
+        for k0 in range(0, x.shape[1], step):
+            ks = slice(k0, k0 + step)
+            part = torch.zeros_like(acc)
+            for a, b in passes:
+                part += parts["x", a][:, ks] @ parts["y", b][:, ks].T
+            acc += part
+        xn, yn = (x * x).sum(1), (y * y).sum(1)
+        inv = torch.tensor(1.0, dtype=torch.float32) / sigma
+        G = torch.exp(-torch.clamp_min(xn[:, None] + yn[None, :] - 2 * acc,
+                                       0.0) * inv)
+        return G.triu() + G.triu(1).T if y is x else G
+    return gram
+
+
+# The kernel's six products of three pieces, smallest first.
+SIX_PASS = (("lo", "hi"), ("hi", "lo"), ("mid", "mid"), ("mid", "hi"),
+            ("hi", "mid"), ("hi", "hi"))
+
+
+@pytest.mark.parametrize("n,m,dim,seed", [
+    (1024, 1024, 64, 0), (1000, 300, 16, 0), (130, 129, 3, 0),
+    (130, 129, 3, 1)])
+def test_six_pass_tf32_rbf_gram_is_as_good_as_float32(monkeypatch, n, m,
+                                                      dim, seed):
+    """The float32 ``rbf_gram`` kernel's arithmetic, modelled on the CPU at
+    the roofline's k(X, X) and ``chip_smoke.py``'s ragged pairs: every
+    entry within ``rbf_gram_tol`` of the plain float32 version, the
+    largest error against the float64 gram of the same operands at most
+    2x the plain version's, and k(X, X) exactly symmetric."""
+    monkeypatch.setattr(kops, "gram", _tf32_rbf_gram(3, SIX_PASS))
+    case = checks.rbf_gram_cases(n, m, dim, torch.float32, "cpu",
+                                 seed=seed)[0]
+    res = checks.compare(case)
+    assert res["max_err_over_tol"] <= 1.0
+    err = checks.error_vs_exact(case)
+    assert 0 < err["kernel_err_vs_f64"] <= 2.0 * err["plain_err_vs_f64"], err
+    if n == m:
+        G = case.kernel()[0]
+        assert torch.equal(G, G.T)
+
+
+def test_three_pass_tf32_rbf_gram_is_not_at_small_d(monkeypatch):
+    """Two pieces and three products (the rotation's and ``scaled_gram``'s
+    split) miss a product by up to a few float32 eps, most of a length-3
+    dot product's error: at d = 3 the gram's error against float64 reads
+    more than 2x the plain version's.  Why the float32 kernel takes three
+    pieces and six products."""
+    monkeypatch.setattr(kops, "gram", _tf32_rbf_gram(2, THREE_PASS, step=32))
+    case = checks.rbf_gram_cases(130, 129, 3, torch.float32, "cpu",
+                                 seed=1)[0]
     err = checks.error_vs_exact(case)
     assert err["kernel_err_vs_f64"] > 2.0 * err["plain_err_vs_f64"], err
 
