@@ -29,12 +29,13 @@ Phases, each printing one JSON line per row:
    m:1024 (wholly past the active rows: exact zeros), ``krow_project``
    without aux columns, and ``transform_project`` at 20 components and at
    the roofline's 512 queries of 64, each its own ``variant`` row.  Each
-   f32 row of ``eigvec_rotate``, ``scaled_gram`` and ``rbf_gram`` (TF32
-   products on the tensor cores) also holds the kernel's largest error
-   against the f64 product of the same operands to ``TF32_ERR_RATIO``
-   times the plain f32 version's, and ``scaled_gram``'s K̃ and
-   ``rbf_gram``'s k(X, X) must equal their transposes bit for bit (one
-   triangle computed, the other mirrored; f64 on DMMA).  ``ssd_intra_chunk`` in
+   f32 row of ``eigvec_rotate`` and ``scaled_gram`` (TF32 products on the
+   tensor cores) and of ``rbf_gram`` (FMAs on the CUDA cores) also holds
+   the kernel's largest error against the f64 product of the same
+   operands to ``TF32_ERR_RATIO`` times the plain f32 version's, and
+   ``scaled_gram``'s K̃ and ``rbf_gram``'s k(X, X) must equal their
+   transposes bit for bit (one triangle computed, the other mirrored;
+   f64 on DMMA).  ``ssd_intra_chunk`` in
    bf16 runs on ``wgmma`` (scores once per 64-row tile, shared by a group
    of 16 heads), in f32 on the CUDA cores.  A row's ``n`` and ``m`` are
    T and H for the LM kernels (G·Q and H for the intra-chunk term).
@@ -159,11 +160,10 @@ FLASH_SHAPES = (((1, 4096, 64, 8, 128), "bfloat16"),
 SSD_SHAPES = (((16, 256, 128, 256, 64), "bfloat16"),
               ((3, 32, 16, 4, 8), "float32"))
 LM_T, LM_DECODE_T, LM_WARMUP, LM_TIMED = 4096, 256, 3, 10
-# The f32 kernels on TF32 products (eigvec_rotate, scaled_gram: three;
-# rbf_gram: six of a three-way split) against the f64 product of their
-# operands: at most this many times the plain f32 version's largest error:
-# the bar the CPU model of the arithmetic is held to
-# (tests/test_torch_kernels_ref.py).  Three TF32
+# The f32 kernels on three TF32 products (eigvec_rotate, scaled_gram), and
+# f32 rbf_gram, against the f64 product of their operands: at most this
+# many times the plain f32 version's largest error: the bar the CPU model
+# of the arithmetic is held to (tests/test_torch_kernels_ref.py).  Three TF32
 # products keep f32's accuracy only if their sums do; Hopper's tensor
 # cores add with less than f32's rounding, which no CPU model shows.  With
 # the tensor-core sums folded into f32 a slab at a time the rotation's

@@ -32,8 +32,8 @@ bars), 67 TFLOP/s in float64 (the FP64 tensor cores, full IEEE float64)
 and 989 TFLOP/s in bfloat16 (dense tensor cores); a bound takes the card's
 peak for the type, whatever unit the kernel uses, except where a case
 names its own: float32 ``eigvec_rotate`` and ``scaled_gram`` count their
-three TF32 products, ``rbf_gram`` its six, at 495 TFLOP/s (the
-float32-accurate splits the kernels run; below the float32 roof).  Bytes count
+three TF32 products at 495 TFLOP/s (the float32-accurate split the
+kernels run; below the float32 roof).  Bytes count
 each input read once and each output written once; operations count what
 these inputs need (the active m, not the capacity).
 
@@ -525,12 +525,10 @@ def rbf_gram_case(x: Tensor, y: Tensor, sigma: float) -> Case:
                    "|y_j|)², which moves exp(-d2/sigma) by G_ij times that "
                    "over sigma; exp itself within 2 ulp",
         bytes=item * (n * dim + (0 if sym else m * dim) + n * m),
-        # Each entry a length-d dot product (float32: six TF32 products of
-        # a three-way split on the tensor cores, csrc/rbf_gram.cu says why;
-        # float64: one) and 4 flops of the norm expansion.
-        flops=entries * ((12.0 if f32 else 2.0) * dim + 4),
-        peak=TF32_FLOPS if f32 else None,
-        ops_label="operations, 6×TF32" if f32 else "operations",
+        # Each entry a length-d dot product and 4 flops of the norm
+        # expansion (float32 on the CUDA cores, float64 on DMMA: both at
+        # 67 TFLOP/s).
+        flops=entries * (2.0 * dim + 4),
         # float32: the float64 gram of the same operands, which both are
         # held to.
         exact=(lambda: rbf_gram_ref(x.double(), y.double(), sigma))

@@ -13,8 +13,9 @@
 // the state (R = n) or a row block (below).  z, inv in T; d, org, tau in
 // double, the secular solve's type, with root j kept as its origin pole
 // org[j] plus the offset tau[j] (repro_torch/core/rankone.py, _Roots), so
-// each denominator keeps a close root's distance to its pole.  A denominator below `guard` becomes
-// +-guard (eigvec_update/ref.py::_denominators), then it is rounded to T.
+// each denominator keeps a close root's distance to its pole.  A
+// denominator below `guard` becomes +-guard
+// (eigvec_update/ref.py::_denominators), then it is rounded to T.
 // Accumulates in T (float for f32, double for f64: the reference's
 // promote(dtype, f32)).
 //
@@ -56,7 +57,9 @@
 //
 // What bounds it on an H100: operations, 4 m^3 (two m x m x m products)
 // at the FP32 (or FP64) CUDA-core rate.  For a block of r live rows the
-// function needs 4 r m^2; this order does 2 m^3 + 2 r m^2.
+// function needs 4 r m^2; this order does 2 m^3 + 2 r m^2, since every
+// call forms W12 again (ROADMAP, module item 10: shards of one update
+// should share one W12).
 //
 // ptxas reports 4 bytes of spill stores, all in factor_kernel<double>: it
 // saves one register around its calls to the float64 division's slow-path

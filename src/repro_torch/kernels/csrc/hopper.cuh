@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks of the port's tensor-core kernels:
 // mbarriers, TMA tile loads through a tensor map, wgmma descriptors, the
 // bf16 wgmma shapes flash_attention.cu and ssd_intra_chunk.cu issue, the
-// TF32 one eigvec_rotate.cu, scaled_gram.cu and rbf_gram.cu issue with the
-// head/tail split of their operands, and the float64 mma.sync (DMMA) of
-// scaled_gram.cu and rbf_gram.cu.  PTX inline assembly only; no library.
+// TF32 one eigvec_rotate.cu and scaled_gram.cu issue, and the float64
+// mma.sync (DMMA) of scaled_gram.cu and rbf_gram.cu.  PTX inline
+// assembly only; no library.
 #pragma once
 
 #include <cuda.h>            // CUtensorMap and its enums (types only)
@@ -248,49 +248,9 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32],
         "r"(accumulate));
 }
 
-// The same with N = 32 (entries 4 c + 2 i + e, c < 4).
-__device__ __forceinline__ void wgmma_m64n32k8_tf32_rs(float (&d)[16],
-                                                       const uint32_t (&a)[4],
-                                                       uint64_t b,
-                                                       int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
-      : REPRO_F16(0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
-        "r"(accumulate));
-}
-
 #undef REPRO_F32
 #undef REPRO_F16
 #undef REPRO_F4
-
-// x as a TF32 head and the TF32 rounding of what the head misses: head +
-// tail is x to 2^-22 relative.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& head,
-                                           uint32_t& tail) {
-  head = to_tf32(x);
-  tail = to_tf32(x - __uint_as_float(head));
-}
-
-// x = head + mid + low exactly, three TF32 values (their 11 significant
-// bits each cover float32's 24; each remainder is exact in float32).
-__device__ __forceinline__ void split3_tf32(float x, uint32_t& head,
-                                            uint32_t& mid, uint32_t& low) {
-  head = to_tf32(x);
-  const float r = x - __uint_as_float(head);
-  mid = to_tf32(r);
-  low = to_tf32(r - __uint_as_float(mid));
-}
-
-// Orders this thread's generic-proxy writes to shared memory before later
-// reads of it by the async proxy (wgmma operands written by threads, not
-// by TMA); a barrier then publishes them to the warpgroup.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
 
 // ------------------------------------------------------- float64 mma.sync
 // d (16 x 8) += a (16 x 8, row) . b (8 x 8, col), float64 operands and

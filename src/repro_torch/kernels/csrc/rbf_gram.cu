@@ -19,67 +19,58 @@
 //
 // What bounds it on an H100: the bytes of G.  At the roofline's k(X, X)
 // (n = m = 1024, d = 64, f32) 4.2 MB of G and 0.26 MB of x, 1.33 us at
-// 3.35 TB/s, against one triangle's 6 n (n + 1) d TF32 flops (six
-// products, below: 0.81 us at 495 TFLOP/s); at Fig. 2's full gram
-// (n = m = 4096, d = 10, f64) 134 MB, 40 us, while its 8.4 M f64 exps
-// must hide behind those stores.  Measured, what holds it is latency: a
-// cell is one block's chain of load, split, products and epilogue, about
-// 5 us at 1024^2 by clock stamps, with 136 cells for the 132 SMs: about
-// one cell an SM, nothing to overlap the chain with (PERF.md, Findings
-// PR 20).
+// 3.35 TB/s, against one triangle's n (n + 1) (d + 2) flops (1.0 us at
+// 67 TFLOP/s on the CUDA cores); at Fig. 2's full gram (n = m = 4096,
+// d = 10, f64) 134 MB, 40 us, while its 8.4 M f64 exps must hide behind
+// those stores.  Measured at 1024^2 (PERF.md, Findings PR 20): a fixed
+// ~3.8 us at d = 1 (launch, staging, exp and the stores of G), then
+// ~0.05 us per unit of d, the FMAs fed from shared memory at 1.5 float4
+// reads per 8 FMAs a thread, which the shared memory's bandwidth holds
+// to ~1/4 of the FP32 peak.
 //
-// One triangle.  The output is cut into 64 x 64 cells, one a block.  Where
+// One triangle.  The output is cut into square cells, one a block.  Where
 // y is x (`sym`: the wrapper passes the same storage) the grid holds only
 // the cells (I, J) with J >= I, a linear block index walking them row by
 // row: n (n + 1) / 2 dot products and exps instead of n^2, x read once.  A
 // cell above the diagonal writes each entry and its mirror, a diagonal
 // cell the entries on and above its diagonal and their mirrors, so G
-// equals its transpose bit for bit (scaled_gram.cu's schedule, at 64 x 64
-// cells: 136 blocks at n = 1024, where 128 x 64 tiles give 72 for the 132
-// SMs).  Otherwise the grid is every cell, with no mirror.  The stores go
-// straight from the accumulators, two adjacent columns a thread: a warp's
-// direct store writes 8 rows x 32 bytes (f32) or 64 bytes (f64), a
-// mirrored one 4 rows x 32 or 64 bytes, so every 32-byte sector is
-// written whole.
+// equals its transpose bit for bit (scaled_gram.cu's schedule).  Otherwise
+// the grid is every cell, with no mirror.
 //
 // Staging.  Slabs of 128 bytes of d (32 floats, 16 doubles) of the cell's
 // x rows and y rows arrive in shared memory by cp.async (16-byte copies
 // where d fills 16-byte rows, else one value a copy over the live columns
 // only; rows past n, m and chunks past d are stored as zeros directly: no
 // padded copy of the operands).  Where d takes more than one slab, two
-// (f32) or four (f64) are in flight.  Threads 0-63 square the staged x
-// rows and 64-127 the y rows as the slabs pass, in k order: each norm
-// from the unsplit values, the same sum for a row as x and as y.
+// (f32) or four (f64) are in flight.  Threads 0 .. C-1 square the staged x
+// rows and C .. 2C-1 the y rows (C the cell's side) as the slabs pass, in
+// k order: each norm from the staged values, the same sum for a row as x
+// and as y.
 //
-// float32: on the tensor cores in TF32, the design of eigvec_rotate.cu and
-// scaled_gram.cu (see their notes), with one more piece.  Each operand is
-// split exactly into three TF32 pieces, x = x_h + x_m + x_l, and the six
-// products of pieces at least 2^-22 of x y (hh, hm, mh, mm, hl, lh) miss
-// x y by O(2^-32 |x y|).  Two pieces (x_h y_h + x_h y_l + x_l y_h, the
-// rotation's and scaled_gram's three products) miss it by up to a few
-// float32 eps: at d = 3 that is most of a dot product's error, and a CPU
-// model of it read up to 2.9x the plain float32 gram's error against
-// float64 (tests/test_torch_kernels_ref.py), where the bar is 2x.  Each
-// 8-wide k-step's six products start from a zeroed fragment, and its sum
-// is added into float32 registers once done: Hopper's tensor cores add
-// with less than float32's rounding, and folded once a 32-wide slab the
-// six products read 1.81-2.45x the plain error on the card (PERF.md,
-// Findings PR 20); folded each step, 1.00-1.33x.  k-steps whose columns
-// all lie past d are skipped (d < 8).  Two warpgroups, each 32 columns of
-// the cell (wgmma m64n32k8): x's fragments are loaded from the staged
-// slab and split in registers; the block splits the staged y slab into
-// three planes in the 128-byte-swizzled K-major layout wgmma reads, k
-// permuted within the slab so that a thread's x values are two 16-byte
-// vectors of its row (as scaled_gram's split_planes_kernel), and fences
-// them to the async proxy.  126-128 registers a thread, no spills: two
-// blocks an SM.
+// float32: on the CUDA cores, each dot product a chain of float32 FMAs in
+// k order.  Not TF32: three products of a two-way split miss the 2x error
+// bar at d = 3, and six of a three-way split on wgmma ran slower than
+// this at every shape measured (PERF.md, Findings PR 20).  32 x 32
+// cells, 128 threads of 2 x 4 entries (rows ty, ty + 16, columns tx + 8 j):
+// 528 blocks at n = 1024, four for each of the 132 SMs, where 64 x 64
+// cells give 136 (four SMs take two) and ran 1.4x slower.  Per 4-wide step
+// of k a thread reads its 2 x rows and 4 y rows as float4s (rows padded to
+// 36 floats: a quarter-warp's 8 y rows fall in 8 distinct 16-byte bank
+// groups) for 32 FMAs; the k-loop is unrolled over the slab, k-steps past
+// d skipped.  The direct stores go from the registers, a warp 4 rows x 32
+// bytes; the mirror goes through a transposed tile in shared memory (rows
+// of 36: its writes free of bank conflicts) and leaves as float4 rows of
+// G, a warp 4 rows x 128 bytes.
 //
 // float64: on the FP64 tensor cores (DMMA), mma.sync m16n8k8 with f64
 // operands and accumulators, each product an IEEE float64 FMA
-// (scaled_gram.cu's gram_dmma_kernel): sixteen warps of 16 x 16, two m16n8
-// fragments each, rows padded to 20 doubles (fragment loads free of bank
-// conflicts); every slab of d <= 64 in flight at once, one wait.  d = 10
-// is one slab.  Two blocks an SM, so their exps and stores overlap.
+// (scaled_gram.cu's gram_dmma_kernel): 64 x 64 cells, sixteen warps of
+// 16 x 16, two m16n8 fragments each, rows padded to 20 doubles (fragment
+// loads free of bank conflicts); every slab of d <= 64 in flight at once,
+// one wait.  d = 10 is one slab.  Two blocks an SM, so their exps and
+// stores overlap.  The stores go straight from the fragments, two adjacent
+// columns a thread: a warp's direct store writes 8 rows x 64 bytes, a
+// mirrored one 4 rows x 64 bytes, so every 32-byte sector is written whole.
 #include "common.cuh"
 #include "hopper.cuh"
 #include "rotate_tile.cuh"
@@ -90,21 +81,21 @@ namespace hw = repro::hopper;
 using repro::tile::cp_async_commit;
 using repro::tile::cp_async_zfill;
 
-constexpr int kCell = 64;           // output cells of 64 x 64, one a block
-
 __host__ __device__ __forceinline__ int cdiv(int a, int b) {
   return (a + b - 1) / b;
 }
 
-// Cells of the launch: where sym, the cells (I, J), J >= I, of the n x n
-// gram (row I holds nc - I of them); else every cell of the n x m gram.
-__host__ __device__ __forceinline__ int cell_count(int n, int m, bool sym) {
-  const int nc = cdiv(m, kCell);
-  return sym ? nc * (nc + 1) / 2 : cdiv(n, kCell) * nc;
+// Cells of a launch on Cell x Cell cells: where sym, the cells (I, J),
+// J >= I, of the n x n gram (row I holds nc - I of them); else every cell
+// of the n x m gram.
+__host__ __device__ __forceinline__ int cell_count(int n, int m, bool sym,
+                                                   int cell) {
+  const int nc = cdiv(m, cell);
+  return sym ? nc * (nc + 1) / 2 : cdiv(n, cell) * nc;
 }
-__device__ __forceinline__ void cell_of(int b, int m, bool sym, int& I,
-                                        int& J) {
-  const int nc = cdiv(m, kCell);
+__device__ __forceinline__ void cell_of(int b, int m, bool sym, int cell,
+                                        int& I, int& J) {
+  const int nc = cdiv(m, cell);
   if (!sym) {
     I = b / nc;
     J = b % nc;
@@ -178,7 +169,7 @@ __device__ __forceinline__ void put_pair(T* __restrict__ out, int n, int m,
 // rows, both bases 16-byte aligned), else one value a copy over the
 // slab's first ceil(live / 16 bytes) chunks; rows past n, m and the chunks
 // past d are stored as zeros directly.
-template <typename T, bool Vec, int Threads>
+template <typename T, bool Vec, int Threads, int Cell>
 __device__ __forceinline__ void load_slab(T* ls, int ldl, T* rs, int ldr,
                                           const T* __restrict__ x,
                                           const T* __restrict__ y, int n,
@@ -189,17 +180,17 @@ __device__ __forceinline__ void load_slab(T* ls, int ldl, T* rs, int ldr,
   constexpr int kChunks = kDepth / kVec;
   const int k0 = q * kDepth;
   auto at = [&](int r, int k) -> T* {
-    return r < kCell ? ls + r * ldl + k : rs + (r - kCell) * ldr + k;
+    return r < Cell ? ls + r * ldl + k : rs + (r - Cell) * ldr + k;
   };
   auto source = [&](int r, int k) -> const T* {
-    const bool left = r < kCell;
-    const int gr = left ? row0 + r : col0 + r - kCell;
+    const bool left = r < Cell;
+    const int gr = left ? row0 + r : col0 + r - Cell;
     return gr < (left ? n : m) ? (left ? x : y) + (size_t)gr * d + k0 + k
                                : nullptr;
   };
   const int live = min(max(d - k0, 0), kDepth);   // live values of a row
   if constexpr (Vec) {
-    for (int e = threadIdx.x; e < 2 * kCell * kChunks; e += Threads) {
+    for (int e = threadIdx.x; e < 2 * Cell * kChunks; e += Threads) {
       const int r = e / kChunks, k = (e % kChunks) * kVec;
       const T* src = source(r, k);
       if (src && k < live)
@@ -209,7 +200,7 @@ __device__ __forceinline__ void load_slab(T* ls, int ldl, T* rs, int ldr,
     }
   } else {
     const int chunks = (live + kVec - 1) / kVec, width = chunks * kVec;
-    for (int e = threadIdx.x; e < 2 * kCell * width; e += Threads) {
+    for (int e = threadIdx.x; e < 2 * Cell * width; e += Threads) {
       const int r = e / width, k = e % width;
       const T* src = source(r, k);
       if (src && k < live)
@@ -218,7 +209,7 @@ __device__ __forceinline__ void load_slab(T* ls, int ldl, T* rs, int ldr,
       else
         *at(r, k) = T(0);
     }
-    for (int e = threadIdx.x; e < 2 * kCell * (kChunks - chunks);
+    for (int e = threadIdx.x; e < 2 * Cell * (kChunks - chunks);
          e += Threads) {
       const int r = e / (kChunks - chunks);
       const int k = (chunks + e % (kChunks - chunks)) * kVec;
@@ -253,185 +244,141 @@ __device__ __forceinline__ void add_squares(double& norm, const double* row) {
   }
 }
 
-// ------------------------------------------ float32: six TF32 products
-namespace tc {
+// ------------------------------------------------ float32: CUDA-core FMAs
+namespace fs {
 
-constexpr int kThreads = 256;       // two warpgroups
-constexpr int kDepth = 32;          // slab of d: one 128-byte row
-constexpr int kLdL = kDepth + 4;    // x rows: fragment loads conflict-free
-constexpr int kLdR = kDepth + 8;    // y rows: the planes' gathers too
-constexpr int kStrip = kCell / 2;   // a warpgroup's columns
+constexpr int kCell = 32;             // output cells of 32 x 32, one a block
+constexpr int kTx = 8;                // threads along a cell's columns
+constexpr int kTy = 16;               // ... and along its rows
+constexpr int kI = kCell / kTy;       // a thread's rows ...
+constexpr int kJ = kCell / kTx;       // ... and columns: 2 x 4 entries
+constexpr int kThreads = kTx * kTy;
+constexpr int kDepth = 32;            // slab of d: one 128-byte row
+constexpr int kLd = kDepth + 4;       // staged rows (16-byte aligned)
+constexpr int kLdT = kCell + 4;       // the transposed tile of the mirror
 
 struct Stage {
-  float l[kCell * kLdL];
-  float r[kCell * kLdR];
+  float l[kCell * kLd];
+  float r[kCell * kLd];
 };
 template <int S>
 struct Smem {
-  float plane[3][kCell * kDepth];   // y's pieces: head, mid, low (1024-
-                                    // aligned, 128-byte swizzled)
-  Stage st[S];
+  union {
+    Stage st[S];
+    float t[kCell * kLdT];            // t[c][r] = G[row0 + r, col0 + c]
+  } u;
   float xn[kCell], yn[kCell];
 };
-template <int S>
-constexpr size_t smem_bytes() { return sizeof(Smem<S>) + 1024; }
 
-// Warpgroup wg computes columns 32 wg .. 32 wg + 31 of the cell: in its
-// thread (warp w, lane l) accumulator entry 4 c + 2 i + e is row
-// 16 w + l / 4 + 8 i, column 32 wg + 8 c + 2 (l % 4) + e.  S: slabs in
-// flight (1 where d fills one).
+// Thread (tx, ty) holds the entries of rows ty + 16 i, columns tx + 8 j of
+// the cell.  S: slabs in flight (1 where d fills one).
 template <bool Vec, int S>
-__global__ void __launch_bounds__(kThreads, 2)
-rbf_gram_tf32_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                     float* __restrict__ out, int n, int m, int d,
-                     float inv_sigma, bool sym) {
+__global__ void __launch_bounds__(kThreads)
+rbf_gram_f32_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                    float* __restrict__ out, int n, int m, int d,
+                    float inv_sigma, bool sym) {
+  __shared__ __align__(16) Smem<S> sm;
   int I, J;
-  cell_of(blockIdx.x, m, sym, I, J);
+  cell_of(blockIdx.x, m, sym, kCell, I, J);
   const int row0 = I * kCell, col0 = J * kCell;
-  extern __shared__ uint8_t smem_raw[];
-  Smem<S>& sm = *reinterpret_cast<Smem<S>*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  const int slabs = cdiv(d, kDepth);
-  const int wg = threadIdx.x / 128;
-  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int ra = 16 * warp + g;              // cell rows ra and ra + 8
-  // Threads 0-63 square the cell's x rows, 64-127 its y rows.
+  const int tx = threadIdx.x % kTx, ty = threadIdx.x / kTx;
   const int nr = threadIdx.x % kCell;
   const bool squares = threadIdx.x < 2 * kCell;
   const bool squares_x = threadIdx.x < kCell;
+  const int slabs = cdiv(d, kDepth);
 
-  float acc[16], part[2][16];
+  float acc[kI][kJ];
 #pragma unroll
-  for (int e = 0; e < 16; ++e) acc[e] = part[0][e] = part[1][e] = 0.f;
+  for (int i = 0; i < kI; ++i)
+#pragma unroll
+    for (int j = 0; j < kJ; ++j) acc[i][j] = 0.f;
   float norm = 0.f;
 
   auto load = [&](int q) {
     if (q < slabs)
-      load_slab<float, Vec, kThreads>(sm.st[q % S].l, kLdL, sm.st[q % S].r,
-                                      kLdR, x, y, n, m, d, row0, col0, q);
+      load_slab<float, Vec, kThreads, kCell>(sm.u.st[q % S].l, kLd,
+                                             sm.u.st[q % S].r, kLd, x, y, n,
+                                             m, d, row0, col0, q);
     cp_async_commit();                 // possibly empty: keeps the count
   };
 #pragma unroll
   for (int q = 0; q < S; ++q) load(q);
-  const bool ring = slabs > S;
   for (int q = 0; q < slabs; ++q) {
-    cp_async_wait<S - 1>();            // slab q has landed
-    __syncthreads();                   // ... for every thread; the planes
-                                       // of slab q - 1 are read
-    const float* ls = sm.st[q % S].l;
-    const float* rs = sm.st[q % S].r;
-    if (squares)
-      add_squares(norm, squares_x ? ls + nr * kLdL : rs + nr * kLdR);
-    // y's planes: plane position L of row j holds slab column
-    // 8 (L % 4) + 2 (L / 8) + (L / 4) % 2, so 16-byte chunk c of a row
-    // gathers columns c, c + 8, c + 16, c + 24; the 128-byte swizzle puts
-    // chunk c of row j at chunk c ^ (j % 8).
+    cp_async_wait<S - 1>();            // slabs 0 .. q have landed
+    __syncthreads();                   // ... for every thread
+    const float* ls = sm.u.st[q % S].l;
+    const float* rs = sm.u.st[q % S].r;
+    if (squares) add_squares(norm, (squares_x ? ls : rs) + nr * kLd);
+    const int kend = min(d - q * kDepth, kDepth);
 #pragma unroll
-    for (int it = 0; it < kCell * 8 / kThreads; ++it) {
-      const int e = threadIdx.x + it * kThreads;
-      const int j = e / 8, c = e % 8;
-      const float* src = rs + j * kLdR + c;
-      uint32_t p[3][4];
+    for (int k = 0; k < kDepth; k += 4) {
+      if (k >= kend) break;
+      float4 a[kI], b[kJ];
 #pragma unroll
-      for (int u = 0; u < 4; ++u)
-        hw::split3_tf32(src[8 * u], p[0][u], p[1][u], p[2][u]);
-      const int at = j * kDepth + ((c ^ (j % 8)) * 4);
+      for (int i = 0; i < kI; ++i)
+        a[i] = *reinterpret_cast<const float4*>(ls + (ty + kTy * i) * kLd +
+                                                k);
 #pragma unroll
-      for (int q3 = 0; q3 < 3; ++q3)
-        *reinterpret_cast<uint4*>(sm.plane[q3] + at) =
-            make_uint4(p[q3][0], p[q3][1], p[q3][2], p[q3][3]);
+      for (int j = 0; j < kJ; ++j)
+        b[j] = *reinterpret_cast<const float4*>(rs + (tx + kTx * j) * kLd +
+                                                k);
+#pragma unroll
+      for (int i = 0; i < kI; ++i)
+#pragma unroll
+        for (int j = 0; j < kJ; ++j) {
+          acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
+          acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
+          acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
+          acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
+        }
     }
-    hw::fence_proxy_async();           // the planes, to wgmma's reads
-    // x's fragments of both rows in three pieces: frag[p][kk] is piece p
-    // (head, mid, low) of k-step kk (a thread's k-step kk holds columns
-    // 8 t + 2 kk and 8 t + 2 kk + 1 of the slab; the planes are permuted
-    // to match); a0 .. a3 are rows ra, ra + 8 of the first, then of the
-    // second.
-    uint32_t frag[3][4][4];
-    {
-      float v[2][8];
-#pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-        const float* row = ls + (ra + 8 * rr) * kLdL + 8 * t;
-        const float4 c0 = *reinterpret_cast<const float4*>(row);
-        const float4 c1 = *reinterpret_cast<const float4*>(row + 4);
-        v[rr][0] = c0.x; v[rr][1] = c0.y; v[rr][2] = c0.z; v[rr][3] = c0.w;
-        v[rr][4] = c1.x; v[rr][5] = c1.y; v[rr][6] = c1.z; v[rr][7] = c1.w;
-      }
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-          hw::split3_tf32(v[a % 2][2 * kk + a / 2], frag[0][kk][a],
-                          frag[1][kk][a], frag[2][kk][a]);
-    }
-    __syncthreads();                   // the planes are whole
-    // Per k-step the six products of pieces whose size is at least 2^-22
-    // of x y, smallest first, the first overwriting part[kk % 2]; the
-    // step's sum is folded into acc once done, while the next step's run.
-    // The warpgroup's 32 rows of each plane start 32 wg rows in; k-steps
-    // whose columns all lie past d are skipped (d < 8).
-    const int rest = d - q * kDepth;
-    const int steps = rest >= 8 ? 4 : (rest + 1) / 2;
-    const uint32_t ph = hw::smem_u32(sm.plane[0]) + 128 * kStrip * wg;
-    const uint32_t pm = hw::smem_u32(sm.plane[1]) + 128 * kStrip * wg;
-    const uint32_t pl = hw::smem_u32(sm.plane[2]) + 128 * kStrip * wg;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      if (kk >= steps) break;
-      float (&pk)[16] = part[kk % 2];
-      const uint64_t dh = hw::sw128_desc(ph + 32 * kk, 16, 1024);
-      const uint64_t dmid = hw::sw128_desc(pm + 32 * kk, 16, 1024);
-      const uint64_t dl = hw::sw128_desc(pl + 32 * kk, 16, 1024);
-      hw::fence_operands(pk);
-      hw::wgmma_fence();
-      hw::wgmma_m64n32k8_tf32_rs(pk, frag[2][kk], dh, 0);
-      hw::wgmma_m64n32k8_tf32_rs(pk, frag[0][kk], dl, 1);
-      hw::wgmma_m64n32k8_tf32_rs(pk, frag[1][kk], dmid, 1);
-      hw::wgmma_m64n32k8_tf32_rs(pk, frag[1][kk], dh, 1);
-      hw::wgmma_m64n32k8_tf32_rs(pk, frag[0][kk], dmid, 1);
-      hw::wgmma_m64n32k8_tf32_rs(pk, frag[0][kk], dh, 1);
-      hw::wgmma_commit();
-      if (kk > 0) {
-        float (&prev)[16] = part[(kk - 1) % 2];
-        hw::wgmma_wait_one();
-        hw::fence_operands(prev);
-#pragma unroll
-        for (int e = 0; e < 16; ++e) acc[e] += prev[e];
-      }
-    }
-    hw::wgmma_wait_all();
-    hw::fence_operands(part[0]);
-    hw::fence_operands(part[1]);
-    const bool even = (steps - 1) % 2 == 0;   // the last step's part
-#pragma unroll
-    for (int e = 0; e < 16; ++e) acc[e] += even ? part[0][e] : part[1][e];
-    if (ring) {
-      __syncthreads();                 // stage q is read
-      load(q + S);
-    }
+    if (q + S < slabs) __syncthreads();   // stage q is read
+    load(q + S);
   }
   if (squares) (squares_x ? sm.xn : sm.yn)[nr] = norm;
-  __syncthreads();
+  __syncthreads();                     // the norms; the stages are free
 
-  const bool diag = sym && I == J, vec = m % 2 == 0;
+  const bool diag = sym && I == J;
 #pragma unroll
-  for (int c = 0; c < 4; ++c)
+  for (int i = 0; i < kI; ++i)
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int rr = ra + 8 * i, cc = kStrip * wg + 8 * c + 2 * t;
-      put_pair(out, n, m, sym, diag, vec, row0 + rr, col0 + cc,
-               acc[4 * c + 2 * i], acc[4 * c + 2 * i + 1], sm.xn[rr],
-               sm.yn[cc], sm.yn[cc + 1], inv_sigma);
+    for (int j = 0; j < kJ; ++j) {
+      const int rl = ty + kTy * i, cl = tx + kTx * j;
+      const int r = row0 + rl, c = col0 + cl;
+      const float g = gram_entry(acc[i][j], sm.xn[rl], sm.yn[cl], inv_sigma);
+      if (r < n && c < m && (!diag || cl >= rl)) out[(size_t)r * m + c] = g;
+      if (sym) sm.u.t[cl * kLdT + rl] = g;
     }
+  if (!sym) return;
+  __syncthreads();                     // the transposed tile is whole
+  // The mirror: row c = col0 + cl of G gets columns row0 + rl .. + 3 from
+  // t[cl][rl ..]; a diagonal cell only the entries below its diagonal
+  // (rl < cl).  n = m here.
+  const bool vec = m % 4 == 0;
+  for (int e = threadIdx.x; e < kCell * kCell / 4; e += kThreads) {
+    const int cl = e / (kCell / 4), rl = 4 * (e % (kCell / 4));
+    const int c = col0 + cl, r = row0 + rl;
+    if (c >= m || (diag && rl >= cl)) continue;
+    const float4 v = *reinterpret_cast<const float4*>(sm.u.t + cl * kLdT +
+                                                      rl);
+    float* dst = out + (size_t)c * m + r;
+    if (vec && r + 4 <= n && (!diag || rl + 3 < cl)) {
+      *reinterpret_cast<float4*>(dst) = v;
+    } else {
+      const float g[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int e4 = 0; e4 < 4; ++e4)
+        if (r + e4 < n && (!diag || rl + e4 < cl)) dst[e4] = g[e4];
+    }
+  }
 }
 
-}  // namespace tc
+}  // namespace fs
 
 // ------------------------------------------------- float64: DMMA product
 namespace dm {
 
+constexpr int kCell = 64;           // output cells of 64 x 64, one a block
 constexpr int kThreads = 512;       // sixteen warps
 constexpr int kDepth = 16;          // slab of d: 128 bytes of a row
 constexpr int kLd = kDepth + 4;     // padded row (20 doubles)
@@ -458,7 +405,7 @@ rbf_gram_dmma_kernel(const double* __restrict__ x,
   extern __shared__ float4 smem4[];
   Smem<S>& sm = *reinterpret_cast<Smem<S>*>(smem4);
   int I, J;
-  cell_of(blockIdx.x, m, sym, I, J);
+  cell_of(blockIdx.x, m, sym, kCell, I, J);
   const int row0 = I * kCell, col0 = J * kCell;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
@@ -477,8 +424,9 @@ rbf_gram_dmma_kernel(const double* __restrict__ x,
 
   auto load = [&](int q) {
     if (q < slabs)
-      load_slab<double, Vec, kThreads>(sm.st[q % S].l, kLd, sm.st[q % S].r,
-                                       kLd, x, y, n, m, d, row0, col0, q);
+      load_slab<double, Vec, kThreads, kCell>(sm.st[q % S].l, kLd,
+                                              sm.st[q % S].r, kLd, x, y, n,
+                                              m, d, row0, col0, q);
     cp_async_commit();
   };
 #pragma unroll
@@ -545,12 +493,8 @@ bool aligned16(const void* p) {
 template <bool Vec, int S>
 cudaError_t run(const float* x, const float* y, float* out, int n, int m,
                 int d, float inv_sigma, bool sym, cudaStream_t st) {
-  static bool attr = false;
-  const cudaError_t err = set_smem(tc::rbf_gram_tf32_kernel<Vec, S>,
-                                   tc::smem_bytes<S>(), attr);
-  if (err != cudaSuccess) return err;
-  tc::rbf_gram_tf32_kernel<Vec, S>
-      <<<cell_count(n, m, sym), tc::kThreads, tc::smem_bytes<S>(), st>>>(
+  fs::rbf_gram_f32_kernel<Vec, S>
+      <<<cell_count(n, m, sym, fs::kCell), fs::kThreads, 0, st>>>(
           x, y, out, n, m, d, inv_sigma, sym);
   return cudaGetLastError();
 }
@@ -563,19 +507,20 @@ cudaError_t run(const double* x, const double* y, double* out, int n, int m,
                                    dm::smem_bytes<S>(), attr);
   if (err != cudaSuccess) return err;
   dm::rbf_gram_dmma_kernel<Vec, S>
-      <<<cell_count(n, m, sym), dm::kThreads, dm::smem_bytes<S>(), st>>>(
-          x, y, out, n, m, d, inv_sigma, sym);
+      <<<cell_count(n, m, sym, dm::kCell), dm::kThreads, dm::smem_bytes<S>(),
+         st>>>(x, y, out, n, m, d, inv_sigma, sym);
   return cudaGetLastError();
 }
 
-// One launch: 16-byte copies where d fills 16-byte rows and both operands
-// start on 16 bytes; where d takes more than one slab, two (float32) or
-// four (float64) slabs in flight, else one stage.
+// One launch: 16-byte copies where d fills 16-byte rows and the operands
+// and output start on 16 bytes; where d takes more than one slab, two
+// (float32) or four (float64) slabs in flight, else one stage.
 template <typename T>
 int launch(const void* x, const void* y, void* out, int n, int m, int d,
            double sigma, int sym, void* stream) {
   if (n <= 0 || m <= 0) return static_cast<int>(cudaGetLastError());
   if (sym && n != m) return static_cast<int>(cudaErrorInvalidValue);
+  if (!aligned16(out)) return static_cast<int>(cudaErrorMisalignedAddress);
   const T* xp = static_cast<const T*>(x);
   const T* yp = static_cast<const T*>(y);
   T* o = static_cast<T*>(out);

@@ -145,6 +145,12 @@ split_planes_kernel(const float* __restrict__ b, float* __restrict__ planes,
       __uint_as_float(hw::to_tf32(v - __uint_as_float(head)));
 }
 
+__device__ __forceinline__ void split(float x, uint32_t& head,
+                                      uint32_t& tail) {
+  head = hw::to_tf32(x);
+  tail = hw::to_tf32(x - __uint_as_float(head));
+}
+
 // Accumulator fragments (wgmma m64n64, float32): in warpgroup thread
 // (warp w, lane l) entry 4 c + 2 i + e is row 16 w + l / 4 + 8 i, column
 // 8 c + 2 (l % 4) + e of the warpgroup's 64 x 64 cell.
@@ -221,10 +227,10 @@ gram_tf32_kernel(const __grid_constant__ CUtensorMap bmap,
     }
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      hw::split_tf32(x[0][2 * kk], head[kk][0], tail[kk][0]);
-      hw::split_tf32(x[1][2 * kk], head[kk][1], tail[kk][1]);
-      hw::split_tf32(x[0][2 * kk + 1], head[kk][2], tail[kk][2]);
-      hw::split_tf32(x[1][2 * kk + 1], head[kk][3], tail[kk][3]);
+      split(x[0][2 * kk], head[kk][0], tail[kk][0]);
+      split(x[1][2 * kk], head[kk][1], tail[kk][1]);
+      split(x[0][2 * kk + 1], head[kk][2], tail[kk][2]);
+      split(x[1][2 * kk + 1], head[kk][3], tail[kk][3]);
     }
   };
   // Slab q's 12 products into `part`, the first of them overwriting it.

@@ -19,7 +19,6 @@ FUSED_KERNELS = {"rbf": 0, "matern32": 1}
 NAUX = 8            # projected columns: the kernel row + up to 7 aux
 PROJECT_COLS = 64   # columns of U per cluster (csrc/project_tile.cuh)
 PROJECT_SLAB = 32   # its pruning granule: P's rows past ceil(m/32)·32 are 0
-GRAM_CELL = 64      # rbf_gram's output cells, one a block (csrc/rbf_gram.cu)
 
 
 class ProjectGeometry(NamedTuple):
@@ -78,72 +77,6 @@ def fused_kind(spec: kf.KernelSpec, name: str) -> int:
     return FUSED_KERNELS[spec.name]
 
 
-class GramGeometry(NamedTuple):
-    """How ``gram`` spreads a call over the card (``csrc/rbf_gram.cu``):
-    one block per ``cell`` x ``cell`` cell of the n x m gram.  Where
-    ``sym`` (y is x) the grid holds only the cells (I, J) with J >= I,
-    block b walking them row by row; a cell above the diagonal writes each
-    entry and its mirror, a diagonal cell the entries on and above its
-    diagonal and their mirrors.  Otherwise every cell, no mirror.
-    Nothing is written outside (n, m)."""
-    n: int
-    m: int
-    sym: bool
-    cell: int = GRAM_CELL
-
-    @property
-    def blocks(self) -> int:
-        nc = -(-self.m // self.cell)
-        return nc * (nc + 1) // 2 if self.sym else -(-self.n // self.cell) * nc
-
-    def cell_of(self, b: int) -> tuple[int, int]:
-        """(I, J) of block b."""
-        nc = -(-self.m // self.cell)
-        if not self.sym:
-            return b // nc, b % nc
-        i, cnt = 0, nc
-        while b >= cnt:
-            b, cnt, i = b - cnt, cnt - 1, i + 1
-        return i, i + b
-
-    def writes(self, b: int) -> tuple[Tensor, Tensor]:
-        """(rows, cols) of the entries block b writes, direct then
-        mirrored, each once."""
-        i, j = self.cell_of(b)
-        rr, cc = torch.meshgrid(torch.arange(self.cell),
-                                torch.arange(self.cell), indexing="ij")
-        r, c = (i * self.cell + rr).flatten(), (j * self.cell + cc).flatten()
-        keep = (r < self.n) & (c < self.m)
-        if self.sym and i == j:
-            keep &= c >= r
-        r, c = r[keep], c[keep]
-        if not self.sym:
-            return r, c
-        off = c != r
-        return torch.cat([r, c[off]]), torch.cat([c, r[off]])
-
-    @staticmethod
-    def store_units(dtype) -> list[tuple[int, int]]:
-        """(row, column) in the cell of the first of the two adjacent
-        entries each store of a thread covers: in float32 two warpgroups'
-        wgmma m64n32 accumulator fragments (warpgroup q holds columns
-        32 q ..), in float64 sixteen warps' two m16n8 fragments (warp w
-        holds rows 16 (w % 4) .., columns 16 (w // 4) ..)."""
-        out = []
-        for w in range(8 if dtype == torch.float32 else 16):
-            for lane in range(32):
-                g, t = lane // 4, lane % 4
-                if dtype == torch.float32:
-                    r0, c0 = 16 * (w % 4) + g, 32 * (w // 4) + 2 * t
-                    out += [(r0 + 8 * i, c0 + 8 * c)
-                            for c in range(4) for i in range(2)]
-                else:
-                    r0, c0 = 16 * (w % 4) + g, 16 * (w // 4) + 2 * t
-                    out += [(r0 + 8 * h, c0 + 8 * j)
-                            for j in range(2) for h in range(2)]
-        return out
-
-
 def same_storage(x: Tensor, y: Tensor) -> bool:
     """Whether y is x: the same data, shape and strides."""
     return (x.data_ptr() == y.data_ptr() and x.shape == y.shape
@@ -155,9 +88,8 @@ def gram(x: Tensor, y: Tensor, sigma) -> Tensor:
     expansion, the norms and the exp epilogue in the same kernel; sums in
     the operands' type.  Where y is x (``same_storage``) the kernel
     computes one triangle and mirrors it, so G equals its transpose
-    exactly.  float32 runs six TF32 products of a three-way split on the
-    tensor cores, float64 DMMA; one launch on ``GramGeometry(n, m,
-    sym)``."""
+    exactly.  One launch: float32 on the CUDA cores (32 x 32 cells),
+    float64 on DMMA (64 x 64 cells)."""
     if x.device.type == "cpu":
         return rbf_gram_ref(x, y, sigma)
     dtype = cuda.check_operands("rbf_gram", x, y)

@@ -10,9 +10,10 @@ The peak is measured, not quoted: a triad a = b + 1.5·c over float32
 arrays of 1 << 24 entries (64 MB each, beyond the 50 MB L2) gives the
 card's reachable rate, and each row reports its rate as a fraction of it
 and its operation rate as a fraction of the data sheet's peak for its
-route (``peak_flops``): 67 TFLOP/s, or 495 TFLOP/s for the two grams,
-whose float32 runs on TF32 products on the tensor cores.  The two
-grams count their work as ``kernels/checks.py``'s cases do: one
+route (``peak_flops``): 67 TFLOP/s, or 495 TFLOP/s for
+``nystrom_recon``, whose float32 runs on TF32 products on the tensor
+cores (``rbf_gram``'s float32 runs on the CUDA cores).  The two grams
+count their work as ``kernels/checks.py``'s cases do: one
 triangle of the symmetric output, its operand read once.
 
 Rows, by the reference driver's names: ``eigvec_rotate``,
@@ -160,7 +161,7 @@ def kernel_rows(M: int, d: int, Q: int, C: int, reps: int,
     solved = {c.name: c for c in checks.cases(M, M, f32, device)
               if not c.variant}
     # The two grams' work and peak as ``checks`` counts them: one triangle
-    # (the operand read once), TF32 products on the tensor cores.
+    # (the operand read once), at the peak of each one's route.
     rbf = checks.rbf_gram_case(x, x, spec.sigma)
     recon = checks.scaled_gram_case(b_rows, s_diag)
     calls = [
@@ -168,7 +169,8 @@ def kernel_rows(M: int, d: int, Q: int, C: int, reps: int,
          (2 * M * M + 4 * M) * F32, 2 * M**3 + 3 * M * M, PEAK_FLOPS),
         ("eigvec_rotate2", solved["eigvec_rotate2"].kernel,
          (2 * M * M + 12 * M) * F32, 4 * M**3 + 6 * M * M, PEAK_FLOPS),
-        ("rbf_gram", rbf.kernel, rbf.bytes, rbf.flops, rbf.peak),
+        ("rbf_gram", rbf.kernel, rbf.bytes, rbf.flops,
+         rbf.peak or PEAK_FLOPS),
         ("krow_fused", lambda: kops.krow_project(u, x, x_new, aux, m_full,
                                                  spec=spec),
          (M * M + M * d + 2 * M + M + 3 * M) * F32,
@@ -180,7 +182,7 @@ def kernel_rows(M: int, d: int, Q: int, C: int, reps: int,
          (Q * d + M * d + M * C + Q * C + Q) * F32,
          2 * Q * M * (d + C) + 3 * Q * M, PEAK_FLOPS),
         ("nystrom_recon", recon.kernel, recon.bytes, recon.flops,
-         recon.peak),
+         recon.peak or PEAK_FLOPS),
     ]
     return [_row(name, *_times(fn, reps, device), nbytes, flops, peak_gbps,
                  peak_flops)

@@ -132,14 +132,12 @@ def test_krow_column_bounds_follow_their_own_scale():
 
 @pytest.mark.parametrize("n, m, dim, dtype, want_ms, want_by", [
     # The roofline's k(X, X): x read once, one triangle of dot products;
-    # 4.46 MB at 3.35 TB/s against 405 MFLOP (six TF32 products) at
-    # 495 TFLOP/s.
+    # 4.46 MB at 3.35 TB/s against 69.7 MFLOP at 67 TFLOP/s.
     (1024, 1024, 64, torch.float32, 4 * (1024 * 64 + 1024**2) / 3.35e9,
      "bytes"),
-    # Two inputs: both read, every entry a dot product; with half the
-    # entries of output the six products bind.
-    (1024, 512, 64, torch.float32, 1024 * 512 * (12 * 64 + 4) / 495e9,
-     "operations, 6×TF32"),
+    # Two inputs: both read, every entry a dot product (operations).
+    (1024, 512, 64, torch.float32, 1024 * 512 * (2 * 64 + 4) / 67e9,
+     "operations"),
     # float64 at a width where the products bind, on DMMA's 67 TFLOP/s.
     (1024, 512, 256, torch.float64, 1024 * 512 * (2 * 256 + 4) / 67e9,
      "operations"),
@@ -148,16 +146,15 @@ def test_rbf_gram_bound_counts_the_work_its_call_needs(n, m, dim, dtype,
                                                        want_ms, want_by):
     """Where y is x the gram is symmetric: its bound reads x once and
     counts n(n+1)/2 dot products; a second input is read and every entry
-    counted.  A float32 dot product is six TF32 products at 495 TFLOP/s,
-    a float64 one a DMMA product at 67; each entry adds 4 flops of the
-    norm expansion."""
+    counted.  A dot product is 2d flops at 67 TFLOP/s (float32 on the CUDA
+    cores, float64 on DMMA); each entry adds 4 flops of the norm
+    expansion."""
     case = checks.rbf_gram_cases(n, m, dim, dtype, "cpu")[0]
     sym = n == m
     item = 4 if dtype == torch.float32 else 8
     assert case.bytes == item * (n * dim + (0 if sym else m * dim) + n * m)
     entries = n * (n + 1) / 2 if sym else n * m
-    per_entry = (12 if dtype == torch.float32 else 2) * dim + 4
-    assert case.flops == entries * per_entry
+    assert case.flops == entries * (2 * dim + 4)
     ms, by = case.bound(dtype)
     assert by == want_by
     assert ms == pytest.approx(want_ms, rel=1e-12)
@@ -167,8 +164,9 @@ def test_roofline_counts_the_grams_as_the_checks_do():
     """The roofline's ``rbf_gram`` (k(X, X)) and ``nystrom_recon`` rows
     count the bytes and operations of ``checks``' cases on the same
     operands (one triangle, the operand read once) against the peak of the
-    route the kernels run (495 TFLOP/s: TF32 products); the other rows
-    keep the float32 67 TFLOP/s."""
+    route the kernels run: 67 TFLOP/s for ``rbf_gram`` (float32 FMAs on
+    the CUDA cores), 495 TFLOP/s for ``nystrom_recon`` (TF32 products);
+    the other rows keep the float32 67 TFLOP/s."""
     from repro_torch.launch import roofline
 
     M, d, Q, C = 64, 16, 32, 8
@@ -176,50 +174,105 @@ def test_roofline_counts_the_grams_as_the_checks_do():
         M, d, Q, C, reps=1, peak_gbps=1.0, device=torch.device("cpu"))}
     x = torch.zeros(M, d)
     b, s = torch.zeros(Q, M), torch.ones(M)
-    for name, case in (("rbf_gram", checks.rbf_gram_case(x, x, d)),
-                       ("nystrom_recon", checks.scaled_gram_case(b, s))):
+    for name, case, peak in (
+            ("rbf_gram", checks.rbf_gram_case(x, x, d), 67e12),
+            ("nystrom_recon", checks.scaled_gram_case(b, s),
+             checks.TF32_FLOPS)):
         r = rows[name]
         assert (r["bytes"], r["flops"], r["peak_flops"]) == (
-            case.bytes, case.flops, checks.TF32_FLOPS)
+            case.bytes, case.flops, peak)
     assert rows["rbf_gram"]["bytes"] == 4 * (M * d + M * M)
-    assert rows["rbf_gram"]["flops"] == M * (M + 1) / 2 * (12 * d + 4)
+    assert rows["rbf_gram"]["flops"] == M * (M + 1) / 2 * (2 * d + 4)
     assert rows["nystrom_recon"]["bytes"] == 4 * (Q * M + M + Q * Q)
     assert rows["nystrom_recon"]["flops"] == 3 * Q * (Q + 1) * M
     assert rows["eigvec_rotate"]["peak_flops"] == 67e12
 
 
+# csrc/rbf_gram.cu's cells: float32 32 x 32, float64 64 x 64.
+GRAM_CELLS = {torch.float32: 32, torch.float64: 64}
+
+
+def _gram_cell_of(b, m, sym, cell):
+    """(I, J) of block b: the kernel's ``cell_of``."""
+    nc = -(-m // cell)
+    if not sym:
+        return divmod(b, nc)
+    i, cnt = 0, nc
+    while b >= cnt:
+        b, cnt, i = b - cnt, cnt - 1, i + 1
+    return i, i + b
+
+
+def _gram_thread_entries(dtype):
+    """(rows, cols) in the cell of the entries the block's threads hold:
+    float32 thread (tx, ty) rows ty + 16 i, columns tx + 8 j; float64 warp
+    w's two m16n8 fragments at rows 16 (w % 4) .., columns 16 (w // 4) ..,
+    lane (g, t) rows g + 8 h, columns 8 j + 2 t + e."""
+    if dtype == torch.float32:
+        tx, ty, i, j = torch.meshgrid(torch.arange(8), torch.arange(16),
+                                      torch.arange(2), torch.arange(4),
+                                      indexing="ij")
+        return (ty + 16 * i).flatten(), (tx + 8 * j).flatten()
+    w, g, t, j, h, e = torch.meshgrid(
+        torch.arange(16), torch.arange(8), torch.arange(4), torch.arange(2),
+        torch.arange(2), torch.arange(2), indexing="ij")
+    return ((16 * (w % 4) + g + 8 * h).flatten(),
+            (16 * (w // 4) + 8 * j + 2 * t + e).flatten())
+
+
+def _gram_writes(n, m, sym, dtype, b):
+    """(rows, cols) of G that block b of the launch writes, direct then
+    mirrored, as the kernel's stores mask them: a diagonal cell keeps the
+    entries on and above its diagonal and mirrors those above it (float32
+    through the transposed tile, float64 pair by pair), any other cell
+    writes every entry inside (n, m) and, where sym, its mirror."""
+    cell = GRAM_CELLS[dtype]
+    i, j = _gram_cell_of(b, m, sym, cell)
+    rl, cl = _gram_thread_entries(dtype)
+    r, c = i * cell + rl, j * cell + cl
+    inside = (r < n) & (c < m)
+    diag = sym and i == j
+    direct = inside & (cl >= rl) if diag else inside
+    rows, cols = [r[direct]], [c[direct]]
+    if sym:
+        mirror = inside & (cl > rl) if diag else inside
+        rows.append(c[mirror])
+        cols.append(r[mirror])
+    return torch.cat(rows), torch.cat(cols)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
 @pytest.mark.parametrize("n,m,sym", [
     (1, 1, True), (63, 63, True), (64, 64, True), (65, 65, True),
     (1024, 1024, True), (4096, 4096, True),
     (1, 1, False), (65, 63, False), (1000, 300, False), (130, 129, False)])
-def test_rbf_gram_cells_write_each_entry_once(n, m, sym):
-    """``kops.GramGeometry`` mirrors the kernels' walk over 64 x 64 cells:
-    where y is x the triangle's cells (136 blocks at n = 1024, where the
-    square takes 256), each entry written with its mirror, cover every
-    entry of G exactly once, counting mirrors, and nothing outside (n, m);
-    otherwise every cell, no mirror.  The threads' stores of adjacent
-    entries (both kernels' fragment layouts) cover a cell once."""
-    geo = kops.GramGeometry(n, m, sym)
-    nc = -(-m // 64)
-    assert geo.blocks == (nc * (nc + 1) // 2 if sym else -(-n // 64) * nc)
-    assert n != 1024 or geo.blocks == 136
-    cells = [geo.cell_of(b) for b in range(geo.blocks)]
-    assert len(set(cells)) == geo.blocks
+def test_rbf_gram_cells_write_each_entry_once(n, m, sym, dtype):
+    """A mirror of the kernels' walk over their cells: where y is x the
+    triangle's cells (528 blocks at n = 1024 in float32, 136 in float64,
+    where the square takes 1024 and 256), each entry written with its
+    mirror, cover every entry of G exactly once, counting mirrors, and
+    nothing outside (n, m); otherwise every cell, no mirror.  The threads'
+    entries cover a cell once."""
+    cell = GRAM_CELLS[dtype]
+    nc = -(-m // cell)
+    blocks = nc * (nc + 1) // 2 if sym else -(-n // cell) * nc
+    assert n != 1024 or blocks == {32: 528, 64: 136}[cell]
+    cells = [_gram_cell_of(b, m, sym, cell) for b in range(blocks)]
+    assert len(set(cells)) == blocks
     assert not sym or all(j >= i for i, j in cells)
-    counts = torch.zeros((n + 64, m + 64), dtype=torch.int32)
-    for b in range(geo.blocks):
-        r, c = geo.writes(b)
+    rl, cl = _gram_thread_entries(dtype)
+    cover = torch.zeros((cell, cell), dtype=torch.int32)
+    cover.index_put_((rl, cl), torch.ones_like(rl, dtype=torch.int32),
+                     accumulate=True)
+    assert torch.all(cover == 1)
+    counts = torch.zeros((n + cell, m + cell), dtype=torch.int32)
+    for b in range(blocks):
+        r, c = _gram_writes(n, m, sym, dtype, b)
         counts.index_put_((r, c), torch.ones_like(r, dtype=torch.int32),
                           accumulate=True)
     assert torch.all(counts[:n, :m] == 1)
     assert int(counts.sum()) == n * m
-    for dtype in (torch.float32, torch.float64):
-        cover = torch.zeros((64, 64), dtype=torch.int32)
-        origins = kops.GramGeometry.store_units(dtype)
-        assert len(origins) * 2 == 64 * 64
-        for r, c in origins:
-            cover[r, c:c + 2] += 1
-        assert torch.all(cover == 1)
 
 
 def _f64_row_blocks(monkeypatch):

@@ -207,23 +207,27 @@ def test_ssd_intra_chunk_bf16_runs_on_the_tensor_cores(device):
 
 
 @pytest.mark.parametrize("n,m,dim", [(1, 1, 1), (130, 129, 3), (64, 64, 16),
-                                     (65, 200, 17), (300, 300, 64)])
+                                     (65, 200, 17), (300, 300, 64),
+                                     (70, 90, 100)])
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_rbf_gram_matches_plain_version(device, n, m, dim, dtype):
-    """Ragged edges of the 64-wide tiles and the 16-wide slabs of d; n = m
-    is the gram of x with itself (its diagonal a clamped residue)."""
+    """Ragged edges of the 32- and 64-wide cells and of the 128-byte slabs
+    of d, and d over several slabs in flight; n = m is the gram of x with
+    itself (its diagonal a clamped residue)."""
     for case in checks.rbf_gram_cases(n, m, dim, getattr(torch, dtype),
                                       device, seed=n + m + dim):
         checks.compare(case)
 
 
-def test_rbf_gram_runs_on_the_tensor_cores(device):
-    """The float32 gram kernel holds TF32 wgmma (HGMMA) and the float64 one
-    DMMA; at the roofline's k(X, X) (1024², d = 64) the float32 G's error
-    against the float64 gram of the same operands stays within
-    ``chip_smoke.TF32_ERR_RATIO`` (2x) of the plain float32 version's."""
-    tf32, counts = _sass_kernels("rbf_gram_tf32_kernel")
-    assert tf32 and all(v["HGMMA"] > 0 for v in tf32.values()), counts
+def test_rbf_gram_runs_on_its_units(device):
+    """The float64 gram kernel holds DMMA; the float32 one runs on the CUDA
+    cores (no HGMMA: six TF32 products of a three-way split ran slower
+    than its FMAs, PERF.md), and at the roofline's k(X, X) (1024², d = 64)
+    its G's error against the float64 gram of the same operands stays
+    within ``chip_smoke.TF32_ERR_RATIO`` (2x) of the plain float32
+    version's."""
+    f32, counts = _sass_kernels("rbf_gram_f32_kernel")
+    assert f32 and all(v["HGMMA"] == 0 for v in f32.values()), counts
     dmma, _ = _sass_kernels("rbf_gram_dmma_kernel")
     assert dmma and all(v["DMMA"] > 0 for v in dmma.values()), counts
     case = checks.rbf_gram_cases(1024, 1024, 64, torch.float32, device)[0]
@@ -232,7 +236,7 @@ def test_rbf_gram_runs_on_the_tensor_cores(device):
 
 
 @pytest.mark.parametrize("n,dim", [(1, 1), (63, 3), (65, 10), (130, 17),
-                                   (1000, 64)])
+                                   (1000, 64), (97, 100)])
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_rbf_gram_is_exactly_symmetric(device, n, dim, dtype):
     """k(X, X) computes one triangle and mirrors it: G equals its transpose

@@ -340,55 +340,36 @@ def test_one_tf32_pass_gram_is_not(monkeypatch, k):
     assert err["kernel_err_vs_f64"] > 2.0 * err["plain_err_vs_f64"], err
 
 
-def _tf32_rbf_gram(pieces, passes, step=8):
+def _fma_rbf_gram(x, y, sigma):
     """A stand-in for the float32 CUDA ``rbf_gram`` that does its
-    arithmetic: the norms summed in float32 from the unsplit values, x and
-    y each split into ``pieces`` TF32 pieces ("hi", "mid", "lo": each the
-    TF32 rounding of what the earlier ones miss), per ``step`` of d (the
-    kernel's 8-wide k-step; 32 for the rotation's 32-wide slab) the
-    ``passes`` products summed in float32 and added into a float32
-    accumulator, then exp(-max(d2, 0)·(1/sigma)) with 1/sigma in float32;
+    arithmetic: each dot product and each squared norm a chain of float32
+    FMAs in k order (an FMA modelled as its float64 value rounded to
+    float32), then exp(-max(d2, 0)·(1/sigma)) with 1/sigma in float32;
     where y is x the upper triangle kept and mirrored."""
-    names = ("hi", "lo") if pieces == 2 else ("hi", "mid", "lo")
+    def fma(a, b, c):
+        return (a.double() * b.double() + c.double()).float()
 
-    def gram(x, y, sigma):
-        parts = {}
-        for key, v in (("x", x), ("y", y)):
-            rest = v
-            for name in names:
-                parts[key, name] = _tf32(rest)
-                rest = rest - parts[key, name]
-        acc = torch.zeros((x.shape[0], y.shape[0]), dtype=torch.float32)
-        for k0 in range(0, x.shape[1], step):
-            ks = slice(k0, k0 + step)
-            part = torch.zeros_like(acc)
-            for a, b in passes:
-                part += parts["x", a][:, ks] @ parts["y", b][:, ks].T
-            acc += part
-        xn, yn = (x * x).sum(1), (y * y).sum(1)
-        inv = torch.tensor(1.0, dtype=torch.float32) / sigma
-        G = torch.exp(-torch.clamp_min(xn[:, None] + yn[None, :] - 2 * acc,
-                                       0.0) * inv)
-        return G.triu() + G.triu(1).T if y is x else G
-    return gram
-
-
-# The kernel's six products of three pieces, smallest first.
-SIX_PASS = (("lo", "hi"), ("hi", "lo"), ("mid", "mid"), ("mid", "hi"),
-            ("hi", "mid"), ("hi", "hi"))
+    acc = torch.zeros((x.shape[0], y.shape[0]), dtype=torch.float32)
+    xn, yn = torch.zeros(x.shape[0]), torch.zeros(y.shape[0])
+    for k in range(x.shape[1]):
+        acc = fma(x[:, k, None], y[None, :, k], acc)
+        xn, yn = fma(x[:, k], x[:, k], xn), fma(y[:, k], y[:, k], yn)
+    inv = torch.tensor(1.0, dtype=torch.float32) / sigma
+    G = torch.exp(-torch.clamp_min(xn[:, None] + yn[None, :] - 2 * acc, 0.0)
+                  * inv)
+    return G.triu() + G.triu(1).T if y is x else G
 
 
 @pytest.mark.parametrize("n,m,dim,seed", [
     (1024, 1024, 64, 0), (1000, 300, 16, 0), (130, 129, 3, 0),
     (130, 129, 3, 1)])
-def test_six_pass_tf32_rbf_gram_is_as_good_as_float32(monkeypatch, n, m,
-                                                      dim, seed):
+def test_fma_rbf_gram_is_as_good_as_float32(monkeypatch, n, m, dim, seed):
     """The float32 ``rbf_gram`` kernel's arithmetic, modelled on the CPU at
     the roofline's k(X, X) and ``chip_smoke.py``'s ragged pairs: every
     entry within ``rbf_gram_tol`` of the plain float32 version, the
     largest error against the float64 gram of the same operands at most
     2x the plain version's, and k(X, X) exactly symmetric."""
-    monkeypatch.setattr(kops, "gram", _tf32_rbf_gram(3, SIX_PASS))
+    monkeypatch.setattr(kops, "gram", _fma_rbf_gram)
     case = checks.rbf_gram_cases(n, m, dim, torch.float32, "cpu",
                                  seed=seed)[0]
     res = checks.compare(case)
@@ -398,19 +379,6 @@ def test_six_pass_tf32_rbf_gram_is_as_good_as_float32(monkeypatch, n, m,
     if n == m:
         G = case.kernel()[0]
         assert torch.equal(G, G.T)
-
-
-def test_three_pass_tf32_rbf_gram_is_not_at_small_d(monkeypatch):
-    """Two pieces and three products (the rotation's and ``scaled_gram``'s
-    split) miss a product by up to a few float32 eps, most of a length-3
-    dot product's error: at d = 3 the gram's error against float64 reads
-    more than 2x the plain version's.  Why the float32 kernel takes three
-    pieces and six products."""
-    monkeypatch.setattr(kops, "gram", _tf32_rbf_gram(2, THREE_PASS, step=32))
-    case = checks.rbf_gram_cases(130, 129, 3, torch.float32, "cpu",
-                                 seed=1)[0]
-    err = checks.error_vs_exact(case)
-    assert err["kernel_err_vs_f64"] > 2.0 * err["plain_err_vs_f64"], err
 
 
 def test_tf32_rounding_matches_the_conversion():
