@@ -27,8 +27,10 @@ Phases, each printing one JSON line per row:
    ``eigvec_rotate2``, ``eigvec_project`` and ``krow_project`` also on a
    row block (rows 256:768 of the bucket), ``eigvec_rotate2`` on rows
    m:1024 (wholly past the active rows: exact zeros), ``krow_project``
-   without aux columns, and ``transform_project`` at 20 components and at
-   the roofline's 512 queries of 64, each its own ``variant`` row.  Each
+   without aux columns, and ``transform_project`` at 20 components, at
+   the roofline's 512 queries of 64, at one component (the KRR predict
+   head) and at C = M = 512 on a capacity-512 snapshot of 500 landmarks
+   (the Nyström feature head), f32 and f64, each its own ``variant`` row.  Each
    f32 row of ``eigvec_rotate`` and ``scaled_gram`` (TF32 products on the
    tensor cores) and of ``rbf_gram`` (FMAs on the CUDA cores) also holds
    the kernel's largest error against the f64 product of the same
@@ -75,13 +77,46 @@ Phases, each printing one JSON line per row:
    the state's rows exactly the last W streamed points in arrival order
    with consecutive ages, the eigensystem against eigh of those W points,
    and the update latency split into growth and steady state.
-7. ``roofline`` — ``repro_torch.launch.roofline`` at the reference
+7. ``lifecycle`` — ``serve --mode nystrom --landmark-policy leverage``
+   (grow_rows, d = 16, RBF sigma = 16): f32 at capacity 512, budget 256,
+   2000 points, the stopping rule at its defaults; f64 at capacity 256,
+   budget 128, 1000 points, ``--stop-rel-tol 0``.  Every point accounted
+   for (admitted + replaced + rejected), launches to the reckoning, the
+   final trace error against the f64 recomputation (the Nyström bars),
+   the eigensystem against eigh, and the synchronizing operations inside
+   each offer (torch's sync debug mode) by action.  ``lifecycle_swaps``:
+   the leverage arm does not fire on an i.i.d. stream, so the replacement
+   path is driven at the f64 shape (124 admissions to the budget of 128,
+   then 200 swaps of the lowest-leverage landmark through
+   ``Engine.replace_landmark``, the tracker fed each swap delta): the
+   tracked and final trace errors against f64, the eigensystem against
+   eigh, and a donating swap equal to the copying one on its own storage.
+8. ``truncate`` — the f32 ``pallas`` Algorithm-2 service at capacity 1024,
+   600 points, then ``truncate(64)`` compacted and uncompacted, and the
+   uncompacted one also under fixed dispatch, then 300 points each (100
+   under fixed dispatch):
+   64 active, orthonormal kept columns, finite; uncompacted, the kept
+   eigenvalues the 64 largest bit for bit and the stream equal to fixed
+   dispatch within the f32 eigenvalue bar (the row-support floor); the
+   top-3 eigenvalues against eigh reported.
+9. ``krr`` — ``core/krr.py`` in f64 at capacity 1024, 1000 points,
+   lambda = 0.1: α against a dense solve on the card, 256 held-out
+   predictions through the published head (``transform_project`` at
+   C = 1) against ``predict``, LOOCV residuals against 128 refits.
+10. ``snapshots`` — a ``DoubleBuffer`` over the f32 service at capacity
+   1024, C = 8: the front bit for bit the same through 64 ingests,
+   generations 0..3, the third publish in the first's storage, the
+   retired snapshot untouched, ``query_batch`` over 4 stacked snapshots
+   against 4 queries bit for bit, and the Nyström feature head at
+   C = M = 512 (the f32 Nyström phase's state) against
+   ``query_features``.
+11. ``roofline`` — ``repro_torch.launch.roofline`` at the reference
    driver's shapes: a STREAM triad on the card, one row per kernel with
    its rate against it, and the fused-against-unfused ingest and query
    (16 components).  It is ``rbf_gram``'s path: the kernels' launches
    are counted around it and held to ``roofline.launch_reckoning`` (one
    a call; C = 64 is one ``transform_project`` launch).
-8. ``lm``      — the LM zoo's serving path at the full width of
+12. ``lm``      — the LM zoo's serving path at the full width of
    Jamba-1.5-Large, one period (8 layers: 7 mamba + 1 attention), without
    experts (every layer its dense FFN: 8.9 B parameters, 16.6 GiB bf16),
    parameters drawn on the card from seed 0.  ``make_prefill_step`` at
@@ -93,13 +128,13 @@ Phases, each printing one JSON line per row:
    launch), logits finite and within ``LM_BAR``; then ``lm_main`` as
    ``serve --mode lm`` runs it (batch 4, prompt 16, gen 32): decode
    tokens/s, tokens in the vocabulary, finite logits, no kernel launch.
-9. ``timing`` — at the kernel phase's shapes, each kernel's device time
+13. ``timing`` — at the kernel phase's shapes, each kernel's device time
    (profiler records; where the profiler records nothing, CUDA events
    around calls queued behind a spin kernel) beside the plain version's,
    one library call's and its bound, and each call's event-timed time,
    host work included.  It runs after the services so that the profiler
    is never attached to one.
-10. ``lm_profile`` — one prefill of the ``lm`` phase under the profiler:
+14. ``lm_profile`` — one prefill of the ``lm`` phase under the profiler:
    device time by kernel group (the two LM kernels, cuBLAS's matmuls, the
    rest) and the idle share.  It runs last: on one H100 host the
    profiler recorded no device activity after a prefill had been profiled.
@@ -122,6 +157,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 MAIN_N, MAIN_M = 1024, 1000
+FEATURES = (512, 500)      # transform_project as the Nyström feature head
 GRAM_N, GRAM_K = 4096, (512, 200)   # scaled_gram: Fig. 2 rows, widths
 # rbf_gram (n, m, d, dtype): the roofline's gram in both types first (its
 # f32 row is the kernel's main-path row), then ragged edges.  Fig. 2's
@@ -264,6 +300,8 @@ def all_cases(torch, checks):
         for k in GRAM_K:
             for case in checks.gram_cases(GRAM_N, k, dtype, "cuda"):
                 yield dtype, GRAM_N, k, case
+        yield dtype, FEATURES[0], FEATURES[1], checks.features_case(
+            *FEATURES, dtype, "cuda")
     for n, m, dim, dtype_name in RBF_SHAPES:
         dtype = getattr(torch, dtype_name)
         for case in checks.rbf_gram_cases(n, m, dim, dtype, "cuda"):
@@ -477,7 +515,7 @@ def nystrom_phase(torch, cuda, serve, dtype_name: str) -> dict:
            "launches": launches,
            "merge_fallback_pairs": launches["eigvec_rotate"] // 2}
     emit(row)
-    return row
+    return row, state
 
 
 def fig2_phase(torch, cuda, checks) -> dict:
@@ -606,6 +644,447 @@ def window_phase(torch, cuda, serve, capacity: int, window: int,
            if matmul == "pallas2" else None,
            **oracle_check(torch, st, stream.spec, True, dtype_name)}
     emit(row)
+    return row
+
+
+def _offer_syncs(torch, engine_cls, log: dict):
+    """Wrap ``engine_cls.offer_landmark`` so that each call's synchronizing
+    CUDA operations (reads to the host, blocking copies) are counted under
+    its action, by torch's sync debug mode; returns the undo."""
+    import warnings
+
+    orig = engine_cls.offer_landmark
+
+    def offer(self, *args, **kw):
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                state, action = orig(self, *args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        log.setdefault(action, []).append(sum(
+            "synchroniz" in str(w.message) for w in seen))
+        return state, action
+
+    engine_cls.offer_landmark = offer
+    return lambda: setattr(engine_cls, "offer_landmark", orig)
+
+
+def lifecycle_phase(torch, cuda, serve, dtype_name: str, capacity: int,
+                    budget: int, points: int, extra=()) -> dict:
+    """The leverage landmark service through its entry point: every offer
+    accounted for, the final trace error against the f64 recomputation,
+    the eigensystem against eigh of the landmarks' gram, and the
+    synchronizing operations inside each offer by its action."""
+    from repro_torch.core import engine as eng, kernels_fn as kf
+
+    args = serve.parse_args([
+        "--mode", "nystrom", "--device", "cuda", "--dtype", dtype_name,
+        "--capacity", str(capacity), "--landmark-budget", str(budget),
+        "--points", str(points), "--dim", "16", "--landmark-policy",
+        "leverage", *extra])
+    syncs: dict = {}
+    undo = _offer_syncs(torch, eng.Engine, syncs)
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        result, state = serve.nystrom_service(args)
+    finally:
+        undo()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(cuda.LAUNCHES)
+    counts = {k: result[k] for k in ("admitted", "replaced", "rejected")}
+    offers = sum(len(v) for v in syncs.values())
+    m = result["m_final"]
+    spec = kf.KernelSpec(name="rbf", sigma=16.0)
+    st = state.kpca
+    exact = exact_trace_error(torch, state.Xrows, st.X[:m], spec, capacity,
+                              st.L.dtype)["f64"]
+    rel = abs(result["trace_error"] - exact) / abs(exact)
+    bar = NYSTROM_BARS[dtype_name]
+    # An admission is one k-row pass and one pair (2 rotations); a swap
+    # adds the removal's inverse pair.
+    adm, rep = counts["admitted"], counts["replaced"]
+    expect = {name: 0 for name in launches}
+    expect.update(eigvec_rotate=2 * adm + 4 * rep, krow_project=adm + rep)
+    if not (sum(counts.values()) == points and result["finite"]
+            and m == 4 + adm and rel <= bar and launches == expect):
+        raise AssertionError(f"lifecycle {dtype_name}: counts {counts} of "
+                             f"{points} offers, m {m}, trace_error "
+                             f"{result['trace_error']!r} vs f64 {exact!r} "
+                             f"(relative {rel:.3e}, bar {bar}), launches "
+                             f"{launches} != {expect}")
+    row = {"phase": "lifecycle", "dtype": dtype_name, "capacity": capacity,
+           "budget": budget, "points": points, "args": list(extra),
+           **counts, "offers_made": offers,
+           **{k: result[k] for k in ("m_final", "rows", "trace_error",
+                                     "stopped_at", "tracker_drift",
+                                     "tracker_resyncs", "step_ms_p50",
+                                     "step_ms_p99")},
+           "trace_error_f64": exact, "trace_error_rel_err": rel,
+           "bar_trace_rel_err": bar,
+           "syncs_per_offer": {k: sum(v) / len(v) for k, v in syncs.items()},
+           **oracle_check(torch, st, spec, False, dtype_name),
+           "seconds": seconds, "launches": launches}
+    emit(row)
+    return row
+
+
+def swap_phase(torch, cuda, capacity: int = 256, budget: int = 128,
+               swaps: int = 200) -> dict:
+    """The replacement path at the lifecycle's f64 shape: the leverage
+    arm does not fire on an i.i.d. stream (ridge leverage saturates near 1
+    above a normalised residual below 1), so landmarks are admitted to the
+    budget and then every new point replaces the lowest-leverage landmark
+    through ``Engine.replace_landmark``, the tracker fed the swap delta
+    with the victim passed through.  The tracked and final trace errors
+    against the f64 recomputation, the eigensystem against eigh, and one
+    donating swap against the copying one bit for bit, on its own storage."""
+    import numpy as np
+
+    from repro_torch.core import engine as eng, kernels_fn as kf, nystrom
+
+    dt = torch.float64
+    spec = kf.KernelSpec(name="rbf", sigma=16.0)
+    engine = eng.Engine(spec, eng.UpdatePlan(
+        matmul="pallas", dispatch="bucketed", fuse_krow=True,
+        landmark_policy="leverage"), adjusted=False)
+    rng = np.random.default_rng(1)
+    xs = torch.as_tensor(rng.normal(size=(budget + swaps + 1, 16)),
+                         dtype=dt, device="cuda")
+    state = nystrom.init_nystrom(None, xs[:4], capacity, spec, dtype=dt,
+                                 grow_rows=True)
+    tracker = nystrom.TraceErrorTracker(state, spec, resync_every=10_000)
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    m = 4
+    for x in xs[4:budget]:
+        tracker.observe(state, x)
+        state = nystrom.observe_rows(state, x, spec, plan=engine.plan, m=m)
+        prev = state
+        state = engine.add_landmark(state, None, x, m=m)
+        tracker.admitted(prev, x)
+        m += 1
+    victims = []
+    for x in xs[budget:budget + swaps]:
+        tracker.observe(state, x)
+        state = nystrom.observe_rows(state, x, spec, plan=engine.plan, m=m)
+        j = int(np.argmin(nystrom.leverage_scores(state)[:m].cpu().numpy()))
+        prev = state
+        state = engine.replace_landmark(state, None, j, x, m=m)
+        tracker.replaced(state, state_before=prev, x=x, j=j)
+        victims.append(j)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    err = float(nystrom.trace_error(state, spec))
+    exact = exact_trace_error(torch, state.Xrows, state.kpca.X[:m], spec,
+                              capacity, dt)["f64"]
+    rel, drift = abs(err - exact) / exact, abs(tracker.value - exact) / exact
+    # One more swap, copying and donating, from the same state.
+    x = xs[-1]
+    j = int(np.argmin(nystrom.leverage_scores(state)[:m].cpu().numpy()))
+    ref = engine.replace_landmark(state, None, j, x, m=m)
+    spare = state._replace(kpca=state.kpca._replace(**{
+        k: v.clone() for k, v in state.kpca._asdict().items()}),
+        Knm=state.Knm.clone())
+    ptrs = (spare.Knm.data_ptr(), spare.kpca.U.data_ptr())
+    out = engine.replace_landmark(spare, None, j, x, m=m, donate=True)
+    donated = ((out.Knm.data_ptr(), out.kpca.U.data_ptr()) == ptrs
+               and torch.equal(out.Knm, ref.Knm)
+               and all(torch.equal(getattr(out.kpca, f), getattr(ref.kpca, f))
+                       for f in ref.kpca._fields))
+    bar = NYSTROM_BARS["float64"]
+    adm, rep = budget - 4, swaps + 2
+    launches = dict(cuda.LAUNCHES)
+    expect = {name: 0 for name in launches}
+    expect.update(eigvec_rotate=2 * adm + 4 * rep, krow_project=adm + rep)
+    if not (rel <= bar and drift <= bar and donated and launches == expect
+            and tracker.resyncs == 0 and int(state.kpca.m) == budget):
+        raise AssertionError(f"swaps: trace_error {err!r}, tracked "
+                             f"{tracker.value!r}, f64 {exact!r} (bar {bar}); "
+                             f"donated swap equal on its storage {donated}; "
+                             f"resyncs {tracker.resyncs}; launches "
+                             f"{launches} != {expect}")
+    row = {"phase": "lifecycle_swaps", "dtype": "float64",
+           "capacity": capacity, "budget": budget, "swaps": swaps,
+           "distinct_victims": len(set(victims)), "trace_error": err,
+           "tracked": tracker.value, "trace_error_f64": exact,
+           "trace_error_rel_err": rel, "tracker_rel_err": drift,
+           "bar_rel_err": bar, "tracker_resyncs": tracker.resyncs,
+           "donate_equals_copy_in_place": donated,
+           **oracle_check(torch, state.kpca, spec, False, "float64"),
+           "seconds": seconds, "launches": launches}
+    emit(row)
+    return row
+
+
+def truncate_phase(torch, cuda, serve, points: int = 600, more: int = 300,
+                   k: int = 64, capacity: int = 1024) -> dict:
+    """``KPCAStream.truncate`` on the f32 ``pallas`` Algorithm-2 service:
+    ``points`` points, then ``truncate(k)`` compacted (at unchanged
+    capacity) and uncompacted (the row-support floor carried), then
+    ``more`` points each.  Held: exactly k active, the kept columns
+    orthonormal, both branches finite; uncompacted, the kept eigenvalues
+    the k largest before bit for bit, and the branch 100 points on equal
+    to the same stream under fixed dispatch within the f32 eigenvalue bar
+    (the floor keeps the bucket at the capacity, where it would slice at
+    128).  Reported, not held: the top-3 eigenvalues
+    against eigh of every point (the reference's subset-tracking bars,
+    25 % and 0.95), which the reference's own truncation misses under
+    Algorithm 2 (ROADMAP.md §3)."""
+    import copy
+
+    import numpy as np
+
+    from repro_torch.core import batch, engine as eng, inkpca
+    from repro_torch.core import kernels_fn as kf
+
+    args = serve.parse_args(["--mode", "kpca", "--device", "cuda",
+                             "--capacity", str(capacity), "--dim", "16"])
+    plan = serve.make_plan(args)
+    spec = kf.KernelSpec(name="rbf", sigma=16.0)
+    rng = np.random.default_rng(2)
+    X = torch.as_tensor(rng.normal(size=(4 + points + more, 16)),
+                        dtype=torch.float32, device="cuda")
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    stream = inkpca.KPCAStream(X[:4], capacity, spec, plan=plan,
+                               dtype=torch.float32, device="cuda")
+    stream.update_block(X[4:4 + points])
+    lam_before = eng.eigpairs(stream.kpca_state)[0][:k]
+    K = kf.gram_block(X.double(), X.double(), spec=spec)
+    lam_ref = batch.batch_kpca(K, adjusted=True)[0].flip(0)[:3]
+    out, ends, cut = {}, {}, 100
+    for name in ("compact", "floor", "fixed"):
+        s = copy.deepcopy(stream)
+        if name == "fixed":
+            s.engine = eng.Engine(spec, plan._replace(dispatch="fixed"))
+        s.truncate(k, compact=name == "compact",
+                   capacity=capacity if name == "compact" else None)
+        st = s.kpca_state
+        lam, vec = eng.eigpairs(st)
+        gram = vec[:, :k].double().T @ vec[:, :k].double()
+        orth = float((gram - torch.eye(k, dtype=torch.float64,
+                                       device="cuda")).abs().max())
+        kept_equal = bool(torch.equal(lam[:k], lam_before))
+        m_after, floor = int(st.m), s._min_rows
+        if not (m_after == k and orth <= 1e-3
+                and (name == "compact" or kept_equal)):
+            raise AssertionError(f"truncate {name}: {m_after} active, "
+                                 f"kept columns {orth:.3e} off "
+                                 f"orthonormal, kept eigenvalues equal "
+                                 f"{kept_equal}")
+        s.update_block(X[4 + points:4 + points + cut])
+        ends[name] = s.kpca_state
+        if name == "fixed":
+            continue
+        s.update_block(X[4 + points + cut:])
+        st = s.kpca_state
+        top = eng.eigpairs(st)[0][:3].double()
+        finite = bool(torch.isfinite(st.L).all()
+                      and torch.isfinite(st.U).all())
+        out[name] = {
+            "m_after_truncate": m_after, "min_rows": floor,
+            "kept_eig_bitwise": kept_equal, "kept_orth_err": orth,
+            "finite": finite, "m_final": int(st.m), "top3": top.tolist(),
+            "top3_rel_err": ((top - lam_ref).abs() / lam_ref).tolist(),
+            "top1_ratio": float(top[0] / lam_ref[0])}
+        if not finite:
+            raise AssertionError(f"truncate {name}: {out[name]}")
+    # Two runs of one f32 stream on the card differ at rounding level (a
+    # run is not bit-reproducible: ROADMAP.md §3), so the floor branch is
+    # held to fixed dispatch at the f32 eigenvalue bar, ``cut`` points on.
+    fl, fx = ends["floor"], ends["fixed"]
+    floor_vs_fixed = float((fl.L - fx.L).abs().max()
+                           / fx.L[:int(fx.m)].abs().max())
+    same = (floor_vs_fixed <= BARS["float32"][0]
+            and torch.equal(fl.X, fx.X) and int(fl.m) == int(fx.m))
+    torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    n_upd = points + 2 * more + cut
+    expect = {name: 0 for name in launches}
+    expect.update(eigvec_rotate=4 * n_upd, krow_project=n_upd,
+                  eigvec_project=n_upd)
+    if not same or launches != expect:
+        raise AssertionError(f"truncate: floor branch against fixed "
+                             f"dispatch {floor_vs_fixed:.3e} of λmax (bar "
+                             f"{BARS['float32'][0]}); launches {launches} "
+                             f"!= {expect}")
+    row = {"phase": "truncate", "dtype": "float32", "capacity": capacity,
+           "points": points, "k": k, "more": more,
+           "eigh_top3": lam_ref.tolist(), **out,
+           "floor_vs_fixed_eig_rel": floor_vs_fixed,
+           "bars": {"kept_orth": 1e-3, "kept_eig": "bitwise (floor)",
+                    "floor_vs_fixed_eig_rel": BARS["float32"][0],
+                    "not_held": "top3 within 0.25, top1 >= 0.95 of eigh"},
+           "seconds": time.perf_counter() - t0, "launches": launches}
+    emit(row)
+    return row
+
+
+def krr_phase(torch, cuda, capacity: int = 1024, points: int = 1000,
+              lam: float = 0.1, held_out: int = 256, loo: int = 128) -> dict:
+    """``core/krr.py`` in f64 on the card (its rotations on the f64
+    ``eigvec_rotate``): α against a dense solve of (K + λI)α = y, the
+    published predict head (``transform_project`` at C = 1) against
+    ``predict`` per entry within the kernel's bound, and the closed-form
+    LOOCV residuals against refits without each of the first ``loo``
+    points."""
+    import numpy as np
+
+    from repro_torch.core import engine as eng, kernels_fn as kf, krr
+    from repro_torch.kernels import checks
+
+    dt = torch.float64
+    spec = kf.KernelSpec(name="rbf", sigma=16.0)
+    plan = eng.UpdatePlan(matmul="pallas", fuse_krow=True)
+    rng = np.random.default_rng(3)
+    Xn = rng.normal(size=(4 + points + held_out, 16))
+    yn = (np.sin(Xn[:, 0]) + 0.5 * np.cos(2 * Xn[:, 1])
+          + 0.05 * rng.normal(size=len(Xn)))
+    X = torch.as_tensor(Xn, dtype=dt, device="cuda")
+    y = torch.as_tensor(yn, dtype=dt, device="cuda")
+    n = 4 + points
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    state = krr.init_krr(X[:4], y[:4], capacity, spec)
+    for i in range(4, n):
+        state = krr.add_point(state, X[i], y[i], spec, plan=plan)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    K = kf.gram_block(X[:n], X[:n], spec=spec)
+    eye = torch.eye(n, dtype=dt, device="cuda")
+    alpha_ref = torch.linalg.solve(K + lam * eye, y[:n])
+    alpha = krr.coefficients(state, lam)[:n]
+    alpha_err = float((alpha - alpha_ref).abs().max()
+                      / alpha_ref.abs().max())
+    snap = krr.publish_predict(state, lam)
+    xq = X[n:]
+    pred = krr.snapshot_predict(snap, xq, spec, plan=plan)
+    direct = krr.predict(state, xq, lam, spec)
+    tol = 2 * checks.transform_tol(xq, snap.X, snap.S, n, spec,
+                                   dt)[0][:, 0]
+    pred_ratio = float(((pred - direct).abs() / tol).max())
+    e = krr.loocv_residuals(state, lam)[:loo]
+    brute = []
+    for i in range(loo):
+        keep = torch.arange(n, device="cuda") != i
+        a = torch.linalg.solve(K[keep][:, keep] + lam * eye[:n - 1, :n - 1],
+                               y[:n][keep])
+        brute.append(y[i] - K[i, keep] @ a)
+    loo_err = float((e - torch.stack(brute)).abs().max())
+    torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    bars = {"alpha_rel": 1e-8, "pred_over_bound": 1.0, "loocv_abs": 1e-6}
+    expect_rot = 2 * points
+    if not (alpha_err <= bars["alpha_rel"] and pred_ratio <= 1.0
+            and loo_err <= bars["loocv_abs"]
+            and launches["eigvec_rotate"] == expect_rot
+            and launches["transform_project"] == 1):
+        raise AssertionError(f"krr: alpha rel err {alpha_err:.3e}, "
+                             f"predictions {pred_ratio:.3f}x their bound, "
+                             f"LOOCV {loo_err:.3e}, launches {launches} "
+                             f"(bars {bars}; {expect_rot} rotations)")
+    row = {"phase": "krr", "dtype": "float64", "capacity": capacity,
+           "points": points, "lam": lam, "alpha_rel_err": alpha_err,
+           "held_out": held_out, "pred_err_over_bound": pred_ratio,
+           "loocv_points": loo, "loocv_max_abs_err": loo_err, "bars": bars,
+           "bound": "2x transform bound: 2(m+2)eps(|Kq||alpha|) + "
+                    "epilogue, per prediction",
+           "fit_s": t_fit, "seconds": time.perf_counter() - t0,
+           "launches": launches}
+    emit(row)
+    return row
+
+
+def snapshots_phase(torch, cuda, nystrom_state, capacity: int = 1024,
+                    C: int = 8) -> dict:
+    """``DoubleBuffer`` over the f32 service at capacity 1024, C = 8: the
+    front reads bit for bit the same through 64 ingested points,
+    generations 0..3, the third publish in the first's storage while the
+    snapshot each publish retires stays untouched; ``query_batch`` over 4
+    stacked snapshots against 4 queries bit for bit; and the Nyström
+    feature head (``transform_project`` at C = M = 512) against
+    ``query_features`` on the masked gram, per entry within twice the
+    kernel's bound."""
+    import numpy as np
+
+    from repro_torch.core import engine as eng, inkpca
+    from repro_torch.core import kernels_fn as kf, nystrom, serving
+    from repro_torch.kernels import checks
+
+    spec = kf.KernelSpec(name="rbf", sigma=16.0)
+    plan = eng.UpdatePlan(matmul="pallas", fuse_krow=True,
+                          dispatch="bucketed")
+    rng = np.random.default_rng(4)
+    X = torch.as_tensor(rng.normal(size=(4 + 60 + 64 + 3, 16)),
+                        dtype=torch.float32, device="cuda")
+    q = torch.as_tensor(rng.normal(size=(4, 64, 16)), dtype=torch.float32,
+                        device="cuda")
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    stream = inkpca.KPCAStream(X[:4], capacity, spec, plan=plan,
+                               device="cuda")
+    stream.update_block(X[4:64])
+    buf = serving.DoubleBuffer(stream.kpca_state, n_components=C)
+    y0 = buf.query(q[0], spec=spec, plan=plan)
+    stable = True
+    for x in X[64:128]:
+        stream.update(x)
+        stable &= torch.equal(buf.query(q[0], spec=spec, plan=plan), y0)
+    snaps, gens, reuse, untouched = [buf.front], [0], [], []
+    fresh = [serving.publish_transform(stream.kpca_state, n_components=C,
+                                       adjusted=True)]
+    for x in X[128:]:
+        front = buf.front
+        y_front = serving.query(front, q[1], spec=spec, plan=plan)
+        stream.update(x)
+        snaps.append(buf.publish(stream.kpca_state))
+        fresh.append(serving.publish_transform(
+            stream.kpca_state, n_components=C, adjusted=True))
+        gens.append(int(snaps[-1].generation))
+        untouched.append(torch.equal(
+            serving.query(front, q[1], spec=spec, plan=plan), y_front))
+        if len(snaps) > 2:
+            reuse.append(snaps[-1].S.data_ptr() == snaps[-3].S.data_ptr()
+                         and snaps[-1].X.data_ptr() == snaps[-3].X.data_ptr())
+    yb = serving.query_batch(serving.stack_snapshots(fresh), q, spec=spec,
+                             plan=plan)
+    batch_equal = all(torch.equal(yb[b], serving.query(
+        fresh[b], q[b], spec=spec, plan=plan)) for b in range(4))
+    n = nystrom_state.Knm.shape[0]
+    fsnap = nystrom.publish_features(nystrom_state, n)
+    feats = nystrom.snapshot_features(fsnap, q[0], spec, plan=plan)
+    plain = nystrom.query_features(nystrom_state, q[0], n, spec)
+    m = int(nystrom_state.kpca.m)
+    tol = 2 * checks.transform_tol(q[0], fsnap.X, fsnap.S, m, spec,
+                                   torch.float32)[0]
+    feat_ratio = float(((feats - plain).abs() / tol.clamp_min(1e-30))
+                       .max())
+    torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    # 127 ingests (Algorithm 2: 4 rotations, a k-row pass, a projection);
+    # queries: 1 + 64 on the front, 2 around each of 3 publishes, 4 + 4
+    # for the batch, 1 feature head.
+    expect = {name: 0 for name in launches}
+    expect.update(eigvec_rotate=4 * 127, krow_project=127,
+                  eigvec_project=127, transform_project=1 + 64 + 6 + 8 + 1)
+    ok = (stable and gens == [0, 1, 2, 3] and reuse == [True, True]
+          and launches == expect
+          and all(untouched) and batch_equal and feat_ratio <= 1.0
+          and fsnap.S.shape == (512, 512))
+    row = {"phase": "snapshots", "dtype": "float32", "capacity": capacity,
+           "components": C, "front_stable_over_64_ingests": stable,
+           "generations": gens, "third_publish_reuses_first": reuse,
+           "retired_untouched": untouched, "query_batch_bitwise": batch_equal,
+           "features_C": int(fsnap.S.shape[1]), "features_m": m,
+           "features_err_over_2x_bound": feat_ratio,
+           "seconds": time.perf_counter() - t0, "launches": launches}
+    emit(row)
+    if not ok:
+        raise AssertionError(f"snapshots: {row}")
     return row
 
 
@@ -798,11 +1277,19 @@ def main() -> int:
                                      "float32", "pallas2")}
     service_phase(torch, cuda, serve, 256, 200, "float64", "pallas")
     service_phase(torch, cuda, serve, 256, 200, "float64", "pallas2")
-    nystrom_phase(torch, cuda, serve, "float32")
+    _, nystrom_state = nystrom_phase(torch, cuda, serve, "float32")
     nystrom_phase(torch, cuda, serve, "float64")
     runs["fig2"] = fig2_phase(torch, cuda, checks)
     window_phase(torch, cuda, serve, 1024, 1000, 1296, "float32", "pallas")
     window_phase(torch, cuda, serve, 256, 200, 396, "float64", "pallas2")
+    lifecycle_phase(torch, cuda, serve, "float32", 512, 256, 2000)
+    lifecycle_phase(torch, cuda, serve, "float64", 256, 128, 1000,
+                    ("--stop-rel-tol", "0"))
+    swap_phase(torch, cuda)
+    truncate_phase(torch, cuda, serve)
+    krr_phase(torch, cuda)
+    snapshots_phase(torch, cuda, nystrom_state)
+    del nystrom_state
     runs["roofline"] = roofline_phase(torch, cuda)
     runs["lm"], prefill_call = lm_phase(torch, cuda)
     timed = timing_phase(torch, checks)

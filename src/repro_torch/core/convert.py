@@ -8,7 +8,12 @@ state on ``device``, so a stream started in JAX continues here;
 ``nystrom_to_numpy`` do the same for a ``NystromState``: the KPCA fields
 plus ``Knm`` and, for a grow_rows state, ``Xrows``;
 ``window_from_numpy`` and ``window_to_numpy`` for a ``WindowState``: the
-KPCA fields plus the arrival ring ``ages`` and ``clock``.
+KPCA fields plus the arrival ring ``ages`` and ``clock``;
+``krr_from_numpy`` and ``krr_to_numpy`` for a ``KRRState``: the KPCA
+fields plus the targets ``y``; ``snapshot_from_numpy`` and
+``snapshot_to_numpy`` for a ``ServingSnapshot``: ``S``, ``X``, ``m``,
+``generation`` and, for a mean-adjusted head, the affine fields ``mf``,
+``colsum``, ``colproj`` and ``grand``.
 ``lm_params_from_numpy`` turns the reference's LM parameter tree (as
 numpy arrays) into the port's ``models.lm.LM``.
 """
@@ -19,7 +24,9 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.inkpca import KPCAState
+from repro_torch.core.krr import KRRState
 from repro_torch.core.nystrom import NystromState
+from repro_torch.core.serving import AffineCorrection, ServingSnapshot
 from repro_torch.core.window import AGE_DTYPE, WindowState, age_sentinel
 from repro_torch.models import lm
 from repro_torch.models.config import ArchConfig
@@ -115,6 +122,66 @@ def window_to_numpy(state: WindowState) -> dict:
     out = state_to_numpy(state.kpca)
     out["ages"] = state.ages.detach().cpu().numpy()
     out["clock"] = state.clock.detach().cpu().numpy()
+    return out
+
+
+def krr_from_numpy(fields: dict, device=None) -> KRRState:
+    """Port KRR state from the KPCA fields plus the targets ``y``."""
+    kpca = state_from_numpy(fields, device)
+    if "y" not in fields:
+        raise ValueError("state fields missing: ['y']")
+    y = torch.as_tensor(np.array(fields["y"]), dtype=kpca.L.dtype,
+                        device=kpca.L.device)
+    if y.shape != kpca.L.shape:
+        raise ValueError(f"inconsistent state: y {tuple(y.shape)} for "
+                         f"capacity {kpca.L.shape[0]}")
+    return KRRState(kpca=kpca, y=y)
+
+
+def krr_to_numpy(state: KRRState) -> dict:
+    """The KRR state's fields as numpy arrays."""
+    return {**state_to_numpy(state.kpca), "y": state.y.detach().cpu().numpy()}
+
+
+SNAPSHOT_FIELDS = ("S", "X", "m", "generation")
+
+
+def snapshot_from_numpy(fields: dict, device=None) -> ServingSnapshot:
+    """Port snapshot from numpy fields: S and X keep their type, ``m``
+    becomes a 0-d int32 device tensor and ``generation`` a 0-d int32 host
+    tensor; the affine fields, where ``mf`` is present and not None, take
+    S's type."""
+    missing = [k for k in SNAPSHOT_FIELDS if k not in fields]
+    if missing:
+        raise ValueError(f"snapshot fields missing: {missing}")
+    dev = resolve_device(device)
+    S = torch.as_tensor(np.array(fields["S"]), device=dev)
+    X = torch.as_tensor(np.array(fields["X"]), device=dev)
+    if S.dim() != 2 or X.dim() != 2 or S.shape[0] != X.shape[0]:
+        raise ValueError(f"inconsistent snapshot: S {tuple(S.shape)}, X "
+                         f"{tuple(X.shape)}")
+    affine = None
+    if fields.get("mf") is not None:
+        affine = AffineCorrection(*(
+            torch.as_tensor(np.array(fields[k]), dtype=S.dtype, device=dev)
+            for k in AffineCorrection._fields))
+    return ServingSnapshot(
+        S=S, X=X,
+        m=torch.tensor(int(np.asarray(fields["m"])), dtype=torch.int32,
+                       device=dev),
+        affine=affine,
+        generation=torch.tensor(int(np.asarray(fields["generation"])),
+                                dtype=torch.int32))
+
+
+def snapshot_to_numpy(snap: ServingSnapshot) -> dict:
+    """The snapshot's fields as numpy arrays (the affine fields None for a
+    linear head)."""
+    out = {k: getattr(snap, k).detach().cpu().numpy()
+           for k in SNAPSHOT_FIELDS}
+    for k in AffineCorrection._fields:
+        out[k] = (None if snap.affine is None
+                  else getattr(snap.affine, k).detach().cpu().numpy())
     return out
 
 

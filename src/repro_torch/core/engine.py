@@ -16,10 +16,12 @@ host's count of active pairs, which the caller may pass (``KPCAStream``
 mirrors it), so a step reads nothing back from the card.
 
 Torch has no ``lax.scan``: a block is a Python loop over ``step``, with
-the active count tracked on the host.  Not ported yet, each
-raising ``NotImplementedError`` from ``check_plan`` or from the call: the
-health and metrics lanes and the leverage landmark policy — see
-ROADMAP.md, "Open items".
+the active count tracked on the host.  ``min_rows`` is the row-support
+floor every bucketed method takes: a truncated state that was not
+compacted keeps eigenvector mass on rows past m, and a bucket below that
+support would drop it (``truncate``).  Not ported yet, raising
+``NotImplementedError`` from ``check_plan`` or from the call: the health
+and metrics lanes (ROADMAP.md, "Open items").
 """
 from __future__ import annotations
 
@@ -298,10 +300,12 @@ class Engine:
         self.plan = plan
         self.adjusted = adjusted
 
-    def _bucket(self, capacity: int, need: int) -> int:
-        if self.plan.dispatch != "bucketed":
-            return capacity
-        return bucket_for(need, capacity, self.plan.min_bucket)
+    def _bucket(self, capacity: int, need: int, min_rows: int = 0) -> int:
+        """The bucket holding max(need, min_rows) rows: the capacity under
+        fixed dispatch, where it still raises past the capacity."""
+        Mb = bucket_for(max(need, min_rows, 1), capacity,
+                        self.plan.min_bucket)
+        return Mb if self.plan.dispatch == "bucketed" else capacity
 
     # ---- composed stream step ---------------------------------------------
     def _stream_window(self, stream: StreamState,
@@ -319,67 +323,76 @@ class Engine:
         return window if stream.ages is not None else None
 
     def step(self, stream: StreamState, x_new: Tensor, *,
-             window: int | None = None, m: int | None = None
-             ) -> StreamState:
+             window: int | None = None, m: int | None = None,
+             min_rows: int = 0) -> StreamState:
         """Advance the bundle by one point: evict the oldest point first if
         the bundle is windowed and its window is full, then ingest.  ``m``
-        is the host's active count (None reads it)."""
+        is the host's active count (None reads it); ``min_rows`` the
+        row-support floor."""
         from repro_torch.core import window as wnd
 
         window = self._stream_window(stream, window)
         if stream.ages is None:
             return stream._replace(kpca=self._ingest_point(
-                stream.kpca, x_new, m=m))
+                stream.kpca, x_new, m=m, min_rows=min_rows))
         w = self._window_point(wnd.WindowState(stream.kpca, stream.ages,
                                                stream.clock),
-                               x_new, window=window, m=m)
+                               x_new, window=window, m=m, min_rows=min_rows)
         return stream._replace(kpca=w.kpca, ages=w.ages, clock=w.clock)
 
     def step_block(self, stream: StreamState, xs: Tensor, *,
-                   window: int | None = None) -> StreamState:
+                   window: int | None = None,
+                   min_rows: int = 0) -> StreamState:
         """Fold a (T, d) block, a loop over ``step``: the active count is
         read once and then tracked on the host, so the loop reads nothing
         back from the card."""
         window = self._stream_window(stream, window)
         m = int(stream.kpca.m)
         for x_new in xs:
-            stream = self.step(stream, x_new, window=window, m=m)
+            stream = self.step(stream, x_new, window=window, m=m,
+                               min_rows=min_rows)
             if window is None or m < window:
                 m += 1
         return stream
 
     # ---- plain ingest -----------------------------------------------------
-    def _ingest_point(self, state, x_new: Tensor, *, m: int | None = None):
+    def _ingest_point(self, state, x_new: Tensor, *, m: int | None = None,
+                      min_rows: int = 0):
         """Fold one point into ``state`` at the smallest bucket holding
-        m + 1 active pairs.  Raises when the state is full, under either
-        dispatch."""
+        max(m + 1, min_rows) rows.  Raises when the state is full, under
+        either dispatch."""
         M = state.L.shape[0]
         if m is None:
             m = int(state.m)
-        Mb = bucket_for(m + 1, M, self.plan.min_bucket)
-        if self.plan.dispatch != "bucketed":
-            Mb = M
+        Mb = self._bucket(M, m + 1, min_rows)
         sub = slice_state(state, Mb) if Mb < M else state
         sub = _ingest(sub, x_new, self.spec, self.adjusted, self.plan)
         return scatter_state(state, sub) if Mb < M else sub
 
-    def update(self, state, x_new: Tensor, *, m: int | None = None):
+    def update(self, state, x_new: Tensor, *, m: int | None = None,
+               min_rows: int = 0):
         """Fold one point into a bare eigensystem state (``step`` on an
         append-only bundle)."""
-        return self.step(StreamState(kpca=state), x_new, m=m).kpca
+        return self.step(StreamState(kpca=state), x_new, m=m,
+                         min_rows=min_rows).kpca
 
-    def update_block(self, state, xs: Tensor):
+    def update_block(self, state, xs: Tensor, *, min_rows: int = 0):
         """Fold a (T, d) block into a bare eigensystem state."""
-        return self.step_block(StreamState(kpca=state), xs).kpca
+        return self.step_block(StreamState(kpca=state), xs,
+                               min_rows=min_rows).kpca
 
     # ---- decremental path ---------------------------------------------------
-    def downdate(self, state, i, *, m: int | None = None):
+    def downdate(self, state, i, *, m: int | None = None,
+                 min_rows: int = 0):
         """Remove point ``i`` (a physical row: an int, checked against the
         active range, or a 0-d device tensor) at the bucket holding the
         current m, the decremental mirror of ``update``; the next call
-        re-buckets downward.  Requires m ≥ 2."""
+        re-buckets downward.  Requires m ≥ 2.  A ``NystromState`` routes
+        to ``remove_landmark``."""
         from repro_torch.core import downdate as dd
 
+        if hasattr(state, "kpca"):
+            return self.remove_landmark(state, i, m=m, min_rows=min_rows)
         M = state.L.shape[0]
         if m is None:
             m = int(state.m)
@@ -389,24 +402,29 @@ class Engine:
         if not torch.is_tensor(i) and not 0 <= i < m:
             raise ValueError(f"point index {i} outside active range "
                              f"[0, {m})")
-        Mb = self._bucket(M, m)
+        Mb = self._bucket(M, m, min_rows)
         sub = slice_state(state, Mb) if Mb < M else state
         i = torch.as_tensor(i, dtype=torch.int32, device=state.L.device)
         sub = dd.downdate(sub, i, self.spec, adjusted=self.adjusted,
                           plan=self.plan)
         return scatter_state(state, sub) if Mb < M else sub
 
-    def replace(self, state, i, x_new: Tensor, *, m: int | None = None):
+    def replace(self, state, i, x_new: Tensor, *, m: int | None = None,
+                min_rows: int = 0):
         """Swap point ``i`` for ``x_new``: downdate, then update (works on
-        a full state: the downdate frees the slot)."""
+        a full state: the downdate frees the slot).  A ``NystromState``
+        routes to ``replace_landmark`` (grow_rows)."""
+        if hasattr(state, "kpca"):
+            return self.replace_landmark(state, None, i, x_new, m=m,
+                                         min_rows=min_rows)
         if m is None:
             m = int(state.m)
-        state = self.downdate(state, i, m=m)
-        return self.update(state, x_new, m=m - 1)
+        state = self.downdate(state, i, m=m, min_rows=min_rows)
+        return self.update(state, x_new, m=m - 1, min_rows=min_rows)
 
     # ---- sliding window -----------------------------------------------------
     def _window_point(self, wstate, x_new: Tensor, *, window: int,
-                      m: int | None = None):
+                      m: int | None = None, min_rows: int = 0):
         """Point-wise evict|ingest: append-only below a full window, else
         evict the oldest point (argmin of the ring, on the card) and
         ingest."""
@@ -416,9 +434,10 @@ class Engine:
             m = int(wstate.kpca.m)
         wstate = wnd.maybe_rebase(wstate)
         if m >= window:
-            wstate = wnd.evict(self, wstate, torch.argmin(wstate.ages), m=m)
+            wstate = wnd.evict(self, wstate, torch.argmin(wstate.ages), m=m,
+                               min_rows=min_rows)
             m -= 1
-        kpca = self._ingest_point(wstate.kpca, x_new, m=m)
+        kpca = self._ingest_point(wstate.kpca, x_new, m=m, min_rows=min_rows)
         ages = rankone.index_set(wstate.ages, wstate.kpca.m, wstate.clock)
         return wnd.WindowState(kpca=kpca, ages=ages, clock=wstate.clock + 1)
 
@@ -436,16 +455,20 @@ class Engine:
         return wnd.WindowState(kpca=s.kpca, ages=s.ages, clock=s.clock)
 
     # ---- Nyström landmarks ------------------------------------------------
-    def add_landmark(self, state, x_all, x_new: Tensor):
+    def add_landmark(self, state, x_all, x_new: Tensor, *,
+                     m: int | None = None, min_rows: int = 0):
         """Bucketed ``nystrom.add_landmark``: the eigensystem update and the
-        Knm column write both run at the bucket holding m + 1 landmarks.
-        Reads m on the host once."""
+        Knm column write both run at the bucket holding max(m + 1,
+        min_rows) rows.  ``min_rows`` is the row-support floor, as in
+        ``update``: pass the pre-truncation landmark count to a state
+        truncated without compaction.  ``m`` is the host's landmark count
+        (None reads it)."""
         from repro_torch.core import nystrom
 
         M = state.kpca.L.shape[0]
-        Mb = bucket_for(int(state.kpca.m) + 1, M, self.plan.min_bucket)
-        if self.plan.dispatch != "bucketed":
-            Mb = M
+        if m is None:
+            m = int(state.kpca.m)
+        Mb = self._bucket(M, m + 1, min_rows)
         if Mb == M:
             return nystrom.add_landmark(state, x_all, x_new, self.spec,
                                         plan=self.plan)
@@ -458,19 +481,240 @@ class Engine:
         return state._replace(kpca=scatter_state(state.kpca, sub.kpca),
                               Knm=Knm, Xrows=sub.Xrows)
 
+    @staticmethod
+    def _check_landmark(what: str, state, j, m: int | None) -> int:
+        """The host's landmark count (None reads it), checked to allow
+        removing landmark ``j`` (an int, or a 0-d device tensor)."""
+        if m is None:
+            m = int(state.kpca.m)
+        if m < 2:
+            raise ValueError(f"{what} needs at least 2 landmarks, got m={m}")
+        if not torch.is_tensor(j) and not 0 <= j < m:
+            raise ValueError(f"landmark index {j} outside active range "
+                             f"[0, {m})")
+        return m
+
+    def remove_landmark(self, state, j, *, m: int | None = None,
+                        min_rows: int = 0):
+        """Bucketed ``nystrom.remove_landmark``: the eigensystem downdate
+        and the Knm column shuffle both run at the bucket holding the
+        current landmark count (no growth: m rows, not m + 1)."""
+        from repro_torch.core import nystrom
+
+        M = state.kpca.L.shape[0]
+        m = self._check_landmark("remove_landmark", state, j, m)
+        Mb = self._bucket(M, m, min_rows)
+        j = torch.as_tensor(j, dtype=torch.int32, device=state.Knm.device)
+        if Mb == M:
+            return nystrom.remove_landmark(state, j, self.spec,
+                                           plan=self.plan)
+        sub = state._replace(kpca=slice_state(state.kpca, Mb),
+                             Knm=state.Knm[:, :Mb])
+        sub = nystrom.remove_landmark(sub, j, self.spec, plan=self.plan)
+        Knm = state.Knm.clone()
+        Knm[:, :Mb] = sub.Knm
+        return state._replace(kpca=scatter_state(state.kpca, sub.kpca),
+                              Knm=Knm)
+
+    def replace_landmark(self, state, x_all, j, x_new: Tensor, *,
+                         m: int | None = None, min_rows: int = 0,
+                         donate: bool = False):
+        """Swap landmark ``j`` for ``x_new``: remove, then add, at the
+        bucket holding the current m (the removal frees the slot the add
+        writes).
+
+        ``donate=True`` consumes the input state: its Knm, U, L, K1, X and
+        S are overwritten in place with the result, which is returned
+        on the same storage (only the bucket's block of Knm and U is
+        written).  Pass it only where nothing reads the pre-swap state
+        again: unlike a donated JAX buffer, a stale reference to it does
+        not raise, it silently reads the new values.  The default copies.
+        """
+        from repro_torch.core import nystrom
+
+        M = state.kpca.L.shape[0]
+        m = self._check_landmark("replace_landmark", state, j, m)
+        Mb = self._bucket(M, m, min_rows)
+        j = torch.as_tensor(j, dtype=torch.int32, device=state.Knm.device)
+        sub = state if Mb == M else state._replace(
+            kpca=slice_state(state.kpca, Mb), Knm=state.Knm[:, :Mb])
+        sub = nystrom.replace_landmark(sub, x_all, j, x_new, self.spec,
+                                       plan=self.plan)
+        if donate:
+            return _write_bucket_(state, sub, Mb)
+        if Mb == M:
+            return sub
+        Knm = state.Knm.clone()
+        Knm[:, :Mb] = sub.Knm
+        return state._replace(kpca=scatter_state(state.kpca, sub.kpca),
+                              Knm=Knm, Xrows=sub.Xrows)
+
     def offer_landmark(self, state, x: Tensor, *, x_all=None,
-                       budget: int | None = None):
+                       budget: int | None = None, admit_tol: float = 1e-3,
+                       reg: float = 1e-6, min_rows: int = 0,
+                       residual: float | None = None, m: int | None = None,
+                       info: dict | None = None):
         """Offer one candidate landmark under ``plan.landmark_policy``:
-        ``"append"``, the paper's §4 loop, admits every candidate until the
-        budget (default M − 1) fills, then rejects.  Returns ``(state,
-        action)`` with action "admitted" or "rejected"."""
+
+        * ``"append"``, the paper's §4 loop: admit every candidate until
+          the budget (default M − 1) fills, then reject;
+        * ``"leverage"``: residual-gated admission with lowest-leverage
+          replacement at the budget (``nystrom.consider_landmark``;
+          ``residual`` forwards a precomputed ``admission_residual``, and
+          ``info`` receives the victim of a replacement).
+
+        ``m`` is the host's landmark count (None reads it).  Returns
+        ``(state, action)`` with action "admitted", "replaced" or
+        "rejected"."""
+        from repro_torch.core import nystrom
+
         if self.plan.landmark_policy == "leverage":
-            raise NotImplementedError(
-                "landmark_policy='leverage' (residual-gated admission with "
-                "lowest-leverage replacement) is not ported yet: ROADMAP.md, "
-                "Open items §1 item 5")
+            return nystrom.consider_landmark(
+                self, state, x, x_all=x_all, budget=budget,
+                admit_tol=admit_tol, reg=reg, min_rows=min_rows,
+                residual=residual, m=m, info=info)
         M = state.kpca.L.shape[0]
         budget = budget if budget is not None else M - 1
-        if int(state.kpca.m) < budget:
-            return self.add_landmark(state, x_all, x), "admitted"
+        if m is None:
+            m = int(state.kpca.m)
+        if m < budget:
+            return self.add_landmark(state, x_all, x, m=m,
+                                     min_rows=min_rows), "admitted"
         return state, "rejected"
+
+    # ---- truncation / compaction ------------------------------------------
+    def truncate(self, state, k: int, *, compact: bool | None = None,
+                 capacity: int | None = None):
+        """Keep only the k dominant eigenpairs (the paper's conclusion:
+        "only maintain a subset").
+
+        The kept columns keep their support on the pre-truncation rows.
+        ``compact``:
+
+        * True: re-express the state on its leading rows at ``capacity``
+          (default: the bucket holding m + 1), freeing the old bucket;
+        * False: the old rows keep eigenvector mass, so bucketed dispatch
+          must keep slicing at the old active count: pass it as
+          ``min_rows`` to every later call (``KPCAStream`` carries it);
+        * None (default): ``plan.compact_shrink``, except that a bucketed
+          engine compacts at unchanged capacity, so a bare
+          ``truncate(state, k)`` streams on safely without a floor.
+
+        A ``NystromState`` goes through ``_truncate_nystrom``."""
+        if hasattr(state, "kpca"):
+            return self._truncate_nystrom(state, k, compact=compact,
+                                          capacity=capacity)
+        keep_capacity = False
+        if compact is None:
+            compact = self.plan.compact_shrink
+            if not compact and self.plan.dispatch == "bucketed":
+                compact, keep_capacity = True, True
+        M = state.L.shape[0]
+        mask = rankone.active_mask(M, state.m)
+        keep = torch.argsort(torch.where(mask, -state.L, torch.inf),
+                             stable=True)[:k]
+        L = torch.zeros_like(state.L)
+        L[:k] = state.L[keep]
+        U = torch.eye(M, dtype=state.U.dtype, device=state.U.device)
+        U[:, :k] = state.U[:, keep]
+        m = torch.clamp_max(state.m, k)
+        L = rankone.sentinelize(L, m, L.new_zeros(()))
+        out = state._replace(L=L, U=U, m=m)
+        if compact:
+            out = self.compact(out, capacity=M if keep_capacity else capacity)
+        return out
+
+    def _truncate_nystrom(self, state, k: int, *, compact: bool | None,
+                          capacity: int | None):
+        """Truncate a Nyström state's eigensystem without losing a
+        landmark.  Its rows are observed landmarks with live Knm columns,
+        and the reconstruction contracts over every row that carries
+        eigenvector mass, so compaction is clamped to the row support
+        r = m: the rank-k system is re-diagonalised on all r rows (the
+        top k spectrum plus r − k zeros), m stays r and the capacity
+        shrinks to the bucket holding r + 1.  Uncompacted, the caller
+        passes ``min_rows=r`` to every later call until it compacts.  An
+        explicit ``capacity`` of r or less raises."""
+        kpca = state.kpca
+        if compact is None:
+            compact = (self.plan.compact_shrink
+                       or self.plan.dispatch == "bucketed")
+        r = int(kpca.m)
+        trunc = self.truncate(kpca, k, compact=False)
+        if not compact:
+            return state._replace(kpca=trunc)
+        M = kpca.L.shape[0]
+        cap = (capacity if capacity is not None
+               else bucket_for(r + 1, max(M, r + 1), self.plan.min_bucket))
+        if cap <= r:
+            raise ValueError(
+                f"compaction capacity {cap} would drop observed landmark "
+                f"rows (row support {r}): Nyström compaction is clamped "
+                f"to the row-support floor")
+        dtype = kpca.L.dtype
+        mask = rankone.active_mask(M, trunc.m)
+        Lm = torch.where(mask, trunc.L, 0.0)
+        lam, vec = torch.linalg.eigh(((trunc.U * Lm[None, :])
+                                      @ trunc.U.T)[:r, :r])
+        # Rank <= k: the r - k numerically zero eigenvalues become exact
+        # zeros, which the pseudo-inverse deflates.
+        tol = r * torch.finfo(dtype).eps * lam.abs().max()
+        lam = torch.where(lam.abs() <= tol, 0.0, lam)
+        new = _reallocated(kpca, lam, vec, r, cap)
+        ncopy = min(cap, M)
+        Knm = state.Knm.new_zeros((state.Knm.shape[0], cap))
+        Knm[:, :ncopy] = state.Knm[:, :ncopy]
+        return state._replace(kpca=new, Knm=Knm)
+
+    def compact(self, state, capacity: int | None = None):
+        """Re-express the active eigensystem on its leading m rows and
+        re-allocate it at ``capacity`` (default: the smallest bucket
+        holding m + 1).  Every consumer reads only the leading m rows of
+        the active columns, so re-diagonalising the m×m block of the
+        reconstruction is exact for them; after ``truncate`` it also drops
+        the mass outside the support, which frees the old bucket."""
+        M = state.L.shape[0]
+        m = int(state.m)
+        cap = (capacity if capacity is not None
+               else bucket_for(m + 1, max(M, m + 1), self.plan.min_bucket))
+        if cap <= m:
+            raise ValueError(f"compaction capacity {cap} cannot hold "
+                             f"{m} active pairs plus one update")
+        lam, vec = torch.linalg.eigh(
+            rankone.reconstruct(state.L, state.U, state.m)[:m, :m])
+        return _reallocated(state, lam, vec, m, cap)
+
+
+def _reallocated(state, lam: Tensor, vec: Tensor, m: int, cap: int):
+    """``state`` at capacity ``cap`` with the eigenpairs (lam, vec) of its
+    leading m×m block; K1 and X keep their leading rows."""
+    dtype, dev = state.L.dtype, state.L.device
+    L = torch.zeros((cap,), dtype=dtype, device=dev)
+    L[:m] = lam.to(dtype)
+    U = torch.eye(cap, dtype=dtype, device=dev)
+    U[:m, :m] = vec.to(dtype)
+    mm = torch.tensor(m, dtype=state.m.dtype, device=state.m.device)
+    L = rankone.sentinelize(L, mm, L.new_zeros(()))
+    ncopy = min(cap, state.L.shape[0])
+    K1 = state.K1.new_zeros((cap,))
+    K1[:ncopy] = state.K1[:ncopy]
+    X = state.X.new_zeros((cap,) + tuple(state.X.shape[1:]))
+    X[:ncopy] = state.X[:ncopy]
+    return state._replace(L=L, U=U, m=mm, K1=K1, X=X)
+
+
+def _write_bucket_(state, sub, Mb: int):
+    """Write an updated bucket ``sub`` of a Nyström state into ``state``'s
+    own storage (the donating spelling): the Knm and U blocks, L (its
+    sentinels re-placed past a bucket, as ``scatter_state``), K1, X and
+    S; returns ``state`` with ``sub``'s m."""
+    kp, new = state.kpca, sub.kpca
+    state.Knm[:, :Mb].copy_(sub.Knm)
+    kp.U[:Mb, :Mb].copy_(new.U)
+    kp.L[:Mb].copy_(new.L)
+    if Mb < kp.L.shape[0]:
+        kp.L.copy_(rankone.sentinelize(kp.L, new.m, kp.L.new_zeros(())))
+    kp.K1[:Mb].copy_(new.K1)
+    kp.X[:Mb].copy_(new.X)
+    kp.S.copy_(new.S)
+    return state._replace(kpca=kp._replace(m=new.m))

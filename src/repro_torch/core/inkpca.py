@@ -275,7 +275,9 @@ class KPCAStream:
     points: past a full window each new point first evicts the oldest one
     (``core/downdate.py``).  ``self.state`` is then a
     ``window.WindowState`` (the eigensystem plus the FIFO arrival ring);
-    ``kpca_state`` is always the inner ``KPCAState``.
+    ``kpca_state`` is always the inner ``KPCAState``.  ``_min_rows`` is
+    the row-support floor a truncation without compaction leaves, passed
+    to every later engine call.
     """
 
     def __init__(self, x0, capacity: int, spec: kf.KernelSpec, *,
@@ -305,6 +307,7 @@ class KPCAStream:
         self.window = window
         x0 = torch.as_tensor(x0, device=self.device)
         self.m = int(x0.shape[0])
+        self._min_rows = 0
         if window is not None:
             if not 2 <= window <= capacity:
                 raise ValueError(f"window must be in [2, capacity], got "
@@ -346,7 +349,8 @@ class KPCAStream:
         x_new = torch.as_tensor(x_new, dtype=self.kpca_state.X.dtype,
                                 device=self.device)
         self._unbundle(self.engine.step(self._bundle(), x_new,
-                                        window=self.window, m=self.m))
+                                        window=self.window, m=self.m,
+                                        min_rows=self._min_rows))
         self.m = self._grown(1)
         return self.state
 
@@ -354,9 +358,11 @@ class KPCAStream:
         """Remove the point in physical row ``i`` from the stream."""
         if self.window is not None:
             from repro_torch.core import window as wnd
-            self.state = wnd.evict(self.engine, self.state, i, m=self.m)
+            self.state = wnd.evict(self.engine, self.state, i, m=self.m,
+                                   min_rows=self._min_rows)
         else:
-            self.state = self.engine.downdate(self.state, i, m=self.m)
+            self.state = self.engine.downdate(self.state, i, m=self.m,
+                                              min_rows=self._min_rows)
         self.m -= 1
         return self.state
 
@@ -366,22 +372,37 @@ class KPCAStream:
         xs = torch.as_tensor(xs, dtype=self.kpca_state.X.dtype,
                              device=self.device)
         self._unbundle(self.engine.step_block(self._bundle(), xs,
-                                              window=self.window))
+                                              window=self.window,
+                                              min_rows=self._min_rows))
         self.m = self._grown(xs.shape[0])
         return self.state
 
     partial_fit_block = update_block
 
-    def truncate(self, k: int, *, compact: bool | None = None):
-        """Keeping only the k dominant eigenpairs is not ported yet
-        (ROADMAP.md, Open items §1 item 5); on a windowed stream it is
-        refused outright, as in the reference: the window bounds the
-        state."""
+    def truncate(self, k: int, *, compact: bool | None = None,
+                 capacity: int | None = None) -> KPCAState:
+        """Keep only the k dominant eigenpairs (the paper's conclusion:
+        "only maintain a subset"); later updates track the dominant
+        subspace at O(k³) per update.
+
+        With ``compact`` (default ``plan.compact_shrink``) the state is
+        re-expressed on its leading rows at ``capacity`` (default: the
+        bucket holding m + 1); without it the old rows keep eigenvector
+        support, and the stream carries the old active count as the
+        row-support floor of every later call.  The floor lives on the
+        host: compact before saving a truncated state.  A windowed stream
+        refuses: the window bounds the state."""
         if self.window is not None:
             raise ValueError("truncate is not supported on a windowed "
                              "stream — the window itself bounds the state")
-        raise NotImplementedError("truncate is not ported yet: ROADMAP.md, "
-                                  "Open items §1 item 5")
+        if compact is None:
+            compact = self.plan.compact_shrink
+        support = max(self.m, self._min_rows)
+        self.state = self.engine.truncate(self.state, k, compact=compact,
+                                          capacity=capacity)
+        self.m = min(self.m, k)
+        self._min_rows = 0 if compact else support
+        return self.state
 
     def eigpairs(self) -> tuple[Tensor, Tensor]:
         """Active (descending) eigenvalues and eigenvectors."""
@@ -400,7 +421,7 @@ class KPCAStream:
         st = self.kpca_state
         x = torch.as_tensor(x, dtype=st.X.dtype, device=self.device)
         if self.plan.fuse_krow and self.plan.dispatch == "bucketed":
-            need = max(self.m, n_components, 1)
+            need = max(self.m, self._min_rows, n_components, 1)
             Mb = eng.bucket_for(need, st.L.shape[0], self.plan.min_bucket)
             if Mb < st.L.shape[0]:
                 st = eng.slice_state(st, Mb)

@@ -1,4 +1,4 @@
-"""Incremental Nyström approximation (paper §4), append-only.
+"""Incremental Nyström approximation (paper §4) and its landmark lifecycle.
 
 The landmark set grows one point at a time; the eigendecomposition of the
 (unadjusted) landmark gram K_{m,m} is maintained by Algorithm 1
@@ -21,14 +21,21 @@ Two row regimes, as in the reference:
   observed point; the observed points ride in ``NystromState.Xrows``.
 
 ``engine.Engine.add_landmark`` runs ``add_landmark`` at the active bucket.
-Landmark removal and replacement, leverage scores and the swap deltas are
-not ported yet (ROADMAP.md, Open items §1 item 5).
+A landmark can also be removed (the exact inverse of Algorithm 1,
+``core/downdate.py``) or replaced, and ``consider_landmark`` admits a
+candidate by its projection residual, swapping out the lowest-leverage
+landmark once the budget is full; ``TraceErrorTracker`` keeps the trace
+error current across the lifecycle in O(n·m) per event, and
+``SufficientSubsetRule`` stops the admissions on its plateau.
+``publish_features`` freezes the out-of-sample feature head into a
+``serving.ServingSnapshot``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import engine as eng
@@ -66,12 +73,14 @@ def init_nystrom(x_all: Tensor | None, x0: Tensor, capacity: int,
 
 
 def observe_rows(state: NystromState, xb: Tensor, spec: kf.KernelSpec, *,
-                 plan: eng.UpdatePlan | None = None) -> NystromState:
+                 plan: eng.UpdatePlan | None = None,
+                 m: int | None = None) -> NystromState:
     """Append a block of observed points as new Knm rows (grow_rows only).
 
     Under a bucketed ``plan.fuse_krow`` the gram is evaluated only against
     the active landmark bucket (columns beyond it are zero anyway), so a
-    call costs O(b·M_b·d), not O(b·M·d)."""
+    call costs O(b·M_b·d), not O(b·M·d); ``m`` is the host's landmark
+    count that picks the bucket (None reads it)."""
     if state.Xrows is None:
         raise ValueError("observe_rows needs a grow_rows=True state")
     dtype = state.Knm.dtype
@@ -79,7 +88,9 @@ def observe_rows(state: NystromState, xb: Tensor, spec: kf.KernelSpec, *,
     M = state.Knm.shape[1]
     if (plan is not None and plan.fuse_krow
             and plan.dispatch == "bucketed"):
-        Mb = eng.bucket_for(max(int(state.kpca.m), 1), M, plan.min_bucket)
+        if m is None:
+            m = int(state.kpca.m)
+        Mb = eng.bucket_for(max(m, 1), M, plan.min_bucket)
     else:
         Mb = M
     mask = rankone.active_mask(Mb, state.kpca.m)
@@ -108,6 +119,55 @@ def add_landmark(state: NystromState, x_all: Tensor | None, x_new: Tensor,
                                   dtype=state.Knm.dtype), spec=spec)
     Knm = state.Knm.index_copy(1, m.reshape(1).long(), col[:, None])
     return state._replace(kpca=kpca, Knm=Knm)
+
+
+def remove_landmark(state: NystromState, j: Tensor, spec: kf.KernelSpec, *,
+                    plan: eng.UpdatePlan = eng.DEFAULT_PLAN) -> NystromState:
+    """Shrink the landmark set by one point: the eigensystem of K_{m,m} is
+    downdated by the exact inverse of Algorithm 1, the Knm columns follow
+    the survivor-order permutation the downdate applies to the landmark
+    rows, and the evicted landmark's column is zeroed.  Observed rows are
+    untouched: an ex-landmark stays an observed point.  ``j`` is an int
+    or a 0-d device tensor; out of place."""
+    from repro_torch.core import downdate as dd
+
+    st = state.kpca
+    j = torch.as_tensor(j, dtype=torch.int32, device=st.L.device)
+    order = dd.boundary_perm(j, st.m, st.L.shape[0])
+    Knm = state.Knm[:, order].index_fill(1, (st.m - 1).reshape(1).long(),
+                                         0.0)
+    kpca = dd.downdate_unadjusted(dd.permute_to_boundary(st, j), spec,
+                                  plan=plan)
+    return state._replace(kpca=kpca, Knm=Knm)
+
+
+def replace_landmark(state: NystromState, x_all: Tensor | None, j,
+                     x_new: Tensor, spec: kf.KernelSpec, *,
+                     plan: eng.UpdatePlan = eng.DEFAULT_PLAN
+                     ) -> NystromState:
+    """Swap landmark ``j`` for ``x_new``: remove, then add.  O(m³) of
+    eigensystem work and one new Knm column, against the O(n·m·d) gram
+    and eigh of a rebuild.  ``engine.Engine.replace_landmark`` is the
+    bucketed spelling."""
+    state = remove_landmark(state, j, spec, plan=plan)
+    return add_landmark(state, x_all, x_new, spec, plan=plan)
+
+
+# ------------------------------------------------- landmark admission ----
+def leverage_scores(state: NystromState, reg: float = 1e-6) -> Tensor:
+    """Ridge leverage of each landmark under the maintained eigensystem:
+    l_j = Σ_k U[j,k]² λ_k/(λ_k + reg·tr/m), the regulariser scaled by the
+    mean active eigenvalue (floored at the state type's smallest normal)
+    so that ``reg`` is dimensionless.  Low-leverage landmarks are the
+    redundant ones, the victims of the "leverage" policy."""
+    st = state.kpca
+    mask = rankone.active_mask(st.L.shape[0], st.m)
+    lam = torch.where(mask, st.L, 0.0)
+    lam_bar = torch.sum(lam) / torch.clamp_min(st.m.to(st.L.dtype), 1.0)
+    lam_reg = torch.clamp_min(reg * lam_bar, torch.finfo(st.L.dtype).tiny)
+    w = torch.where(mask, lam / (lam + lam_reg), 0.0)
+    scores = torch.sum(st.U ** 2 * w[None, :], dim=1)
+    return torch.where(mask, scores, 0.0)
 
 
 def _pinv_lam(L: Tensor, mask: Tensor) -> Tensor:
@@ -172,6 +232,67 @@ def trace_error(state: NystromState, spec: kf.KernelSpec,
     return torch.sum(diag_k - diag_tilde)
 
 
+def _removal_terms(st, j: Tensor):
+    """(pinv, w, W_jj) of removing landmark ``j``: the active spectrum's
+    pseudo-inverse, w = W e_j with W = K_mm⁺ = U diag(λ⁺) Uᵀ, and
+    W_jj."""
+    mask = rankone.active_mask(st.L.shape[0], st.m)
+    pinv = _pinv_lam(st.L, mask)
+    uj = rankone.index_get(st.U, j)
+    return pinv, st.U @ (pinv * uj), torch.sum(uj * uj * pinv)
+
+
+def removal_trace_delta(state: NystromState, j) -> tuple[Tensor, Tensor]:
+    """Exact increase of ``trace_error`` from removing landmark ``j``,
+    O(n·m): deleting row and column j of the landmark gram turns W into
+    W − w wᵀ/W_jj, so the trace gap grows by Σ_i (K_nm w)_i² / W_jj.
+    Returns ``(inc, W_jj)``; W_jj ≤ 0 means the leave-one-out inverse does
+    not exist (resync instead)."""
+    st = state.kpca
+    j = torch.as_tensor(j, dtype=torch.int32, device=st.L.device)
+    _, w, Wjj = _removal_terms(st, j)
+    t = state.Knm @ w
+    return (torch.sum(t * t)
+            / torch.clamp_min(Wjj, torch.finfo(st.L.dtype).tiny), Wjj)
+
+
+def swap_trace_delta(state: NystromState, j, x: Tensor, spec: kf.KernelSpec,
+                     x_all: Tensor | None = None) -> tuple[Tensor, Tensor]:
+    """Exact net change of ``trace_error`` from replacing landmark ``j``
+    with ``x``, O(n·m) from the pre-swap state: the removal adds
+    Σ(K_nm w)²/W_jj, then the admission against the deflated inverse
+    A = W − w wᵀ/W_jj subtracts Σ r²/δ', with b̃ the candidate's kernel
+    row zeroed at the victim, δ' = k_xx − b̃ᵀAb̃ and r = K_nm A b̃ − c.
+    Returns ``(net, W_jj)``, net to be added to the tracked value; W_jj
+    ≤ 0 or a non-finite net means resync."""
+    st = state.kpca
+    x_rows = state.Xrows if state.Xrows is not None else x_all
+    if x_rows is None:
+        raise ValueError("swap_trace_delta needs the observed rows "
+                         "(grow_rows state or x_all)")
+    dtype = st.L.dtype
+    j = torch.as_tensor(j, dtype=torch.int32, device=st.L.device)
+    x = x.to(device=st.X.device, dtype=st.X.dtype)
+    pinv, w, Wjj_raw = _removal_terms(st, j)
+    Wjj = torch.clamp_min(Wjj_raw, torch.finfo(dtype).tiny)
+    t = state.Knm @ w
+    inc = torch.sum(t * t) / Wjj
+
+    b, k_xx = eng.masked_row(st, x, spec)
+    bt = rankone.index_set(b, j, 0.0)            # row vs the survivors
+    Wb = st.U @ (pinv * (st.U.T @ bt))
+    Ab = Wb - w * (torch.dot(w, bt) / Wjj)
+    delta_res = k_xx - torch.dot(bt, Ab)
+    c = kf.kernel_row(x, x_rows.to(device=st.L.device, dtype=dtype),
+                      spec=spec)
+    r = state.Knm @ Ab - c
+    tol = torch.finfo(dtype).eps * torch.clamp_min(k_xx, 1.0)
+    dec = torch.where(delta_res > tol,
+                      torch.sum(r * r) / torch.maximum(delta_res, tol),
+                      torch.zeros_like(delta_res))
+    return inc - dec, Wjj_raw
+
+
 def admission_trace_delta(state: NystromState, x: Tensor,
                           spec: kf.KernelSpec,
                           x_all: Tensor | None = None
@@ -202,14 +323,19 @@ def admission_trace_delta(state: NystromState, x: Tensor,
 
 
 class TraceErrorTracker:
-    """``trace_error`` kept current from O(n·m) increments across admissions
-    (the swap paths of the reference's tracker wait for landmark
-    replacement, ROADMAP.md Open items §1 item 5):
+    """``trace_error`` kept current from O(n·m) increments across the
+    landmark lifecycle:
 
     * ``observe(state, x)`` — a newly observed row adds its own residual;
     * ``admitted(state_before, x)`` — subtract ``admission_trace_delta``;
-    * every ``resync_every`` admissions the value re-anchors to the exact
-      recompute (``maybe_resync`` with the post-event state).
+    * ``replaced(state_after, state_before=, x=, j=)`` — add
+      ``swap_trace_delta`` of the pre-swap state; ``j`` defaults to the
+      lowest-leverage landmark (pass the victim the caller chose: in f32 a
+      near-tie can pick another one).  A degenerate victim (W_jj ≤ 0), a
+      non-finite delta, or only ``state_after`` resyncs exactly;
+    * every ``resync_every`` admissions or swaps the value re-anchors to
+      the exact recompute at the next event (``maybe_resync`` with the
+      post-event state).  ``resyncs`` counts the exact recomputes.
     """
 
     def __init__(self, state: NystromState, spec: kf.KernelSpec, *,
@@ -220,9 +346,11 @@ class TraceErrorTracker:
         self.value = float(trace_error(state, spec, x_all))
         self._admits = 0
         self._pending_resync = False
+        self.resyncs = 0
 
     def resync(self, state: NystromState) -> float:
         self.value = float(trace_error(state, self.spec, self.x_all))
+        self.resyncs += 1
         self._admits = 0
         self._pending_resync = False
         return self.value
@@ -238,11 +366,36 @@ class TraceErrorTracker:
         delta, _ = admission_trace_delta(state_before, x, self.spec,
                                          self.x_all)
         self.value = max(self.value - float(delta), 0.0)
+        self._count_increment()
+        return self.value
+
+    def replaced(self, state_after: NystromState, *,
+                 state_before: NystromState | None = None,
+                 x: Tensor | None = None, j: int | None = None) -> float:
+        import math
+
+        if state_before is None or x is None:
+            return self.resync(state_after)
+        if j is None:
+            m = int(state_before.kpca.m)
+            j = int(np.argmin(leverage_scores(state_before)[:m].cpu()
+                              .numpy()))
+        net, Wjj = swap_trace_delta(state_before, j, x, self.spec,
+                                    self.x_all)
+        net, Wjj = torch.stack((net, Wjj)).tolist()   # one host read
+        if not math.isfinite(net) or Wjj <= 0.0:
+            return self.resync(state_after)
+        self.value = max(self.value + net, 0.0)
+        self._count_increment()
+        return self.value
+
+    def _count_increment(self) -> None:
         self._admits += 1
         if self.resync_every and self._admits >= self.resync_every:
+            # The re-anchor needs the post-event state, and callers hand
+            # in the pre-event one: defer it to ``maybe_resync``.
             self._admits = 0
             self._pending_resync = True
-        return self.value
 
     def maybe_resync(self, state: NystromState) -> float:
         """Honor a pending periodic re-anchor (call with the CURRENT state
@@ -277,6 +430,50 @@ class SufficientSubsetRule:
             self._flat = self._flat + 1 if rel < self.rel_tol else 0
         self.history.append(err)
         return self.sufficient
+
+
+def consider_landmark(engine, state: NystromState, x: Tensor, *,
+                      x_all: Tensor | None = None,
+                      budget: int | None = None, admit_tol: float = 1e-3,
+                      reg: float = 1e-6, min_rows: int = 0,
+                      residual: float | None = None, m: int | None = None,
+                      info: dict | None = None
+                      ) -> tuple[NystromState, str]:
+    """Leverage-policy admission of one candidate landmark:
+
+    * residual δ(x) ≤ admit_tol · k(x,x): already spanned — "rejected";
+    * below ``budget`` landmarks: "admitted" (bucketed add);
+    * at the budget: the lowest-leverage landmark is swapped out if its
+      leverage is below the candidate's normalised residual — "replaced"
+      (``info["victim"]`` receives its index) — else "rejected".
+
+    ``engine`` is an ``engine.Engine`` (adjusted=False).  The host reads
+    δ(x) (unless ``residual`` forwards it), k(x, x) and, at the budget,
+    the leverage scores: three reads at most, as the reference; ``m`` is
+    the host's landmark count (None reads it)."""
+    M = state.kpca.L.shape[0]
+    if m is None:
+        m = int(state.kpca.m)
+    budget = budget if budget is not None else M - 1
+    dtype = state.kpca.L.dtype
+    x = x.to(device=state.kpca.X.device, dtype=state.kpca.X.dtype)
+    delta = (float(residual) if residual is not None
+             else float(admission_residual(state, x, engine.spec)))
+    k_xx = float(kf.kernel_diag(x[None].to(dtype), spec=engine.spec)[0])
+    gain = delta / max(k_xx, 1e-30)
+    if gain <= admit_tol:
+        return state, "rejected"
+    if m < budget:
+        return engine.add_landmark(state, x_all, x, m=m,
+                                   min_rows=min_rows), "admitted"
+    lev = leverage_scores(state, reg=reg)[:m].cpu().numpy()
+    victim = int(np.argmin(lev))
+    if float(lev[victim]) < gain:
+        if info is not None:
+            info["victim"] = victim
+        return engine.replace_landmark(state, x_all, victim, x, m=m,
+                                       min_rows=min_rows), "replaced"
+    return state, "rejected"
 
 
 def nystrom_eigpairs(state: NystromState, n: int) -> tuple[Tensor, Tensor]:
@@ -314,6 +511,32 @@ def query_features(state: NystromState, xq: Tensor, n: int,
         kq = kf.gram_block(xq, st.X, spec=spec)
         y = torch.where(mask[None, :], kq, 0.0) @ s_mat
     return torch.sqrt(mf / n) * torch.where(mask[None, :], y, 0.0)
+
+
+def publish_features(state: NystromState, n: int, *, generation: int = 0):
+    """Freeze the out-of-sample feature head (``query_features``) into a
+    ``serving.ServingSnapshot``: S = sqrt(m/n)·U·λ⁺ over all M columns,
+    computed once at publication, so serving-time Nyström features are
+    snapshot queries against the frozen landmark set."""
+    from repro_torch.core import serving
+
+    st = state.kpca
+    mask = rankone.active_mask(st.L.shape[0], st.m)
+    mf = st.m.to(st.L.dtype)
+    s_mat = (torch.sqrt(mf / n)
+             * (st.U * _pinv_lam(st.L, mask)[None, :])).to(st.X.dtype)
+    return serving.ServingSnapshot(
+        S=s_mat, X=st.X, m=st.m, affine=None,
+        generation=torch.tensor(generation, dtype=torch.int32))
+
+
+def snapshot_features(snap, xq: Tensor, spec: kf.KernelSpec, *,
+                      plan: eng.UpdatePlan | None = None) -> Tensor:
+    """Nyström eigenvector rows at query points from a published snapshot
+    ((nq, d) -> (nq, M); columns >= m are zero)."""
+    from repro_torch.core import serving
+
+    return serving.query(snap, xq, spec=spec, plan=plan)
 
 
 def recon_factors(state: NystromState) -> tuple[Tensor, Tensor]:

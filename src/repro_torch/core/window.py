@@ -68,13 +68,13 @@ def oldest_row(wstate: WindowState) -> int:
     return int(torch.argmin(wstate.ages))
 
 
-def evict(engine, wstate: WindowState, row, *, m: int | None = None
-          ) -> WindowState:
+def evict(engine, wstate: WindowState, row, *, m: int | None = None,
+          min_rows: int = 0) -> WindowState:
     """Remove the point in physical ``row`` (an int, or a 0-d device
     tensor) and carry the ages ring through the same survivor-order
     permutation the downdate applied.  ``m`` is the host's active count
-    (None reads it)."""
-    kpca = engine.downdate(wstate.kpca, row, m=m)
+    (None reads it); ``min_rows`` the row-support floor."""
+    kpca = engine.downdate(wstate.kpca, row, m=m, min_rows=min_rows)
     row = torch.as_tensor(row, dtype=torch.int32, device=wstate.ages.device)
     order = dd.boundary_perm(row, wstate.kpca.m, wstate.ages.shape[0])
     ages = index_set(wstate.ages[order], wstate.kpca.m - 1, age_sentinel())

@@ -42,7 +42,9 @@ these inputs need (the active m, not the capacity).
 ``krow_project`` (rows n/4 .. 3n/4 of the state), of ``eigvec_rotate2``
 on rows m .. n (wholly past the active rows: exact zeros), ``krow_project``
 without aux columns (Algorithm 1's prologue), and ``transform_project``
-at 20 components and at the roofline's 512 queries of 64 components;
+at 20 components, at the roofline's 512 queries of 64 components and at
+one component (the KRR predict head); ``features_case`` holds
+``transform_project`` at C = M (the Nyström feature head).
 ``Case.variant`` names each.
 
 Times are device times: ``device_ms`` reads the kernels' own start and end
@@ -56,6 +58,7 @@ launch latency included, as the main path pays them.
 """
 from __future__ import annotations
 
+import math
 import time
 from dataclasses import dataclass
 from typing import Callable
@@ -375,29 +378,51 @@ def _krow_case(U, X, K1, m, rng, spec, dtype, block=None,
         exact_zero=(masked, pruned[:, None].expand(n, ncol)))
 
 
+def transform_tol(xq: Tensor, X: Tensor, S: Tensor, m: int,
+                  spec: kf.KernelSpec, dtype) -> tuple[Tensor, Tensor]:
+    """Per-entry bounds on two evaluations of a snapshot query (Y, rowsum)
+    = (K(xq, X[:m]) S[:m], K(xq, X[:m]) 1): Y_ic within
+    2(m+2)eps·(|Kq||S|)_ic + (tol_Kq |S|)_ic, rowsum_i within
+    2(m+2)eps·(|Kq|1)_i + (tol_Kq 1)_i, tol_Kq the epilogue error of each
+    Kq entry (norm expansion times d2-Lipschitz)."""
+    dim = X.shape[1]
+    Xd, qd = X.double(), xq.double()
+    terms = ((qd * qd).sum(1)[:, None] + (Xd * Xd).sum(1)[None, :]
+             + 2 * (qd @ Xd.T).abs())[:, :m]
+    tol_k = _epilogue_tol(terms, spec, dim, dtype)
+    Kq = kf.gram_block(qd, Xd, spec=spec)[:, :m].abs()
+    Sa = S.double().abs()[:m]
+    return (_gamma(m, dtype) * (Kq @ Sa) + tol_k @ Sa,
+            _gamma(m, dtype) * Kq.sum(1) + tol_k.sum(1))
+
+
 def _transform_case(U, L, X, m, rng, spec, dtype, nq: int = N_QUERIES,
-                    comps: int = N_COMPONENTS) -> Case:
+                    comps: int = N_COMPONENTS, features: bool = False
+                    ) -> Case:
     """``nq`` queries projected on the top ``comps`` components (the
-    service's 64 and 8 unless the variant names others)."""
+    service's 64 and 8 unless the variant names others), or with
+    ``features`` on the Nyström feature head's S = sqrt(m/n)·U·λ⁺, all n
+    columns (zero past m)."""
     n, dim = X.shape
     mi = int(m)
     xq = torch.as_tensor(rng.normal(size=(nq, dim)), dtype=dtype,
                          device=U.device)
-    C = min(comps, max(mi, 1))
-    top = torch.argsort(torch.where(rankone.active_mask(n, m), -L,
-                                    torch.inf), stable=True)[:C]
-    S = (U[:, top] / torch.sqrt(torch.clamp_min(L[top], 1e-6))).contiguous()
-    Xd, qd = X.double(), xq.double()
-    terms = ((qd * qd).sum(1)[:, None] + (Xd * Xd).sum(1)[None, :]
-             + 2 * (qd @ Xd.T).abs())[:, :mi]
-    tol_k = _epilogue_tol(terms, spec, dim, dtype)
-    Kq = kf.gram_block(xq.double(), Xd, spec=spec)[:, :mi].abs()
-    Sa = S.double().abs()[:mi]
-    tol_y = _gamma(mi, dtype) * (Kq @ Sa) + tol_k @ Sa
-    tol_r = _gamma(mi, dtype) * Kq.sum(1) + tol_k.sum(1)
+    if features:
+        C = comps = n
+        mask = rankone.active_mask(n, m)
+        pinv = torch.where(mask, 1.0 / torch.where(mask, L, 1.0), 0.0)
+        S = (math.sqrt(mi / n) * U * pinv[None, :]).contiguous()
+    else:
+        C = min(comps, max(mi, 1))
+        top = torch.argsort(torch.where(rankone.active_mask(n, m), -L,
+                                        torch.inf), stable=True)[:C]
+        S = (U[:, top]
+             / torch.sqrt(torch.clamp_min(L[top], 1e-6))).contiguous()
+    tol_y, tol_r = transform_tol(xq, X, S, mi, spec, dtype)
     item = U.element_size()
     variant = ", ".join(([f"Q {nq}"] if nq != N_QUERIES else [])
-                        + ([f"C {comps}"] if comps != N_COMPONENTS else []))
+                        + ([f"C {comps}"] if comps != N_COMPONENTS else [])
+                        + (["features"] if features else []))
     return Case(
         name="transform_project",
         variant=variant,
@@ -437,7 +462,17 @@ def cases(n: int, m: int, dtype, device, seed: int = 0) -> list[Case]:
             _krow_case(U, X, K1, mt, rng, spec, dtype, aux_cols=0),
             _transform_case(U, L, X, mt, rng, spec, dtype, comps=20),
             _transform_case(U, L, X, mt, rng, spec, dtype, nq=512,
-                            comps=64)]
+                            comps=64),
+            _transform_case(U, L, X, mt, rng, spec, dtype, comps=1)]
+
+
+def features_case(n: int, m: int, dtype, device, seed: int = 0) -> Case:
+    """``transform_project`` as the Nyström feature head calls it: 64
+    queries against a capacity-``n`` snapshot with ``m`` landmarks,
+    C = n columns."""
+    U, L, mt, X, rng = _state(n, m, dtype, device, seed)
+    spec = kf.KernelSpec(name="rbf", sigma=float(DIM))
+    return _transform_case(U, L, X, mt, rng, spec, dtype, features=True)
 
 
 def scaled_gram_tol(B: Tensor, s: Tensor, dtype) -> Tensor:

@@ -23,9 +23,15 @@
   runs on an unbounded stream in bounded memory.
 * ``--mode nystrom``: the incremental Nyström landmark service (paper §4,
   grow_rows): each point becomes an observed row and is offered as a
-  landmark; ``--landmark-policy append`` admits every offer until the
-  budget fills (Algorithm 1 per admission).  It reports the final
-  ``trace_error`` and the admission counts.
+  landmark.  ``--landmark-policy append`` admits every offer until the
+  budget fills (Algorithm 1 per admission); ``leverage`` admits a point
+  whose projection residual is not yet spanned, swaps out the
+  lowest-leverage landmark once the budget is full, and stops offering
+  once the tracked trace error has improved by less than
+  ``--stop-rel-tol`` for ``--stop-patience`` admissions in a row (the
+  sufficient-subset rule).  It reports the final ``trace_error``, the
+  admitted / replaced / rejected counts, ``stopped_at`` and, while the
+  tracker ran, its drift from the recomputed trace error.
 
 The plan's defaults are the port's main path: the rotation kernel
 (``--matmul pallas``; ``pallas2`` fuses each ±sigma pair into one
@@ -40,6 +46,10 @@ rotation), the fused kernel-row prologue and query transform
         --device cpu --capacity 64 --window 24 --points 60 --dim 8
     PYTHONPATH=src python -m repro_torch.launch.serve --mode nystrom \\
         --device cpu --capacity 64 --points 80 --dim 8 --matmul pallas2
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode nystrom \\
+        --device cpu --landmark-policy leverage --stop-rel-tol 1e-2 \\
+        --stop-patience 3 --capacity 64 --landmark-budget 32 \\
+        --points 200 --dim 8
 
 Update and query latencies go into separate histograms; the first sample
 per bucket rung (per component count for queries) is reported apart as
@@ -161,6 +171,11 @@ def kpca_main(args) -> dict:
 def nystrom_service(args) -> tuple[dict, nystrom.NystromState]:
     """The landmark service loop (grow_rows, RBF with sigma = d,
     Algorithm 1 per admission); returns the result dict and the state.
+    The points are drawn from ``--seed`` in the order the reference's
+    ``nystrom_main`` draws them and moved to the device in one copy; the landmark count is tracked on
+    the host.  Under ``leverage`` one residual read per point feeds both
+    the tracker and the admission gate, and once the stopping rule holds
+    the tracker freezes and every later point is only observed.
     Counters are a plain dict."""
     device = resolve_device(args.device)
     dtype = DTYPES[args.dtype]
@@ -169,21 +184,49 @@ def nystrom_service(args) -> tuple[dict, nystrom.NystromState]:
     spec = kf.KernelSpec(name="rbf", sigma=float(d))
     engine = eng.Engine(spec, make_plan(args), adjusted=False)
     x0 = torch.as_tensor(rng.normal(size=(4, d)), dtype=dtype, device=device)
+    xs = torch.as_tensor(rng.normal(size=(args.points, d)), dtype=dtype,
+                         device=device)
     state = nystrom.init_nystrom(None, x0, args.capacity, spec, dtype=dtype,
                                  grow_rows=True)
     budget = args.landmark_budget or args.capacity - 1
-    counts = {"admitted": 0, "rejected": 0}
+    leverage = engine.plan.landmark_policy == "leverage"
+    rule = nystrom.SufficientSubsetRule(rel_tol=args.stop_rel_tol,
+                                        patience=args.stop_patience)
+    tracker = nystrom.TraceErrorTracker(state, spec) if leverage else None
+    counts = {"admitted": 0, "replaced": 0, "rejected": 0}
+    stopped_at = None
+    m = 4
     step = LatencyHistogram("step_ms")
     t_total = time.perf_counter()
-    for _ in range(args.points):
-        x = torch.as_tensor(rng.normal(size=(d,)), dtype=dtype, device=device)
-        m = int(state.kpca.m)
+    for i in range(args.points):
+        x = xs[i]
         rung = (eng.bucket_for(min(m + 1, args.capacity), args.capacity,
                                engine.plan.min_bucket)
                 if args.dispatch == "bucketed" else -1)
         with step.timed(key=rung) as t:
-            state = nystrom.observe_rows(state, x, spec, plan=engine.plan)
-            state, action = engine.offer_landmark(state, x, budget=budget)
+            res = None
+            if leverage and not rule.sufficient:
+                res = float(nystrom.admission_residual(state, x, spec))
+                tracker.observe(state, x, residual=res)
+            state = nystrom.observe_rows(state, x, spec, plan=engine.plan,
+                                         m=m)
+            if leverage and rule.sufficient:
+                action = "rejected"
+            else:
+                prev, info = state, {}
+                state, action = engine.offer_landmark(
+                    state, x, budget=budget, residual=res, m=m, info=info)
+                if action == "admitted":
+                    m += 1
+                if leverage and action != "rejected":
+                    if action == "admitted":
+                        tracker.admitted(prev, x)
+                    else:
+                        tracker.replaced(state, state_before=prev, x=x,
+                                         j=info["victim"])
+                    tracker.maybe_resync(state)
+                    if rule.observe(tracker.value):
+                        stopped_at = i
             t.sync(state.Knm)
         counts[action] += 1
     t_total = time.perf_counter() - t_total
@@ -193,7 +236,13 @@ def nystrom_service(args) -> tuple[dict, nystrom.NystromState]:
         "mode": "nystrom", "policy": args.landmark_policy,
         "capacity": args.capacity, "budget": budget, "points": args.points,
         "m_final": int(state.kpca.m), "rows": int(state.Knm.shape[0]),
-        "trace_error": err, "total_s": t_total,
+        "trace_error": err, "stopped_at": stopped_at,
+        # Only while the tracker ran: once the rule holds it freezes and
+        # later rows arrive untracked.
+        "tracker_drift": (abs(tracker.value - err)
+                          if tracker and not rule.sufficient else None),
+        "tracker_resyncs": tracker.resyncs if tracker else None,
+        "total_s": t_total,
         "finite": bool(torch.isfinite(state.kpca.L).all()
                        and np.isfinite(err)),
         **step.summary("step_ms"), **counts,
@@ -207,9 +256,10 @@ def nystrom_service(args) -> tuple[dict, nystrom.NystromState]:
 def nystrom_main(args) -> dict:
     result, _ = nystrom_service(args)
     print(f"[serve/nystrom] {args.landmark_policy}: {args.points} points, "
-          f"{result['admitted']} admitted / {result['rejected']} rejected "
-          f"-> m={result['m_final']} on {result['device']}, trace err "
-          f"{result['trace_error']:.4f}  {result}")
+          f"{result['admitted']} admitted / {result['replaced']} replaced / "
+          f"{result['rejected']} rejected -> m={result['m_final']} on "
+          f"{result['device']}, trace err {result['trace_error']:.4f}, "
+          f"stopped_at={result['stopped_at']}  {result}")
     return result
 
 
@@ -304,10 +354,19 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="metrics lane (not ported yet: raises)")
     ap.add_argument("--landmark-policy", choices=("append", "leverage"),
                     default="append",
-                    help="nystrom mode admission policy ('leverage' is not "
-                         "ported yet: raises)")
+                    help="nystrom mode admission policy: 'append' admits "
+                         "until the budget fills; 'leverage' gates on the "
+                         "projection residual and swaps out the "
+                         "lowest-leverage landmark at the budget")
     ap.add_argument("--landmark-budget", type=int, default=None,
                     help="nystrom mode: most landmarks (default capacity - 1)")
+    ap.add_argument("--stop-rel-tol", type=float, default=1e-2,
+                    help="sufficient-subset rule (leverage): relative "
+                         "improvement of the trace error below which an "
+                         "admission counts as flat")
+    ap.add_argument("--stop-patience", type=int, default=3,
+                    help="sufficient-subset rule (leverage): consecutive "
+                         "flat admissions before offers stop")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
     ap.add_argument("--dtype", choices=tuple(DTYPES), default="float32")

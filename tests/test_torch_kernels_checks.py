@@ -220,22 +220,33 @@ def _gram_thread_entries(dtype):
             (16 * (w // 4) + 8 * j + 2 * t + e).flatten())
 
 
-def _gram_writes(n, m, sym, dtype, b):
-    """(rows, cols) of G that block b of the launch writes, direct then
+def _gram_cells(m, sym, cell, blocks):
+    """(I, J) of every block of the launch, as tensors: the triangle's
+    cells in row-major order where sym (what ``cell_of`` walks), else
+    every cell."""
+    nc = -(-m // cell)
+    if not sym:
+        return torch.arange(blocks) // nc, torch.arange(blocks) % nc
+    I, J = torch.triu_indices(nc, nc)
+    return I, J
+
+
+def _gram_writes(n, m, sym, dtype, I, J):
+    """(rows, cols) of G that the blocks of cells (I, J) write, direct then
     mirrored, as the kernel's stores mask them: a diagonal cell keeps the
     entries on and above its diagonal and mirrors those above it (float32
     through the transposed tile, float64 pair by pair), any other cell
     writes every entry inside (n, m) and, where sym, its mirror."""
     cell = GRAM_CELLS[dtype]
-    i, j = _gram_cell_of(b, m, sym, cell)
     rl, cl = _gram_thread_entries(dtype)
-    r, c = i * cell + rl, j * cell + cl
+    r = I[:, None] * cell + rl[None, :]
+    c = J[:, None] * cell + cl[None, :]
     inside = (r < n) & (c < m)
-    diag = sym and i == j
-    direct = inside & (cl >= rl) if diag else inside
+    diag = (I == J)[:, None] if sym else torch.zeros_like(inside)
+    direct = inside & (~diag | (cl >= rl)[None, :])
     rows, cols = [r[direct]], [c[direct]]
     if sym:
-        mirror = inside & (cl > rl) if diag else inside
+        mirror = inside & (~diag | (cl > rl)[None, :])
         rows.append(c[mirror])
         cols.append(r[mirror])
     return torch.cat(rows), torch.cat(cols)
@@ -253,24 +264,26 @@ def test_rbf_gram_cells_write_each_entry_once(n, m, sym, dtype):
     where the square takes 1024 and 256), each entry written with its
     mirror, cover every entry of G exactly once, counting mirrors, and
     nothing outside (n, m); otherwise every cell, no mirror.  The threads'
-    entries cover a cell once."""
+    entries cover a cell once.  All blocks' writes are built as tensors in
+    one pass; the cells are those of the kernel's block-to-cell map."""
     cell = GRAM_CELLS[dtype]
     nc = -(-m // cell)
     blocks = nc * (nc + 1) // 2 if sym else -(-n // cell) * nc
     assert n != 1024 or blocks == {32: 528, 64: 136}[cell]
-    cells = [_gram_cell_of(b, m, sym, cell) for b in range(blocks)]
-    assert len(set(cells)) == blocks
-    assert not sym or all(j >= i for i, j in cells)
+    I, J = _gram_cells(m, sym, cell, blocks)
+    assert list(zip(I.tolist(), J.tolist())) == [
+        _gram_cell_of(b, m, sym, cell) for b in range(blocks)]
+    assert len(set(zip(I.tolist(), J.tolist()))) == blocks
+    assert not sym or bool((J >= I).all())
     rl, cl = _gram_thread_entries(dtype)
     cover = torch.zeros((cell, cell), dtype=torch.int32)
     cover.index_put_((rl, cl), torch.ones_like(rl, dtype=torch.int32),
                      accumulate=True)
     assert torch.all(cover == 1)
-    counts = torch.zeros((n + cell, m + cell), dtype=torch.int32)
-    for b in range(blocks):
-        r, c = _gram_writes(n, m, sym, dtype, b)
-        counts.index_put_((r, c), torch.ones_like(r, dtype=torch.int32),
-                          accumulate=True)
+    r, c = _gram_writes(n, m, sym, dtype, I, J)
+    width = m + cell
+    counts = torch.bincount(r * width + c, minlength=(n + cell) * width)
+    counts = counts.reshape(n + cell, width)
     assert torch.all(counts[:n, :m] == 1)
     assert int(counts.sum()) == n * m
 
@@ -333,10 +346,13 @@ def test_rotate2_block_past_m_is_zeros(monkeypatch, m):
 
 
 VARIANTS = [("krow_project", "naux 0"), ("transform_project", "C 20"),
-            ("transform_project", "Q 512, C 64")]
+            ("transform_project", "Q 512, C 64"), ("transform_project", "C 1"),
+            ("transform_project", f"C {N}, features")]
 
 
 def _variant(name, variant, m, dtype=torch.float32):
+    if variant.endswith("features"):
+        return checks.features_case(N, m, dtype, "cpu")
     return next(c for c in checks.cases(N, m, dtype, "cpu")
                 if (c.name, c.variant) == (name, variant))
 
@@ -345,10 +361,12 @@ def _variant(name, variant, m, dtype=torch.float32):
 @pytest.mark.parametrize("name,variant", VARIANTS)
 def test_variant_cases_pass_a_more_accurate_evaluation(monkeypatch, name,
                                                        variant, m):
-    """Algorithm 1's prologue (no aux columns) and the wide transforms (20
-    components; the roofline's 512 queries of 64): a float64 evaluation
-    passes each entry's bound, and the outputs have the variant's shape
-    (C capped at m, as the case draws its components)."""
+    """Algorithm 1's prologue (no aux columns) and the other transforms
+    (20 components; the roofline's 512 queries of 64; the KRR head's one
+    component; the Nyström feature head's N): a float64 evaluation passes
+    each entry's bound, and the outputs have the variant's shape (C capped
+    at m where the case draws the top components, all N columns for the
+    feature head)."""
     _f64_row_blocks(monkeypatch)
     case = _variant(name, variant, m)
     res = checks.compare(case)
@@ -357,15 +375,17 @@ def test_variant_cases_pass_a_more_accurate_evaluation(monkeypatch, name,
     if name == "krow_project":
         assert got[1].shape == (N, 1)
     else:
-        nq, C = (512, 64) if "Q" in variant else (64, 20)
-        assert got[0].shape == (nq, min(C, m)) and got[1].shape == (nq,)
+        nq = 512 if "Q" in variant else 64
+        C = int(variant.split("C ")[1].split(",")[0])
+        C = C if variant.endswith("features") else min(C, m)
+        assert got[0].shape == (nq, C) and got[1].shape == (nq,)
 
 
 @pytest.mark.parametrize("name,variant", VARIANTS)
 def test_variant_cases_refuse_a_wrong_column(name, variant):
     case = _variant(name, variant, 90)
     checks.compare(case)
-    col = 0 if name == "krow_project" else 13
+    col = 0 if name == "krow_project" or variant == "C 1" else 13
     with pytest.raises(AssertionError, match="exceeds its bound"):
         checks.compare(_with_column(case, 1 if name == "krow_project" else 0,
                                     col, lambda c: c * (1 + 1e-3)))

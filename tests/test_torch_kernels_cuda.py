@@ -42,6 +42,17 @@ def test_kernels_match_plain_versions(device, n, m, dtype):
         checks.compare(case)
 
 
+@pytest.mark.parametrize("n,m", [(100, 1), (131, 100), (256, 256),
+                                 (512, 500)])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_transform_feature_head_matches_plain_version(device, n, m, dtype):
+    """``transform_project`` as the Nyström feature head calls it: C = n
+    columns, zero past m, including a capacity that is no multiple of
+    the 64-wide tiles."""
+    checks.compare(checks.features_case(n, m, getattr(torch, dtype), device,
+                                        seed=n + m))
+
+
 @pytest.mark.parametrize("n,m", [(200, 1), (200, 65), (300, 129),
                                  (256, 256), (130, 130), (131, 100)])
 @pytest.mark.parametrize("dtype", ["float32", "float64"])

@@ -271,6 +271,9 @@ def test_tracker_and_stopping_rule_match_reference():
 
 
 def test_offer_landmark_append_matches_reference_and_leverage_raises():
+    """The append policy admits until the budget, as the reference; the
+    leverage policy (``consider_landmark``) takes the reference's actions
+    on the same offers and ends in the same state."""
     rng = np.random.default_rng(11)
     jspec, tspec = _specs(4.0)
     je = jeng.Engine(jspec, jeng.UpdatePlan(**PLAN), adjusted=False)
@@ -291,10 +294,20 @@ def test_offer_landmark_append_matches_reference_and_leverage_raises():
         actions.append(ta)
     assert actions.count("admitted") == 5 and actions[-1] == "rejected"
     _assert_states_match(js, ts)
-    lev = teng.Engine(tspec, teng.UpdatePlan(landmark_policy="leverage"),
-                      adjusted=False)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        lev.offer_landmark(ts, torch.tensor(x))
+    lplan = dict(PLAN, landmark_policy="leverage")
+    jl = jeng.Engine(jspec, jeng.UpdatePlan(**lplan), adjusted=False)
+    tl = teng.Engine(tspec, teng.UpdatePlan(**lplan), adjusted=False)
+    actions = []
+    for _ in range(12):
+        x = rng.normal(size=(3,))
+        js = jn.observe_rows(js, jnp.asarray(x), jspec)
+        ts = tn.observe_rows(ts, torch.tensor(x), tspec)
+        js, ja = jl.offer_landmark(js, jnp.asarray(x), budget=11)
+        ts, ta = tl.offer_landmark(ts, torch.tensor(x), budget=11)
+        assert ja == ta
+        actions.append(ta)
+    assert {"admitted", "rejected"} <= set(actions)
+    _assert_states_match(js, ts)
 
 
 def test_nystrom_state_carried_across_continues_as_the_reference():
@@ -395,3 +408,329 @@ def test_f32_trace_error_gap_is_the_references_too():
     lmax = float(lam.max())
     assert eig_port < 1e-5 * lmax
     assert eig_ref > 1e-3 * lmax
+
+
+# ---------------------------------------------------- landmark lifecycle --
+def _batch_tilde(K, keep):
+    return K[:, keep] @ np.linalg.solve(K[np.ix_(keep, keep)], K[:, keep].T)
+
+
+def _gram(X, spec):
+    return tkf.gram_block(torch.tensor(X), torch.tensor(X), spec=spec).numpy()
+
+
+def test_remove_landmark_matches_reference_and_batch():
+    """``tests/test_nystrom.py``'s removal at j = 0, 3 and 11 (first,
+    interior, boundary): K̃ equals batch Nyström on the survivors (atol
+    1e-9) and the reference's; the evicted column is zero, the
+    survivors' columns in order (atol 1e-12)."""
+    X, sigma, _ = _data(n=30)
+    js, ts, jspec, tspec = _fixed_pair(X, sigma, m1=12)
+    K = _gram(X, tspec)
+    for j in (0, 3, 11):
+        t2 = tn.remove_landmark(ts, j, tspec)
+        j2 = jn.remove_landmark(js, jnp.int32(j), jspec)
+        keep = [i for i in range(12) if i != j]
+        got = tn.reconstruct_tilde(t2).numpy()
+        _close(got, _batch_tilde(K, keep), 1e-9)
+        _close(got, np.asarray(jn.reconstruct_tilde(j2)), 1e-9)
+        assert int(t2.kpca.m) == 11
+        assert float(t2.Knm[:, 11:].abs().max()) == 0.0
+        _close(t2.Knm[:, :11].numpy(), K[:, keep], 1e-12)
+        _assert_states_match(j2, t2)
+
+
+def test_replace_landmark_matches_reference_and_batch():
+    """Replacement is removal then admission: batch Nyström on the swapped
+    set (atol 1e-8, the reference's), the reference's state, and a
+    landmark replaced by itself leaves K̃ unchanged (atol 1e-9)."""
+    X, sigma, _ = _data(n=30)
+    js, ts, jspec, tspec = _fixed_pair(X, sigma, m1=12)
+    K = _gram(X, tspec)
+    t2 = tn.replace_landmark(ts, torch.tensor(X), 2, torch.tensor(X[20]),
+                             tspec)
+    j2 = jn.replace_landmark(js, jnp.asarray(X), jnp.int32(2),
+                             jnp.asarray(X[20]), jspec)
+    keep = [i for i in range(12) if i != 2] + [20]
+    _close(tn.reconstruct_tilde(t2).numpy(), _batch_tilde(K, keep), 1e-8)
+    _assert_states_match(j2, t2)
+    t3 = tn.replace_landmark(ts, torch.tensor(X), 11, torch.tensor(X[11]),
+                             tspec)
+    _close(tn.reconstruct_tilde(t3).numpy(),
+           tn.reconstruct_tilde(ts).numpy(), 1e-9)
+
+
+@pytest.mark.parametrize("matmul", ["jnp", "pallas", "pallas2"])
+def test_engine_remove_and_replace_bucketed_match_fixed(matmul):
+    """Bucketed ``Engine.remove_landmark``/``replace_landmark`` equal the
+    module functions at capacity (atol 1e-10, the reference's) and the
+    reference's bucketed engine (atol 1e-9), on each rotation route."""
+    X, sigma, _ = _data(n=30)
+    jspec, tspec = _specs(sigma)
+    plan = dict(dispatch="bucketed", min_bucket=8, matmul=matmul)
+    je = jeng.Engine(jspec, jeng.UpdatePlan(**plan), adjusted=False)
+    te = teng.Engine(tspec, teng.UpdatePlan(**plan), adjusted=False)
+    tp = teng.UpdatePlan(matmul=matmul)
+    js = jn.init_nystrom(jnp.asarray(X), jnp.asarray(X[:5]), 24, jspec,
+                         dtype=jnp.float64)
+    ts = tn.init_nystrom(torch.tensor(X), torch.tensor(X[:5]), 24, tspec,
+                         dtype=torch.float64)
+    for i in range(5, 12):
+        js = je.add_landmark(js, jnp.asarray(X), jnp.asarray(X[i]))
+        ts = te.add_landmark(ts, torch.tensor(X), torch.tensor(X[i]))
+    a = te.remove_landmark(ts, 3)
+    _close(tn.reconstruct_tilde(a).numpy(),
+           tn.reconstruct_tilde(tn.remove_landmark(ts, 3, tspec,
+                                                   plan=tp)).numpy(), 1e-10)
+    _assert_states_match(je.remove_landmark(js, 3), a)
+    c = te.replace_landmark(ts, torch.tensor(X), 3, torch.tensor(X[25]))
+    d = tn.replace_landmark(ts, torch.tensor(X), 3, torch.tensor(X[25]),
+                            tspec, plan=tp)
+    _close(tn.reconstruct_tilde(c).numpy(),
+           tn.reconstruct_tilde(d).numpy(), 1e-10)
+    _assert_states_match(je.replace_landmark(js, jnp.asarray(X), 3,
+                                             jnp.asarray(X[25])), c)
+    assert te.downdate(ts, 3).Knm.shape == ts.Knm.shape
+    for j in (12, -1):
+        with pytest.raises(ValueError, match="outside active range"):
+            te.remove_landmark(ts, j)
+    one = ts._replace(kpca=ts.kpca._replace(
+        m=torch.tensor(1, dtype=torch.int32)))
+    with pytest.raises(ValueError, match="at least 2"):
+        te.replace_landmark(one, None, 0, torch.tensor(X[0]))
+
+
+def test_remove_landmark_grow_rows_keeps_observed_stream():
+    rng = np.random.default_rng(2)
+    X = rng.normal(size=(20, 3))
+    jspec, tspec = _specs(4.0)
+    js = jn.init_nystrom(None, jnp.asarray(X[:4]), 12, jspec,
+                         dtype=jnp.float64, grow_rows=True)
+    ts = tn.init_nystrom(None, torch.tensor(X[:4]), 12, tspec,
+                         dtype=torch.float64, grow_rows=True)
+    js = jn.observe_rows(js, jnp.asarray(X[4:]), jspec)
+    ts = tn.observe_rows(ts, torch.tensor(X[4:]), tspec)
+    for i in range(4, 9):
+        js = jn.add_landmark(js, None, jnp.asarray(X[i]), jspec)
+        ts = tn.add_landmark(ts, None, torch.tensor(X[i]), tspec)
+    t2 = tn.remove_landmark(ts, 1, tspec)
+    assert t2.Knm.shape == ts.Knm.shape and t2.Xrows.shape == ts.Xrows.shape
+    K = _gram(X, tspec)
+    _close(tn.reconstruct_tilde(t2).numpy(),
+           _batch_tilde(K, [0, 2, 3, 4, 5, 6, 7, 8]), 1e-9)
+    _assert_states_match(jn.remove_landmark(js, jnp.int32(1), jspec), t2)
+
+
+@pytest.mark.parametrize("dispatch", ["fixed", "bucketed"])
+def test_replace_landmark_donate_matches_copy(dispatch):
+    """``donate=True`` writes the result into the input state's own
+    storage (Knm and U keep their data pointers) and equals the copying
+    spelling bit for bit; the copying spelling leaves its input as it
+    was."""
+    X, sigma, _ = _data(n=30)
+    _, tspec = _specs(sigma)
+    te = teng.Engine(tspec, teng.UpdatePlan(dispatch=dispatch, min_bucket=8),
+                     adjusted=False)
+    ts = tn.init_nystrom(torch.tensor(X), torch.tensor(X[:5]), 24, tspec,
+                         dtype=torch.float64)
+    for i in range(5, 10):
+        ts = te.add_landmark(ts, torch.tensor(X), torch.tensor(X[i]))
+    before = [t.clone() for t in (ts.Knm, ts.kpca.U, ts.kpca.L)]
+    ref = te.replace_landmark(ts, torch.tensor(X), 2, torch.tensor(X[20]))
+    for a, b in zip(before, (ts.Knm, ts.kpca.U, ts.kpca.L)):
+        assert torch.equal(a, b)
+    spare = ts._replace(kpca=ts.kpca._replace(
+        **{k: v.clone() for k, v in ts.kpca._asdict().items()}),
+        Knm=ts.Knm.clone())
+    ptrs = (spare.Knm.data_ptr(), spare.kpca.U.data_ptr())
+    out = te.replace_landmark(spare, torch.tensor(X), 2, torch.tensor(X[20]),
+                              donate=True)
+    assert (out.Knm.data_ptr(), out.kpca.U.data_ptr()) == ptrs
+    for f in ("L", "U", "m", "S", "K1", "X"):
+        assert torch.equal(getattr(out.kpca, f), getattr(ref.kpca, f)), f
+    assert torch.equal(out.Knm, ref.Knm)
+
+
+# ---------------------------------------------------- leverage admission --
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_leverage_and_residual_scores_match_reference(dtype):
+    """Leverage in (0, 1] on the landmarks, zero past m, the reference's
+    within 1e-12 (f64) / 1e-6 (f32: the state's own type, whose smallest
+    normal floors the regulariser); a landmark is spanned (residual
+    < 1e-10), a held-out point is not (> 1e-4)."""
+    X, sigma, _ = _data(n=30)
+    js, ts, jspec, tspec = _fixed_pair(X, sigma, m1=12)
+    if dtype == "float32":
+        ts = ts._replace(kpca=ts.kpca._replace(**{
+            k: v.float() for k, v in ts.kpca._asdict().items()
+            if v.is_floating_point()}), Knm=ts.Knm.float())
+    for reg in (1e-2, 1e-6, 0.0):
+        lev = tn.leverage_scores(ts, reg=reg).double().numpy()
+        want = np.asarray(jn.leverage_scores(js, reg=reg))
+        _close(lev, want, 1e-12 if dtype == "float64" else 1e-6)
+        assert (lev[:12] > 0).all() and (lev[:12] <= 1.0 + 1e-6).all()
+        assert np.abs(lev[12:]).max() == 0.0
+    if dtype == "float64":
+        assert float(tn.admission_residual(ts, torch.tensor(X[3]),
+                                           tspec)) < 1e-10
+        assert float(tn.admission_residual(ts, torch.tensor(X[25]),
+                                           tspec)) > 1e-4
+
+
+def test_removal_and_swap_trace_deltas_match_reference_and_recompute():
+    """``removal_trace_delta`` and ``swap_trace_delta`` against the
+    reference (atol 1e-9; W_jj rtol 1e-8) and against the exact
+    before/after difference of ``trace_error`` (atol 1e-8)."""
+    X, js, ts, jspec, tspec = _grown_pair()
+    te = teng.Engine(tspec, adjusted=False)
+    m = int(ts.kpca.m)
+    before = float(tn.trace_error(ts, tspec))
+    x = torch.tensor(np.random.default_rng(8).normal(size=X.shape[1]))
+    for j in (0, m // 2, m - 1):
+        inc, wjj = tn.removal_trace_delta(ts, j)
+        jinc, jwjj = jn.removal_trace_delta(js, jnp.int32(j))
+        _close(inc, jinc, 1e-9)
+        # W_jj is a diagonal entry of K_mm⁺ (~1/λmin, 2e3 here): relative.
+        np.testing.assert_allclose(float(wjj), float(jwjj), rtol=1e-8)
+        after = float(tn.trace_error(te.remove_landmark(ts, j), tspec))
+        _close(float(inc), after - before, 1e-8)
+        net, wjj = tn.swap_trace_delta(ts, j, x, tspec)
+        jnet, _ = jn.swap_trace_delta(js, jnp.int32(j), jnp.asarray(x.numpy()),
+                                      jspec)
+        _close(net, jnet, 1e-9)
+        swapped = te.replace_landmark(ts, None, j, x)
+        _close(float(net), float(tn.trace_error(swapped, tspec)) - before,
+               1e-8)
+
+
+def test_tracker_follows_the_lifecycle_as_the_reference():
+    """A swap-heavy lifecycle (``tests/test_fused_ingest_transform.py``'s,
+    over 24 points: the leverage arm never fires on an i.i.d. stream, so
+    every third point from m = 6 on replaces the lowest-leverage landmark
+    through ``Engine.replace_landmark``; the others are offered under the
+    leverage policy), the tracker fed each event with the victim passed
+    through: the tracked value equals the reference's and the exact
+    recompute (atol 1e-8) after every event, and no swap resyncs."""
+    rng = np.random.default_rng(15)
+    d = 4
+    jspec, tspec = _specs(4.0)
+    plan = dict(dispatch="bucketed", min_bucket=8, landmark_policy="leverage")
+    je = jeng.Engine(jspec, jeng.UpdatePlan(**plan), adjusted=False)
+    te = teng.Engine(tspec, teng.UpdatePlan(**plan), adjusted=False)
+    x0 = rng.normal(size=(4, d))
+    js = jn.init_nystrom(None, jnp.asarray(x0), 16, jspec, grow_rows=True,
+                         dtype=jnp.float64)
+    ts = tn.init_nystrom(None, torch.tensor(x0), 16, tspec, grow_rows=True,
+                         dtype=torch.float64)
+    jt = jn.TraceErrorTracker(js, jspec, resync_every=10_000)
+    tt = tn.TraceErrorTracker(ts, tspec, resync_every=10_000)
+    actions = []
+    for i in range(24):
+        x = rng.normal(size=(d,))
+        res = float(tn.admission_residual(ts, torch.tensor(x), tspec))
+        jt.observe(js, jnp.asarray(x))
+        tt.observe(ts, torch.tensor(x), residual=res)
+        js = jn.observe_rows(js, jnp.asarray(x), jspec)
+        ts = tn.observe_rows(ts, torch.tensor(x), tspec)
+        jprev, tprev, info = js, ts, {}
+        m = int(ts.kpca.m)
+        if m >= 6 and i % 3 == 0:
+            j = int(np.argmin(tn.leverage_scores(ts)[:m].numpy()))
+            assert j == int(np.argmin(np.asarray(jn.leverage_scores(js)[:m])))
+            js = je.replace_landmark(js, None, j, jnp.asarray(x))
+            ts = te.replace_landmark(ts, None, j, torch.tensor(x))
+            action, info["victim"] = "replaced", j
+        else:
+            js, action = je.offer_landmark(js, jnp.asarray(x), budget=6)
+            ts, ta = te.offer_landmark(ts, torch.tensor(x), budget=6,
+                                       residual=res, info=info)
+            assert ta == action
+        actions.append(action)
+        if action == "admitted":
+            jt.admitted(jprev, jnp.asarray(x))
+            tt.admitted(tprev, torch.tensor(x))
+        elif action == "replaced":
+            jt.replaced(js, state_before=jprev, x=jnp.asarray(x),
+                        j=info["victim"])
+            tt.replaced(ts, state_before=tprev, x=torch.tensor(x),
+                        j=info["victim"])
+        np.testing.assert_allclose(tt.value, jt.value, atol=1e-8)
+        np.testing.assert_allclose(tt.value, float(tn.trace_error(ts, tspec)),
+                                   atol=1e-8)
+    assert actions.count("replaced") >= 5 and "admitted" in actions
+    assert tt.resyncs == 0
+    _assert_states_match(js, ts)
+    # The legacy spelling (the state after only) resyncs exactly.
+    tt.replaced(ts)
+    assert tt.resyncs == 1
+
+
+def test_tracker_periodic_resync_is_deferred_to_the_next_event():
+    rng = np.random.default_rng(53)
+    jspec, tspec = _specs(4.0)
+    te = teng.Engine(tspec, adjusted=False)
+    x0 = rng.normal(size=(4, 3))
+    ts = tn.init_nystrom(None, torch.tensor(x0), 16, tspec, grow_rows=True,
+                         dtype=torch.float64)
+    tt = tn.TraceErrorTracker(ts, tspec, resync_every=2)
+    pending = []
+    for _ in range(4):
+        x = torch.tensor(rng.normal(size=(3,)))
+        tt.observe(ts, x)
+        ts = tn.observe_rows(ts, x, tspec)
+        prev = ts
+        ts = te.add_landmark(ts, None, x)
+        tt.admitted(prev, x)
+        pending.append(tt._pending_resync)
+        tt.maybe_resync(ts)
+    assert pending == [False, True, False, True] and tt.resyncs == 2
+    np.testing.assert_allclose(tt.value, float(tn.trace_error(ts, tspec)),
+                               atol=1e-10)
+
+
+def test_consider_landmark_reads_and_victim():
+    """The leverage policy takes all three actions on the reference's
+    sequence, rejects a duplicate of a landmark without touching the
+    state, stays within the budget, and reports the victim it swapped
+    out (the argmin of the leverage it read)."""
+    X, sigma, _ = _data(n=40)
+    jspec, tspec = _specs(sigma)
+    plan = dict(dispatch="bucketed", min_bucket=8)
+    je = jeng.Engine(jspec, jeng.UpdatePlan(**plan), adjusted=False)
+    te = teng.Engine(tspec, teng.UpdatePlan(**plan), adjusted=False)
+    js = jn.init_nystrom(jnp.asarray(X), jnp.asarray(X[:5]), 24, jspec,
+                         dtype=jnp.float64)
+    ts = tn.init_nystrom(torch.tensor(X), torch.tensor(X[:5]), 24, tspec,
+                         dtype=torch.float64)
+    acts = []
+    for i in range(5, 40):
+        lev = tn.leverage_scores(ts)[:int(ts.kpca.m)].numpy()
+        info = {}
+        js, ja = jn.consider_landmark(je, js, jnp.asarray(X[i]),
+                                      x_all=jnp.asarray(X), budget=10)
+        ts, ta = tn.consider_landmark(te, ts, torch.tensor(X[i]),
+                                      x_all=torch.tensor(X), budget=10,
+                                      info=info)
+        assert ja == ta
+        acts.append(ta)
+        if ta == "replaced":
+            assert info["victim"] == int(np.argmin(lev))
+    assert {"admitted", "rejected"} <= set(acts) and int(ts.kpca.m) <= 10
+    _assert_states_match(js, ts)
+    t2, act = tn.consider_landmark(te, ts, torch.tensor(X[0]),
+                                   x_all=torch.tensor(X), budget=10)
+    assert act == "rejected" and t2 is ts
+    app = teng.Engine(tspec, teng.UpdatePlan(landmark_policy="append"),
+                      adjusted=False)
+    s0 = tn.init_nystrom(torch.tensor(X), torch.tensor(X[:5]), 24, tspec,
+                         dtype=torch.float64)
+    st, act = app.offer_landmark(s0, torch.tensor(X[0]),
+                                 x_all=torch.tensor(X))
+    assert act == "admitted" and int(st.kpca.m) == 6
+    lev_engine = teng.Engine(tspec, teng.UpdatePlan(
+        landmark_policy="leverage"), adjusted=False)
+    st, act = lev_engine.offer_landmark(s0, torch.tensor(X[0]),
+                                        x_all=torch.tensor(X))
+    assert act == "rejected" and int(st.kpca.m) == 5
+    with pytest.raises(ValueError):
+        teng.Engine(tspec, teng.UpdatePlan(landmark_policy="bogus"))

@@ -55,10 +55,104 @@ def test_serve_nystrom_runs_on_cpu():
 
 
 def test_serve_nystrom_leverage_policy_raises():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        serve.main(["--mode", "nystrom", "--device", "cpu", "--capacity",
-                    "16", "--points", "4", "--dim", "3",
-                    "--landmark-policy", "leverage"])
+    """The leverage policy with the stopping rule runs on the CPU and
+    reports its lifecycle: every point offered once, the counts summing to
+    the points, ``stopped_at`` and the tracker's drift and resyncs."""
+    res = serve.main(["--mode", "nystrom", "--device", "cpu",
+                      "--landmark-policy", "leverage", "--stop-rel-tol",
+                      "1e-2", "--stop-patience", "3", "--capacity", "64",
+                      "--landmark-budget", "32", "--points", "200", "--dim",
+                      "8"])
+    assert res["policy"] == "leverage" and res["finite"]
+    assert res["admitted"] + res["replaced"] + res["rejected"] == 200
+    assert res["m_final"] == 4 + res["admitted"] <= 32
+    assert res["stopped_at"] is not None and res["tracker_drift"] is None
+    assert res["tracker_resyncs"] == 0
+
+
+def _record_offers(monkeypatch, engine_cls):
+    """The actions of every ``offer_landmark`` call on ``engine_cls``."""
+    log = []
+    orig = engine_cls.offer_landmark
+
+    def offer(self, *args, **kw):
+        state, action = orig(self, *args, **kw)
+        log.append(action)
+        return state, action
+
+    monkeypatch.setattr(engine_cls, "offer_landmark", offer)
+    return log
+
+
+LEVERAGE = ["--mode", "nystrom", "--landmark-policy", "leverage", "--matmul",
+            "pallas", "--fuse-krow", "--capacity", "16", "--landmark-budget",
+            "12", "--points", "16", "--dim", "8"]
+
+
+def test_leverage_service_takes_the_references_actions(monkeypatch):
+    """The leverage service against the reference's ``nystrom_main`` on
+    the same seed (both f32; the rule at rel_tol 0, see the next test):
+    the same action at every offer, the same counts and stop, and a final
+    trace error within 1e-4 of the exact recomputation (f64, from the
+    dense grams of the port's landmarks and rows), the reference's within
+    1e-2 of it (its f32 eigensystem drifts, ROADMAP.md §3)."""
+    import torch
+
+    from repro.core import engine as jeng
+    from repro.launch import serve as jserve
+    from repro_torch.core import engine as teng
+    from repro_torch.core import kernels_fn as kf
+
+    argv = LEVERAGE + ["--stop-rel-tol", "0"]
+    tlog = _record_offers(monkeypatch, teng.Engine)
+    jlog = _record_offers(monkeypatch, jeng.Engine)
+    res, state = serve.nystrom_service(serve.parse_args(
+        argv + ["--device", "cpu"]))
+    want = jserve.main(argv)
+    assert tlog == jlog and len(tlog) == 16
+    for k in ("admitted", "replaced", "rejected", "m_final", "rows",
+              "stopped_at"):
+        assert res[k] == want[k], k
+    spec = kf.KernelSpec(sigma=8.0)
+    m = res["m_final"]
+    R, L = state.Xrows.double(), state.kpca.X[:m].double()
+    lam, V = torch.linalg.eigh(kf.gram_block(L, L, spec=spec))
+    B = kf.gram_block(R, L, spec=spec) @ V
+    exact = float((kf.kernel_diag(R, spec=spec) - (B ** 2 / lam).sum(1)).sum())
+    assert abs(res["trace_error"] - exact) <= 1e-4 * exact
+    assert abs(want["trace_error"] - exact) <= 1e-2 * exact
+
+
+def test_stop_rule_reads_rounding_noise_while_every_row_is_admitted(
+        monkeypatch):
+    """Witness (ROADMAP.md §3): while every offered row has been admitted
+    the tracked trace error over the rows is zero up to rounding, so the
+    sufficient-subset rule's relative improvements are rounding noise.  At
+    the service's defaults (rel_tol 1e-2, patience 3) both packages stop
+    on values below 1e-5 before any rejection, at different points (the
+    port at its 4th admission, the reference where its f32 noise
+    allows)."""
+    from repro.core import nystrom as jn
+    from repro.launch import serve as jserve
+    from repro_torch.core import nystrom as tn
+
+    seen = {}
+    for pkg in (tn, jn):
+        orig = pkg.SufficientSubsetRule.observe
+        seen[pkg] = []
+
+        def observe(self, err, _orig=orig, _log=seen[pkg]):
+            _log.append(float(err))
+            return _orig(self, err)
+
+        monkeypatch.setattr(pkg.SufficientSubsetRule, "observe", observe)
+    argv = LEVERAGE + ["--stop-rel-tol", "1e-2", "--stop-patience", "3"]
+    res = serve.main(argv + ["--device", "cpu"])
+    want = jserve.main(argv)
+    for r, errs in ((res, seen[tn]), (want, seen[jn])):
+        assert r["stopped_at"] == r["admitted"] - 1 and r["replaced"] == 0
+        assert max(errs) < 1e-5
+    assert res["admitted"] == 4
 
 
 def test_serve_kpca_window_runs_on_cpu():

@@ -200,8 +200,8 @@ def test_window_validation():
     stream = tink.KPCAStream(x0, 16, TSPEC, window=8, device="cpu")
     with pytest.raises(ValueError, match="windowed"):
         stream.truncate(4)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tink.KPCAStream(x0, 16, TSPEC, device="cpu").truncate(4)
+    plain = tink.KPCAStream(x0, 16, TSPEC, device="cpu")
+    assert int(plain.truncate(2).m) == 2 == plain.m
     with pytest.raises(ValueError, match="window size"):
         teng.Engine(TSPEC).step(teng.make_stream(stream.state),
                                 torch.zeros(3))
