@@ -110,13 +110,41 @@ Phases, each printing one JSON line per row:
    against 4 queries bit for bit, and the Nyström feature head at
    C = M = 512 (the f32 Nyström phase's state) against
    ``query_features``.
-11. ``roofline`` — ``repro_torch.launch.roofline`` at the reference
+11. ``reproducible`` — two runs of one f32 ``pallas`` stream (capacity
+   1024, 48 points) from one state, bit for bit equal with torch's
+   deterministic mode off (the cluster merge's segment sums add in a
+   fixed order), and a guarded run with and without the metric lane
+   (every 12th point non-finite).
+12. ``health`` — ``serve --mode kpca --health --metrics`` (f32 ``pallas``,
+   capacity 1024, 4 + 600 points) with a NaN or inf point every 97th,
+   U tilted off orthogonality (into the polish band) before point 150
+   and an eigenvalue negated before point 350: each rejected point
+   leaves the state bit for bit, the quarantine count is the injected
+   count, each corruption is flagged within ⌈m/B⌉ probes, the heals (at
+   the transform interval) polish the tilt and resync the negated
+   eigenvalue, the readings each heal saw lie on the rule's side of the
+   policy's thresholds (a check of the port against its policy: the
+   rule itself is held against the JAX package on the CPU), the
+   final state holds the f32 eigh bars, the metric counters equal a host
+   tally, the launches are the unguarded route's for every offered point
+   (a rejected point runs its update on a stand-in), and the synchronizing
+   calls per guarded update, per rejected point and per heal are counted.
+   ``restore``: a poisoned stored row makes the heal raise
+   ``HealthError``; the last checkpoint (``checkpoint.npz_store``, in a
+   temporary directory) loads, the replayed tail equals the uninterrupted
+   run bit for bit.  ``health_window``: ``--window 200 --health`` in f64
+   on the fused pair (capacity 256, 264 points, every 29th poisoned):
+   rejected points leave the ring and the clock untouched, the window
+   holds the last W accepted points.  ``health_nystrom``: ``--mode
+   nystrom --health`` (f32, capacity 256, 500 points, every 50th
+   poisoned): the rows are dropped, the trace error holds its bar.
+13. ``roofline`` — ``repro_torch.launch.roofline`` at the reference
    driver's shapes: a STREAM triad on the card, one row per kernel with
    its rate against it, and the fused-against-unfused ingest and query
    (16 components).  It is ``rbf_gram``'s path: the kernels' launches
    are counted around it and held to ``roofline.launch_reckoning`` (one
    a call; C = 64 is one ``transform_project`` launch).
-12. ``lm``      — the LM zoo's serving path at the full width of
+14. ``lm``      — the LM zoo's serving path at the full width of
    Jamba-1.5-Large, one period (8 layers: 7 mamba + 1 attention), without
    experts (every layer its dense FFN: 8.9 B parameters, 16.6 GiB bf16),
    parameters drawn on the card from seed 0.  ``make_prefill_step`` at
@@ -128,13 +156,13 @@ Phases, each printing one JSON line per row:
    launch), logits finite and within ``LM_BAR``; then ``lm_main`` as
    ``serve --mode lm`` runs it (batch 4, prompt 16, gen 32): decode
    tokens/s, tokens in the vocabulary, finite logits, no kernel launch.
-13. ``timing`` — at the kernel phase's shapes, each kernel's device time
+15. ``timing`` — at the kernel phase's shapes, each kernel's device time
    (profiler records; where the profiler records nothing, CUDA events
    around calls queued behind a spin kernel) beside the plain version's,
    one library call's and its bound, and each call's event-timed time,
    host work included.  It runs after the services so that the profiler
    is never attached to one.
-14. ``lm_profile`` — one prefill of the ``lm`` phase under the profiler:
+16. ``lm_profile`` — one prefill of the ``lm`` phase under the profiler:
    device time by kernel group (the two LM kernels, cuBLAS's matmuls, the
    rest) and the idle share.  It runs last: on one H100 host the
    profiler recorded no device activity after a prefill had been profiled.
@@ -647,24 +675,35 @@ def window_phase(torch, cuda, serve, capacity: int, window: int,
     return row
 
 
-def _offer_syncs(torch, engine_cls, log: dict):
-    """Wrap ``engine_cls.offer_landmark`` so that each call's synchronizing
-    CUDA operations (reads to the host, blocking copies) are counted under
-    its action, by torch's sync debug mode; returns the undo."""
+def _count_syncs(torch, fn, out: list):
+    """``fn`` wrapped so that each call's synchronizing CUDA operations
+    (torch's sync debug mode) are appended to ``out``."""
     import warnings
 
-    orig = engine_cls.offer_landmark
-
-    def offer(self, *args, **kw):
+    def counted(*args, **kw):
         with warnings.catch_warnings(record=True) as seen:
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
             try:
-                state, action = orig(self, *args, **kw)
+                res = fn(*args, **kw)
             finally:
                 torch.cuda.set_sync_debug_mode("default")
-        log.setdefault(action, []).append(sum(
-            "synchroniz" in str(w.message) for w in seen))
+        out.append(sum("synchroniz" in str(w.message) for w in seen))
+        return res
+
+    return counted
+
+
+def _offer_syncs(torch, engine_cls, log: dict):
+    """Wrap ``engine_cls.offer_landmark`` so that each call's synchronizing
+    CUDA operations (reads to the host, blocking copies) are counted under
+    its action, by torch's sync debug mode; returns the undo."""
+    orig = engine_cls.offer_landmark
+    counts: list = []
+
+    def offer(self, *args, **kw):
+        state, action = _count_syncs(torch, orig, counts)(self, *args, **kw)
+        log.setdefault(action, []).append(counts.pop())
         return state, action
 
     engine_cls.offer_landmark = offer
@@ -1088,6 +1127,448 @@ def snapshots_phase(torch, cuda, nystrom_state, capacity: int = 1024,
     return row
 
 
+# ------------------------------------------------ self-healing stream --
+def _leaves(torch, tree) -> list:
+    return torch.utils._pytree.tree_leaves(tree)
+
+
+def _bitwise(torch, a, b) -> bool:
+    la, lb = _leaves(torch, a), _leaves(torch, b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def _raised(fn):
+    """What ``fn()`` raises (None when it returns), read from a future, so
+    the script holds no handler of its own."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        return pool.submit(fn).exception()
+
+
+def _heal_readings(torch, hl, state) -> dict:
+    """What the heal ladder's rule reads of ``state``: the exact
+    orthogonality residual and the active spectrum's negative mass
+    relative to its largest magnitude."""
+    m = int(state.m)
+    Lact = state.L[:m]
+    lmax = max(float(Lact.abs().max()), 1e-30)
+    return {"orth_residual": hl.exact_orth_residual(state),
+            "neg_frac": max(0.0, float(-Lact.min())) / lmax}
+
+
+def health_phase(torch, cuda, serve, points: int = 600, every: int = 97,
+                 tilt_at: int = 150, negate_at: int = 350) -> dict:
+    """``serve --mode kpca --health --metrics`` (f32 ``pallas``, capacity
+    1024) with a non-finite point every ``every``-th point, U tilted off
+    orthogonality before point ``tilt_at`` and an eigenvalue negated
+    before point ``negate_at`` (all through ``kpca_service``'s
+    ``on_point`` seam): each rejected point leaves the state bit for bit,
+    the quarantine count is the injected count, each corruption is
+    flagged within ⌈m/B⌉ probes, the healed stream ends on eigh within
+    the f32 bars, the metric counters equal a host tally, and the
+    launches are the unguarded route's (a rejected point runs its update
+    on the stand-in).  The rungs are those the injections call for: the
+    tilt, with the spectrum intact and a residual inside the polish band
+    (``orth_tol`` < r ≤ ``polish_max``), is polished; the negated
+    eigenvalue (negative mass above ``neg_tol``) is resynced.  The row
+    prints the readings each heal saw; that the rule picks the
+    reference's rung from such readings is held on the CPU against the
+    JAX package (``tests/test_torch_health.py``)."""
+    import numpy as np
+
+    from repro_torch.core import health as hl
+    from repro_torch.testing import faults
+
+    args = serve.parse_args([
+        "--mode", "kpca", "--device", "cuda", "--dtype", "float32",
+        "--capacity", "1024", "--points", str(points), "--dim", "16",
+        "--batch", "64", "--transform-every", "16", "--matmul", "pallas",
+        "--health", "--metrics"])
+    policy = hl.DEFAULT_POLICY
+    syncs = {"accepted": [], "rejected": []}
+    log = {"rejected_bitwise": [], "probes_to_flag": [], "flag_bound": [],
+           "rungs": [], "readings": [], "heal_syncs": []}
+    watch: dict = {}
+    held = {"snap": None, "rejected": False}
+
+    def on_point(i, stream, x):
+        if i == 0:
+            update, heal = stream.update, stream.heal
+
+            def update_counted(x_new):
+                kind = "rejected" if held["rejected"] else "accepted"
+                return _count_syncs(torch, update, syncs[kind])(x_new)
+
+            def heal_checked(level="auto"):
+                log["readings"].append(_heal_readings(
+                    torch, hl, stream.kpca_state))
+                before = stream.metrics_report()
+                out = _count_syncs(torch, heal, log["heal_syncs"])(
+                    level=level)
+                after = stream.metrics_report()
+                log["rungs"].append(
+                    "polish" if after["heals_polish"] > before["heals_polish"]
+                    else "resync" if after["heals_resync"]
+                    > before["heals_resync"] else "noop")
+                return out
+
+            stream.update, stream.heal = update_counted, heal_checked
+        if held["snap"] is not None:
+            log["rejected_bitwise"].append(
+                _bitwise(torch, held["snap"], stream.state))
+            held["snap"] = None
+        for name, (p0, bound) in list(watch.items()):
+            if not hl.is_healthy(stream.health, policy):
+                log["probes_to_flag"].append(int(stream.health.probes) - p0)
+                log["flag_bound"].append(bound)
+                del watch[name]
+        if i in (tilt_at, negate_at):
+            st = stream.kpca_state
+            m = stream.m
+            if i == tilt_at:
+                # Inside the polish band: residual ~ mag·sqrt(2m) ≈ 4e-3.
+                stream.state = faults.corrupt_eigvecs(
+                    st, magnitude=4e-3 / (2 * m) ** 0.5, seed=1)
+            else:
+                stream.state = faults.corrupt_eigenvalue(
+                    st, 0, value=-float(st.L[:m].abs().max()))
+            watch[i] = (int(stream.health.probes),
+                        -(-m // policy.probe_cols))
+        x = faults.nonfinite_every(every, i, x)
+        held["rejected"] = not np.isfinite(x).all()
+        if held["rejected"]:
+            held["snap"] = [t.clone() for t in _leaves(torch, stream.state)]
+        return x
+
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    result, stream = serve.kpca_service(args, on_point=on_point)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(cuda.LAUNCHES)
+    injected = points // every
+    expect = {name: 0 for name in launches}
+    expect.update(eigvec_rotate=4 * points, krow_project=points,
+                  eigvec_project=points,
+                  transform_project=points // args.transform_every)
+    mets = result["metrics"]
+    tally = {"ingests": points - injected, "rejections": injected,
+             "evictions": 0, "downdates": 0,
+             "heals_polish": log["rungs"].count("polish"),
+             "heals_resync": log["rungs"].count("resync"),
+             "m": float(4 + points - injected)}
+    row = {"phase": "health", "dtype": "float32", "matmul": "pallas",
+           "capacity": 1024, "points": points, "fault_every": every,
+           "injected": injected, "quarantined": result["quarantined"],
+           "rejected_bitwise": log["rejected_bitwise"],
+           "probes_to_flag": log["probes_to_flag"],
+           "flag_bound_probes": log["flag_bound"],
+           "heals": result["heals"], "rungs": log["rungs"],
+           "heal_readings": log["readings"],
+           "metrics": {k: mets[k] for k in tally},
+           "syncs_per_guarded_update": sum(syncs["accepted"])
+           / max(1, len(syncs["accepted"])),
+           "syncs_per_rejected_point": sum(syncs["rejected"])
+           / max(1, len(syncs["rejected"])),
+           "syncs_per_heal": log["heal_syncs"],
+           "update_ms_p50": result["update_ms_p50"],
+           "update_ms_p99": result["update_ms_p99"],
+           "m_final": result["m_final"], "seconds": seconds,
+           "launches": launches,
+           **oracle_check(torch, stream.kpca_state, stream.spec, True,
+                          "float32")}
+    emit(row)
+    ok = (result["quarantined"] == injected
+          and log["rejected_bitwise"] == [True] * injected
+          and len(log["probes_to_flag"]) == 2
+          and all(p <= b for p, b in zip(log["probes_to_flag"],
+                                         log["flag_bound"]))
+          and log["rungs"] == ["polish", "resync"]
+          and result["heals"] == 2 and len(log["readings"]) == 2
+          and log["readings"][0]["neg_frac"] <= policy.neg_tol
+          and (policy.orth_tol < log["readings"][0]["orth_residual"]
+               <= policy.polish_max)
+          and log["readings"][1]["neg_frac"] > policy.neg_tol
+          and all(mets[k] == v for k, v in tally.items())
+          and result["m_final"] == 4 + points - injected
+          and launches == expect and result["finite"])
+    if not ok:
+        raise AssertionError(f"health: {row} (launches expected {expect}, "
+                             f"tally {tally})")
+    return row
+
+
+def restore_phase(torch, cuda, capacity: int = 256, points: int = 100,
+                  saved_at: int = 60, strike: int = 80) -> dict:
+    """The restore rung: a guarded, metered f32 ``pallas`` stream saves a
+    checkpoint (``checkpoint.npz_store`` in a temporary directory) at
+    point ``saved_at``; at ``strike`` a stored row is poisoned, and the
+    heal raises ``HealthError``; the last checkpoint loads, the tail is
+    replayed, and the stream ends bit for bit equal to the uninterrupted
+    run (state, health and metrics)."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.checkpoint import (latest_step, load_checkpoint,
+                                        save_checkpoint)
+    from repro_torch.core import engine as eng, health as hl, inkpca
+    from repro_torch.core import kernels_fn as kf
+    from repro_torch.testing import faults
+
+    spec = kf.KernelSpec(name="rbf", sigma=16.0)
+    plan = eng.UpdatePlan(matmul="pallas", fuse_krow=True,
+                          dispatch="bucketed", health=hl.DEFAULT_POLICY,
+                          metrics=True)
+    X = torch.as_tensor(np.random.default_rng(6).normal(
+        size=(4 + points, 16)), dtype=torch.float32, device="cuda")
+
+    syncs: list = []
+
+    def stream():
+        s = inkpca.KPCAStream(X[:4], capacity, spec, plan=plan,
+                              device="cuda")
+        s.update = _count_syncs(torch, s.update, syncs)
+        return s
+
+    def lanes(s):
+        return {"kpca": s.state, "health": s.health, "metrics": s.metrics}
+
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        ref = stream()
+        for i in range(points):
+            ref.update(X[4 + i])
+            if i + 1 == saved_at:
+                save_checkpoint(d, saved_at, lanes(ref))
+            if i + 1 == strike:
+                live = {k: [t.clone() for t in _leaves(torch, v)]
+                        for k, v in lanes(ref).items()}
+        back = stream()
+        back.state = faults.poison_stored_row(
+            type(ref.state)(*live["kpca"]), row=0)
+        exc = _raised(back.heal)
+        step = latest_step(d)
+        out = load_checkpoint(d, step, lanes(back))
+        back.state, back.health, back.metrics = (out["kpca"], out["health"],
+                                                 out["metrics"])
+        for i in range(step, points):
+            back.update(X[4 + i])
+    torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    updates = points + (points - saved_at)
+    expect = {name: 0 for name in launches}
+    expect.update(eigvec_rotate=4 * updates, krow_project=updates,
+                  eigvec_project=updates)
+    equal = _bitwise(torch, lanes(back), lanes(ref))
+    row = {"phase": "restore", "dtype": "float32", "capacity": capacity,
+           "points": points, "checkpoint_at": saved_at, "strike_at": strike,
+           "raised": type(exc).__name__, "restored_step": step,
+           "replay_bitwise": equal,
+           "syncs_per_guarded_update": sum(syncs) / len(syncs),
+           "seconds": time.perf_counter() - t0, "launches": launches}
+    emit(row)
+    if not (isinstance(exc, hl.HealthError) and step == saved_at and equal
+            and launches == expect):
+        raise AssertionError(f"restore: {row} (launches expected {expect})")
+    return row
+
+
+def guarded_window_phase(torch, cuda, serve, capacity: int = 256,
+                         window: int = 200, points: int = 264,
+                         every: int = 29) -> dict:
+    """``serve --mode kpca --window 200 --health`` in f64 on the fused
+    pair: a rejected point (growth or steady state) leaves the
+    eigensystem, the arrival ring and the clock bit for bit; the window
+    ends holding the last W accepted points in arrival order with
+    consecutive ages, on eigh within the f64 bars; the launches are the
+    unguarded window's for every offered point."""
+    import numpy as np
+
+    from repro_torch.testing import faults
+
+    args = serve.parse_args([
+        "--mode", "kpca", "--device", "cuda", "--dtype", "float64",
+        "--capacity", str(capacity), "--window", str(window),
+        "--points", str(points), "--dim", "16", "--batch", "64",
+        "--transform-every", "16", "--matmul", "pallas2", "--health"])
+    held = {"snap": None}
+    untouched, syncs = [], []
+
+    def on_point(i, stream, x):
+        if i == 0:
+            stream.update = _count_syncs(torch, stream.update, syncs)
+        if held["snap"] is not None:
+            untouched.append(_bitwise(torch, held["snap"], stream.state))
+            held["snap"] = None
+        x = faults.nonfinite_every(every, i, x)
+        if not np.isfinite(x).all():
+            held["snap"] = [t.clone() for t in _leaves(torch, stream.state)]
+        return x
+
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    result, stream = serve.kpca_service(args, on_point=on_point)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(cuda.LAUNCHES)
+    growth, steady = result["growth_points"], result["steady_points"]
+    expect = {"eigvec_rotate": 4 * growth + 8 * steady, "eigvec_rotate2": 0,
+              "krow_project": points, "eigvec_project": points,
+              "transform_project": points // args.transform_every,
+              "scaled_gram": 0, "rbf_gram": 0, "flash_attention": 0,
+              "ssd_intra_chunk": 0}
+    expect.update(pair_reckoning(launches, 2 * growth + 4 * steady))
+    x0, draws = serve.kpca_draws(args)
+    kept = [x for i, (x, _) in enumerate(draws)
+            if (i + 1) % every]
+    accepted = np.concatenate([x0, np.stack(kept)])
+    st = stream.kpca_state
+    want = torch.as_tensor(accepted[-window:], dtype=st.X.dtype,
+                           device=st.X.device)
+    ages = stream.state.ages[:window].tolist()
+    n = len(accepted)
+    injected = points // every
+    row = {"phase": "health_window", "dtype": "float64", "matmul": "pallas2",
+           "capacity": capacity, "window": window, "points": points,
+           "fault_every": every, "injected": injected,
+           "quarantined": result["quarantined"],
+           "rejected_untouched": untouched, "growth_points": growth,
+           "steady_points": steady, "m_final": result["m_final"],
+           "clock": int(stream.state.clock),
+           "steady_update_ms_p50": result["steady_update_ms_p50"],
+           "syncs_per_guarded_update": sum(syncs) / len(syncs),
+           "seconds": seconds, "launches": launches,
+           **oracle_check(torch, st, stream.spec, True, "float64")}
+    emit(row)
+    if not (result["quarantined"] == injected
+            and untouched == [True] * injected
+            and result["m_final"] == window
+            and torch.equal(st.X[:window], want)
+            and ages == list(range(n - window, n))
+            and int(stream.state.clock) == n and launches == expect):
+        raise AssertionError(f"health_window: {row} (launches expected "
+                             f"{expect})")
+    return row
+
+
+def guarded_nystrom_phase(torch, cuda, serve, capacity: int = 256,
+                          points: int = 500, every: int = 50) -> dict:
+    """``serve --mode nystrom --health --metrics`` (f32, the fused pair):
+    every ``every``-th point is made non-finite through
+    ``nystrom_service``'s ``on_point`` seam, and each such row is dropped
+    before it is observed or
+    offered, the others are observed and admitted until the budget
+    (capacity − 1) fills, and the trace error holds the f32 Nyström bar
+    against the f64 recomputation."""
+    from repro_torch.core import engine as eng
+    from repro_torch.core import kernels_fn as kf
+    from repro_torch.testing import faults
+
+    args = serve.parse_args([
+        "--mode", "nystrom", "--device", "cuda", "--dtype", "float32",
+        "--capacity", str(capacity), "--points", str(points), "--dim", "16",
+        "--matmul", "pallas2", "--health", "--metrics"])
+    syncs: dict = {}
+    undo = _offer_syncs(torch, eng.Engine, syncs)
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        result, state = serve.nystrom_service(
+            args, on_point=lambda i, x: faults.nonfinite_every(every, i, x))
+    finally:
+        undo()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(cuda.LAUNCHES)
+    injected = points // every
+    rows = 4 + points - injected
+    adm = min(points - injected, capacity - 1 - 4)
+    expect = {name: 0 for name in launches}
+    expect.update(krow_project=adm, **pair_reckoning(launches, adm))
+    spec = kf.KernelSpec(name="rbf", sigma=16.0)
+    st = state.kpca
+    m = result["m_final"]
+    exact = exact_trace_error(torch, state.Xrows, st.X[:m], spec, capacity,
+                              st.L.dtype)["f64"]
+    rel = abs(result["trace_error"] - exact) / abs(exact)
+    bar = NYSTROM_BARS["float32"]
+    row = {"phase": "health_nystrom", "dtype": "float32",
+           "capacity": capacity, "points": points, "fault_every": every,
+           "injected": injected, "quarantined": result["quarantined"],
+           "admitted": result["admitted"], "rows": result["rows"],
+           "m_final": m, "trace_error": result["trace_error"],
+           "trace_error_f64": exact, "trace_error_rel_err": rel,
+           "bar_trace_rel_err": bar, "step_ms_p50": result["step_ms_p50"],
+           "syncs_per_offer": {k: sum(v) / len(v) for k, v in syncs.items()},
+           "seconds": seconds, "launches": launches}
+    emit(row)
+    if not (result["quarantined"] == injected and result["admitted"] == adm
+            and result["rows"] == rows and m == 4 + adm and rel <= bar
+            and result["finite"] and launches == expect):
+        raise AssertionError(f"health_nystrom: {row} (launches expected "
+                             f"{expect})")
+    return row
+
+
+def reproducible_phase(torch, cuda, capacity: int = 1024,
+                       points: int = 48, every: int = 12) -> dict:
+    """Two runs of one f32 ``pallas`` stream (capacity 1024, the fused
+    prologue, bucketed) from one state end bit for bit equal, with the
+    process in its default mode (``torch.use_deterministic_algorithms``
+    off); so do a guarded run with and without the metric lane, with a
+    non-finite point every ``every``-th.  The cluster merge's segment sums
+    run on every rank-one update, so an order that varied would show in a
+    short stream; the card test
+    ``test_stream_runs_repeat_bit_for_bit_on_cuda`` runs 200 points at
+    capacity 256."""
+    import numpy as np
+
+    from repro_torch.core import engine as eng, health as hl, inkpca
+    from repro_torch.core import kernels_fn as kf
+    from repro_torch.testing import faults
+
+    spec = kf.KernelSpec(name="rbf", sigma=16.0)
+    X = np.random.default_rng(7).normal(size=(4 + points, 16))
+    poisoned = [faults.nonfinite_every(every, i, x)
+                for i, x in enumerate(X[4:])]
+
+    def run(xs, **lanes):
+        s = inkpca.KPCAStream(
+            torch.as_tensor(X[:4], dtype=torch.float32, device="cuda"),
+            capacity, spec, plan=eng.UpdatePlan(
+                matmul="pallas", fuse_krow=True, dispatch="bucketed",
+                **lanes), device="cuda")
+        for x in xs:
+            s.update(x)
+        torch.cuda.synchronize()
+        return s
+
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    a, b = run(X[4:]), run(X[4:])
+    on = run(poisoned, health=hl.DEFAULT_POLICY, metrics=True)
+    off = run(poisoned, health=hl.DEFAULT_POLICY)
+    launches = dict(cuda.LAUNCHES)
+    row = {"phase": "reproducible", "dtype": "float32", "matmul": "pallas",
+           "capacity": capacity, "points": points,
+           "deterministic_mode": deterministic,
+           "two_runs_bitwise": _bitwise(torch, a.state, b.state),
+           "metrics_on_off_bitwise": _bitwise(torch, on.state, off.state),
+           "quarantined": on.health_report()["quarantined"],
+           "seconds": time.perf_counter() - t0, "launches": launches}
+    emit(row)
+    if not (row["two_runs_bitwise"] and row["metrics_on_off_bitwise"]
+            and not deterministic and row["quarantined"] == points // every
+            and launches["eigvec_rotate"] == 16 * points):
+        raise AssertionError(f"reproducible: {row}")
+    return row
+
+
 def roofline_phase(torch, cuda) -> dict:
     """``launch/roofline.main`` at the reference driver's shapes, nothing
     written; the kernels' launches are counted around it and held to
@@ -1290,6 +1771,11 @@ def main() -> int:
     krr_phase(torch, cuda)
     snapshots_phase(torch, cuda, nystrom_state)
     del nystrom_state
+    reproducible_phase(torch, cuda)
+    health_phase(torch, cuda, serve)
+    restore_phase(torch, cuda)
+    guarded_window_phase(torch, cuda, serve)
+    guarded_nystrom_phase(torch, cuda, serve)
     runs["roofline"] = roofline_phase(torch, cuda)
     runs["lm"], prefill_call = lm_phase(torch, cuda)
     timed = timing_phase(torch, checks)

@@ -19,9 +19,15 @@ Torch has no ``lax.scan``: a block is a Python loop over ``step``, with
 the active count tracked on the host.  ``min_rows`` is the row-support
 floor every bucketed method takes: a truncated state that was not
 compacted keeps eigenvector mass on rows past m, and a bucket below that
-support would drop it (``truncate``).  Not ported yet, raising
-``NotImplementedError`` from ``check_plan`` or from the call: the health
-and metrics lanes (ROADMAP.md, "Open items").
+support would drop it (``truncate``).
+
+A bundle carrying a ``health.HealthState`` runs the gate stage (input
+quarantine and a probe after each point, ``core/health.py``), and one
+carrying a ``telemetry.MetricsState`` the note stage.  A gated point may
+be rejected on the device, so the host keeps bounds on the active count
+(``HostCount``): a guarded point raises the upper bound only, and m is
+read back only where the bounds disagree on a decision (the bucket, a
+full window, the capacity).
 """
 from __future__ import annotations
 
@@ -96,9 +102,13 @@ def check_plan(plan: UpdatePlan) -> None:
         raise ValueError(f"unknown matmul route {plan.matmul!r}")
     if plan.window is not None and plan.window < 2:
         raise ValueError(f"window must be at least 2, got {plan.window}")
-    if plan.health is not None or plan.metrics:
-        raise NotImplementedError("health and metrics lanes are not ported "
-                                  "yet: ROADMAP.md, Open items §1 item 7")
+    if plan.health is not None:
+        from repro_torch.core import health as hl
+        # Any object with the policy's fields (the reference's too: one
+        # plan drives both packages).
+        if not all(hasattr(plan.health, f) for f in hl.HealthPolicy._fields):
+            raise TypeError(f"plan.health must be a health.HealthPolicy, "
+                            f"got {type(plan.health).__name__}")
     if plan.dispatch not in ("fixed", "bucketed"):
         raise ValueError(f"unknown dispatch {plan.dispatch!r}")
     if plan.landmark_policy not in ("append", "leverage"):
@@ -264,9 +274,9 @@ def _ingest(st, x_new: Tensor, spec: kf.KernelSpec, adjusted: bool,
 class StreamState(NamedTuple):
     """The bundle ``Engine.step``/``step_block`` advance: the eigensystem
     plus the optional members that select stages — ``ages``/``clock``, the
-    sliding window's arrival ring (the evict stage), and ``health`` /
-    ``metrics``, whose lanes are not ported yet (a bundle carrying either
-    raises; ROADMAP.md, Open items §1 item 7)."""
+    sliding window's arrival ring (the evict stage), ``health`` (a
+    ``health.HealthState``: the gate stage) and ``metrics`` (a
+    ``telemetry.MetricsState``: the note stage)."""
 
     kpca: object
     ages: object = None
@@ -277,6 +287,45 @@ class StreamState(NamedTuple):
     @property
     def windowed(self) -> bool:
         return self.ages is not None
+
+
+class HostCount:
+    """Host bounds lo <= m <= hi on a stream's active count.  An unguarded
+    step knows m exactly; a guarded step may reject its point on the
+    device, so it raises ``hi`` only.  ``decide`` reads m back (one sync)
+    only where the bounds disagree."""
+
+    def __init__(self, m: int):
+        self.lo = self.hi = int(m)
+
+    def read(self, state) -> int:
+        self.lo = self.hi = int(state.m)
+        return self.lo
+
+    def exact(self, state) -> int:
+        """m itself: read back only if a rejection may have happened."""
+        return self.lo if self.lo == self.hi else self.read(state)
+
+    def decide(self, state, fn, limit: int | None = None):
+        """``fn(m)`` when the bounds agree on it (and ``hi`` is at most
+        ``limit``), else ``fn`` of m read back."""
+        if self.lo != self.hi and ((limit is not None and self.hi > limit)
+                                   or fn(self.lo) != fn(self.hi)):
+            self.read(state)
+        return fn(self.lo)
+
+    def advanced(self, cap: int | None, *, certain: bool) -> None:
+        """One point offered: accepted for sure (``certain``) or maybe;
+        ``cap`` is the window's size (m stops there)."""
+        self.hi = self.hi + 1 if cap is None else min(self.hi + 1, cap)
+        if certain:
+            self.lo = self.lo + 1 if cap is None else min(self.lo + 1, cap)
+
+
+def _count(stream, m) -> HostCount:
+    if isinstance(m, HostCount):
+        return m
+    return HostCount(int(stream.kpca.m) if m is None else m)
 
 
 def make_stream(state, *, health=None, metrics=None) -> StreamState:
@@ -308,12 +357,15 @@ class Engine:
         return Mb if self.plan.dispatch == "bucketed" else capacity
 
     # ---- composed stream step ---------------------------------------------
+    # A bundle advances through up to three stages, chosen by which of its
+    # members are present:  gate (health) → evict|ingest (ages) → note
+    # (metrics).  The note stage never touches the eigensystem, so metered
+    # and unmetered states are equal bit for bit.
+
     def _stream_window(self, stream: StreamState,
                        window: int | None) -> int | None:
-        if stream.health is not None or stream.metrics is not None:
-            raise NotImplementedError("health and metrics lanes are not "
-                                      "ported yet: ROADMAP.md, Open items "
-                                      "§1 item 7")
+        if stream.health is not None:
+            self._health_policy()
         if window is None:
             window = self.plan.window
         if stream.ages is not None and window is None:
@@ -323,37 +375,115 @@ class Engine:
         return window if stream.ages is not None else None
 
     def step(self, stream: StreamState, x_new: Tensor, *,
-             window: int | None = None, m: int | None = None,
+             window: int | None = None, m: int | HostCount | None = None,
              min_rows: int = 0) -> StreamState:
-        """Advance the bundle by one point: evict the oldest point first if
-        the bundle is windowed and its window is full, then ingest.  ``m``
-        is the host's active count (None reads it); ``min_rows`` the
+        """Advance the bundle by one point: gate it if the bundle carries a
+        ``HealthState``, evict the oldest point first if it is windowed and
+        its window is full, ingest, and note the step if it carries a
+        ``MetricsState``.  ``m`` is the host's active count (an int, or a
+        ``HostCount`` this call advances; None reads it); ``min_rows`` the
         row-support floor."""
-        from repro_torch.core import window as wnd
-
         window = self._stream_window(stream, window)
-        if stream.ages is None:
-            return stream._replace(kpca=self._ingest_point(
-                stream.kpca, x_new, m=m, min_rows=min_rows))
-        w = self._window_point(wnd.WindowState(stream.kpca, stream.ages,
-                                               stream.clock),
-                               x_new, window=window, m=m, min_rows=min_rows)
-        return stream._replace(kpca=w.kpca, ages=w.ages, clock=w.clock)
+        cnt = _count(stream, m)
+        marks = self._marks(stream)
+        stream = self._advance(stream, x_new, window, cnt, min_rows)
+        return self._note_stage(stream, marks, offered=1, window=window)
 
     def step_block(self, stream: StreamState, xs: Tensor, *,
-                   window: int | None = None,
+                   window: int | None = None, m: int | HostCount | None = None,
                    min_rows: int = 0) -> StreamState:
-        """Fold a (T, d) block, a loop over ``step``: the active count is
-        read once and then tracked on the host, so the loop reads nothing
-        back from the card."""
+        """Fold a (T, d) block, a loop over the per-point stages; the active
+        count is read once (or taken from ``m``) and then tracked on the
+        host, and the note stage accounts the whole block once."""
         window = self._stream_window(stream, window)
-        m = int(stream.kpca.m)
+        cnt = _count(stream, m)
+        marks = self._marks(stream)
         for x_new in xs:
-            stream = self.step(stream, x_new, window=window, m=m,
-                               min_rows=min_rows)
-            if window is None or m < window:
-                m += 1
-        return stream
+            stream = self._advance(stream, x_new, window, cnt, min_rows)
+        return self._note_stage(stream, marks, offered=len(xs),
+                                window=window)
+
+    def _advance(self, stream: StreamState, x_new: Tensor,
+                 window: int | None, cnt: HostCount,
+                 min_rows: int) -> StreamState:
+        """The gate and evict|ingest stages for one point; advances
+        ``cnt``."""
+        from repro_torch.core import health as hl
+        from repro_torch.core import window as wnd
+
+        if stream.health is None:
+            m = cnt.exact(stream.kpca)
+            if stream.ages is None:
+                cnt.advanced(None, certain=True)
+                return stream._replace(kpca=self._ingest_point(
+                    stream.kpca, x_new, m=m, min_rows=min_rows))
+            w = self._window_point(wnd.WindowState(stream.kpca, stream.ages,
+                                                   stream.clock),
+                                   x_new, window=window, m=m,
+                                   min_rows=min_rows)
+            cnt.advanced(window, certain=True)
+            return stream._replace(kpca=w.kpca, ages=w.ages, clock=w.clock)
+        certain = hl.always_accepts(self.plan.health)
+        M = stream.kpca.L.shape[0]
+        if stream.ages is None:
+            Mb = cnt.decide(stream.kpca,
+                            lambda m: self._bucket(M, m + 1, min_rows),
+                            limit=M - 1)
+            kpca, h = hl.guarded_update(self, stream.kpca, stream.health,
+                                        x_new, Mb=Mb)
+            cnt.advanced(None, certain=certain)
+            return stream._replace(kpca=kpca, health=h)
+        w = wnd.maybe_rebase(wnd.WindowState(stream.kpca, stream.ages,
+                                             stream.clock))
+        if cnt.decide(stream.kpca, lambda m: m >= window):
+            w, h = hl.guarded_window_step(self, w, stream.health, x_new,
+                                          window=window, min_rows=min_rows)
+        else:
+            Mb = cnt.decide(stream.kpca,
+                            lambda m: self._bucket(M, m + 1, min_rows),
+                            limit=M - 1)
+            w, h = hl.guarded_grow_step(self, w, stream.health, x_new, Mb=Mb)
+        cnt.advanced(window, certain=certain)
+        return stream._replace(kpca=w.kpca, ages=w.ages, clock=w.clock,
+                               health=h)
+
+    @staticmethod
+    def _marks(stream: StreamState):
+        """What the note stage compares against: m, the clock and the
+        quarantine counter before the step (None without metrics)."""
+        if stream.metrics is None:
+            return None
+        return (stream.kpca.m, stream.clock,
+                None if stream.health is None else stream.health.quarantined)
+
+    @staticmethod
+    def _note_stage(stream: StreamState, marks, *, offered: int,
+                    window: int | None) -> StreamState:
+        """Account the step into the riding ``MetricsState``, from device
+        values the step produced.  Accepted count: the clock's advance on a
+        window (a rejected point does not stamp), offered minus the
+        quarantine counter's advance on a guarded stream, else offered."""
+        if marks is None:
+            return stream
+        from repro_torch.core import telemetry as tm
+
+        m0, c0, q0 = marks
+        if c0 is not None:
+            accepted = stream.clock - c0
+        elif q0 is not None:
+            accepted = offered - (stream.health.quarantined - q0)
+        else:
+            accepted = offered
+        return stream._replace(metrics=tm.note_block(
+            stream.metrics, m0, stream.kpca.m, offered, accepted,
+            stream.health, window=window))
+
+    def _health_policy(self):
+        if self.plan.health is None:
+            raise ValueError(
+                "guarded dispatch needs a health policy — build the engine "
+                "with UpdatePlan(health=health.HealthPolicy(...))")
+        return self.plan.health
 
     # ---- plain ingest -----------------------------------------------------
     def _ingest_point(self, state, x_new: Tensor, *, m: int | None = None,
@@ -449,10 +579,133 @@ class Engine:
 
     def window_block(self, wstate, xs: Tensor, *, window: int):
         """``step_block`` on a windowed bundle, unwrapped."""
+        return self._unwindow(self.step_block(make_stream(wstate), xs,
+                                              window=window))
+
+    # ---- guarded and metered spellings --------------------------------------
+    # The reference's per-combination methods, each a bundle through
+    # ``step``/``step_block``.
+    def _unwindow(self, s: StreamState):
         from repro_torch.core import window as wnd
 
-        s = self.step_block(make_stream(wstate), xs, window=window)
         return wnd.WindowState(kpca=s.kpca, ages=s.ages, clock=s.clock)
+
+    def update_guarded(self, state, hstate, x_new: Tensor, *, m=None,
+                       min_rows: int = 0):
+        """One gated point; returns ``(state, hstate)``.  A rejected point
+        returns the input state bit for bit."""
+        out = self.step(StreamState(kpca=state, health=hstate), x_new, m=m,
+                        min_rows=min_rows)
+        return out.kpca, out.health
+
+    def update_block_guarded(self, state, hstate, xs: Tensor, *,
+                             min_rows: int = 0):
+        out = self.step_block(StreamState(kpca=state, health=hstate), xs,
+                              min_rows=min_rows)
+        return out.kpca, out.health
+
+    def window_ingest_guarded(self, wstate, hstate, x_new: Tensor, *,
+                              window: int, min_rows: int = 0):
+        """One gated window point: a rejection leaves the eigensystem, the
+        ring, the ages and the clock as they were."""
+        out = self.step(make_stream(wstate, health=hstate), x_new,
+                        window=window, min_rows=min_rows)
+        return self._unwindow(out), out.health
+
+    def window_block_guarded(self, wstate, hstate, xs: Tensor, *,
+                             window: int, min_rows: int = 0):
+        out = self.step_block(make_stream(wstate, health=hstate), xs,
+                              window=window, min_rows=min_rows)
+        return self._unwindow(out), out.health
+
+    def update_metered(self, state, mstate, x_new: Tensor, *,
+                       min_rows: int = 0):
+        out = self.step(StreamState(kpca=state, metrics=mstate), x_new,
+                        min_rows=min_rows)
+        return out.kpca, out.metrics
+
+    def update_block_metered(self, state, mstate, xs: Tensor, *,
+                             min_rows: int = 0):
+        out = self.step_block(StreamState(kpca=state, metrics=mstate), xs,
+                              min_rows=min_rows)
+        return out.kpca, out.metrics
+
+    def window_block_metered(self, wstate, mstate, xs: Tensor, *,
+                             window: int, min_rows: int = 0):
+        out = self.step_block(make_stream(wstate, metrics=mstate), xs,
+                              window=window, min_rows=min_rows)
+        return self._unwindow(out), out.metrics
+
+    def update_guarded_metered(self, state, hstate, mstate, x_new: Tensor, *,
+                               min_rows: int = 0):
+        out = self.step(StreamState(kpca=state, health=hstate,
+                                    metrics=mstate), x_new, min_rows=min_rows)
+        return out.kpca, out.health, out.metrics
+
+    def update_block_guarded_metered(self, state, hstate, mstate,
+                                     xs: Tensor, *, min_rows: int = 0):
+        out = self.step_block(StreamState(kpca=state, health=hstate,
+                                          metrics=mstate), xs,
+                              min_rows=min_rows)
+        return out.kpca, out.health, out.metrics
+
+    def window_block_guarded_metered(self, wstate, hstate, mstate,
+                                     xs: Tensor, *, window: int,
+                                     min_rows: int = 0):
+        out = self.step_block(make_stream(wstate, health=hstate,
+                                          metrics=mstate), xs,
+                              window=window, min_rows=min_rows)
+        return self._unwindow(out), out.health, out.metrics
+
+    def window_ingest_guarded_metered(self, wstate, hstate, mstate,
+                                      x_new: Tensor, *, window: int,
+                                      min_rows: int = 0):
+        out = self.step(make_stream(wstate, health=hstate, metrics=mstate),
+                        x_new, window=window, min_rows=min_rows)
+        return self._unwindow(out), out.health, out.metrics
+
+    def downdate_metered(self, state, mstate, i, *, m: int | None = None,
+                         min_rows: int = 0):
+        from repro_torch.core import telemetry as tm
+
+        state = self.downdate(state, i, m=m, min_rows=min_rows)
+        m_after = state.kpca.m if hasattr(state, "kpca") else state.m
+        return state, tm.note_downdate(mstate, m_after)
+
+    # ---- health probes and the heal ladder ----------------------------------
+    def probe(self, state, hstate=None, *, ref_lam: Tensor | None = None):
+        """A health probe of any state this engine serves (a window or
+        Nyström state probes its ``.kpca``); ``ref_lam`` also measures the
+        spectral drift.  Returns a fresh or updated ``HealthState``."""
+        from repro_torch.core import health as hl
+
+        policy = self.plan.health or hl.DEFAULT_POLICY
+        kpca = getattr(state, "kpca", state)
+        if hstate is None:
+            hstate = hl.init_health(kpca.L.dtype, kpca.L.device)
+        return hl.probe(kpca, hstate, policy, ref_lam)
+
+    def heal(self, state, *, level: str = "auto",
+             rung_out: list | None = None):
+        """Walk the heal ladder (``health.heal_kpca``) on any state this
+        engine serves: a window keeps its ring and clock; a Nyström state
+        heals its landmark eigensystem (unadjusted: the K_mm block) and
+        keeps ``Knm``/``Xrows`` (re-anchor a ``TraceErrorTracker`` after).
+        Raises ``health.HealthError`` when the stored points are corrupt:
+        the restore rung, for whoever owns the checkpoints."""
+        from repro_torch.core import health as hl
+
+        policy = self.plan.health or hl.DEFAULT_POLICY
+        if hasattr(state, "Knm"):                      # NystromState
+            return state._replace(kpca=hl.heal_kpca(
+                state.kpca, self.spec, False, policy, level=level,
+                rung_out=rung_out))
+        if hasattr(state, "kpca"):                     # WindowState
+            return state._replace(kpca=hl.heal_kpca(
+                state.kpca, self.spec, self.adjusted, policy, level=level,
+                rung_out=rung_out))
+        return hl.heal_kpca(state, self.spec, self.adjusted, policy,
+                            level=level, rung_out=rung_out)
 
     # ---- Nyström landmarks ------------------------------------------------
     def add_landmark(self, state, x_all, x_new: Tensor, *,

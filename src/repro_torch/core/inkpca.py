@@ -278,6 +278,13 @@ class KPCAStream:
     ``kpca_state`` is always the inner ``KPCAState``.  ``_min_rows`` is
     the row-support floor a truncation without compaction leaves, passed
     to every later engine call.
+
+    With ``plan.health`` every point goes through the gate stage: input
+    quarantine and a probe riding in ``self.health``; the host then keeps
+    bounds on m (``m_bounds``) and ``m`` reads it back only after a
+    possible rejection.  With ``plan.metrics`` a ``MetricsState`` rides in
+    ``self.metrics``; the eigensystem goes through the same steps either
+    way, so metered states equal unmetered ones bit for bit.
     """
 
     def __init__(self, x0, capacity: int, spec: kf.KernelSpec, *,
@@ -306,78 +313,153 @@ class KPCAStream:
         self.plan = plan
         self.window = window
         x0 = torch.as_tensor(x0, device=self.device)
-        self.m = int(x0.shape[0])
+        self._count = eng.HostCount(x0.shape[0])
         self._min_rows = 0
+        self.health = self.metrics = None
         if window is not None:
             if not 2 <= window <= capacity:
                 raise ValueError(f"window must be in [2, capacity], got "
                                  f"{window} (capacity {capacity})")
-            if self.m > window:
-                raise ValueError(f"seed size {self.m} exceeds window "
+            if x0.shape[0] > window:
+                raise ValueError(f"seed size {x0.shape[0]} exceeds window "
                                  f"{window}")
-            self.state = wnd.init_window(x0, capacity, spec,
+            self._state = wnd.init_window(x0, capacity, spec,
                                          adjusted=adjusted, dtype=dtype)
         else:
-            self.state = init_state(x0, capacity, spec, adjusted=adjusted,
-                                    dtype=dtype)
+            self._state = init_state(x0, capacity, spec,
+                                     adjusted=adjusted, dtype=dtype)
+        if plan.health is not None:
+            from repro_torch.core import health as hl
+            self.health = hl.init_health(dtype, self.device)
+        if plan.metrics:
+            from repro_torch.core import telemetry as tm
+            self.metrics = tm.init_metrics(dtype, self.device)
+
+    @property
+    def state(self):
+        """The stream's state (a ``KPCAState``, or a ``window.WindowState``
+        under a window)."""
+        return self._state
+
+    @state.setter
+    def state(self, value) -> None:
+        """Replace the state from outside (a loaded checkpoint, a corrupted
+        copy): the host count is read back from it (one read)."""
+        self._state = value
+        self._count = eng.HostCount(int(self.kpca_state.m))
 
     @property
     def kpca_state(self) -> KPCAState:
         """The eigensystem state, windowed or not."""
         return self.state.kpca if self.window is not None else self.state
 
+    @property
+    def m(self) -> int:
+        """The active count; after a guarded point that may have been
+        rejected, one read from the device."""
+        c = self._count
+        return c.lo if c.lo == c.hi else c.read(self.kpca_state)
+
+    @property
+    def m_bounds(self) -> tuple[int, int]:
+        """Host bounds (lo, hi) on the active count, read from nothing."""
+        return self._count.lo, self._count.hi
+
     def _bundle(self) -> eng.StreamState:
-        return eng.make_stream(self.state)
+        return eng.make_stream(self.state, health=self.health,
+                               metrics=self.metrics)
 
     def _unbundle(self, s: eng.StreamState):
-        """Write an advanced bundle back; returns ``self.state``."""
+        """Write an advanced bundle back; returns the state."""
         if self.window is not None:
             from repro_torch.core import window as wnd
-            self.state = wnd.WindowState(kpca=s.kpca, ages=s.ages,
-                                         clock=s.clock)
+            self._state = wnd.WindowState(kpca=s.kpca, ages=s.ages,
+                                          clock=s.clock)
         else:
-            self.state = s.kpca
-        return self.state
-
-    def _grown(self, count: int) -> int:
-        m = self.m + count
-        return m if self.window is None else min(m, self.window)
+            self._state = s.kpca
+        self.health, self.metrics = s.health, s.metrics
+        return self._state
 
     def update(self, x_new):
-        """Fold one point into the stream (evicting the oldest first when a
-        window is full)."""
+        """Fold one point into the stream (gated under ``plan.health``;
+        evicting the oldest first when a window is full)."""
         x_new = torch.as_tensor(x_new, dtype=self.kpca_state.X.dtype,
                                 device=self.device)
-        self._unbundle(self.engine.step(self._bundle(), x_new,
-                                        window=self.window, m=self.m,
-                                        min_rows=self._min_rows))
-        self.m = self._grown(1)
-        return self.state
+        return self._unbundle(self.engine.step(
+            self._bundle(), x_new, window=self.window, m=self._count,
+            min_rows=self._min_rows))
 
     def downdate(self, i: int):
         """Remove the point in physical row ``i`` from the stream."""
+        m = self.m
         if self.window is not None:
             from repro_torch.core import window as wnd
-            self.state = wnd.evict(self.engine, self.state, i, m=self.m,
-                                   min_rows=self._min_rows)
+            self._state = wnd.evict(self.engine, self._state, i, m=m,
+                                    min_rows=self._min_rows)
         else:
-            self.state = self.engine.downdate(self.state, i, m=self.m,
-                                              min_rows=self._min_rows)
-        self.m -= 1
-        return self.state
+            self._state = self.engine.downdate(self._state, i, m=m,
+                                               min_rows=self._min_rows)
+        self._count = eng.HostCount(m - 1)
+        if self.metrics is not None:
+            from repro_torch.core import telemetry as tm
+            self.metrics = tm.note_downdate(self.metrics, self.kpca_state.m)
+        return self._state
 
     def update_block(self, xs):
         """Fold a (T, d) block: ``Engine.step_block``, a loop over the
         per-point step."""
         xs = torch.as_tensor(xs, dtype=self.kpca_state.X.dtype,
                              device=self.device)
-        self._unbundle(self.engine.step_block(self._bundle(), xs,
-                                              window=self.window,
-                                              min_rows=self._min_rows))
-        self.m = self._grown(xs.shape[0])
-        return self.state
+        return self._unbundle(self.engine.step_block(
+            self._bundle(), xs, window=self.window, m=self._count,
+            min_rows=self._min_rows))
 
     partial_fit_block = update_block
+
+    # ---- self-healing (core/health.py) and metrics --------------------------
+    def heal(self, *, level: str = "auto"):
+        """Walk the heal ladder on the stream's state (polish → resync;
+        ``health.HealthError`` escalates to restore-from-checkpoint) and
+        clear the sticky probe flags, so later probes start clean."""
+        rung_out: list = []
+        self._state = self.engine.heal(self._state, level=level,
+                                       rung_out=rung_out)
+        if self.health is not None:
+            self.health = self.health._replace(
+                nonfinite=torch.zeros_like(self.health.nonfinite),
+                orth_err=torch.zeros_like(self.health.orth_err))
+        if self.metrics is not None and rung_out:
+            from repro_torch.core import telemetry as tm
+            self.metrics = tm.note_heal(self.metrics, rung_out[-1])
+        return self._state
+
+    def health_report(self) -> dict:
+        """The riding ``HealthState`` on the host (one read); empty without
+        ``plan.health``."""
+        if self.health is None:
+            return {}
+        vals = torch.stack([v.to(torch.float64) for v in self.health]
+                           ).tolist()
+        rep = dict(zip(self.health._fields, vals))
+        for k in ("nonfinite", "quarantined", "rejected_last", "probes"):
+            rep[k] = int(rep[k])
+        return rep
+
+    def is_healthy(self) -> bool:
+        """Verdict of the last probe against the plan's policy (one
+        read)."""
+        if self.health is None:
+            return True
+        from repro_torch.core import health as hl
+        return hl.is_healthy(self.health, self.plan.health)
+
+    def metrics_report(self) -> dict:
+        """The riding ``MetricsState`` on the host (one read); empty
+        without ``plan.metrics``."""
+        if self.metrics is None:
+            return {}
+        from repro_torch.core import telemetry as tm
+        return tm.metrics_report(self.metrics)
 
     def truncate(self, k: int, *, compact: bool | None = None,
                  capacity: int | None = None) -> KPCAState:
@@ -397,12 +479,13 @@ class KPCAStream:
                              "stream — the window itself bounds the state")
         if compact is None:
             compact = self.plan.compact_shrink
-        support = max(self.m, self._min_rows)
-        self.state = self.engine.truncate(self.state, k, compact=compact,
-                                          capacity=capacity)
-        self.m = min(self.m, k)
+        m = self.m
+        support = max(m, self._min_rows)
+        self._state = self.engine.truncate(self._state, k, compact=compact,
+                                           capacity=capacity)
+        self._count = eng.HostCount(min(m, k))
         self._min_rows = 0 if compact else support
-        return self.state
+        return self._state
 
     def eigpairs(self) -> tuple[Tensor, Tensor]:
         """Active (descending) eigenvalues and eigenvectors."""
@@ -421,7 +504,7 @@ class KPCAStream:
         st = self.kpca_state
         x = torch.as_tensor(x, dtype=st.X.dtype, device=self.device)
         if self.plan.fuse_krow and self.plan.dispatch == "bucketed":
-            need = max(self.m, self._min_rows, n_components, 1)
+            need = max(self._count.hi, self._min_rows, n_components, 1)
             Mb = eng.bucket_for(need, st.L.shape[0], self.plan.min_bucket)
             if Mb < st.L.shape[0]:
                 st = eng.slice_state(st, Mb)

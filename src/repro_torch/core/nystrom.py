@@ -80,11 +80,24 @@ def observe_rows(state: NystromState, xb: Tensor, spec: kf.KernelSpec, *,
     Under a bucketed ``plan.fuse_krow`` the gram is evaluated only against
     the active landmark bucket (columns beyond it are zero anyway), so a
     call costs O(b·M_b·d), not O(b·M·d); ``m`` is the host's landmark
-    count that picks the bucket (None reads it)."""
+    count that picks the bucket (None reads it).
+
+    Under ``plan.health`` with quarantine, non-finite points are dropped
+    before any Knm row is built (a NaN row would poison every later
+    trace-error contraction); the caller sees the rejection in the row
+    count.  The filter reads one flag back per call, as row growth is a
+    host-level decision anyway."""
     if state.Xrows is None:
         raise ValueError("observe_rows needs a grow_rows=True state")
     dtype = state.Knm.dtype
     xb = torch.atleast_2d(xb).to(device=state.Knm.device, dtype=dtype)
+    policy = plan.health if plan is not None else None
+    if policy is not None and policy.quarantine:
+        keep = torch.isfinite(xb).all(dim=1)
+        if not bool(keep.all()):
+            xb = xb[keep]
+            if xb.shape[0] == 0:
+                return state
     M = state.Knm.shape[1]
     if (plan is not None and plan.fuse_krow
             and plan.dispatch == "bucketed"):

@@ -51,8 +51,10 @@ def _solve_dtype(dtype, precise: bool):
 
 def index_set(vec: Tensor, i: Tensor, value) -> Tensor:
     """``vec`` with entry (or row) ``i`` replaced — out of place, and with
-    ``i`` a device tensor, so no host read."""
-    value = torch.as_tensor(value, dtype=vec.dtype, device=vec.device)
+    ``i`` a device tensor, so no host read.  A Python ``value`` becomes a
+    fill on vec's device, not a copy from the host (which synchronizes)."""
+    value = (value.to(dtype=vec.dtype, device=vec.device)
+             if torch.is_tensor(value) else vec.new_full((), value))
     return vec.index_put((i.reshape(1).long(),),
                          value.reshape((1,) + vec.shape[1:]))
 
@@ -189,10 +191,16 @@ def _cluster_merge(d: Tensor, z: Tensor, tol: Tensor):
     new_seg = torch.cat([torch.ones(1, dtype=torch.bool, device=d.device),
                          gap > tol])
     seg = torch.cumsum(new_seg.to(torch.int64), 0) - 1
+    # Run r spans rows offsets[r]:offsets[r + 1]; runs past the last are
+    # empty.  A segmented reduction adds each run in a fixed order (on the
+    # CPU left to right, as index_add_ did), so two runs of one stream on
+    # the card agree bit for bit; index_add_ adds with atomics there.
+    offsets = torch.searchsorted(
+        seg, torch.arange(M + 1, dtype=seg.dtype, device=d.device))
 
     def segsum(x: Tensor) -> Tensor:        # per-run sum, gathered back
-        out = torch.zeros((M,) + x.shape[1:], dtype=x.dtype, device=x.device)
-        return out.index_add_(0, seg, x)[seg]
+        return torch.segment_reduce(x, "sum", offsets=offsets, axis=0,
+                                    unsafe=True)[seg]
 
     seg_size = segsum(torch.ones_like(z))
     znorm_seg = torch.sqrt(segsum(z * z))

@@ -100,12 +100,29 @@ def maybe_rebase(wstate: WindowState) -> WindowState:
                            clock=torch.where(need, reb.clock, wstate.clock))
 
 
-def ingest(engine, wstate: WindowState, x_new: Tensor, *, window: int
-           ) -> WindowState:
+def ingest(engine, wstate: WindowState, x_new: Tensor, *, window: int,
+           min_rows: int = 0, hstate=None):
     """One sliding-window step: evict the oldest point if the window is
     full, fold the new point in and stamp its arrival index (a spelling of
-    ``engine.Engine.step`` on a windowed bundle)."""
+    ``engine.Engine.step`` on a windowed bundle).
+
+    With a health policy on the plan the point goes through the quarantine
+    gate first: a rejected point leaves the eigensystem, the ring, the ages
+    and the clock as they were, so the evict order stays that of a stream
+    that never saw it.  Pass ``hstate`` to receive the updated
+    ``HealthState`` too: returns ``(wstate, hstate)``; else ``wstate``.
+    """
     from repro_torch.core import engine as eng
 
-    s = engine.step(eng.make_stream(wstate), x_new, window=window)
-    return WindowState(kpca=s.kpca, ages=s.ages, clock=s.clock)
+    h = None
+    if engine.plan.health is not None:
+        from repro_torch.core import health as hl
+
+        h = hstate if hstate is not None else hl.init_health(
+            wstate.kpca.L.dtype, wstate.kpca.L.device)
+    s = engine.step(eng.make_stream(wstate, health=h), x_new, window=window,
+                    min_rows=min_rows)
+    out = WindowState(kpca=s.kpca, ages=s.ages, clock=s.clock)
+    if h is not None and hstate is not None:
+        return out, s.health
+    return out

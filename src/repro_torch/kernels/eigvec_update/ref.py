@@ -75,9 +75,9 @@ def guard_zero(den: Tensor, out_dtype) -> Tensor:
     """``den`` with entries below ``offset_guard(out_dtype)`` in magnitude
     replaced by ±guard.  The guard is a tensor of den's type: as a Python
     float, ``torch.where`` would round it to the default float32, where
-    the float64 guard underflows to 0."""
-    g = torch.tensor(offset_guard(out_dtype), dtype=den.dtype,
-                     device=den.device)
+    the float64 guard underflows to 0.  It is a fill on den's device, not
+    a copy from the host (which would synchronize on every update)."""
+    g = den.new_full((), offset_guard(out_dtype))
     return torch.where(den.abs() < g, torch.where(den < 0, -g, g), den)
 
 

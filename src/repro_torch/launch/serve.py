@@ -33,6 +33,21 @@
   admitted / replaced / rejected counts, ``stopped_at`` and, while the
   tracker ran, its drift from the recomputed trace error.
 
+``--health`` attaches the default health policy: every point goes
+through the quarantine gate (a non-finite point is rejected before the
+rank-one pairs fire and leaves the state bit for bit) and a probe, and at
+each transform interval an unhealthy stream walks the heal ladder
+(``core/health.py``); the Nyström service drops non-finite rows.
+``--metrics`` attaches the in-stream metric lane (``core/telemetry.py``),
+mirrored into the telemetry hub at the end; ``--metrics-jsonl PATH``
+writes the hub's events and a final scrape, ``--metrics-port P`` serves
+``GET /metrics`` during the run (both imply ``--metrics``).
+Faults are injected through the service functions' ``on_point`` seam
+(``kpca_service``, ``nystrom_service``), not from the command line.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode kpca \\
+        --device cpu --capacity 64 --points 40 --dim 8 --health --metrics
+
 The plan's defaults are the port's main path: the rotation kernel
 (``--matmul pallas``; ``pallas2`` fuses each ±sigma pair into one
 rotation), the fused kernel-row prologue and query transform
@@ -63,9 +78,11 @@ import time
 import numpy as np
 import torch
 
-from repro_torch import configs, resolve_device
+from repro_torch import configs, obs, resolve_device
 from repro_torch.core import engine as eng
+from repro_torch.core import health as hl
 from repro_torch.core import inkpca, kernels_fn as kf, nystrom
+from repro_torch.core import telemetry as tm
 from repro_torch.data.synthetic import TokenStream
 from repro_torch.launch import steps
 from repro_torch.models import lm
@@ -76,11 +93,22 @@ DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 
 def make_plan(args) -> eng.UpdatePlan:
+    # Any export surface implies the metric lane.
+    metrics = bool(args.metrics or args.metrics_jsonl
+                   or args.metrics_port is not None)
     return eng.UpdatePlan(matmul=args.matmul, dispatch=args.dispatch,
                           window=args.window, fuse_krow=args.fuse_krow,
                           landmark_policy=args.landmark_policy,
-                          health=True if args.health else None,
-                          metrics=args.metrics)
+                          health=hl.DEFAULT_POLICY if args.health else None,
+                          metrics=metrics)
+
+
+def export_metrics(args, hub) -> None:
+    """Write the hub out where ``--metrics-jsonl`` asks (the
+    ``--metrics-port`` server runs from ``main`` for the whole run)."""
+    if args.metrics_jsonl:
+        hub.close_jsonl()
+        obs.write_jsonl(args.metrics_jsonl, hub)
 
 
 def kpca_draws(args):
@@ -101,10 +129,19 @@ def kpca_draws(args):
     return x0, draws()
 
 
-def kpca_service(args) -> tuple[dict, inkpca.KPCAStream]:
+def kpca_service(args, on_point=None) -> tuple[dict, inkpca.KPCAStream]:
     """Run the service loop; returns the result dict and the stream.  With
     ``--window`` the update latencies are also split by phase: growth
-    (m < W, append-only) and steady state (evict + ingest)."""
+    (m < W, append-only) and steady state (evict + ingest).
+
+    Under ``--health`` the heal check rides the transform interval: one
+    read of the last probe's verdict, and the heal ladder when it fails.
+    The active count is tracked on the host as bounds (a guarded point
+    may be rejected on the device), so the loop reads m back only where
+    the bounds disagree.  ``on_point(i, stream, x)``, when given, is
+    called before each update with the point about to be offered and
+    returns the point to offer (a testing seam: it may also corrupt
+    ``stream.state``)."""
     device = resolve_device(args.device)
     dtype = DTYPES[args.dtype]
     d = args.dim
@@ -116,14 +153,20 @@ def kpca_service(args) -> tuple[dict, inkpca.KPCAStream]:
                                args.capacity, spec, adjusted=True,
                                plan=plan, dtype=dtype, device=device)
 
-    upd, qry = LatencyHistogram("update_ms"), LatencyHistogram("query_ms")
+    hub = obs.fresh_hub()
+    upd, qry = hub.histogram("update_ms"), hub.histogram("query_ms")
     phases = {"growth": LatencyHistogram(), "steady": LatencyHistogram()}
-    n_served = 0
+    n_served = n_heals = 0
     t_total = time.perf_counter()
-    for x, q in draws:
+    for i, (x, q) in enumerate(draws):
+        if on_point is not None:
+            x = on_point(i, stream, x)
         x = torch.as_tensor(x, dtype=dtype, device=device)
-        steady = args.window is not None and stream.m >= args.window
-        need = args.window if steady else stream.m + 1
+        lo, hi = stream.m_bounds
+        steady = args.window is not None and (
+            lo >= args.window or (hi >= args.window
+                                  and stream.m >= args.window))
+        need = args.window if steady else min(hi + 1, args.capacity)
         rung = (eng.bucket_for(need, args.capacity, plan.min_bucket)
                 if args.dispatch == "bucketed" else -1)
         with upd.timed(key=rung) as t:
@@ -131,8 +174,12 @@ def kpca_service(args) -> tuple[dict, inkpca.KPCAStream]:
             t.sync(stream.kpca_state.L)
         phases["steady" if steady else "growth"].add(upd.last_ms, key=rung)
         if q is not None:
+            if args.health and not stream.is_healthy():
+                stream.heal()
+                n_heals += 1
+                hub.inc("heals_total")
             q = torch.as_tensor(q, dtype=dtype, device=device)
-            n_comp = min(8, stream.m)
+            n_comp = 8 if stream.m_bounds[0] >= 8 else min(8, stream.m)
             with qry.timed(key=n_comp) as t:
                 t.sync(stream.transform(q, n_components=n_comp))
             n_served += args.batch
@@ -156,6 +203,13 @@ def kpca_service(args) -> tuple[dict, inkpca.KPCAStream]:
         for name, hist in phases.items():
             result.update(hist.summary(f"{name}_update_ms"))
             result[f"{name}_points"] = len(hist.ms) + len(hist.compile_ms)
+    if args.health:
+        result["heals"] = n_heals
+        result["health"] = stream.health_report()
+        result["quarantined"] = result["health"]["quarantined"]
+    if stream.metrics is not None:
+        result["metrics"] = hub.observe_metrics_state(stream.metrics)
+    export_metrics(args, hub)
     return result, stream
 
 
@@ -168,7 +222,8 @@ def kpca_main(args) -> dict:
     return result
 
 
-def nystrom_service(args) -> tuple[dict, nystrom.NystromState]:
+def nystrom_service(args, on_point=None
+                    ) -> tuple[dict, nystrom.NystromState]:
     """The landmark service loop (grow_rows, RBF with sigma = d,
     Algorithm 1 per admission); returns the result dict and the state.
     The points are drawn from ``--seed`` in the order the reference's
@@ -176,7 +231,12 @@ def nystrom_service(args) -> tuple[dict, nystrom.NystromState]:
     the host.  Under ``leverage`` one residual read per point feeds both
     the tracker and the admission gate, and once the stopping rule holds
     the tracker freezes and every later point is only observed.
-    Counters are a plain dict."""
+    Counters are a plain dict, mirrored into the hub.  Under ``--health``
+    a non-finite point is quarantined before it is observed or offered
+    (the finite flags of all points are read once); ``--metrics`` keeps
+    the tracker's trace error in a ``MetricsState``.  ``on_point(i, x)``,
+    when given, maps each drawn point to the point to stream (a testing
+    seam, applied before the points move to the device)."""
     device = resolve_device(args.device)
     dtype = DTYPES[args.dtype]
     rng = np.random.default_rng(args.seed)
@@ -184,8 +244,19 @@ def nystrom_service(args) -> tuple[dict, nystrom.NystromState]:
     spec = kf.KernelSpec(name="rbf", sigma=float(d))
     engine = eng.Engine(spec, make_plan(args), adjusted=False)
     x0 = torch.as_tensor(rng.normal(size=(4, d)), dtype=dtype, device=device)
-    xs = torch.as_tensor(rng.normal(size=(args.points, d)), dtype=dtype,
-                         device=device)
+    draws = rng.normal(size=(args.points, d))
+    if on_point is not None:
+        draws = np.stack([on_point(i, x) for i, x in enumerate(draws)])
+    xs = torch.as_tensor(draws, dtype=dtype, device=device)
+    quarantine = (engine.plan.health is not None
+                  and engine.plan.health.quarantine)
+    # One read for the run; observe_rows then needs no gate of its own.
+    finite = (torch.isfinite(xs).all(dim=1).tolist() if quarantine
+              else [True] * args.points)
+    observe_plan = engine.plan._replace(health=None)
+    ms = tm.init_metrics(dtype, device) if engine.plan.metrics else None
+    hub = obs.fresh_hub()
+    n_quarantined = 0
     state = nystrom.init_nystrom(None, x0, args.capacity, spec, dtype=dtype,
                                  grow_rows=True)
     budget = args.landmark_budget or args.capacity - 1
@@ -200,6 +271,10 @@ def nystrom_service(args) -> tuple[dict, nystrom.NystromState]:
     t_total = time.perf_counter()
     for i in range(args.points):
         x = xs[i]
+        if not finite[i]:
+            n_quarantined += 1
+            hub.inc("quarantined_total")
+            continue
         rung = (eng.bucket_for(min(m + 1, args.capacity), args.capacity,
                                engine.plan.min_bucket)
                 if args.dispatch == "bucketed" else -1)
@@ -208,7 +283,7 @@ def nystrom_service(args) -> tuple[dict, nystrom.NystromState]:
             if leverage and not rule.sufficient:
                 res = float(nystrom.admission_residual(state, x, spec))
                 tracker.observe(state, x, residual=res)
-            state = nystrom.observe_rows(state, x, spec, plan=engine.plan,
+            state = nystrom.observe_rows(state, x, spec, plan=observe_plan,
                                          m=m)
             if leverage and rule.sufficient:
                 action = "rejected"
@@ -225,6 +300,8 @@ def nystrom_service(args) -> tuple[dict, nystrom.NystromState]:
                         tracker.replaced(state, state_before=prev, x=x,
                                          j=info["victim"])
                     tracker.maybe_resync(state)
+                    if ms is not None:
+                        ms = tm.note_trace_error(ms, tracker.value)
                     if rule.observe(tracker.value):
                         stopped_at = i
             t.sync(state.Knm)
@@ -250,6 +327,15 @@ def nystrom_service(args) -> tuple[dict, nystrom.NystromState]:
                    if device.type == "cuda" else "cpu"),
         "dtype": args.dtype,
     }
+    for k, v in counts.items():
+        hub.counter("landmark_total", action=k).set(v)
+    hub.set_gauge("trace_error", err)
+    hub.set_gauge("active_m", result["m_final"])
+    if quarantine:
+        result["quarantined"] = n_quarantined
+    if ms is not None:
+        result["metrics"] = hub.observe_metrics_state(ms, prefix="nystrom")
+    export_metrics(args, hub)
     return result, state
 
 
@@ -349,9 +435,20 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="sliding-window size W: evict the oldest point "
                          "before ingesting past a full window (kpca mode)")
     ap.add_argument("--health", action="store_true",
-                    help="health lane (not ported yet: raises)")
+                    help="attach the default health policy: probes ride "
+                         "the update, non-finite points are quarantined "
+                         "before the rank-one pairs fire, and an "
+                         "unhealthy stream is healed at the transform "
+                         "interval")
     ap.add_argument("--metrics", action="store_true",
-                    help="metrics lane (not ported yet: raises)")
+                    help="attach the in-stream metric lane (MetricsState); "
+                         "implied by the export flags below")
+    ap.add_argument("--metrics-port", type=int, default=None, metavar="PORT",
+                    help="serve GET /metrics (Prometheus text) during the "
+                         "run; 0 picks a free port")
+    ap.add_argument("--metrics-jsonl", default=None, metavar="PATH",
+                    help="append hub events during the run and write a "
+                         "final full-registry scrape line to PATH")
     ap.add_argument("--landmark-policy", choices=("append", "leverage"),
                     default="append",
                     help="nystrom mode admission policy: 'append' admits "
@@ -379,7 +476,21 @@ def main(argv=None) -> dict:
         return lm_main(configs.get_config(args.arch, smoke=args.smoke),
                        batch=args.batch, prompt_len=args.prompt_len,
                        gen=args.gen, seed=args.seed, device=args.device)
-    return nystrom_main(args) if args.mode == "nystrom" else kpca_main(args)
+    server = None
+    if args.metrics_port is not None:
+        # Started before the service, so the run is scrapeable live; the
+        # service resets the same default hub object (fresh_hub).
+        server = obs.serve_metrics(obs.get_hub(), args.metrics_port)
+        print(f"[obs] /metrics on :{server.server_address[1]}")
+    if args.metrics_jsonl:
+        obs.get_hub().open_jsonl(args.metrics_jsonl)
+    try:
+        return (nystrom_main(args) if args.mode == "nystrom"
+                else kpca_main(args))
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
 
 
 if __name__ == "__main__":

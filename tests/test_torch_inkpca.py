@@ -248,12 +248,28 @@ def test_unfused_fixed_plan_matches_fused_bucketed():
 
 
 def test_unported_plans_raise_with_their_roadmap_item():
-    spec = tkf.KernelSpec()
-    x0 = np.zeros((2, 3))
-    for plan, item in ((teng.UpdatePlan(health=True), "item 7"),
-                       (teng.UpdatePlan(metrics=True), "item 7")):
-        with pytest.raises(NotImplementedError, match=item):
-            tink.KPCAStream(x0, 8, spec, plan=plan, device="cpu")
+    """The health and metrics plans are ported (ROADMAP.md item 7): a
+    stream with either runs and ends bit for bit equal to the plain
+    stream, with its lane riding beside it; a health field that is not a
+    policy raises."""
+    from repro_torch.core import health as thl
+
+    X, _, sigma = _data(n=10)
+    spec = tkf.KernelSpec(sigma=sigma)
+    states = []
+    for plan in (teng.UpdatePlan(), teng.UpdatePlan(health=thl.HealthPolicy()),
+                 teng.UpdatePlan(metrics=True)):
+        s = tink.KPCAStream(X[:4], 16, spec, plan=plan, device="cpu")
+        s.update_block(torch.tensor(X[4:], dtype=torch.float32))
+        states.append(s)
+    for s in states[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(s.state,
+                                                     states[0].state))
+    assert states[1].health_report()["probes"] == 6
+    assert states[2].metrics_report()["ingests"] == 6
+    with pytest.raises(TypeError, match="HealthPolicy"):
+        tink.KPCAStream(X[:4], 8, spec, plan=teng.UpdatePlan(health=True),
+                        device="cpu")
 
 
 def test_full_state_raises_under_both_dispatches():

@@ -559,3 +559,39 @@ def test_lm_wrappers_refuse_bad_operands(device):
         big = torch.zeros(1, 300, 4, device=device)
         sops.intra_chunk(big, big, torch.zeros(1, 300, 1, 8, device=device),
                          torch.zeros(1, 300, 1, device=device))
+
+
+def test_stream_runs_repeat_bit_for_bit_on_cuda(device):
+    """Two runs of one f32 ``pallas`` stream (capacity 256, 200 points,
+    the fused prologue, bucketed) from one state end bit for bit equal, in
+    the default (nondeterministic-allowed) mode: the cluster merge's
+    segment sums add in a fixed order.  So do a metrics-on and a
+    metrics-off run, guarded, with a NaN point among them."""
+    from repro_torch.core import health
+    from repro_torch.testing import faults
+
+    rng = np.random.default_rng(21)
+    X = rng.normal(size=(204, 16))
+    pts = [faults.nan_point(16, base=x) if i == 77 else x
+           for i, x in enumerate(X[4:])]
+    spec = kf.KernelSpec(sigma=16.0)
+    assert not torch.are_deterministic_algorithms_enabled()
+
+    def run(points, **plan):
+        s = inkpca.KPCAStream(
+            torch.tensor(X[:4], dtype=torch.float32, device=device), 256,
+            spec, plan=engine.UpdatePlan(matmul="pallas", fuse_krow=True,
+                                         dispatch="bucketed", **plan),
+            dtype=torch.float32, device=device)
+        for x in points:
+            s.update(x)
+        torch.cuda.synchronize()
+        return s
+
+    a, b = run(X[4:]), run(X[4:])
+    assert all(torch.equal(x, y) for x, y in zip(a.state, b.state))
+    on = run(pts, health=health.DEFAULT_POLICY, metrics=True)
+    off = run(pts, health=health.DEFAULT_POLICY)
+    assert all(torch.equal(x, y) for x, y in zip(on.state, off.state))
+    assert on.metrics_report()["rejections"] == 1
+    assert on.health_report()["quarantined"] == 1 and on.m == 203

@@ -27,10 +27,29 @@ def test_serve_kpca_dense_route_f64():
     assert res["m_final"] == 14 and stream.state.L.dtype == torch.float64
 
 
-def test_serve_unported_flags_raise():
-    for flag in ("--health", "--metrics"):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            serve.main(["--device", "cpu", "--window", "8", flag])
+def test_serve_unported_flags_raise(tmp_path):
+    """``--health`` and ``--metrics`` are ported (ROADMAP.md item 7): on a
+    window with every 5th point poisoned through the ``on_point`` seam,
+    the quarantined points are counted in the health report and the
+    metric lane, the result carries the reference's keys, and
+    ``--metrics-jsonl`` writes the scrape."""
+    from repro_torch.testing import faults
+
+    path = tmp_path / "m.jsonl"
+    res, _ = serve.kpca_service(
+        serve.parse_args(["--device", "cpu", "--window", "8", "--capacity",
+                          "16", "--points", "20", "--dim", "3", "--health",
+                          "--metrics", "--metrics-jsonl", str(path)]),
+        on_point=lambda i, stream, x: faults.nonfinite_every(5, i, x))
+    assert {"heals", "health", "metrics", "quarantined"} <= res.keys()
+    assert res["quarantined"] == res["health"]["quarantined"] == 4
+    assert res["metrics"]["rejections"] == 4
+    assert res["metrics"]["ingests"] == 16 and res["m_final"] == 8
+    assert res["finite"] and res["heals"] == 0
+    from repro_torch import obs
+    scrape = obs.read_jsonl(path)[-1]
+    assert scrape["event"] == "scrape"
+    assert scrape["stream_rejections_total"] == 4.0
 
 
 def test_serve_nystrom_runs_on_cpu():
@@ -52,6 +71,28 @@ def test_serve_nystrom_runs_on_cpu():
     out = serve.main(["--mode", "nystrom", "--device", "cpu", "--capacity",
                       "16", "--points", "12", "--dim", "3"])
     assert out["m_final"] == 15 and math.isfinite(out["step_ms_p50"])
+
+
+def test_serve_nystrom_health_drops_nonfinite_rows():
+    """``--mode nystrom --health --metrics`` with every 6th point made
+    non-finite through ``nystrom_service``'s ``on_point`` seam: those rows
+    are quarantined before they are observed or offered, the others are
+    observed and admitted to the budget, and the trace error is the
+    recomputed one."""
+    from repro_torch.core import kernels_fn as kf
+    from repro_torch.core import nystrom
+    from repro_torch.testing import faults
+
+    res, state = serve.nystrom_service(
+        serve.parse_args(["--mode", "nystrom", "--device", "cpu",
+                          "--capacity", "16", "--points", "30", "--dim", "3",
+                          "--dtype", "float64", "--health", "--metrics"]),
+        on_point=lambda i, x: faults.nonfinite_every(6, i, x))
+    assert res["quarantined"] == 5 and res["rows"] == 4 + 25
+    assert res["admitted"] == 11 and res["m_final"] == 15
+    assert bool(torch.isfinite(state.Xrows).all()) and res["finite"]
+    assert res["trace_error"] == pytest.approx(float(nystrom.trace_error(
+        state, kf.KernelSpec(sigma=3.0))), rel=1e-12)
 
 
 def test_serve_nystrom_leverage_policy_raises():

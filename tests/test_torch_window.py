@@ -258,12 +258,40 @@ def test_engine_step_drives_both_packages_with_one_plan(windowed, matmul):
 
 
 def test_health_and_metrics_bundles_raise():
+    """Health and metrics bundles are ported (ROADMAP.md item 7): one
+    reference plan with a health policy and metrics drives a guarded,
+    metered window bundle through both packages' ``Engine.step``, a NaN
+    point among them, and the bundles stay equal (the ring and the
+    counters exactly).  A health bundle without a policy raises."""
+    from repro.core import health as jhl, telemetry as jtm
+    from repro_torch.core import health as thl, telemetry as ttm
+
+    X = np.random.default_rng(8).normal(size=(16, 4))
+    plan = jeng.UpdatePlan(window=6, health=jhl.DEFAULT_POLICY, metrics=True)
+    je = jeng.Engine(JSPEC, plan, adjusted=True)
+    te = teng.Engine(TSPEC, plan, adjusted=True)
+    js = jeng.make_stream(jwnd.init_window(jnp.asarray(X[:4]), 16, JSPEC,
+                                           dtype=jnp.float64),
+                          health=jhl.init_health(jnp.float64),
+                          metrics=jtm.init_metrics(jnp.float64))
+    ts = teng.make_stream(twnd.init_window(torch.tensor(X[:4]), 16, TSPEC,
+                                           dtype=torch.float64),
+                          health=thl.init_health(torch.float64),
+                          metrics=ttm.init_metrics(torch.float64))
+    for i, x in enumerate(X[4:]):
+        if i == 5:
+            x = np.full(4, np.nan)
+        js = je.step(js, jnp.asarray(x))
+        ts = te.step(ts, torch.tensor(x))
+    _same(ts, js)
+    assert int(ts.health.quarantined) == int(js.health.quarantined) == 1
+    assert ttm.metrics_report(ts.metrics) == pytest.approx(
+        jtm.metrics_report(js.metrics), abs=1e-9)
     st = tink.init_state(torch.zeros(2, 3, dtype=torch.float64), 8, TSPEC,
                          adjusted=True, dtype=torch.float64)
-    engine = teng.Engine(TSPEC)
-    for kw in ({"health": object()}, {"metrics": object()}):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            engine.step(teng.make_stream(st, **kw), torch.zeros(3))
+    with pytest.raises(ValueError, match="health policy"):
+        teng.Engine(TSPEC).step(teng.make_stream(
+            st, health=thl.init_health(torch.float64)), torch.zeros(3))
 
 
 def test_jax_window_continues_in_the_port():
