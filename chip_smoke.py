@@ -41,6 +41,11 @@ Phases, each printing one JSON line per row:
    bf16 runs on ``wgmma`` (scores once per 64-row tile, shared by a group
    of 16 heads), in f32 on the CUDA cores.  A row's ``n`` and ``m`` are
    T and H for the LM kernels (G·Q and H for the intra-chunk term).
+   Then the five KPCA kernels over a tenant axis (``checks.batched_cases``:
+   B = 8 tenants at bucket 1024, tenant b at m = 300 + 100 b with its own
+   operands, f32 and f64; variant "B 8"): one launch against the batched
+   plain version within the same bounds, each tenant bit for bit the
+   single launch on its operands, two runs bit for bit.
 3. ``service`` — the KPCA service, ``repro_torch.launch.serve --mode
    kpca`` (Algorithm 2, fused k-row prologue, bucketed dispatch), on the
    sequential route (``--matmul pallas``) and on the fused-pair route
@@ -138,6 +143,25 @@ Phases, each printing one JSON line per row:
    holds the last W accepted points.  ``health_nystrom``: ``--mode
    nystrom --health`` (f32, capacity 256, 500 points, every 50th
    poisoned): the rows are dropped, the trace error holds its bar.
+12b. ``multitenant`` — ``serve --mode kpca --tenants 8 --cohorts max``
+   (f32 ``pallas``, the fused prologue, bucketed, capacity 1024, d = 16,
+   4 + 600 points a tenant, 64 queries x 8 components every 16 points):
+   each kernel launched once a step for the cohort (the single stream's
+   reckoning), synchronizing calls inside a step only at bucket
+   crossings, every tenant's top-8 against f64 eigh (the f32 bars); then
+   the same stream at B = 1 and B = 8 for 40 steps at the top bucket:
+   kernel launches per step equal, device launches within 10 %, no
+   synchronizing call, aggregate updates/s of both.
+   ``multitenant_cohorts``: f64 ``pallas2``, capacity 256, B = 6, the
+   ``bucket`` and ``bucket-padded`` geometries under a mask spreading the
+   tenants, then a 6-step block: more than one group, every tenant equal
+   to its own single stream on the card (1e-9 / 1e-8), idle tenants bit
+   for bit.  ``multitenant_window``: ``--tenants 4 --window 200 --health
+   --metrics`` (f64 ``pallas``, capacity 256, 264 points), cohorts
+   ``max`` and ``bucket``, two non-finite points injected into two lanes:
+   the rejected lane bit for bit, the others advance, each tenant's rows
+   its last W accepted points, f64 eigh bars, tallies and metric lanes
+   equal to a host tally.
 13. ``roofline`` — ``repro_torch.launch.roofline`` at the reference
    driver's shapes: a STREAM triad on the card, one row per kernel with
    its rate against it, and the fused-against-unfused ingest and query
@@ -160,14 +184,17 @@ Phases, each printing one JSON line per row:
    (profiler records; where the profiler records nothing, CUDA events
    around calls queued behind a spin kernel) beside the plain version's,
    one library call's and its bound, and each call's event-timed time,
-   host work included.  It runs after the services so that the profiler
-   is never attached to one.
+   host work included; each batched kernel's beside the 8 single
+   launches' (``singles_ms``).  It runs after the services so that the
+   profiler is never attached to one.
 16. ``lm_profile`` — one prefill of the ``lm`` phase under the profiler:
    device time by kernel group (the two LM kernels, cuBLAS's matmuls, the
    rest) and the idle share.  It runs last: on one H100 host the
    profiler recorded no device activity after a prefill had been profiled.
 
-Then the card's name and power limit, the kernels' summary line, and last
+Then the card's name and power limit, the kernels' summary line (rows 1-5
+with a ``batched`` entry: the B = 8 launch's time, its singles' time, its
+launches on the multi-tenant paths), and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
 script exits non-zero; without a CUDA device it exits 1 at once.
 """
@@ -185,6 +212,9 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 MAIN_N, MAIN_M = 1024, 1000
+# The tenant axis: B = 8 tenants at bucket 1024, tenant b at m = 300 + 100 b.
+TENANTS = 8
+TENANT_MS = tuple(range(300, 1001, 100))
 FEATURES = (512, 500)      # transform_project as the Nyström feature head
 GRAM_N, GRAM_K = 4096, (512, 200)   # scaled_gram: Fig. 2 rows, widths
 # rbf_gram (n, m, d, dtype): the roofline's gram in both types first (its
@@ -1105,11 +1135,12 @@ def snapshots_phase(torch, cuda, nystrom_state, capacity: int = 1024,
     torch.cuda.synchronize()
     launches = dict(cuda.LAUNCHES)
     # 127 ingests (Algorithm 2: 4 rotations, a k-row pass, a projection);
-    # queries: 1 + 64 on the front, 2 around each of 3 publishes, 4 + 4
-    # for the batch, 1 feature head.
+    # queries: 1 + 64 on the front, 2 around each of 3 publishes, 1 for
+    # the batch (the tenant axis) + 4 single ones to hold it to, 1 feature
+    # head.
     expect = {name: 0 for name in launches}
     expect.update(eigvec_rotate=4 * 127, krow_project=127,
-                  eigvec_project=127, transform_project=1 + 64 + 6 + 8 + 1)
+                  eigvec_project=127, transform_project=1 + 64 + 6 + 5 + 1)
     ok = (stable and gens == [0, 1, 2, 3] and reuse == [True, True]
           and launches == expect
           and all(untouched) and batch_equal and feat_ratio <= 1.0
@@ -1569,6 +1600,376 @@ def reproducible_phase(torch, cuda, capacity: int = 1024,
     return row
 
 
+def batched_kernel_phase(torch, checks) -> dict:
+    """The five kernels of the KPCA path over a tenant axis (B = 8, bucket
+    1024, tenant b at m = 300 + 100 b, its own operands), f32 and f64: one
+    launch each, held per entry to the batched plain version (each
+    tenant's single plain call) within the kernel phase's bounds, each
+    tenant bit for bit equal to the single launch on its operands, two
+    runs bit for bit, f32 ``eigvec_rotate`` within ``TF32_ERR_RATIO`` of
+    the plain f32 error against f64."""
+    rows = {}
+    for dtype in (torch.float32, torch.float64):
+        for case in checks.batched_cases(MAIN_N, TENANT_MS, dtype, "cuda"):
+            res = checks.compare(case)
+            if case.exact is not None and dtype == torch.float32:
+                res.update(checks.error_vs_exact(case),
+                           bar_err_ratio=TF32_ERR_RATIO)
+            res["bitwise_vs_single"] = checks.batched_bitwise(case)
+            res["repeats_bitwise"] = checks.repeats_bitwise(case)
+            row = {"phase": "kernels", "name": case.name,
+                   "variant": case.variant,
+                   "dtype": str(dtype).removeprefix("torch."), "n": MAIN_N,
+                   "m": list(TENANT_MS), "tenants": case.tenants, **res}
+            emit(row)
+            if not (row["bitwise_vs_single"] and row["repeats_bitwise"]
+                    and row.get("err_ratio", 0.0) <= TF32_ERR_RATIO):
+                raise AssertionError(f"batched {case.name}: {row}")
+            rows[case.name, row["dtype"]] = row
+    return rows
+
+
+def batched_timing_phase(torch, checks) -> dict:
+    """Each batched kernel's device time beside the B single launches'
+    (the loop it replaces), its plain version's, the library's batched
+    call's and its bound, at the batched kernel phase's shapes."""
+    rows = {}
+    for dtype in (torch.float32, torch.float64):
+        for case in checks.batched_cases(MAIN_N, TENANT_MS, dtype, "cuda"):
+            ms, per_call = checks.device_ms(case.kernel)
+            singles_ms, singles_per_call = checks.device_ms(case.loop)
+            bound_ms, bound_by = case.bound(dtype)
+            row = {"phase": "timing", "name": case.name,
+                   "variant": case.variant,
+                   "dtype": str(dtype).removeprefix("torch."), "n": MAIN_N,
+                   "m": list(TENANT_MS), "tenants": case.tenants, "ms": ms,
+                   "timed_by": ("profiler" if per_call is not None
+                                else "queued events"),
+                   "device_launches_per_call": per_call,
+                   "singles_ms": singles_ms,
+                   "singles_device_launches": singles_per_call,
+                   "call_ms": checks.call_ms(case.kernel),
+                   "singles_call_ms": checks.call_ms(case.loop),
+                   "plain_ms": checks.device_ms(case.plain)[0],
+                   "library_ms": (checks.device_ms(case.library)[0]
+                                  if case.library else None),
+                   "bound_ms": bound_ms, "bound_by": bound_by}
+            emit(row)
+            rows[case.name, row["dtype"]] = row
+    return rows
+
+
+def _cohort_steps(torch, cuda, batch, xs) -> dict:
+    """A cohort's steps at one bucket: (1) wall ms per step, host clock
+    around each synchronised step, and its kernel launches per step; (2)
+    the synchronizing calls per step (torch's sync debug mode); (3) device
+    launches and busy ms per step under the profiler, as
+    ``launch/profile_update.py`` counts them.  ``xs`` (3 n + 2, B, d) on
+    the card: n steps a pass after 2 warm-up steps."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    n = (xs.shape[0] - 2) // 3
+    m_start = int(batch._m_host.min())
+    for x in xs[:2]:
+        batch.update(x)
+    torch.cuda.synchronize()
+    before = dict(cuda.LAUNCHES)
+    ms = []
+    for x in xs[2:2 + n]:
+        t0 = time.perf_counter()
+        batch.update(x)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    kernel_launches = {k: (v - before[k]) / n for k, v in cuda.LAUNCHES.items()
+                       if v != before[k]}
+    syncs: list = []
+    step = _count_syncs(torch, batch.update, syncs)
+    for x in xs[2 + n:2 + 2 * n]:
+        step(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for x in xs[2 + 2 * n:]:
+            batch.update(x)
+        torch.cuda.synchronize()
+    dev = [e.time_range.elapsed_us() for e in prof.events()
+           if e.device_type == DeviceType.CUDA]
+    busy = sum(dev) / 1e3 / n
+    p50 = float(np.median(ms))
+    return {"tenants": batch.n_tenants, "steps": n,
+            "m_start": m_start,
+            "step_ms_p50": p50, "step_ms_max": float(max(ms)),
+            "aggregate_updates_per_s": batch.n_tenants / (p50 / 1e3),
+            "kernel_launches_per_step": kernel_launches,
+            "syncs_per_step": sum(syncs) / n,
+            "device_launches_per_step": len(dev) / n,
+            "device_busy_ms_per_step": busy,
+            "device_idle_share": 1.0 - busy / p50}
+
+
+def multitenant_phase(torch, cuda, serve, points: int = 600,
+                      reckon_steps: int = 40) -> dict:
+    """``serve --mode kpca --tenants 8 --cohorts max`` (f32 ``pallas``, the
+    fused prologue, bucketed, capacity 1024, d = 16, 4 + ``points``
+    points a tenant, 64 queries x 8 components every 16 points): each
+    kernel launched once a step for the cohort (the single stream's
+    reckoning), the synchronizing calls inside the steps only at bucket
+    crossings, every tenant's top-8 eigenpairs against f64 eigh of its own
+    gram (the f32 bars).  Then the same stream at B = 1 (tenant 0) and
+    B = 8, ``reckon_steps`` steps each at the top bucket: kernel launches
+    per step equal, device launches per step within 10 %, no
+    synchronizing call, and the aggregate updates/s of both."""
+    from repro_torch.core import engine as eng, inkpca
+
+    args = serve.parse_args([
+        "--mode", "kpca", "--device", "cuda", "--dtype", "float32",
+        "--tenants", str(TENANTS), "--cohorts", "max", "--capacity", "1024",
+        "--points", str(points), "--dim", "16", "--batch", "64",
+        "--transform-every", "16", "--matmul", "pallas"])
+    syncs: list = []
+    orig = eng.StreamBatch.update
+    eng.StreamBatch.update = (lambda self, *a, **k: _count_syncs(
+        torch, orig, syncs)(self, *a, **k))
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    result, batch = serve.kpca_multitenant_service(args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    eng.StreamBatch.update = orig
+    launches = dict(cuda.LAUNCHES)
+    expect = {"eigvec_rotate": 4 * points, "eigvec_rotate2": 0,
+              "krow_project": points, "eigvec_project": points,
+              "transform_project": points // args.transform_every,
+              "scaled_gram": 0, "rbf_gram": 0, "flash_attention": 0,
+              "ssd_intra_chunk": 0}
+    # A step of tenants at m needs m + 1 rows: the cohort crosses into
+    # buckets 256, 512 and 1024 at the steps where 4 + i + 1 passes 128,
+    # 256 and 512; only there may a step read m back.
+    crossings = {b - 4 for b in (128, 256, 512)}
+    sync_steps = sorted(i for i, s in enumerate(syncs) if s)
+    oracle = [oracle_check(torch, batch.state_of(i), batch.spec, True,
+                           "float32") for i in range(TENANTS)]
+    reckon = {}
+    rng = __import__("numpy").random.default_rng(3)
+    xs = torch.as_tensor(rng.normal(size=(3 * reckon_steps + 2, TENANTS,
+                                          16)),
+                         dtype=torch.float32, device="cuda")
+    for B in (1, TENANTS):
+        states = batch.states if B == TENANTS else inkpca.stack_states(
+            [batch.state_of(0)])
+        cohort = eng.StreamBatch.from_states(states, batch.spec,
+                                             plan=batch.plan)
+        reckon[B] = _cohort_steps(torch, cuda, cohort, xs[:, :B].contiguous())
+    one, many = reckon[1], reckon[TENANTS]
+    ratio = many["device_launches_per_step"] / one["device_launches_per_step"]
+    row = {"phase": "multitenant", "dtype": "float32", "matmul": "pallas",
+           "cohorts": "max", "tenants": TENANTS, "capacity": 1024,
+           "points": points, "m_final": result["m_final"],
+           **{k: result[k] for k in ("step_ms_p50", "step_ms_p90",
+                                     "step_ms_p99", "step_ms_max",
+                                     "query_ms_p50", "query_ms_p99",
+                                     "aggregate_updates_per_s",
+                                     "transforms_served", "total_s")},
+           "seconds": seconds, "launches": launches,
+           "sync_steps": sync_steps, "syncs": sum(syncs),
+           "top8_eig_rel_err": max(o["top8_eig_rel_err"] for o in oracle),
+           "top8_subspace_min_cos": min(o["top8_subspace_min_cos"]
+                                        for o in oracle),
+           "bar_rel_err": BARS["float32"][0],
+           "bar_min_cos": BARS["float32"][1],
+           "reckoning": {str(B): r for B, r in reckon.items()},
+           "device_launch_ratio": ratio}
+    emit(row)
+    if not (launches == expect and result["finite"]
+            and result["m_final"] == [4 + points] * TENANTS
+            and set(sync_steps) <= crossings
+            and one["kernel_launches_per_step"]
+            == many["kernel_launches_per_step"]
+            and abs(ratio - 1.0) <= 0.10
+            and one["syncs_per_step"] == many["syncs_per_step"] == 0):
+        raise AssertionError(f"multitenant: {row} (launches expected "
+                             f"{expect}, syncs only at {sorted(crossings)})")
+    return row
+
+
+def multitenant_cohorts_phase(torch, cuda, steps: int = 64,
+                              block: int = 6) -> dict:
+    """The grouped geometries on the fused pair (f64 ``pallas2``, the fused
+    prologue, capacity 256, buckets from 64, B = 6): tenant i steps when
+    step % (i + 1) == 0 (the reference's cohort test), then a ``block``-
+    step block; ``bucket`` then ``bucket-padded``.  More than one group
+    forms; every tenant equals its own single ``KPCAStream`` fed the same
+    points on the card within 1e-9 (eigenvalues) and 1e-8
+    (reconstruction); idle tenants stay bit for bit."""
+    import numpy as np
+
+    from repro_torch.core import engine as eng, inkpca, kernels_fn as kf
+    from repro_torch.core import rankone
+
+    B, d, cap = 6, 16, 256
+    spec = kf.KernelSpec(name="rbf", sigma=float(d))
+    plan = eng.UpdatePlan(matmul="pallas2", fuse_krow=True,
+                          dispatch="bucketed", min_bucket=64)
+    rng = np.random.default_rng(5)
+    x0 = rng.normal(size=(B, 4, d))
+    xs = rng.normal(size=(steps, B, d))
+    masks = [np.array([t % (i + 1) == 0 for i in range(B)])
+             for t in range(steps)]
+    blk = rng.normal(size=(block, B, d))
+    dev = dict(dtype=torch.float64, device="cuda")
+    t0 = time.perf_counter()
+    singles = [inkpca.KPCAStream(torch.as_tensor(x0[i], **dev), cap, spec,
+                                 plan=plan, dtype=torch.float64,
+                                 device="cuda") for i in range(B)]
+    for t in range(steps):
+        for i, s in enumerate(singles):
+            if masks[t][i]:
+                s.update(xs[t, i])
+    for i, s in enumerate(singles):
+        s.update_block(blk[:, i])
+    single_s = time.perf_counter() - t0
+    xs_dev, blk_dev = (torch.as_tensor(a, **dev) for a in (xs, blk))
+    out = {}
+    for cohorts in ("bucket", "bucket-padded"):
+        batch = eng.StreamBatch(torch.as_tensor(x0, **dev), cap, spec,
+                                plan=plan, dtype=torch.float64,
+                                cohorts=cohorts, device="cuda")
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        idle_bitwise, groups = [], 0
+        for t in range(steps):
+            check = t in (9, 33, 57)
+            idle = np.nonzero(~masks[t])[0] if check else []
+            before = {i: batch.state_of(int(i)) for i in idle}
+            batch.update(xs_dev[t], active=masks[t])
+            groups = max(groups, len(batch._groups))
+            idle_bitwise += [_bitwise(torch, batch.state_of(int(i)), st)
+                             for i, st in before.items()]
+        batch.update_block(blk_dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        sts = batch.states
+        err_l = err_r = 0.0
+        for i, s in enumerate(singles):
+            ref = s.kpca_state
+            m = int(ref.m)
+            if int(sts.m[i]) != m:
+                raise AssertionError(f"{cohorts}: tenant {i} m "
+                                     f"{int(sts.m[i])} != {m}")
+            err_l = max(err_l, float((sts.L[i, :m] - ref.L[:m]).abs().max()))
+            err_r = max(err_r, float((rankone.reconstruct(
+                sts.L[i], sts.U[i], sts.m[i]) - rankone.reconstruct(
+                    ref.L, ref.U, ref.m)).abs().max()))
+        row = {"phase": "multitenant_cohorts", "cohorts": cohorts,
+               "dtype": "float64", "matmul": "pallas2", "tenants": B,
+               "capacity": cap, "min_bucket": plan.min_bucket,
+               "steps": steps, "block": block,
+               "m_final": sts.m.tolist(), "groups_max": groups,
+               "eig_max_abs_err": err_l, "recon_max_abs_err": err_r,
+               "bars": [1e-9, 1e-8], "idle_checked": len(idle_bitwise),
+               "idle_bitwise": all(idle_bitwise), "seconds": seconds,
+               "singles_seconds": single_s,
+               "launches": dict(cuda.LAUNCHES)}
+        emit(row)
+        if not (groups > 1 and err_l <= 1e-9 and err_r <= 1e-8
+                and idle_bitwise and all(idle_bitwise)
+                and bool(torch.isfinite(sts.L).all())):
+            raise AssertionError(f"multitenant_cohorts: {row}")
+        out[cohorts] = row
+    return out
+
+
+def multitenant_window_phase(torch, cuda, serve, window: int = 200,
+                             points: int = 264) -> dict:
+    """``serve --tenants 4 --window 200 --health --metrics`` (f64
+    ``pallas``, capacity 256, 264 points a tenant), cohorts ``max`` and
+    ``bucket``, a non-finite point injected into lane 1 at step W / 2
+    (growing) and lane 3 at step W + 30 (at the window), through the
+    service's ``on_step`` seam: the rejected lane's state bit for bit
+    untouched while the others advance, each tenant's rows its last W
+    accepted points, its eigensystem against f64 eigh (the f64 bars), the
+    quarantine tally and the metric lanes equal to a host tally."""
+    import numpy as np
+
+    B = 4
+    bad = {window // 2: 1, window + 30: 3}
+    out = {}
+    for cohorts in ("max", "bucket"):
+        args = serve.parse_args([
+            "--mode", "kpca", "--device", "cuda", "--dtype", "float64",
+            "--tenants", str(B), "--cohorts", cohorts, "--capacity", "256",
+            "--window", str(window), "--points", str(points), "--dim", "16",
+            "--batch", "64", "--transform-every", "16", "--matmul",
+            "pallas", "--health", "--metrics"])
+        log, checks_ok = {}, []
+
+        def on_step(i, batch, xs):
+            if i - 1 in bad:
+                lane, st, ingested = log[i - 1]
+                moved = batch._ingest_host - ingested
+                checks_ok.append(
+                    _bitwise(torch, batch.state_of(lane), st)
+                    and moved[lane] == 0
+                    and all(moved[j] == 1 for j in range(B) if j != lane))
+            if i in bad:
+                xs = np.array(xs)
+                xs[bad[i], 0] = np.nan
+                log[i] = (bad[i], batch.state_of(bad[i]),
+                          batch._ingest_host.copy())
+            return xs
+
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        result, batch = serve.kpca_multitenant_service(args, on_step=on_step)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        x0, steps = serve.multitenant_draws(args)
+        rows_ok, oracle = [], []
+        for b in range(B):
+            acc = [x[b] for i, (x, _) in enumerate(steps)
+                   if bad.get(i) != b]
+            last = np.concatenate([x0[b], np.stack(acc)])[-window:]
+            st = batch.state_of(b)
+            rows_ok.append(torch.equal(st.X[:window], torch.as_tensor(
+                last, dtype=st.X.dtype, device=st.X.device)))
+            oracle.append(oracle_check(torch, st, batch.spec, True,
+                                       "float64"))
+        rejected = np.array([sum(v == b for v in bad.values())
+                             for b in range(B)])
+        ingests = points - rejected
+        met = result["metrics"]
+        tally = {"ingests": ingests.tolist(),
+                 "rejections": rejected.tolist(),
+                 "evictions": (ingests - (window - 4)).tolist(),
+                 "m": [float(window)] * B}
+        lanes = {k: met[k] for k in tally}
+        row = {"phase": "multitenant_window", "cohorts": cohorts,
+               "dtype": "float64", "matmul": "pallas", "tenants": B,
+               "capacity": 256, "window": window, "points": points,
+               "injected": {str(k): v for k, v in bad.items()},
+               "rejected_untouched": checks_ok, "rows_last_w": rows_ok,
+               "quarantined": result["quarantined"],
+               "quarantined_per_tenant": batch.quarantined.tolist(),
+               "metric_lanes": lanes, "tally": tally,
+               "top8_eig_rel_err": max(o["top8_eig_rel_err"]
+                                       for o in oracle),
+               "top8_subspace_min_cos": min(o["top8_subspace_min_cos"]
+                                            for o in oracle),
+               "step_ms_p50": result["step_ms_p50"], "seconds": seconds,
+               "launches": dict(cuda.LAUNCHES)}
+        emit(row)
+        if not (len(checks_ok) == len(bad) and all(checks_ok)
+                and all(rows_ok) and result["quarantined"] == len(bad)
+                and batch.quarantined.tolist() == rejected.tolist()
+                and lanes == tally and result["finite"]
+                and result["m_final"] == [window] * B):
+            raise AssertionError(f"multitenant_window: {row}")
+        out[cohorts] = row
+    return out
+
+
 def roofline_phase(torch, cuda) -> dict:
     """``launch/roofline.main`` at the reference driver's shapes, nothing
     written; the kernels' launches are counted around it and held to
@@ -1752,6 +2153,7 @@ def main() -> int:
           "sass_mma": cuda.sass_counts()})
 
     checked = kernel_phase(torch, checks, cuda)
+    checked_b = batched_kernel_phase(torch, checks)
     runs = {"pallas": service_phase(torch, cuda, serve, 1024, 1000,
                                     "float32", "pallas"),
             "pallas2": service_phase(torch, cuda, serve, 1024, 1000,
@@ -1776,9 +2178,14 @@ def main() -> int:
     restore_phase(torch, cuda)
     guarded_window_phase(torch, cuda, serve)
     guarded_nystrom_phase(torch, cuda, serve)
+    runs["multitenant"] = multitenant_phase(torch, cuda, serve)
+    runs["multitenant_cohorts"] = multitenant_cohorts_phase(
+        torch, cuda)["bucket"]
+    multitenant_window_phase(torch, cuda, serve)
     runs["roofline"] = roofline_phase(torch, cuda)
     runs["lm"], prefill_call = lm_phase(torch, cuda)
     timed = timing_phase(torch, checks)
+    timed_b = batched_timing_phase(torch, checks)
     lm_profile_phase(checks, prefill_call)
     del prefill_call
     torch.cuda.empty_cache()
@@ -1801,6 +2208,10 @@ def main() -> int:
                                        FLASH_SHAPES[0][0][2]),
                    "ssd_intra_chunk": (SSD_SHAPES[0][1],
                                        SSD_SHAPES[0][0][3])}
+    # The batched forms' launches: the multi-tenant service (f32 pallas,
+    # B = 8) for the prologue, projection, rotation and transform, the
+    # grouped f64 pallas2 cohort for the fused pair.
+    batched_path_of = {"eigvec_rotate2": "multitenant_cohorts"}
     kernels = []
     for name, (source, replaces) in checks.SOURCES.items():
         key = (name, *main_key_of.get(name, ("float32", MAIN_M)), "")
@@ -1808,13 +2219,28 @@ def main() -> int:
         launches = runs[path_of.get(name, "pallas")]["launches"][name]
         if not launches:
             raise AssertionError(f"{name} was not launched on its path")
-        kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches,
-                        "max_abs_err": checked[key]["max_abs_err"],
-                        "ms": r["ms"],
-                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"]})
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": launches,
+               "max_abs_err": checked[key]["max_abs_err"], "ms": r["ms"],
+               "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+               "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        if name in checks.BATCHED:
+            rb = timed_b[name, "float32"]
+            b_launches = runs[batched_path_of.get(
+                name, "multitenant")]["launches"][name]
+            if not b_launches:
+                raise AssertionError(f"batched {name} was not launched on "
+                                     f"its path")
+            row["batched"] = {
+                "tenants": TENANTS, "m": list(TENANT_MS),
+                "launches": b_launches,
+                "max_abs_err": checked_b[name, "float32"]["max_abs_err"],
+                "bitwise_vs_single":
+                    checked_b[name, "float32"]["bitwise_vs_single"],
+                "ms": rb["ms"], "singles_ms": rb["singles_ms"],
+                "plain_ms": rb["plain_ms"], "bound_ms": rb["bound_ms"],
+                "bound_by": rb["bound_by"], "library_ms": rb["library_ms"]}
+        kernels.append(row)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

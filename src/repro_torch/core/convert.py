@@ -14,6 +14,13 @@ fields plus the targets ``y``; ``snapshot_from_numpy`` and
 ``snapshot_to_numpy`` for a ``ServingSnapshot``: ``S``, ``X``, ``m``,
 ``generation`` and, for a mean-adjusted head, the affine fields ``mf``,
 ``colsum``, ``colproj`` and ``grand``.
+``stacked_state_from_numpy`` carries a tenant-stacked ``KPCAState`` (every
+field with a leading tenant axis B: the reference's ``StreamBatch.states``),
+which ``engine.StreamBatch.from_states`` continues;
+``stacked_window_from_numpy`` a stacked ``WindowState`` (``ages`` (B, M),
+``clock`` (B,)), whose ring a windowed cohort's lockstep FIFO defines where
+the reference keeps none.  ``state_to_numpy`` and ``window_to_numpy`` take
+stacked states as they are.
 ``lm_params_from_numpy`` turns the reference's LM parameter tree (as
 numpy arrays) into the port's ``models.lm.LM``.
 """
@@ -59,6 +66,51 @@ def state_from_numpy(fields: dict, device=None) -> KPCAState:
 def state_to_numpy(state: KPCAState) -> dict:
     """The state's fields as numpy arrays (``m`` as int32)."""
     return {k: getattr(state, k).detach().cpu().numpy() for k in FIELDS}
+
+
+def stacked_state_from_numpy(fields: dict, device=None) -> KPCAState:
+    """Tenant-stacked port state from numpy fields with a leading tenant
+    axis (L (B, M), U (B, M, M), m (B,), S (B,), K1 (B, M), X (B, M, d)),
+    each tenant checked as ``state_from_numpy`` checks one state."""
+    missing = [k for k in FIELDS if k not in fields]
+    if missing:
+        raise ValueError(f"state fields missing: {missing}")
+    arrs = {k: np.array(fields[k]) for k in FIELDS}
+    B = arrs["L"].shape[0] if arrs["L"].ndim == 2 else -1
+    if B < 1 or any(arrs[k].shape[:1] != (B,) for k in FIELDS):
+        raise ValueError(f"stacked state needs a leading tenant axis on "
+                         f"every field, got "
+                         f"{ {k: arrs[k].shape for k in FIELDS} }")
+    tenants = [state_from_numpy({k: arrs[k][b] for k in FIELDS}, device)
+               for b in range(B)]
+    return KPCAState(*(torch.stack(leaves) for leaves in zip(*tenants)))
+
+
+def stacked_window_from_numpy(fields: dict, device=None) -> WindowState:
+    """Tenant-stacked window state: the stacked KPCA fields plus ``ages``
+    (B, M) and ``clock`` (B,), each tenant checked as
+    ``window_from_numpy`` checks one.  Without ``ages``/``clock`` (a
+    reference cohort's ``states``: its windows keep no ring) each tenant's
+    ring is the lockstep FIFO's: row i holds arrival i, the clock is m."""
+    kpca = stacked_state_from_numpy(fields, device)
+    B, M = kpca.L.shape
+    m = kpca.m.cpu().numpy()
+    if "ages" in fields or "clock" in fields:
+        ages = np.array(fields["ages"])
+        clock = np.array(fields["clock"])
+    else:
+        ages = np.tile(np.arange(M, dtype=np.int64), (B, 1))
+        clock = m.astype(np.int64)
+    if ages.shape != (B, M) or clock.shape != (B,):
+        raise ValueError(f"inconsistent stacked window: ages {ages.shape}, "
+                         f"clock {clock.shape} for {B} tenants of "
+                         f"capacity {M}")
+    wins = [window_from_numpy({**state_to_numpy(KPCAState(
+        *(leaf[b] for leaf in kpca))), "ages": ages[b], "clock": clock[b]},
+        kpca.L.device) for b in range(B)]
+    return WindowState(kpca=kpca,
+                       ages=torch.stack([w.ages for w in wins]),
+                       clock=torch.stack([w.clock for w in wins]))
 
 
 def nystrom_from_numpy(fields: dict, device=None) -> NystromState:

@@ -21,6 +21,9 @@ negated and the order swapped.
 
 The point to remove is a 0-d device tensor, so a caller that picks it on
 the card (the window's argmin of the arrival ring) reads nothing back.
+Every function takes the optional leading tenant axis of ``rankone``: a
+stacked state and points (B,) remove one point from each tenant at once
+(``engine.StreamBatch``'s lockstep FIFO removes row 0 of each).
 """
 from __future__ import annotations
 
@@ -28,7 +31,8 @@ import torch
 
 from repro_torch.core import engine as eng
 from repro_torch.core import kernels_fn as kf, rankone
-from repro_torch.core.rankone import index_get, index_set
+from repro_torch.core.rankone import (index_get, index_set, matvec, take,
+                                      take_cols, take_rows)
 
 Tensor = torch.Tensor
 
@@ -37,9 +41,9 @@ def _move_to(idx: Tensor, i: Tensor, q: Tensor) -> Tensor:
     """The order that moves entry ``i`` of ``idx`` to just after ``q``,
     keeping every other entry in place relative to the rest: a stable
     argsort of the float64 key (as the reference's ``jnp.argsort``)."""
-    key = torch.where(idx == i, q.to(torch.float64) + 0.5,
-                      idx.to(torch.float64))
-    return torch.argsort(key, stable=True)
+    key = torch.where(idx == i[..., None], q.to(torch.float64)[..., None]
+                      + 0.5, idx.to(torch.float64))
+    return torch.argsort(key, dim=-1, stable=True)
 
 
 def boundary_perm(i: Tensor, m: Tensor, M: int) -> Tensor:
@@ -52,9 +56,10 @@ def boundary_perm(i: Tensor, m: Tensor, M: int) -> Tensor:
 
 def permute_to_boundary(state, i: Tensor):
     """Apply ``boundary_perm`` to the state's row-indexed arrays."""
-    order = boundary_perm(i, state.m, state.L.shape[0])
-    return state._replace(U=state.U[order, :], K1=state.K1[order],
-                          X=state.X[order])
+    order = boundary_perm(i, state.m, state.L.shape[-1])
+    return state._replace(U=take_rows(state.U, order),
+                          K1=take(state.K1, order),
+                          X=take_rows(state.X, order))
 
 
 def contract_rows(L: Tensor, U: Tensor, w: Tensor, m: Tensor
@@ -71,27 +76,30 @@ def contract_rows(L: Tensor, U: Tensor, w: Tensor, m: Tensor
     −sign(w_{j*})·e_{j*}, ‖u‖² ≈ 4) avoids the cancellation of the
     same-sign target; the target's sign does not matter since the identity
     pair is forced."""
-    M = L.shape[0]
+    M = L.shape[-1]
     dtype = L.dtype
     q = m - 1
     idx = torch.arange(M, device=L.device)
-    j_star = torch.argmax(torch.abs(w))
+    j_star = torch.argmax(torch.abs(w), dim=-1)
     sgn = torch.where(index_get(w, j_star) < 0, -1.0, 1.0).to(dtype)
-    u = w + sgn * (idx == j_star).to(dtype)
-    unorm2 = torch.sum(u * u)
+    u = w + sgn[..., None] * (idx == j_star[..., None]).to(dtype)
+    unorm2 = torch.sum(u * u, dim=-1)
     coef = torch.where(unorm2 > torch.finfo(dtype).tiny, 2.0 / unorm2,
                        torch.zeros((), dtype=dtype, device=L.device))
-    U = U - coef * torch.outer(U @ u, u)          # U @ H, rank-one apply
+    # U @ H, a rank-one apply.
+    U = U - coef[..., None, None] * (matvec(U, u)[..., :, None]
+                                     * u[..., None, :])
 
     # Column j* -> position q; the columns between shift left by one.
     order = _move_to(idx, j_star, q)
-    U = U[:, order]
-    L = L[order]
+    U = take_cols(U, order)
+    L = take(L, order)
 
     # Force the exact identity pair at position q.
-    e_q = (idx == q).to(dtype)
-    U = torch.where((idx == q)[None, :], e_q[:, None], U)
-    U = torch.where((idx == q)[:, None], e_q[None, :], U)
+    at_q = idx == q[..., None]
+    e_q = at_q.to(dtype)
+    U = torch.where(at_q[..., None, :], e_q[..., :, None], U)
+    U = torch.where(at_q[..., :, None], e_q[..., None, :], U)
     m_new = m - 1
     L = rankone.sentinelize(L, m_new, L.new_zeros(()))
     return L, U, m_new
@@ -100,7 +108,7 @@ def contract_rows(L: Tensor, U: Tensor, w: Tensor, m: Tensor
 def contract_last(L: Tensor, U: Tensor, m: Tensor
                   ) -> tuple[Tensor, Tensor, Tensor]:
     """Remove the decoupled boundary eigenpair and shrink m by one."""
-    mask = rankone.active_mask(L.shape[0], m)
+    mask = rankone.active_mask(L.shape[-1], m)
     w = torch.where(mask, index_get(U, m - 1), 0.0)
     return contract_rows(L, U, w, m)
 
@@ -110,19 +118,19 @@ def _boundary_row(state, spec: kf.KernelSpec
     """(a, k_new, sum a): the kernel row of the boundary point against the
     survivors, zero at and beyond q = m−1 — the masked row the forward
     update consumed when this point streamed in."""
-    M = state.L.shape[0]
+    M = state.L.shape[-1]
     q = state.m - 1
     x_ev = index_get(state.X, q)
     k_full = kf.kernel_row(x_ev, state.X, spec=spec)
     k_full = torch.where(rankone.active_mask(M, state.m), k_full, 0.0)
     a = torch.where(rankone.active_mask(M, q), k_full, 0.0)
-    return a, index_get(k_full, q), torch.sum(a)
+    return a, index_get(k_full, q), torch.sum(a, dim=-1)
 
 
 def downdate_unadjusted(state, spec: kf.KernelSpec, *,
                         plan: eng.UpdatePlan = eng.DEFAULT_PLAN):
     """Inverse of Algorithm 1 for the boundary point (row m−1)."""
-    M = state.L.shape[0]
+    M = state.L.shape[-1]
     q = state.m - 1
     a, k_new, sum_a = _boundary_row(state, spec)
     kn = torch.clamp_min(k_new, torch.finfo(state.L.dtype).tiny)
@@ -136,7 +144,7 @@ def downdate_unadjusted(state, spec: kf.KernelSpec, *,
 
     K1 = torch.where(rankone.active_mask(M, q), state.K1 - a, 0.0)
     S = state.S - 2.0 * sum_a - k_new
-    X = index_set(state.X, q, torch.zeros_like(state.X[0]))
+    X = index_set(state.X, q, torch.zeros_like(state.X[..., 0, :]))
     return state._replace(L=L, U=U, m=m_new, S=S, K1=K1, X=X)
 
 
@@ -149,17 +157,18 @@ def downdate_adjusted(state, spec: kf.KernelSpec, *,
     order swapped), contracts the expansion eigenpair, then inverts the
     mean-adjustment pair, whose u is rebuilt from the pre-add sums (S, K1)
     recovered from the maintained ones."""
-    M = state.L.shape[0]
+    M = state.L.shape[-1]
     dtype = state.L.dtype
     q = state.m - 1
     mask_m = rankone.active_mask(M, state.m)
-    mf_post = state.m.to(dtype)
+    mf_post = state.m.to(dtype)[..., None]
 
     a, k_new, sum_a = _boundary_row(state, spec)
 
     # --- Invert step 4: the expansion pair (paper eq. (3)). ---
     k_vec = index_set(a, q, k_new)
-    v = k_vec - (torch.sum(k_vec) + state.K1 - state.S / mf_post) / mf_post
+    v = k_vec - (torch.sum(k_vec, dim=-1)[..., None] + state.K1
+                 - state.S[..., None] / mf_post) / mf_post
     v = torch.where(mask_m, v, 0.0)
     v0 = index_get(v, q)
     eps = torch.finfo(dtype).eps
@@ -176,7 +185,8 @@ def downdate_adjusted(state, spec: kf.KernelSpec, *,
     mask_q = rankone.active_mask(M, m_new)
     K1_pre = torch.where(mask_q, state.K1 - a, 0.0)
     mf = m_new.to(dtype)
-    C = -S_pre / mf**2 + state.S / (mf + 1.0) ** 2
+    C = (-S_pre / mf**2 + state.S / (mf + 1.0) ** 2)[..., None]
+    mf = mf[..., None]
     u = K1_pre / (mf * (mf + 1.0)) - a / (mf + 1.0) + 0.5 * C
     u = torch.where(mask_q, u, 0.0)
     ones_u_p = torch.where(mask_q, 1.0 + u, 0.0)
@@ -185,7 +195,7 @@ def downdate_adjusted(state, spec: kf.KernelSpec, *,
     L, U = eng.apply_pair(L, U, ones_u_m, half, ones_u_p, -half, m_new,
                           plan=plan)
 
-    X = index_set(state.X, q, torch.zeros_like(state.X[0]))
+    X = index_set(state.X, q, torch.zeros_like(state.X[..., 0, :]))
     return state._replace(L=L, U=U, m=m_new, S=S_pre, K1=K1_pre, X=X)
 
 

@@ -5,6 +5,9 @@ and defaults, so one plan's values drive both packages.  ``Engine`` owns
 bucket selection, slicing and scatter for one stream, append-only or
 windowed: ``step``/``step_block`` advance a ``StreamState`` bundle, whose
 arrival ring (present for a sliding window) selects the evict stage.
+``StreamBatch`` advances B tenants' streams in lockstep through the
+batched steps (``batched_update`` and its masked, downdate and scan
+forms) over a tenant-stacked state.
 
 Bucket geometry (the reference's invariants): L is ascending with the
 sentinels strictly above the active spectrum, inactive columns of U are
@@ -33,6 +36,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import kernels_fn as kf, rankone
@@ -155,36 +159,42 @@ def bucket_for(m_needed: int, capacity: int,
 # ------------------------------------------------------- slice / scatter --
 def slice_state(state, Mb: int):
     """The leading M_b×M_b block as a capacity-M_b state (a copy: the
-    kernels take contiguous operands)."""
-    return state._replace(L=state.L[:Mb].clone(),
-                          U=state.U[:Mb, :Mb].contiguous(),
-                          K1=state.K1[:Mb].clone(), X=state.X[:Mb].clone())
+    kernels take contiguous operands).  A tenant-stacked state (a leading
+    axis on every leaf, ``StreamBatch``) slices every tenant alike: the
+    reference's ``_slice_stacked``."""
+    return state._replace(L=state.L[..., :Mb].clone(),
+                          U=state.U[..., :Mb, :Mb].contiguous(),
+                          K1=state.K1[..., :Mb].clone(),
+                          X=state.X[..., :Mb, :].clone())
 
 
 def scatter_state(full, sub):
     """Write an updated bucket back into a copy of the fixed-capacity state
     (out of place, as in the reference: a published snapshot that holds
-    the old X never changes under it)."""
-    Mb = sub.L.shape[0]
+    the old X never changes under it); tenant-stacked states per tenant
+    (the reference's ``_scatter_stacked``)."""
+    Mb = sub.L.shape[-1]
     L = full.L.clone()
-    L[:Mb] = sub.L
+    L[..., :Mb] = sub.L
     # The tail still holds sentinels for the pre-update spectrum.
     L = rankone.sentinelize(L, sub.m, L.new_zeros(()))
     U, K1, X = full.U.clone(), full.K1.clone(), full.X.clone()
-    U[:Mb, :Mb] = sub.U
-    K1[:Mb] = sub.K1
-    X[:Mb] = sub.X
+    U[..., :Mb, :Mb] = sub.U
+    K1[..., :Mb] = sub.K1
+    X[..., :Mb, :] = sub.X
     return full._replace(L=L, U=U, m=sub.m, S=sub.S, K1=K1, X=X)
 
 
 # ------------------------------------------------------ shared primitives --
 def masked_row(state, x_new: Tensor, spec: kf.KernelSpec
                ) -> tuple[Tensor, Tensor]:
-    """Kernel row against stored points, zeroed beyond the active count."""
+    """Kernel row against stored points, zeroed beyond the active count
+    (per tenant for a stacked state and points (B, d))."""
     a_full = kf.kernel_row(x_new, state.X, spec=spec)
-    mask = rankone.active_mask(state.X.shape[0], state.m)
+    mask = rankone.active_mask(state.X.shape[-2], state.m)
     a = torch.where(mask, a_full, 0.0)
-    k_new = kf.gram_block(x_new[None], x_new[None], spec=spec)[0, 0]
+    xr = x_new[..., None, :]
+    k_new = kf.gram_block(xr, xr, spec=spec)[..., 0, 0]
     return a, k_new
 
 
@@ -236,12 +246,13 @@ def rank_one(L: Tensor, U: Tensor, v: Tensor, sigma, m: Tensor, *,
 
 
 def eigpairs(state) -> tuple[Tensor, Tensor]:
-    """Active (descending) eigenvalues and eigenvectors."""
-    M = state.L.shape[0]
+    """Active (descending) eigenvalues and eigenvectors (per tenant for a
+    stacked state)."""
+    M = state.L.shape[-1]
     mask = rankone.active_mask(M, state.m)
-    order = torch.argsort(torch.where(mask, -state.L, torch.inf),
+    order = torch.argsort(torch.where(mask, -state.L, torch.inf), dim=-1,
                           stable=True)
-    return state.L[order], state.U[:, order]
+    return rankone.take(state.L, order), rankone.take_cols(state.U, order)
 
 
 def transform_state(state, x: Tensor, *, spec: kf.KernelSpec, adjusted: bool,
@@ -971,3 +982,737 @@ def _write_bucket_(state, sub, Mb: int):
     kp.X[:Mb].copy_(new.X)
     kp.S.copy_(new.S)
     return state._replace(kpca=kp._replace(m=new.m))
+
+
+# ------------------------------------------------ multi-tenant batched steps --
+# The reference's vmapped steps (``engine._batched_*``): a tenant-stacked
+# state (a leading axis B on every leaf) goes through the same functions as
+# one stream, every kernel launched once for the cohort.  A masked step
+# selects the whole state per lane, so an inactive (or pad) lane keeps its
+# state bit for bit.  ``lax.scan`` becomes a Python loop.
+
+def select_lanes(active: Tensor, new, old):
+    """Leaf-wise ``torch.where(active[b], new, old)`` over the tenant axis:
+    bit for bit ``old`` where ``active`` is false."""
+    def sel(n, o):
+        return torch.where(active.reshape(active.shape + (1,) * (o.dim() - 1)),
+                           n, o)
+
+    return type(old)(*(sel(n, o) for n, o in zip(new, old)))
+
+
+def batched_update(states, xs: Tensor, spec: kf.KernelSpec, adjusted: bool,
+                   plan: UpdatePlan):
+    """Fold xs[b] into tenant b, every tenant active."""
+    return _ingest(states, xs, spec, adjusted, plan)
+
+
+def batched_update_masked(states, xs: Tensor, active: Tensor,
+                          spec: kf.KernelSpec, adjusted: bool,
+                          plan: UpdatePlan):
+    """Fold xs[b] into tenant b where active[b]."""
+    return select_lanes(active, _ingest(states, xs, spec, adjusted, plan),
+                        states)
+
+
+def batched_downdate_masked(states, rows: Tensor, active: Tensor,
+                            spec: kf.KernelSpec, adjusted: bool,
+                            plan: UpdatePlan):
+    """Evict row rows[b] from tenant b where active[b] (the decremental
+    mirror of ``batched_update_masked``)."""
+    from repro_torch.core import downdate as dd
+
+    new = dd.downdate(states, rows, spec, adjusted=adjusted, plan=plan)
+    return select_lanes(active, new, states)
+
+
+def batched_scan(states, xs: Tensor, spec: kf.KernelSpec, adjusted: bool,
+                 plan: UpdatePlan):
+    """A (T, B, d) block: T steps, B tenants per step."""
+    for x_row in xs:
+        states = batched_update(states, x_row, spec, adjusted, plan)
+    return states
+
+
+def batched_scan_masked(states, xs: Tensor, active: Tensor,
+                        spec: kf.KernelSpec, adjusted: bool,
+                        plan: UpdatePlan):
+    """A (T, B, d) block under a T-constant tenant mask (padded cohorts,
+    whose pad lanes never advance)."""
+    for x_row in xs:
+        states = batched_update_masked(states, x_row, active, spec, adjusted,
+                                       plan)
+    return states
+
+
+def _window_pair(st, victim: Tensor, x_new: Tensor, spec: kf.KernelSpec,
+                 adjusted: bool, plan: UpdatePlan):
+    """The steady-state evict|ingest pair at m ≡ W: the downdate of the
+    victim row, then one Algorithm-1/2 ingest."""
+    from repro_torch.core import downdate as dd
+
+    st = dd.downdate(st, victim, spec, adjusted=adjusted, plan=plan)
+    return _ingest(st, x_new, spec, adjusted, plan)
+
+
+def batched_window_scan_masked(states, xs: Tensor, active: Tensor,
+                               spec: kf.KernelSpec, adjusted: bool,
+                               plan: UpdatePlan):
+    """A (T, B, d) block of steady-state window steps: every active tenant
+    sits at m ≡ W, evicts its oldest point (physical row 0: the lockstep
+    FIFO of ``StreamBatch``) and ingests; ``active`` is T-constant."""
+    rows = torch.zeros(states.m.shape, dtype=torch.int32,
+                       device=states.m.device)
+    for x_row in xs:
+        new = _window_pair(states, rows, x_row, spec, adjusted, plan)
+        states = select_lanes(active, new, states)
+    return states
+
+
+# ---------------------------------------------------- multi-tenant batch --
+class StreamBatch:
+    """B independent KPCA streams advanced in lockstep (the reference's
+    ``engine.StreamBatch``).
+
+    One tenant-stacked ``KPCAState`` folds a point into every tenant's
+    eigendecomposition per step, each of the path's kernels launched once
+    for the cohort (the counterpart of the reference's ``jax.vmap``, which
+    gives each ``pallas_call`` a batch grid axis), instead of B Python-loop
+    dispatches.  Per-tenant active counts m_i may diverge (``active``
+    masks).
+
+    Cohort geometry (``cohorts=``):
+
+    * ``"max"`` (default): bucketed dispatch runs the whole cohort at the
+      bucket of max_i m_i + 1.
+    * ``"bucket"``: tenants are grouped by their own active bucket, one
+      batched step per group at that group's M_b; membership migrates at
+      bucket crossings (``_regroup``).
+    * ``"bucket-padded"``: as ``"bucket"``, with each group's tenant axis
+      padded to the next power of two with inert copies of its first
+      tenant, masked out of every step and never scattered back.  In JAX
+      that bounds recompiles; torch compiles nothing, and the geometry is
+      kept as the reference has it.
+
+    Sliding windows (``window=W``): an active tenant at m = W first evicts
+    its oldest point by a masked batched downdate of row 0 (lockstep FIFO:
+    the eviction permutation keeps the survivors' order, so the oldest
+    point is always physical row 0), then ingests.
+
+    The working state is bucket resident: it lives at the cohort or group
+    bucket between crossings, the active counts are tracked on the host
+    (``_m_host``, exact: every folded point advances its tenant by one),
+    and the capacity-M arrays are materialized only at crossings or when
+    ``states`` is read.  ``_ceiling`` bounds max_i m_i on the host and is
+    re-read from the card only at a crossing or an apparent exhaustion, so
+    a step reads nothing back otherwise.
+
+    With ``plan.health.quarantine`` a non-finite point is rejected on the
+    host before any device step: its lane drops out of the active mask
+    (before the evict mask is formed) and the point is zeroed, so it cannot
+    poison the batched step the other lanes ride; ``quarantined`` counts
+    them per tenant.  Pass the points as numpy arrays (or host tensors) to
+    keep the gate free of reads from the card.  With ``plan.metrics`` a
+    ``MetricsState`` of (B,) lanes is updated once per ``update`` /
+    ``update_block`` from host-exact tallies.
+
+    x0: (B, m0, d) seed points (one m0 for every tenant).
+    """
+
+    def __init__(self, x0, capacity: int, spec: kf.KernelSpec, *,
+                 plan: UpdatePlan = DEFAULT_PLAN, adjusted: bool = True,
+                 dtype=torch.float32, cohorts: str = "max",
+                 window: int | None = None, device=None):
+        from repro_torch import resolve_device
+        from repro_torch.core import inkpca
+
+        dev = resolve_device(device)
+        x0 = torch.as_tensor(x0, device=dev)
+        if x0.dim() != 3:
+            raise ValueError(f"x0 must be (tenants, m0, d), got "
+                             f"{tuple(x0.shape)}")
+        state = inkpca.init_state_stacked(x0.to(dtype), capacity, spec,
+                                          adjusted=adjusted, dtype=dtype)
+        self._setup(state, spec, plan=plan, adjusted=adjusted,
+                    cohorts=cohorts, window=window,
+                    m0=np.full(x0.shape[0], x0.shape[1], dtype=np.int64))
+
+    @classmethod
+    def from_states(cls, states, spec: kf.KernelSpec, *,
+                    plan: UpdatePlan = DEFAULT_PLAN, adjusted: bool = True,
+                    cohorts: str = "max", window: int | None = None
+                    ) -> "StreamBatch":
+        """A cohort continuing from a tenant-stacked state (e.g. a
+        reference cohort's ``states`` carried across by
+        ``convert.stacked_state_from_numpy``); reads the counts once.
+        Under a window every tenant's rows must be in arrival order (the
+        lockstep FIFO)."""
+        self = cls.__new__(cls)
+        self._setup(states, spec, plan=plan, adjusted=adjusted,
+                    cohorts=cohorts, window=window,
+                    m0=states.m.cpu().numpy().astype(np.int64))
+        return self
+
+    def _setup(self, state, spec, *, plan, adjusted, cohorts, window, m0):
+        check_plan(plan)
+        if cohorts not in ("max", "bucket", "bucket-padded"):
+            raise ValueError(f"cohorts must be 'max', 'bucket' or "
+                             f"'bucket-padded', got {cohorts!r}")
+        capacity = state.L.shape[-1]
+        if window is None:
+            window = plan.window
+        if window is not None:
+            if not 2 <= window <= capacity:
+                raise ValueError(f"window must be in [2, capacity], got "
+                                 f"{window} (capacity {capacity})")
+            if int(m0.max()) > window:
+                raise ValueError(f"seed size {int(m0.max())} exceeds "
+                                 f"window {window}")
+        self.spec = spec
+        self.plan = plan
+        self.adjusted = adjusted
+        self.capacity = capacity
+        self.cohorts = cohorts
+        self.window = window
+        self.n_tenants = int(state.L.shape[0])
+        self.device = state.L.device
+        self._full = state
+        self._sub = None          # bucket-resident working state ("max")
+        self._Mb = capacity
+        # Host bound on max_i m_i (exact while every step is fully active;
+        # re-read from the card at crossings).
+        self._ceiling = int(m0.max())
+        # Host-exact per-tenant active counts.
+        self._m_host = m0.copy()
+        self._groups: list[dict] | None = None
+        # Per-tenant tallies: points rejected by the gate, folded, evicted.
+        self.quarantined = np.zeros(self.n_tenants, dtype=np.int64)
+        self._ingest_host = np.zeros(self.n_tenants, dtype=np.int64)
+        self._evict_host = np.zeros(self.n_tenants, dtype=np.int64)
+        self._serve_gen = -1
+        self.metrics = None
+        if plan.metrics:
+            from repro_torch.core import telemetry as tm
+            self.metrics = tm.init_metrics_stacked(
+                self.n_tenants, state.L.dtype, self.device)
+
+    # ---- host <-> device -----------------------------------------------------
+    def _index(self, idx) -> Tensor:
+        return torch.as_tensor(np.asarray(idx), dtype=torch.long,
+                               device=self.device)
+
+    def _mask(self, mask) -> Tensor:
+        return torch.as_tensor(np.asarray(mask, bool), device=self.device)
+
+    def _points(self, xs) -> Tensor:
+        return torch.as_tensor(xs, device=self.device).to(
+            self._full.X.dtype)
+
+    # ---- bucket residency ----------------------------------------------------
+    def _flush(self):
+        """Scatter the working state back into the capacity-M arrays."""
+        if self._sub is not None:
+            self._full = (scatter_state(self._full, self._sub)
+                          if self._Mb < self.capacity else self._sub)
+            self._sub = None
+        if self._groups is not None:
+            for grp in self._groups:
+                self._scatter_group(grp)
+            self._groups = None
+
+    @property
+    def _grouped(self) -> bool:
+        return self.cohorts in ("bucket", "bucket-padded")
+
+    def _tenant_bucket(self, m: int) -> int:
+        if self.plan.dispatch != "bucketed":
+            return self.capacity
+        return bucket_for(min(m + 1, self.capacity), self.capacity,
+                          self.plan.min_bucket)
+
+    def _gather_group(self, idx) -> dict:
+        Mb = self._tenant_bucket(int(self._m_host[idx].max()))
+        n_real = len(idx)
+        if self.cohorts == "bucket-padded" and n_real > 0:
+            # Pad the tenant axis to the next power of two with inert
+            # copies of the first tenant.
+            size = 1 << (n_real - 1).bit_length()
+            idx_pad = np.concatenate([idx, np.repeat(idx[:1],
+                                                     size - n_real)])
+        else:
+            idx_pad = idx
+        at = self._index(idx_pad)
+        rows = type(self._full)(*(leaf[at] for leaf in self._full))
+        state = slice_state(rows, Mb) if Mb < self.capacity else rows
+        return {"Mb": Mb, "idx": idx, "idx_pad": idx_pad, "n_real": n_real,
+                "at": at, "at_real": self._index(idx), "state": state}
+
+    def _scatter_group(self, grp) -> None:
+        n = grp["n_real"]
+        sub = type(self._full)(*(leaf[:n] for leaf in grp["state"]))
+        at = grp["at_real"]
+        if grp["Mb"] < self.capacity:
+            rows = type(self._full)(*(leaf[at] for leaf in self._full))
+            sub = scatter_state(rows, sub)
+        self._full = type(self._full)(*(
+            leaf.index_copy(0, at, r) for leaf, r in zip(self._full, sub)))
+
+    def _group_mask(self, grp, host_mask) -> np.ndarray:
+        """A per-tenant host mask on the group's (padded) lanes; pad lanes
+        are always inert."""
+        out = np.asarray(host_mask)[grp["idx_pad"]].copy()
+        out[grp["n_real"]:] = False
+        return out
+
+    def _regroup(self):
+        """(Re)partition the tenants into bucket-homogeneous groups, only
+        when no grouping exists or some tenant's next update would cross
+        its group's bucket."""
+        if self._groups is not None:
+            stale = any(
+                self._tenant_bucket(int(self._m_host[g["idx"]].max()))
+                != g["Mb"]
+                or len({self._tenant_bucket(int(mi))
+                        for mi in self._m_host[g["idx"]]}) > 1
+                for g in self._groups)
+            if not stale:
+                return
+            for grp in self._groups:
+                self._scatter_group(grp)
+            self._groups = None
+        buckets = np.asarray([self._tenant_bucket(int(mi))
+                              for mi in self._m_host])
+        self._groups = [self._gather_group(np.nonzero(buckets == b)[0])
+                        for b in sorted(set(buckets.tolist()))]
+
+    @property
+    def states(self):
+        """The capacity-M stacked state (flushes the working bucket; use
+        the return value of ``update`` for hot-path reads)."""
+        self._flush()
+        return self._full
+
+    def _working(self, need: int):
+        """The bucket-resident stacked state holding >= ``need`` pairs."""
+        Mb = (self.capacity if self.plan.dispatch != "bucketed"
+              else bucket_for(need, self.capacity, self.plan.min_bucket))
+        if self._sub is None or Mb != self._Mb:
+            self._flush()
+            self._Mb = Mb
+            self._sub = (slice_state(self._full, Mb)
+                         if Mb < self.capacity else self._full)
+        return self._sub
+
+    def _need(self) -> int:
+        """Rows the next update must fit, re-reading the ceiling from the
+        card only at a crossing or an apparent exhaustion (idle tenants
+        make the ceiling an overestimate)."""
+        if self.window is not None:
+            # Windows bound every tenant at m <= W <= capacity; an idle
+            # tenant parked at m == capacity must not trip the raise.
+            return min(self._ceiling + 1, self.capacity)
+        resync = self._ceiling + 1 > self.capacity or (
+            self.plan.dispatch == "bucketed" and self._sub is not None
+            and bucket_for(min(self._ceiling + 1, self.capacity),
+                           self.capacity, self.plan.min_bucket) > self._Mb)
+        if resync:
+            st = self._sub if self._sub is not None else self._full
+            self._ceiling = int(st.m.max())
+        if self._ceiling + 1 > self.capacity:
+            raise ValueError(
+                f"tenant at active count {self._ceiling} exhausted capacity "
+                f"{self.capacity} — truncate/compact or re-shard the cohort")
+        return self._ceiling + 1
+
+    # ---- streaming -------------------------------------------------------------
+    def _evict_mask(self, act_host) -> np.ndarray:
+        """Tenants whose next active ingest must first evict."""
+        if self.window is None:
+            return np.zeros(self.n_tenants, bool)
+        return act_host & (self._m_host >= self.window)
+
+    def _evict_grouped(self, evict) -> None:
+        """Masked batched downdates of row 0, one per group."""
+        for grp in self._groups:
+            ge = self._group_mask(grp, evict)
+            if ge.any():
+                rows = torch.zeros(len(grp["idx_pad"]), dtype=torch.int32,
+                                   device=self.device)
+                grp["state"] = batched_downdate_masked(
+                    grp["state"], rows, self._mask(ge), self.spec,
+                    self.adjusted, self.plan)
+        self._m_host[evict] -= 1
+        self._evict_host[evict] += 1
+        self._ceiling = int(self._m_host.max())
+
+    def _metrics_begin(self):
+        if self.metrics is None:
+            return None
+        return (self._ingest_host.copy(), self._evict_host.copy(),
+                self.quarantined.copy())
+
+    def _metrics_commit(self, snap) -> None:
+        from repro_torch.core import telemetry as tm
+
+        if snap is None:
+            return
+        i0, e0, q0 = snap
+        fill = (self._m_host / float(self.window) if self.window is not None
+                else np.full(self.n_tenants, tm.GAUGE_UNSET))
+        self.metrics = tm.note_lanes(
+            self.metrics, self._ingest_host - i0, self.quarantined - q0,
+            self._evict_host - e0, self._m_host, fill)
+
+    def metrics_report(self) -> dict:
+        """Host snapshot of the metric lanes (one read)."""
+        from repro_torch.core import telemetry as tm
+
+        return {} if self.metrics is None else tm.metrics_report(self.metrics)
+
+    def update(self, xs, active=None):
+        """Fold xs[b] ((B, d)) into tenant b: one batched step per occupied
+        bucket (one for ``cohorts="max"``), preceded under a window by one
+        masked batched downdate per bucket for the tenants whose window is
+        full.  Returns the bucket-resident stacked state (grouped cohorts:
+        the largest group's; use ``states``/``state_of`` for full reads)."""
+        snap = self._metrics_begin()
+        out = self._update_impl(xs, active)
+        self._metrics_commit(snap)
+        return out
+
+    def _gate(self, xs, act_host, checked: bool):
+        """The quarantine gate: (points on the card, active lanes, whether
+        any lane was dropped).  ``checked``: the caller already knows the
+        points are finite."""
+        policy = self.plan.health
+        if checked or policy is None or not policy.quarantine:
+            return self._points(xs), act_host, False
+        host = (xs.detach().cpu().numpy() if torch.is_tensor(xs)
+                else np.asarray(xs))
+        ok = np.isfinite(host).all(axis=1)
+        if ok.all():
+            return self._points(xs), act_host, False
+        self.quarantined[act_host & ~ok] += 1
+        return (self._points(np.where(ok[:, None], host, 0.0)),
+                act_host & ok, True)
+
+    def _update_impl(self, xs, active=None, checked: bool = False):
+        act_host = (np.ones(self.n_tenants, bool) if active is None
+                    else np.asarray(active, bool).copy())
+        xs, act_host, dropped = self._gate(xs, act_host, checked)
+        masked = active is not None or dropped
+        evict = self._evict_mask(act_host)
+        if self._grouped:
+            self._pending_check(act_host, evict)
+            self._regroup()
+            if evict.any():
+                self._evict_grouped(evict)
+            for grp in self._groups:
+                at = grp["at"]
+                if self.cohorts == "bucket-padded" or masked:
+                    ga = self._group_mask(grp, act_host)
+                    if ga.any():
+                        grp["state"] = batched_update_masked(
+                            grp["state"], xs[at], self._mask(ga), self.spec,
+                            self.adjusted, self.plan)
+                else:
+                    grp["state"] = batched_update(
+                        grp["state"], xs[at], self.spec, self.adjusted,
+                        self.plan)
+            self._m_host[act_host] += 1
+            self._ingest_host[act_host] += 1
+            self._ceiling = int(self._m_host.max())
+            return self._groups[-1]["state"]
+        if evict.any():
+            # One bucket serves the evict and the following update.
+            post_max = int((self._m_host - evict).max())
+            need = max(int(self._m_host.max()),
+                       min(post_max + 1, self.capacity))
+            sub = self._working(need)
+            rows = torch.zeros(self.n_tenants, dtype=torch.int32,
+                               device=self.device)
+            self._sub = batched_downdate_masked(
+                sub, rows, self._mask(evict), self.spec, self.adjusted,
+                self.plan)
+            self._m_host[evict] -= 1
+            self._evict_host[evict] += 1
+            self._ceiling = int(self._m_host.max())
+            sub = self._sub
+        else:
+            sub = self._working(self._need())
+        if masked:
+            self._sub = batched_update_masked(sub, xs, self._mask(act_host),
+                                              self.spec, self.adjusted,
+                                              self.plan)
+        else:
+            self._sub = batched_update(sub, xs, self.spec, self.adjusted,
+                                       self.plan)
+        self._m_host[act_host] += 1
+        self._ingest_host[act_host] += 1
+        self._ceiling += 1
+        return self._sub
+
+    def _pending_check(self, act_host, evict=None) -> None:
+        """Raise on capacity exhaustion before any state changes; tenants
+        that evict first grow by nothing."""
+        after = self._m_host + act_host
+        if evict is not None:
+            after = after - evict
+        if (after > self.capacity).any():
+            raise ValueError(
+                f"tenant at active count {int(self._m_host.max())} "
+                f"exhausted capacity {self.capacity} — truncate/compact or "
+                f"re-shard the cohort")
+
+    def _steady_window_scan(self, xs: Tensor, mask_host):
+        """A whole block of evict + ingest pairs for the lanes of
+        ``mask_host`` (each at m ≡ W), one scan per cohort group; other
+        lanes pass through untouched."""
+        mk = np.asarray(mask_host, bool)
+        self._ingest_host[mk] += int(xs.shape[0])
+        self._evict_host[mk] += int(xs.shape[0])
+        if self._grouped:
+            self._regroup()
+            out = None
+            for grp in self._groups:
+                ga = self._group_mask(grp, mk)
+                if ga.any():
+                    grp["state"] = batched_window_scan_masked(
+                        grp["state"], xs[:, grp["at"]], self._mask(ga),
+                        self.spec, self.adjusted, self.plan)
+                    out = grp["state"]
+            return out if out is not None else self._groups[-1]["state"]
+        sub = self._working(max(int(self._m_host.max()), 1))
+        self._sub = batched_window_scan_masked(
+            sub, xs, self._mask(mk), self.spec, self.adjusted, self.plan)
+        return self._sub
+
+    def update_block(self, xs):
+        """Fold a (T, B, d) block.  Chunks are cut at bucket crossings (any
+        group's in grouped cohorts).  Under a window the lanes split: those
+        already at m ≡ W fold the whole block as evict + ingest pairs in one
+        scan per group, the growing lanes step point by point until they
+        reach W and then scan too.  Under ``plan.health.quarantine`` the
+        block is cut at the steps that carry a non-finite point, which go
+        through ``update``'s gate."""
+        snap = self._metrics_begin()
+        out = self._update_block_impl(xs)
+        self._metrics_commit(snap)
+        return out
+
+    def _update_block_impl(self, xs):
+        policy = self.plan.health
+        T = xs.shape[0]
+        if policy is not None and policy.quarantine:
+            host = (xs.detach().cpu().numpy() if torch.is_tensor(xs)
+                    else np.asarray(xs))
+            finite = np.isfinite(host).all(axis=(1, 2))
+            if not finite.all():
+                out, i = None, 0
+                while i < T:
+                    if finite[i]:
+                        j = i + 1
+                        while j < T and finite[j]:
+                            j += 1
+                        out = self._update_block_clean(
+                            self._points(host[i:j]))
+                        i = j
+                    else:
+                        out = self._update_impl(host[i])
+                        i += 1
+                return out
+        return self._update_block_clean(self._points(xs))
+
+    def _update_block_clean(self, xs: Tensor):
+        """``update_block`` on an all-finite block on the card."""
+        T = xs.shape[0]
+        if self.window is not None:
+            steady = self._m_host >= self.window
+            grow = ~steady
+            out = None
+            if steady.any():
+                out = self._steady_window_scan(xs, steady)
+            if grow.any():
+                act = None if not steady.any() else grow
+                t = 0
+                while t < T and int(self._m_host[grow].min()) < self.window:
+                    out = self._update_impl(xs[t], active=act, checked=True)
+                    t += 1
+                if t < T:
+                    out = self._steady_window_scan(xs[t:], grow)
+            return out
+        i = 0
+        if self._grouped:
+            ones = np.ones(self.n_tenants, bool)
+            while i < T:
+                self._pending_check(ones)
+                self._regroup()
+                take = min(min(g["Mb"] - int(self._m_host[g["idx"]].max())
+                               for g in self._groups), T - i)
+                for grp in self._groups:
+                    blk = xs[i:i + take][:, grp["at"]]
+                    if self.cohorts == "bucket-padded":
+                        ga = self._mask(self._group_mask(grp, ones))
+                        grp["state"] = batched_scan_masked(
+                            grp["state"], blk, ga, self.spec, self.adjusted,
+                            self.plan)
+                    else:
+                        grp["state"] = batched_scan(
+                            grp["state"], blk, self.spec, self.adjusted,
+                            self.plan)
+                self._m_host += take
+                self._ingest_host += take
+                i += take
+            self._ceiling = int(self._m_host.max())
+            return self._groups[-1]["state"]
+        while i < T:
+            sub = self._working(self._need())
+            # Chunk at the working bucket even at the capacity rung, so
+            # _need() raises on exhaustion instead of writing past it.
+            take = min(self._Mb - self._ceiling, T - i)
+            self._sub = batched_scan(sub, xs[i:i + take], self.spec,
+                                     self.adjusted, self.plan)
+            self._ceiling += take
+            self._m_host += take
+            self._ingest_host += take
+            i += take
+        return self._sub
+
+    # ---- reads -----------------------------------------------------------------
+    def transform(self, q, n_components: int) -> Tensor:
+        """Project per-tenant query batches q: (B, nq, d) -> (B, nq, k),
+        one batched transform per occupied bucket: publish-then-query, as
+        ``transform_state`` (under ``plan.fuse_krow`` one
+        ``transform_project`` launch per group), so a transform equals
+        ``serving.query_batch`` on ``publish``'s snapshots bit for bit."""
+        from repro_torch.core import serving
+
+        q = self._points(q)
+
+        def fn(st, x):
+            snap = serving.publish_transform(st, n_components=n_components,
+                                             adjusted=self.adjusted)
+            return serving.query_batch(snap, x, spec=self.spec,
+                                       plan=self.plan)
+
+        if self._grouped and self._groups is not None:
+            out = None
+            for grp in self._groups:
+                yg = fn(grp["state"], q[grp["at"]])[:grp["n_real"]]
+                if out is None:
+                    out = yg.new_zeros((self.n_tenants,) + yg.shape[1:])
+                out = out.index_copy(0, grp["at_real"], yg)
+            return out
+        return fn(self._sub if self._sub is not None else self._full, q)
+
+    def working_states(self) -> list:
+        """The bucket-resident working state(s), without a flush: one per
+        occupied group (grouped cohorts), else the cohort's."""
+        if self._grouped and self._groups is not None:
+            return [g["state"] for g in self._groups]
+        return [self._sub if self._sub is not None else self._full]
+
+    def health_summary(self) -> dict:
+        """The quarantine tally: total and per tenant."""
+        return {"quarantined": int(self.quarantined.sum()),
+                "quarantined_per_tenant": self.quarantined.copy()}
+
+    def probe_all(self, ref_lam=None):
+        """A health probe of every tenant's working state, without a flush.
+        Returns host arrays ``(healthy, drift)`` of shape (B,); ``drift``
+        is None unless ``ref_lam`` ((B, C), the spectrum recorded at the
+        last publication) is given.  The probe runs per tenant
+        (``health.probe``, ROADMAP.md §1b), and the verdicts come back in
+        one read."""
+        from repro_torch.core import health as hl
+        from repro_torch.core.inkpca import unstack_state
+
+        policy = self.plan.health or hl.DEFAULT_POLICY
+        healthy = np.zeros(self.n_tenants, bool)
+        drift = None if ref_lam is None else np.zeros(self.n_tenants)
+        if self._grouped and self._groups is not None:
+            parts = [(g["state"], g["idx"]) for g in self._groups]
+        else:
+            parts = [(self._sub if self._sub is not None else self._full,
+                      np.arange(self.n_tenants))]
+        ref = None if ref_lam is None else torch.as_tensor(
+            ref_lam, device=self.device)
+        for st, idx in parts:
+            oks, drs = [], []
+            for j, tenant in enumerate(idx):
+                one = unstack_state(st, j)
+                h = hl.probe(one, hl.init_health(one.L.dtype, self.device),
+                             policy)
+                oks.append(hl.verdict(h, policy))
+                if ref is not None:
+                    drs.append(hl.spectral_drift(one, ref[tenant].to(
+                        one.L.dtype)))
+            healthy[idx] = torch.stack(oks).cpu().numpy()
+            if ref is not None:
+                drift[idx] = torch.stack(drs).double().cpu().numpy()
+        return healthy, drift
+
+    def heal(self, *, level: str = "auto") -> int:
+        """Walk the heal ladder (``health.heal_kpca``) over the cohort:
+        probe every tenant, flush, and heal the unhealthy ones ("auto"; a
+        forced ``level`` heals all).  Returns the number healed;
+        ``health.HealthError`` propagates to the caller, who owns the
+        checkpoints."""
+        from repro_torch.core import health as hl
+        from repro_torch.core.inkpca import unstack_state
+
+        policy = self.plan.health or hl.DEFAULT_POLICY
+        if level == "auto":
+            healthy, _ = self.probe_all()
+            todo = np.nonzero(~healthy)[0]
+        else:
+            todo = np.arange(self.n_tenants)
+        if len(todo) == 0:
+            return 0
+        self._flush()
+        full = self._full
+        rungs = np.zeros((2, self.n_tenants), np.int64)   # polish / resync
+        for i in todo:
+            rung_out: list = []
+            st = hl.heal_kpca(unstack_state(full, int(i)), self.spec,
+                              self.adjusted, policy, level=level,
+                              rung_out=rung_out)
+            if rung_out and rung_out[-1] in ("polish", "resync"):
+                rungs[0 if rung_out[-1] == "polish" else 1, int(i)] += 1
+            at = self._index([int(i)])
+            full = type(full)(*(leaf.index_copy(0, at, s[None])
+                                for leaf, s in zip(full, st)))
+        self._full = full
+        if self.metrics is not None and rungs.any():
+            dev = self.metrics.heals_polish.device
+            self.metrics = self.metrics._replace(
+                heals_polish=self.metrics.heals_polish + torch.as_tensor(
+                    rungs[0], dtype=torch.int32, device=dev),
+                heals_resync=self.metrics.heals_resync + torch.as_tensor(
+                    rungs[1], dtype=torch.int32, device=dev))
+        return len(todo)
+
+    def publish(self, n_components: int | None = None):
+        """Tenant-stacked ``serving.ServingSnapshot``s of the current
+        working state (width ``plan.serve_components`` by default): "max"
+        cohorts publish from the bucket-resident state, grouped cohorts
+        flush first so one stacked snapshot covers every tenant."""
+        from repro_torch.core import serving
+
+        nc = int(self.plan.serve_components if n_components is None
+                 else n_components)
+        self._serve_gen += 1
+        if self.metrics is not None:
+            from repro_torch.core import telemetry as tm
+            self.metrics = tm.note_publish(self.metrics, self._serve_gen)
+        st = (self.states if self._grouped
+              else self._sub if self._sub is not None else self._full)
+        return serving.publish_transform(st, n_components=nc,
+                                         adjusted=self.adjusted,
+                                         generation=self._serve_gen)
+
+    def state_of(self, i: int):
+        """Tenant i's capacity-M state."""
+        from repro_torch.core.inkpca import unstack_state
+
+        return unstack_state(self.states, i)

@@ -12,6 +12,11 @@
 ``KPCAStream`` is the user-facing driver.  Its state lives on one device
 (``cuda`` unless the caller passes ``device="cpu"``) and it keeps a host
 mirror of the active count for bucket selection.
+
+The update functions take an optional leading tenant axis: a stacked
+state (every leaf with a leading B, ``init_state_stacked``) and points
+x_new (B, d) fold one point into each tenant at once, the kernels launched
+once for the cohort (``engine.StreamBatch``).
 """
 from __future__ import annotations
 
@@ -23,7 +28,8 @@ from repro_torch import resolve_device
 from repro_torch.core import engine as eng
 from repro_torch.core import kernels_fn as kf
 from repro_torch.core import rankone
-from repro_torch.core.rankone import index_get, index_set
+from repro_torch.core.rankone import (index_get, index_set, take,
+                                      take_cols)
 
 Tensor = torch.Tensor
 
@@ -76,16 +82,38 @@ def init_state(x0: Tensor, capacity: int, spec: kf.KernelSpec, *,
     return KPCAState(L=L, U=U, m=m, S=S, K1=K1p, X=X)
 
 
+def init_state_stacked(x0: Tensor, capacity: int, spec: kf.KernelSpec, *,
+                       adjusted: bool, dtype=torch.float32) -> KPCAState:
+    """B tenants' states stacked on a leading axis, from seed points x0
+    (B, m0, d): each tenant as ``init_state`` makes it."""
+    if x0.dim() != 3:
+        raise ValueError(f"x0 must be (tenants, m0, d), got "
+                         f"{tuple(x0.shape)}")
+    states = [init_state(x, capacity, spec, adjusted=adjusted, dtype=dtype)
+              for x in x0]
+    return stack_states(states)
+
+
+def stack_states(states: list) -> KPCAState:
+    """States of one capacity stacked on a leading tenant axis."""
+    return KPCAState(*(torch.stack(leaves) for leaves in zip(*states)))
+
+
+def unstack_state(states: KPCAState, i: int) -> KPCAState:
+    """Tenant i of a stacked state."""
+    return KPCAState(*(leaf[i] for leaf in states))
+
+
 def update_unadjusted(state: KPCAState, a: Tensor, k_new: Tensor,
                       x_new: Tensor, *,
                       plan: eng.UpdatePlan = eng.DEFAULT_PLAN) -> KPCAState:
     """Algorithm 1: K_{m,m} -> K_{m+1,m+1} via expansion + 2 rank-one
     updates."""
-    M = state.L.shape[0]
+    M = state.L.shape[-1]
     m = state.m
     kn = torch.clamp_min(k_new, torch.finfo(state.L.dtype).tiny)
 
-    sum_a = torch.sum(a)
+    sum_a = torch.sum(a, dim=-1)
     S2 = state.S + 2.0 * sum_a + k_new
     K1 = torch.where(rankone.active_mask(M, m), state.K1 + a, 0.0)
     K1 = index_set(K1, m, sum_a + k_new)
@@ -104,11 +132,12 @@ def _centered_column(a: Tensor, k_new: Tensor, K1: Tensor, S2: Tensor,
                      m: Tensor, mf: Tensor) -> tuple[Tensor, Tensor]:
     """Algorithm 2 step 3: the new centered row/column v (paper line 10)
     and its guarded corner v0."""
-    M = a.shape[0]
+    M = a.shape[-1]
     dtype = a.dtype
     k_vec = index_set(a, m, k_new)
-    m_new_f = mf + 1.0
-    v = k_vec - (torch.sum(k_vec) + K1 - S2 / m_new_f) / m_new_f
+    m_new_f = (mf + 1.0)[..., None]
+    v = k_vec - (torch.sum(k_vec, dim=-1)[..., None] + K1
+                 - S2[..., None] / m_new_f) / m_new_f
     v = torch.where(rankone.active_mask(M, m + 1), v, 0.0)
     v0 = index_get(v, m)
     eps = torch.finfo(dtype).eps
@@ -125,17 +154,18 @@ def update_adjusted(state: KPCAState, a: Tensor, k_new: Tensor,
     erratum (the square on m(m+1)) — the derived
     u = K1/(m(m+1)) - a/(m+1) + C/2 · 1_m is used.
     """
-    M = state.L.shape[0]
+    M = state.L.shape[-1]
     m = state.m
     dtype = state.L.dtype
     mf = m.to(dtype)
     mask_m = rankone.active_mask(M, m)
 
     # --- Step 1: mean-adjustment of the existing m×m block (2 updates). ---
-    sum_a = torch.sum(a)
+    sum_a = torch.sum(a, dim=-1)
     S2 = state.S + 2.0 * sum_a + k_new
-    C = -state.S / mf**2 + S2 / (mf + 1.0) ** 2
-    u = state.K1 / (mf * (mf + 1.0)) - a / (mf + 1.0) + 0.5 * C
+    C = (-state.S / mf**2 + S2 / (mf + 1.0) ** 2)[..., None]
+    mfc = mf[..., None]
+    u = state.K1 / (mfc * (mfc + 1.0)) - a / (mfc + 1.0) + 0.5 * C
     u = torch.where(mask_m, u, 0.0)
     ones_u_p = torch.where(mask_m, 1.0 + u, 0.0)
     ones_u_m = torch.where(mask_m, 1.0 - u, 0.0)
@@ -182,29 +212,29 @@ def ingest_unadjusted(state: KPCAState, x_new: Tensor, *,
     """Algorithm 1 with the fused kernel-row prologue (plan.fuse_krow)."""
     from repro_torch.kernels.rbf_gram import ops as kops
 
-    M = state.L.shape[0]
+    M = state.L.shape[-1]
     m = state.m
     dtype = state.L.dtype
     x_new = x_new.to(state.X.dtype)
-    k_new = kf.kernel_diag(x_new[None], spec=spec)[0].to(dtype)
+    k_new = kf.kernel_diag(x_new, spec=spec).to(dtype)
     kn = torch.clamp_min(k_new, torch.finfo(dtype).tiny)
 
-    aux = state.U.new_zeros((M, 0))
+    aux = state.U.new_zeros(state.L.shape + (0,))
     a, P = kops.krow_project(state.U, state.X, x_new, aux, m, spec=spec)
-    p = P[:, 0]                                     # Uᵀa, pre-expansion
+    p = P[..., 0]                                   # Uᵀa, pre-expansion
 
-    sum_a = torch.sum(a)
+    sum_a = torch.sum(a, dim=-1)
     S2 = state.S + 2.0 * sum_a + k_new
     K1 = torch.where(rankone.active_mask(M, m), state.K1 + a, 0.0)
     K1 = index_set(K1, m, sum_a + k_new)
     X = index_set(state.X, m, x_new)
 
     L, perm, m1 = rankone.expand_eigensystem_perm(state.L, kn / 4.0, m)
-    U = state.U[:, perm]
+    U = take_cols(state.U, perm)
     v1 = index_set(a, m, kn / 2.0)
     v2 = index_set(a, m, kn / 4.0)
-    z1 = index_set(p, m, kn / 2.0)[perm]
-    z2 = index_set(p, m, kn / 4.0)[perm]
+    z1 = take(index_set(p, m, kn / 2.0), perm)
+    z2 = take(index_set(p, m, kn / 4.0), perm)
     sigma = 4.0 / kn
     L, U = eng.apply_pair(L, U, v1, sigma, v2, -sigma, m1, plan=plan,
                           z1=z1, z2=z2)
@@ -218,28 +248,29 @@ def ingest_adjusted(state: KPCAState, x_new: Tensor, *,
     from repro_torch.kernels.eigvec_update import ops as eops
     from repro_torch.kernels.rbf_gram import ops as kops
 
-    M = state.L.shape[0]
+    M = state.L.shape[-1]
     m = state.m
     dtype = state.L.dtype
     mf = m.to(dtype)
     mask_m = rankone.active_mask(M, m)
     x_new = x_new.to(state.X.dtype)
-    k_new = kf.kernel_diag(x_new[None], spec=spec)[0].to(dtype)
+    k_new = kf.kernel_diag(x_new, spec=spec).to(dtype)
 
     # One fused pass: a plus Uᵀ[a | 1_m | K1] (the kernel masks rows >= m).
-    aux = torch.stack([torch.ones_like(state.K1), state.K1], dim=1)
+    aux = torch.stack([torch.ones_like(state.K1), state.K1], dim=-1)
     a, P = kops.krow_project(state.U, state.X, x_new, aux, m, spec=spec)
-    pa, p1, pk1 = P[:, 0], P[:, 1], P[:, 2]
+    pa, p1, pk1 = P[..., 0], P[..., 1], P[..., 2]
 
     # --- Step 1: mean-adjustment of the existing m×m block (2 updates). ---
-    sum_a = torch.sum(a)
+    sum_a = torch.sum(a, dim=-1)
     S2 = state.S + 2.0 * sum_a + k_new
-    C = -state.S / mf**2 + S2 / (mf + 1.0) ** 2
-    u = state.K1 / (mf * (mf + 1.0)) - a / (mf + 1.0) + 0.5 * C
+    C = (-state.S / mf**2 + S2 / (mf + 1.0) ** 2)[..., None]
+    mfc = mf[..., None]
+    u = state.K1 / (mfc * (mfc + 1.0)) - a / (mfc + 1.0) + 0.5 * C
     u = torch.where(mask_m, u, 0.0)
     ones_u_p = torch.where(mask_m, 1.0 + u, 0.0)
     ones_u_m = torch.where(mask_m, 1.0 - u, 0.0)
-    zu = pk1 / (mf * (mf + 1.0)) - pa / (mf + 1.0) + 0.5 * C * p1
+    zu = pk1 / (mfc * (mfc + 1.0)) - pa / (mfc + 1.0) + 0.5 * C * p1
     half = a.new_full((), 0.5)          # a fill, not a host copy
     L, U = eng.apply_pair(state.L, state.U, ones_u_p, half, ones_u_m, -half,
                           m, plan=plan, z1=p1 + zu, z2=p1 - zu)
@@ -253,9 +284,9 @@ def ingest_adjusted(state: KPCAState, x_new: Tensor, *,
     v1 = index_set(v, m, v0 / 2.0)
     v2 = index_set(v, m, v0 / 4.0)
     sigma = 4.0 / v0
-    Z = eops.project_vectors(U, torch.stack([v1, v2], dim=1), m1)
+    Z = eops.project_vectors(U, torch.stack([v1, v2], dim=-1), m1)
     L, U = eng.apply_pair(L, U, v1, sigma, v2, -sigma, m1, plan=plan,
-                          z1=Z[:, 0], z2=Z[:, 1])
+                          z1=Z[..., 0], z2=Z[..., 1])
 
     X = index_set(state.X, m, x_new)
     return KPCAState(L=L, U=U, m=m1, S=S2, K1=K1, X=X)

@@ -28,21 +28,23 @@ class KernelSpec:
 
 
 def _sqdist(x: Tensor, y: Tensor) -> Tensor:
-    """Pairwise squared euclidean distances, (n,d),(m,d) -> (n,m)."""
-    xn = torch.sum(x * x, dim=-1)[:, None]
-    yn = torch.sum(y * y, dim=-1)[None, :]
-    d2 = xn + yn - 2.0 * (x @ y.T)
+    """Pairwise squared euclidean distances, (n,d),(m,d) -> (n,m), over
+    any leading (tenant) dims."""
+    xn = torch.sum(x * x, dim=-1)[..., :, None]
+    yn = torch.sum(y * y, dim=-1)[..., None, :]
+    d2 = xn + yn - 2.0 * (x @ y.mT)
     return torch.clamp_min(d2, 0.0)
 
 
 def gram_block(x: Tensor, y: Tensor, *, spec: KernelSpec) -> Tensor:
-    """Dense gram block K[i,j] = k(x_i, y_j)."""
+    """Dense gram block K[i,j] = k(x_i, y_j); x (..., n, d) and y (..., m, d)
+    may share leading (tenant) dims."""
     if spec.name == "rbf":
         return spec.scale * torch.exp(-_sqdist(x, y) / spec.sigma)
     if spec.name == "linear":
-        return spec.scale * (x @ y.T)
+        return spec.scale * (x @ y.mT)
     if spec.name == "poly":
-        return spec.scale * (x @ y.T + spec.coef0) ** spec.degree
+        return spec.scale * (x @ y.mT + spec.coef0) ** spec.degree
     if spec.name == "matern32":
         r = torch.sqrt(_sqdist(x, y) + 1e-30)
         a = math.sqrt(3.0) * r / spec.sigma
@@ -51,8 +53,9 @@ def gram_block(x: Tensor, y: Tensor, *, spec: KernelSpec) -> Tensor:
 
 
 def kernel_row(x_new: Tensor, xs: Tensor, *, spec: KernelSpec) -> Tensor:
-    """a = [k(x_1, x_new), ..., k(x_m, x_new)] — the streaming hot path."""
-    return gram_block(xs, x_new[None, :], spec=spec)[:, 0]
+    """a = [k(x_1, x_new), ..., k(x_m, x_new)] — the streaming hot path;
+    x_new (..., d) against xs (..., m, d)."""
+    return gram_block(xs, x_new[..., None, :], spec=spec)[..., 0]
 
 
 def constant_diag(spec: KernelSpec) -> float | None:
@@ -63,9 +66,10 @@ def constant_diag(spec: KernelSpec) -> float | None:
 
 
 def kernel_diag(x: Tensor, *, spec: KernelSpec) -> Tensor:
-    """k(x_i, x_i) for each row (constant 'scale' for RBF and Matern)."""
+    """k(x_i, x_i) for each row of x (..., d) (constant 'scale' for RBF and
+    Matern)."""
     if spec.name in ("rbf", "matern32"):
-        return torch.full((x.shape[0],), spec.scale, dtype=x.dtype,
+        return torch.full(x.shape[:-1], spec.scale, dtype=x.dtype,
                           device=x.device)
     if spec.name == "linear":
         return spec.scale * torch.sum(x * x, dim=-1)

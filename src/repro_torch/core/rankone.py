@@ -22,6 +22,14 @@ spelling) or as a dense product of the materialized factor
 The secular roots are kept as (origin pole, offset) pairs (``_Roots``).
 sigma < 0 is reduced to sigma > 0 by the flip identity
 eig(D + s zzᵀ) = -rev(eig(-rev(D) + |s| rev(z)rev(z)ᵀ)).
+
+Every function takes an optional leading tenant axis: L (B, M), U
+(B, M, M), v (B, M), m (B,) and sigma (B,) or a scalar advance B
+independent eigensystems at once (``engine.StreamBatch``), the kernels
+launched once for the B tenants.  The single stream is the same code with
+no leading axis; each tenant's arithmetic is the single stream's.  A
+batched index (``index_set``/``index_get``) is clamped into range: a lane
+that a masked cohort step discards may sit at m = M.
 """
 from __future__ import annotations
 
@@ -49,23 +57,79 @@ def _solve_dtype(dtype, precise: bool):
     return torch.float64 if precise else dtype
 
 
+def _batched_index(vec: Tensor, i: Tensor) -> Tensor:
+    """Per-tenant entry (or row) indices ``i`` (B,) as a gather index into
+    ``vec`` (B, M, ...), clamped into range."""
+    M = vec.shape[1]
+    idx = i.long().clamp(0, M - 1)
+    return idx.reshape((-1, 1) + (1,) * (vec.dim() - 2)).expand(
+        (vec.shape[0], 1) + vec.shape[2:])
+
+
 def index_set(vec: Tensor, i: Tensor, value) -> Tensor:
     """``vec`` with entry (or row) ``i`` replaced — out of place, and with
     ``i`` a device tensor, so no host read.  A Python ``value`` becomes a
-    fill on vec's device, not a copy from the host (which synchronizes)."""
+    fill on vec's device, not a copy from the host (which synchronizes).
+    With a tenant axis, ``vec`` is (B, M, ...), ``i`` (B,) and ``value``
+    (B, ...) or a scalar."""
     value = (value.to(dtype=vec.dtype, device=vec.device)
              if torch.is_tensor(value) else vec.new_full((), value))
-    return vec.index_put((i.reshape(1).long(),),
-                         value.reshape((1,) + vec.shape[1:]))
+    if i.dim() == 0:
+        return vec.index_put((i.reshape(1).long(),),
+                             value.reshape((1,) + vec.shape[1:]))
+    idx = _batched_index(vec, i)
+    return vec.scatter(1, idx, value.reshape(
+        value.shape[:1] + (1,) + value.shape[1:]).expand(idx.shape))
 
 
 def index_get(vec: Tensor, i: Tensor) -> Tensor:
-    """``vec[i]`` for a 0-d device tensor ``i``, without a host read."""
-    return vec.index_select(0, i.reshape(1).long())[0]
+    """``vec[i]`` for a 0-d device tensor ``i``, without a host read; with a
+    tenant axis, tenant b's entry (or row) i[b]."""
+    if i.dim() == 0:
+        return vec.index_select(0, i.reshape(1).long())[0]
+    return torch.gather(vec, 1, _batched_index(vec, i))[:, 0]
+
+
+def take(vec: Tensor, perm: Tensor) -> Tensor:
+    """``vec[perm]`` along the last axis, per tenant."""
+    if vec.dim() == 1:
+        return vec[perm]
+    return torch.take_along_dim(vec, perm, dim=-1)
+
+
+def take_cols(U: Tensor, perm: Tensor) -> Tensor:
+    """``U[:, perm]``, per tenant."""
+    if U.dim() == 2:
+        return U[:, perm]
+    return torch.take_along_dim(U, perm[..., None, :], dim=-1)
+
+
+def take_rows(U: Tensor, perm: Tensor) -> Tensor:
+    """``U[perm]`` (rows), per tenant."""
+    if perm.dim() == 1:
+        return U[perm]
+    return torch.take_along_dim(U, perm.reshape(
+        perm.shape + (1,) * (U.dim() - 2)), dim=1)
+
+
+def tmatvec(U: Tensor, v: Tensor) -> Tensor:
+    """Uᵀ v per tenant (v (M,) or (M, k), with U's tenant axis)."""
+    if U.dim() == 2:
+        return U.T @ v
+    if v.dim() == U.dim():
+        return U.mT @ v
+    return (U.mT @ v[..., None])[..., 0]
+
+
+def matvec(U: Tensor, v: Tensor) -> Tensor:
+    """U v per tenant."""
+    if U.dim() == 2:
+        return U @ v
+    return (U @ v[..., None])[..., 0]
 
 
 def active_mask(M: int, m: Tensor) -> Tensor:
-    return torch.arange(M, device=m.device) < m
+    return torch.arange(M, device=m.device) < m[..., None]
 
 
 def sentinelize(d: Tensor, m: Tensor, room: Tensor) -> Tensor:
@@ -75,13 +139,13 @@ def sentinelize(d: Tensor, m: Tensor, room: Tensor) -> Tensor:
     for sigma > 0, else 0).  Sentinels are spaced by 1 so bisection
     intervals in the inactive region are well conditioned.
     """
-    M = d.shape[0]
+    M = d.shape[-1]
     mask = active_mask(M, m)
-    top = torch.max(torch.where(mask, d, -torch.inf))
+    top = torch.amax(torch.where(mask, d, -torch.inf), dim=-1)
     top = torch.where(torch.isfinite(top), top, 0.0)   # m == 0 corner
     base = top + torch.abs(room) + _SENTINEL_GAP
     idx = torch.arange(M, dtype=d.dtype, device=d.device)
-    sent = base + _SENTINEL_GAP * (idx - m.to(d.dtype))
+    sent = base[..., None] + _SENTINEL_GAP * (idx - m.to(d.dtype)[..., None])
     return torch.where(mask, d, sent)
 
 
@@ -102,7 +166,7 @@ class _Roots(NamedTuple):
 
 def _pole_gaps(d: Tensor, org: Tensor, tau: Tensor) -> Tensor:
     """(i, j) matrix of d_i - root_j in offset form."""
-    return (d[:, None] - org[None, :]) - tau[None, :]
+    return (d[..., :, None] - org[..., None, :]) - tau[..., None, :]
 
 
 def _secular_roots(d: Tensor, z2: Tensor, sigma: Tensor, iters: int,
@@ -121,22 +185,24 @@ def _secular_roots(d: Tensor, z2: Tensor, sigma: Tensor, iters: int,
     it lose orthogonality (ROADMAP.md, "Faults found").
     """
     eps = _eps_for(d.dtype)
-    znorm2 = torch.sum(z2)
-    top = d[-1] + sigma * znorm2 + eps
+    znorm2 = torch.sum(z2, dim=-1)
+    top = d[..., -1] + sigma * znorm2 + eps
+    inf = d.new_full(d.shape[:-1] + (1,), torch.inf)
     if defl is None:
-        nxt = torch.cat([d[1:], d.new_full((1,), torch.inf)])
+        nxt = torch.cat([d[..., 1:], inf], dim=-1)
     else:
         d_nd = torch.where(defl, torch.inf, d)
         # Next non-deflated pole above each entry: a reversed cumulative
         # minimum (jax.lax.cummin over the flipped vector).
-        nxt = torch.cat([torch.cummin(d_nd.flip(0), 0).values.flip(0)[1:],
-                         d.new_full((1,), torch.inf)])
+        nxt = torch.cat([torch.cummin(d_nd.flip(-1), -1).values.flip(-1)
+                         [..., 1:], inf], dim=-1)
     hi_is_pole = ~torch.isinf(nxt)
-    hi = torch.where(hi_is_pole, nxt, top)
+    hi = torch.where(hi_is_pole, nxt, top[..., None])
     half = 0.5 * (hi - d)
+    sig = sigma[..., None]
 
     def w_of(den: Tensor) -> Tensor:     # den[i, j] = d_i - t_j
-        return 1.0 + sigma * torch.sum(z2[:, None] / den, dim=0)
+        return 1.0 + sig * torch.sum(z2[..., :, None] / den, dim=-2)
 
     # Root j sits below its bracket's midpoint (w increasing between
     # poles): origin d_j; above it and below a pole: origin that pole;
@@ -159,11 +225,11 @@ def _secular_roots(d: Tensor, z2: Tensor, sigma: Tensor, iters: int,
     hi_t = torch.maximum(torch.where(near, half, 2.0 * half), lo)
     # Fixed origins: d_i - org_j once.  The offsets stay strictly inside
     # their brackets (|tau| >= tiny), so no denominator is 0 in the loop.
-    delta = d[:, None] - org[None, :]
+    delta = d[..., :, None] - org[..., None, :]
     for _ in range(iters):
         mid = lo * torch.sqrt(hi_t / lo)
         # |tau| above mid iff w(org + sign·mid) is on the root's far side.
-        grow = (w_of(delta - (sign * mid)[None, :]) > 0.0) == upper
+        grow = (w_of(delta - (sign * mid)[..., None, :]) > 0.0) == upper
         lo, hi_t = torch.where(grow, mid, lo), torch.where(grow, hi_t, mid)
     tau = sign * lo * torch.sqrt(hi_t / lo)
     if defl is not None:
@@ -185,27 +251,33 @@ def _cluster_merge(d: Tensor, z: Tensor, tol: Tensor):
     (block-diagonal over runs) rotates the run's z-mass into its LAST
     element; the others become exactly zero and deflate.  Returns
     (z_new, apply, fired) with apply(X) = H @ X in O(M²) by segment sums.
+
+    With a tenant axis the B·M entries are one flattened sequence with a
+    run boundary forced at each tenant's first entry, so one segmented
+    reduction serves the cohort and no run crosses two tenants.
     """
-    M = d.shape[0]
-    gap = torch.diff(d)
-    new_seg = torch.cat([torch.ones(1, dtype=torch.bool, device=d.device),
-                         gap > tol])
-    seg = torch.cumsum(new_seg.to(torch.int64), 0) - 1
-    # Run r spans rows offsets[r]:offsets[r + 1]; runs past the last are
+    lead = d.shape[:-1]
+    M = d.shape[-1]
+    N = d.numel()
+    gap = torch.diff(d, dim=-1)
+    first = torch.ones(lead + (1,), dtype=torch.bool, device=d.device)
+    new_seg = torch.cat([first, gap > tol[..., None]], dim=-1)
+    seg = torch.cumsum(new_seg.reshape(N).to(torch.int64), 0) - 1
+    # Run r spans entries offsets[r]:offsets[r + 1]; runs past the last are
     # empty.  A segmented reduction adds each run in a fixed order (on the
     # CPU left to right, as index_add_ did), so two runs of one stream on
     # the card agree bit for bit; index_add_ adds with atomics there.
     offsets = torch.searchsorted(
-        seg, torch.arange(M + 1, dtype=seg.dtype, device=d.device))
+        seg, torch.arange(N + 1, dtype=seg.dtype, device=d.device))
 
     def segsum(x: Tensor) -> Tensor:        # per-run sum, gathered back
-        return torch.segment_reduce(x, "sum", offsets=offsets, axis=0,
-                                    unsafe=True)[seg]
+        flat = x.reshape((N,) + x.shape[len(lead) + 1:])
+        return torch.segment_reduce(flat, "sum", offsets=offsets, axis=0,
+                                    unsafe=True)[seg].reshape(x.shape)
 
     seg_size = segsum(torch.ones_like(z))
     znorm_seg = torch.sqrt(segsum(z * z))
-    is_last = torch.cat([new_seg[1:],
-                         torch.ones(1, dtype=torch.bool, device=d.device)])
+    is_last = torch.cat([new_seg[..., 1:], first], dim=-1)
     z_last = segsum(torch.where(is_last, z, 0.0))
     sl = torch.where(z_last >= 0, 1.0, -1.0).to(z.dtype)
     target = -sl * znorm_seg                  # H z_run = target · e_last
@@ -216,14 +288,14 @@ def _cluster_merge(d: Tensor, z: Tensor, tol: Tensor):
     coef = torch.where(active, 2.0 / torch.where(active, wnorm2, 1.0), 0.0)
 
     def apply(X: Tensor) -> Tensor:           # H @ X, rows mixed per run
-        s = segsum(w[:, None] * X)
-        return X - (coef * w)[:, None] * s
+        s = segsum(w[..., :, None] * X)
+        return X - (coef * w)[..., :, None] * s
 
     wz = segsum(w * z)
     z_new = z - coef * w * wz
     # exact zeros on merged (non-last) members so deflation catches them
     z_new = torch.where(active & ~is_last, 0.0, z_new)
-    return z_new, apply, torch.any(active)
+    return z_new, apply, torch.any(active, dim=-1)
 
 
 def _gu_zhat(d: Tensor, roots: _Roots, sigma: Tensor, z: Tensor) -> Tensor:
@@ -232,12 +304,12 @@ def _gu_zhat(d: Tensor, roots: _Roots, sigma: Tensor, z: Tensor) -> Tensor:
     in log space, each roots_j - d_i in offset form.  Deflated and
     inactive entries come out exactly 0."""
     num = _pole_gaps(d, roots.org, roots.tau)               # -(root_j - d_i)
-    den = d[None, :] - d[:, None]
-    den.fill_diagonal_(1.0)
+    den = d[..., None, :] - d[..., :, None]
+    den.diagonal(dim1=-2, dim2=-1).fill_(1.0)
     tiny = torch.finfo(d.dtype).tiny
-    log_z2 = (torch.sum(torch.log(num.abs() + tiny), dim=1)
-              - torch.sum(torch.log(den.abs() + tiny), dim=1)
-              - torch.log(sigma.abs()))
+    log_z2 = (torch.sum(torch.log(num.abs() + tiny), dim=-1)
+              - torch.sum(torch.log(den.abs() + tiny), dim=-1)
+              - torch.log(sigma.abs())[..., None])
     zhat = torch.sign(z) * torch.sqrt(torch.exp(log_z2))
     # Guard: if the identity degenerates numerically, fall back to z.
     return torch.where(torch.isfinite(zhat), zhat, z)
@@ -254,8 +326,8 @@ def _guarded(den: Tensor) -> Tensor:
 
 def _cauchy_inv(d: Tensor, roots: _Roots, zhat: Tensor) -> Tensor:
     """Inverse column norms of W[i, j] = zhat_i / (d_i - roots_j)."""
-    W = zhat[:, None] / _guarded(_pole_gaps(d, roots.org, roots.tau))
-    norms = torch.sqrt(torch.sum(W * W, dim=0))
+    W = zhat[..., :, None] / _guarded(_pole_gaps(d, roots.org, roots.tau))
+    norms = torch.sqrt(torch.sum(W * W, dim=-2))
     return torch.where(norms > 0, 1.0 / norms, 1.0)
 
 
@@ -300,22 +372,23 @@ def _solve_factor(d_sent: Tensor, z: Tensor, sigma: Tensor, m: Tensor,
     with the solve type's eps (ROADMAP.md, "Faults found").  For an f64
     state the two are the same.
     """
-    M = d_sent.shape[0]
+    M = d_sent.shape[-1]
     dtype = d_sent.dtype
     solve_dtype = _solve_dtype(dtype, precise)
     eps = _eps_for(solve_dtype)
     mask = active_mask(M, m)
     sig_abs = torch.abs(sigma)
-    neg = sigma < 0
-    znorm = torch.sqrt(torch.sum(z * z))
+    neg = (sigma < 0)[..., None]
+    znorm = torch.sqrt(torch.sum(z * z, dim=-1))[..., None]
     floor = 32.0 * eps * torch.clamp_min(znorm, eps)
     defl = (~mask | (z.abs() < floor)
-            | (sig_abs * z.abs() * znorm < 64.0 * eps * scale))
+            | (sig_abs[..., None] * z.abs() * znorm
+               < 64.0 * eps * scale[..., None]))
     z = torch.where(defl, 0.0, z)
 
-    d_eff = torch.where(neg, -d_sent.flip(0), d_sent)
-    z_eff = torch.where(neg, z.flip(0), z)
-    defl_eff = torch.where(neg, defl.flip(0), defl)
+    d_eff = torch.where(neg, -d_sent.flip(-1), d_sent)
+    z_eff = torch.where(neg, z.flip(-1), z)
+    defl_eff = torch.where(neg, defl.flip(-1), defl)
     d_s = d_eff.to(solve_dtype)
     z_s = z_eff.to(solve_dtype)
     sig_s = sig_abs.to(solve_dtype)
@@ -329,10 +402,10 @@ def _solve_factor(d_sent: Tensor, z: Tensor, sigma: Tensor, m: Tensor,
     inv_eff = torch.where(defl_eff, 1.0, inv_eff)
 
     # Un-flip; negation is exact, so (d - org) - tau keeps its accuracy.
-    z_o = torch.where(neg, -zhat_eff.flip(0), zhat_eff)
-    org_o = torch.where(neg, -roots_eff.org.flip(0), roots_eff.org)
-    tau_o = torch.where(neg, -roots_eff.tau.flip(0), roots_eff.tau)
-    inv_o = torch.where(neg, inv_eff.flip(0), inv_eff)
+    z_o = torch.where(neg, -zhat_eff.flip(-1), zhat_eff)
+    org_o = torch.where(neg, -roots_eff.org.flip(-1), roots_eff.org)
+    tau_o = torch.where(neg, -roots_eff.tau.flip(-1), roots_eff.tau)
+    inv_o = torch.where(neg, inv_eff.flip(-1), inv_eff)
     L_new = torch.where(mask, (org_o + tau_o).to(dtype), d_sent)
     return _Factor(z=torch.where(mask, z_o, 0.0), d=d_sent.to(solve_dtype),
                    org=org_o, tau=tau_o, inv=inv_o, defl=defl, L_new=L_new)
@@ -351,7 +424,7 @@ def _apply_factor(U: Tensor, f: _Factor, mask: Tensor, m: Tensor, *,
     if matmul == "pallas":
         z, d, org, inv, tau = kernel_operands(f, mask, U.dtype)
         C = eigvec_ops.rotate_vectors(U, z, d, org, inv, m, tau=tau)
-        return torch.where(f.defl[None, :], U, C)
+        return torch.where(f.defl[..., None, :], U, C)
     Wn = cauchy_factor_ref(f.z, f.d, f.org, f.inv, f.defl.to(f.z.dtype),
                            tau=f.tau).to(dtype=U.dtype)
     return U @ Wn
@@ -380,28 +453,28 @@ def _update_body(L: Tensor, U: Tensor, v: Tensor, sigma: Tensor, m: Tensor,
                  z: Tensor | None = None) -> tuple[Tensor, Tensor]:
     """One rank-one update; ``z`` = Uᵀv may come precomputed (the fused
     ingest kernel produces it), else it is the dense product here."""
-    M = L.shape[0]
+    M = L.shape[-1]
     dtype = L.dtype
     mask = active_mask(M, m)
     if z is None:
         v = torch.where(mask, v, 0.0)
-        z = U.T @ v
+        z = tmatvec(U, v)
     else:
         z = torch.where(mask, z, 0.0)
     sig_abs = torch.abs(sigma)
 
     # Re-sentinelize with head-room for the top root's travel; under the
     # flip the sentinels land (negated) at the bottom, still sorted.
-    room = sig_abs * torch.sum(z * z)
+    room = sig_abs * torch.sum(z * z, dim=-1)
     d_sent = sentinelize(L, m, room)
 
     # Cluster-merge deflation; U absorbs the block reflector at O(M²).  Its
     # tolerance is the state type's: it protects the rotation of U, which
     # rounds in that type.
-    scale = torch.max(torch.abs(torch.where(mask, L, 0.0))) + room + 1e-30
+    scale = _scale(L, mask, room)
     tol = 64.0 * _eps_for(dtype) * scale
     z, applyH, _ = _cluster_merge(d_sent, z, tol)
-    U = applyH(U.T).T                            # U @ H, no matmul
+    U = applyH(U.mT).mT                          # U @ H, no matmul
 
     f = _solve_factor(d_sent, z, sigma, m, scale, iters=iters, method=method,
                       precise=precise)
@@ -409,8 +482,21 @@ def _update_body(L: Tensor, U: Tensor, v: Tensor, sigma: Tensor, m: Tensor,
     # Deflation can locally reorder roots; the next update's interlacing
     # needs ascending order.  Stable, as jnp.argsort is, so ties among
     # deflated roots and sentinels keep their column order.
-    perm = torch.argsort(f.L_new, stable=True)
-    return f.L_new[perm], U_new[:, perm]
+    perm = torch.argsort(f.L_new, dim=-1, stable=True)
+    return take(f.L_new, perm), take_cols(U_new, perm)
+
+
+def _scale(L: Tensor, mask: Tensor, room: Tensor) -> Tensor:
+    """‖A‖'s stand-in of the deflation tests: max |L| over the active
+    spectrum plus the update's room."""
+    return (torch.amax(torch.abs(torch.where(mask, L, 0.0)), dim=-1) + room
+            + 1e-30)
+
+
+def _as_sigma(sigma, L: Tensor) -> Tensor:
+    """sigma as a tensor of L's type and device, one per tenant."""
+    return torch.as_tensor(sigma, dtype=L.dtype, device=L.device).expand(
+        L.shape[:-1])
 
 
 def rank_one_update(L: Tensor, U: Tensor, v: Tensor, sigma, m, *,
@@ -421,13 +507,14 @@ def rank_one_update(L: Tensor, U: Tensor, v: Tensor, sigma, m, *,
 
     L: (M,) ascending eigenvalues (sentinels above the active spectrum),
     U: (M, M) eigenvectors in columns (identity on inactive columns),
-    v: (M,) update vector, sigma: scalar of either sign, m: active count.
+    v: (M,) update vector, sigma: scalar of either sign, m: active count;
+    or each with a leading tenant axis (module docstring).
     ``z`` is an optional precomputed Uᵀv in the current basis.
     Returns the updated (L, U), sorted ascending, same padding invariants.
     """
     if matmul not in ("jnp", "pallas"):
         raise ValueError(f"unknown rotation route {matmul!r}")
-    sigma = torch.as_tensor(sigma, dtype=L.dtype, device=L.device)
+    sigma = _as_sigma(sigma, L)
     m = torch.as_tensor(m, dtype=torch.int32, device=L.device)
     return _update_body(L, U, v, sigma, m, iters=iters, method=method,
                         matmul=matmul, precise=precise, z=z)
@@ -441,19 +528,18 @@ def _pair_factor(L: Tensor, z: Tensor, sigma: Tensor, m: Tensor, *,
     block reflector is not a Cauchy factor and so cannot sit between the
     two fused rotations (``_merge_fires`` sends such pairs down the
     sequential path)."""
-    mask = active_mask(L.shape[0], m)
-    room = torch.abs(sigma) * torch.sum(z * z)
+    mask = active_mask(L.shape[-1], m)
+    room = torch.abs(sigma) * torch.sum(z * z, dim=-1)
     d_sent = sentinelize(L, m, room)
-    scale = torch.max(torch.abs(torch.where(mask, L, 0.0))) + room + 1e-30
-    return _solve_factor(d_sent, z, sigma, m, scale, iters=iters,
-                         method=method, precise=precise)
+    return _solve_factor(d_sent, z, sigma, m, _scale(L, mask, room),
+                         iters=iters, method=method, precise=precise)
 
 
 def _factor_tmatvec(f: _Factor, y: Tensor) -> Tensor:
     """(Ŵn)ᵀ y in O(M²) from the factor's vectors: the second secular
     solve's z without the first rotation of U."""
     den = _guarded(_pole_gaps(f.d, f.org, f.tau))
-    s = torch.sum((f.z * y)[:, None] / den, dim=0) * f.inv
+    s = torch.sum((f.z * y)[..., :, None] / den, dim=-2) * f.inv
     return torch.where(f.defl, y, s)
 
 
@@ -489,12 +575,11 @@ def _merge_fires(L: Tensor, z: Tensor, sigma: Tensor, m: Tensor) -> Tensor:
     """Would ``rank_one_update``'s cluster merge rotate z-mass for this
     (spectrum, z, sigma)?  Same sentinels and tolerance as the sequential
     path, detection only."""
-    M = L.shape[0]
+    M = L.shape[-1]
     mask = active_mask(M, m)
-    room = torch.abs(sigma) * torch.sum(z * z)
+    room = torch.abs(sigma) * torch.sum(z * z, dim=-1)
     d_sent = sentinelize(L, m, room)
-    scale = torch.max(torch.abs(torch.where(mask, L, 0.0))) + room + 1e-30
-    tol = 64.0 * _eps_for(L.dtype) * scale
+    tol = 64.0 * _eps_for(L.dtype) * _scale(L, mask, room)
     return _cluster_merge(d_sent, z, tol)[2]
 
 
@@ -505,26 +590,26 @@ def _pair_solve(L: Tensor, z1: Tensor, sigma1: Tensor, z2_raw: Tensor,
 
     ``z2_raw`` is Uᵀv₂ in the pre-update basis; the second update's
     z₂ = U₁ᵀv₂ comes from the Cauchy transpose-matvec (O(M²))."""
-    M = L.shape[0]
+    M = L.shape[-1]
     dtype = L.dtype
     f1 = _pair_factor(L, z1, sigma1, m, iters=iters, method=method,
                       precise=precise)
-    perm1 = torch.argsort(f1.L_new, stable=True)
-    L1 = f1.L_new[perm1]
+    perm1 = torch.argsort(f1.L_new, dim=-1, stable=True)
+    L1 = take(f1.L_new, perm1)
     y = _factor_tmatvec(f1, z2_raw.to(f1.z.dtype))
-    z2 = y[perm1].to(dtype)
+    z2 = take(y, perm1).to(dtype)
     f2 = _pair_factor(L1, z2, sigma2, m, iters=iters, method=method,
                       precise=precise)
-    perm2 = torch.argsort(f2.L_new, stable=True)
+    perm2 = torch.argsort(f2.L_new, dim=-1, stable=True)
     fired = _merge_fires(L, z1, sigma1, m) | _merge_fires(L1, z2, sigma2, m)
     # Sentinels sort to themselves, so inactive cid stays the column index.
+    cid2 = torch.arange(M, dtype=torch.int32, device=L.device)
     return _PairFactors(
-        z1=f1.z, d1=f1.d, org1=f1.org[perm1], tau1=f1.tau[perm1],
-        inv1=f1.inv[perm1], defl1=f1.defl[perm1],
+        z1=f1.z, d1=f1.d, org1=take(f1.org, perm1), tau1=take(f1.tau, perm1),
+        inv1=take(f1.inv, perm1), defl1=take(f1.defl, perm1),
         cid1=perm1.to(torch.int32),
         z2=f2.z, d2=f2.d, org2=f2.org, tau2=f2.tau, inv2=f2.inv,
-        defl2=f2.defl, cid2=torch.arange(M, dtype=torch.int32,
-                                         device=L.device),
+        defl2=f2.defl, cid2=cid2.expand(L.shape),
         L_new=f2.L_new, perm2=perm2, merge_fired=fired)
 
 
@@ -545,7 +630,7 @@ def _pair_rotate_block(U: Tensor, pf: _PairFactors, m: Tensor, *,
             pf.defl1.to(dtype), pf.cid1,
             pf.z2.to(dtype), pf.d2, pf.org2, pf.inv2.to(dtype),
             pf.defl2.to(dtype), pf.cid2, m, tau1=pf.tau1, tau2=pf.tau2)
-        C = torch.where(mask[None, :], C, U)
+        C = torch.where(mask[..., None, :], C, U)
     else:
         W1 = cauchy_factor_ref(pf.z1, pf.d1, pf.org1, pf.inv1,
                                pf.defl1.to(pf.z1.dtype), pf.cid1,
@@ -554,7 +639,7 @@ def _pair_rotate_block(U: Tensor, pf: _PairFactors, m: Tensor, *,
                                pf.defl2.to(pf.z2.dtype), pf.cid2,
                                tau=pf.tau2).to(dtype)
         C = (U @ W1) @ W2
-    return C[:, pf.perm2]
+    return take_cols(C, pf.perm2)
 
 
 def rank_one_update_pair(L: Tensor, U: Tensor, v1: Tensor, sigma1,
@@ -576,6 +661,10 @@ def rank_one_update_pair(L: Tensor, U: Tensor, v1: Tensor, sigma1,
     as two sequential updates instead.  The reference decides that on the
     device (``lax.cond``); here ``merge_fired`` is read on the host, one
     synchronisation per pair, and the branch not taken launches nothing.
+    With a tenant axis the read is ``merge_fired.any()``, still one per
+    pair: where no tenant fired only the fused rotation runs, else both
+    branches run for the cohort and each tenant takes its own branch's
+    result (the select ``lax.cond`` becomes under ``jax.vmap``).
 
     ``matmul``: "jnp" (dense factors) or "pallas" (the ``eigvec_rotate2``
     kernel on the card, its plain version on the CPU).  ``z1``/``z2``
@@ -586,26 +675,36 @@ def rank_one_update_pair(L: Tensor, U: Tensor, v1: Tensor, sigma1,
         raise ValueError(f"unknown rotation route {matmul!r}")
     if (z1 is None) != (z2 is None):
         raise ValueError("pass both precomputed projections or neither")
-    M = L.shape[0]
-    sigma1 = torch.as_tensor(sigma1, dtype=L.dtype, device=L.device)
-    sigma2 = torch.as_tensor(sigma2, dtype=L.dtype, device=L.device)
+    M = L.shape[-1]
+    sigma1 = _as_sigma(sigma1, L)
+    sigma2 = _as_sigma(sigma2, L)
     m = torch.as_tensor(m, dtype=torch.int32, device=L.device)
     mask = active_mask(M, m)
     v1 = torch.where(mask, v1, 0.0)
     v2 = torch.where(mask, v2, 0.0)
     if z1 is None:
-        Z = U.T @ torch.stack([v1, v2], dim=1)  # one pass over U for both
-        z1, z2 = Z[:, 0], Z[:, 1]
+        # One pass over U for both.
+        Z = tmatvec(U, torch.stack([v1, v2], dim=-1))
+        z1, z2 = Z[..., 0], Z[..., 1]
     else:
         z1 = torch.where(mask, z1, 0.0)
         z2 = torch.where(mask, z2, 0.0)
     kw = dict(iters=iters, method=method, precise=precise)
     pf = _pair_solve(L, z1, sigma1, z2, sigma2, m, **kw)
-    if merge_fallback and bool(pf.merge_fired):
+    mf = pf.merge_fired
+    fired = merge_fallback and bool(mf if mf.dim() == 0 else mf.any())
+    if fired:
         L1, U1 = _update_body(L, U, v1, sigma1, m, matmul=matmul, z=z1,
                               **kw)
-        return _update_body(L1, U1, v2, sigma2, m, matmul=matmul, **kw)
-    return pf.L_new[pf.perm2], _pair_rotate_block(U, pf, m, matmul=matmul)
+        Ls, Us = _update_body(L1, U1, v2, sigma2, m, matmul=matmul, **kw)
+        if L.dim() == 1:
+            return Ls, Us
+    Lf = take(pf.L_new, pf.perm2)
+    Uf = _pair_rotate_block(U, pf, m, matmul=matmul)
+    if not fired:
+        return Lf, Uf
+    sel = pf.merge_fired[..., None]
+    return torch.where(sel, Ls, Lf), torch.where(sel[..., None], Us, Uf)
 
 
 def expand_eigensystem_perm(L: Tensor, lam_new: Tensor, m: Tensor
@@ -615,8 +714,8 @@ def expand_eigensystem_perm(L: Tensor, lam_new: Tensor, m: Tensor
     m_new = m + 1
     L = index_set(L, m, lam_new)
     L = sentinelize(L, m_new, L.new_zeros(()))
-    perm = torch.argsort(L, stable=True)
-    return L[perm], perm, m_new
+    perm = torch.argsort(L, dim=-1, stable=True)
+    return take(L, perm), perm, m_new
 
 
 def expand_eigensystem(L: Tensor, U: Tensor, lam_new: Tensor, m: Tensor
@@ -625,14 +724,14 @@ def expand_eigensystem(L: Tensor, U: Tensor, lam_new: Tensor, m: Tensor
     (Paper Alg. 1 line 2 writes k/4 into the U corner — an erratum; the new
     unit eigenvector must be e_{m+1}.)"""
     L_new, perm, m_new = expand_eigensystem_perm(L, lam_new, m)
-    return L_new, U[:, perm], m_new
+    return L_new, take_cols(U, perm), m_new
 
 
 def reconstruct(L: Tensor, U: Tensor, m: Tensor) -> Tensor:
     """K̃ = U diag(L) Uᵀ restricted to the active block (testing utility)."""
-    M = L.shape[0]
+    M = L.shape[-1]
     mask = active_mask(M, m)
     Lm = torch.where(mask, L, 0.0)
-    K = (U * Lm[None, :]) @ U.T
-    blk = mask[:, None] & mask[None, :]
+    K = (U * Lm[..., None, :]) @ U.mT
+    blk = mask[..., :, None] & mask[..., None, :]
     return torch.where(blk, K, 0.0)

@@ -18,6 +18,11 @@ publishes back, so a steady-state publish allocates nothing.  Torch has no
 buffer donation: a write into retired storage is seen by every reference
 to it, so the buffer writes only into snapshots it owns (see its
 docstring).  The generation counter is a host (CPU) tensor.
+
+Snapshots may be tenant-stacked (a leading axis B on every field, as
+``engine.StreamBatch.publish`` makes them): ``publish_transform`` and
+``query`` take a stacked state and stacked queries (B, nq, d), and under
+``plan.fuse_krow`` one ``transform_project`` launch serves every tenant.
 """
 from __future__ import annotations
 
@@ -63,20 +68,23 @@ class ServingSnapshot(NamedTuple):
 def _transform_fields(state, *, n_components: int, adjusted: bool):
     """(S, affine) of the KPCA transform head: masked stable argsort,
     top-C gather, eps floor on the eigenvalues."""
-    M = state.L.shape[0]
+    M = state.L.shape[-1]
     mask = rankone.active_mask(M, state.m)
-    order = torch.argsort(torch.where(mask, -state.L, torch.inf),
-                          stable=True)[:n_components]
-    lam = state.L[order]
-    vec = state.U[:, order]                        # (M, C) gather — not M²
+    order = torch.argsort(torch.where(mask, -state.L, torch.inf), dim=-1,
+                          stable=True)[..., :n_components]
+    lam = rankone.take(state.L, order)
+    vec = rankone.take_cols(state.U, order)       # (M, C) gather — not M²
     denom = torch.sqrt(torch.clamp_min(lam, torch.finfo(state.L.dtype).eps))
-    s_mat = (vec / denom[None, :]).to(state.X.dtype)
+    s_mat = (vec / denom[..., None, :]).to(state.X.dtype)
     if not adjusted:
         return s_mat, None
     mf = state.m.to(state.L.dtype)
+    k1 = state.K1 / mf[..., None]
+    colproj = (k1 @ s_mat if k1.dim() == 1
+               else (k1[..., None, :] @ s_mat)[..., 0, :])
     return s_mat, AffineCorrection(mf=mf,
-                                   colsum=torch.sum(s_mat, dim=0),
-                                   colproj=(state.K1 / mf) @ s_mat,
+                                   colsum=torch.sum(s_mat, dim=-2),
+                                   colproj=colproj,
                                    grand=state.S / mf**2)
 
 
@@ -113,22 +121,26 @@ def publish_transform(state, *, n_components: int, adjusted: bool,
     shares X and m with the state (the engine never writes a state in
     place).  With ``retire`` the snapshot is written into ``retire``'s
     storage instead, generation retire.generation + 2: ``retire`` is
-    consumed, and must own its storage and be read by nobody again."""
+    consumed, and must own its storage and be read by nobody again.  A
+    tenant-stacked state gives stacked snapshots, each tenant's generation
+    ``generation``."""
     s_mat, affine = _transform_fields(state, n_components=n_components,
                                       adjusted=adjusted)
+    gen = torch.full(state.m.shape, generation, dtype=torch.int32)
     snap = ServingSnapshot(S=s_mat, X=state.X, m=state.m, affine=affine,
-                           generation=torch.tensor(generation,
-                                                   dtype=torch.int32))
+                           generation=gen)
     return snap if retire is None else _retiring(snap, retire)
 
 
 def query(snap: ServingSnapshot, xq: Tensor, *, spec: kf.KernelSpec,
           plan=None) -> Tensor:
-    """Batch queries against a snapshot: (nq, d) -> (nq, C).
+    """Batch queries against a snapshot: (nq, d) -> (nq, C); against
+    tenant-stacked snapshots (B, nq, d) -> (B, nq, C).
 
     Under ``plan.fuse_krow`` the query gram is never stored: the fused
-    ``transform_project`` kernel contracts each kernel tile against S;
-    otherwise the masked gram is built and multiplied.
+    ``transform_project`` kernel contracts each kernel tile against S (one
+    launch for every tenant); otherwise the masked gram is built and
+    multiplied.
     """
     xq = torch.as_tensor(xq, device=snap.X.device).to(snap.X.dtype)
     if plan is not None and plan.fuse_krow:
@@ -137,14 +149,16 @@ def query(snap: ServingSnapshot, xq: Tensor, *, spec: kf.KernelSpec,
                                        spec=spec)
     else:
         kq = kf.gram_block(xq.to(snap.X.dtype), snap.X, spec=spec)
-        mask = rankone.active_mask(snap.X.shape[0], snap.m)
-        kq = torch.where(mask[None, :], kq, 0.0)
+        mask = rankone.active_mask(snap.X.shape[-2], snap.m)
+        kq = torch.where(mask[..., None, :], kq, 0.0)
         y = kq @ snap.S
-        rs = torch.sum(kq, dim=1)
+        rs = torch.sum(kq, dim=-1)
     if snap.affine is not None:
         aff = snap.affine
-        y = (y - (rs / aff.mf)[:, None] * aff.colsum[None, :]
-             - aff.colproj[None, :] + aff.grand * aff.colsum[None, :])
+        colsum = aff.colsum[..., None, :]
+        y = (y - (rs / aff.mf[..., None])[..., None] * colsum
+             - aff.colproj[..., None, :]
+             + aff.grand[..., None, None] * colsum)
     return y
 
 
@@ -173,8 +187,12 @@ def stack_snapshots(snaps: list[ServingSnapshot]) -> ServingSnapshot:
 def query_batch(snaps: ServingSnapshot, xq: Tensor, *, spec: kf.KernelSpec,
                 plan=None) -> Tensor:
     """Per-tenant queries against tenant-stacked snapshots: (B, nq, d) ->
-    (B, nq, C), one ``query`` per tenant (under ``plan.fuse_krow`` one
-    ``transform_project`` launch each)."""
+    (B, nq, C).  Under ``plan.fuse_krow`` one ``transform_project`` launch
+    serves every tenant, each tenant's rows equal to its own ``query`` bit
+    for bit; otherwise one ``query`` per tenant (a stacked matmul would
+    round each tenant otherwise than its own query)."""
+    if plan is not None and plan.fuse_krow:
+        return query(snaps, xq, spec=spec, plan=plan)
     return torch.stack([query(_snapshot_at(snaps, b), xq[b], spec=spec,
                               plan=plan) for b in range(xq.shape[0])])
 

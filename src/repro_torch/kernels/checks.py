@@ -47,6 +47,13 @@ one component (the KRR predict head); ``features_case`` holds
 ``transform_project`` at C = M (the Nyström feature head).
 ``Case.variant`` names each.
 
+``batched_cases(n, ms, dtype, device)`` holds the five kernels of the KPCA
+path over a leading tenant axis: tenant b's operands are those of
+``cases(n, ms[b], ...)``'s main-path case (its own state, its own m), and
+the case is one launch for every tenant (``stack_cases``); its ``singles``
+are the B single launches, which each tenant of the batched launch must
+equal bit for bit.
+
 Times are device times: ``device_ms`` reads the kernels' own start and end
 from the profiler's CUDA activity records (CUPTI), so the host's work in a
 wrapper (operand checks, allocation, the ctypes call) is not counted;
@@ -136,6 +143,14 @@ class Case:
     # the kernel's and the plain version's errors are measured against.
     exact: Callable[[], Tensor] | None = None
     symmetric: bool = False            # output 0 must equal its transpose
+    # (function, args, kwargs) of the kernel's, the plain version's and
+    # the library's calls, where the case can be stacked over tenants.
+    calls: dict | None = None
+    # The single launches, one per tenant, stacked (batched cases only),
+    # and the same launches unstacked (their device time).
+    singles: Callable[[], tuple] | None = None
+    loop: Callable[[], object] | None = None
+    tenants: int | None = None
 
     def bound(self, dtype) -> tuple[float, str]:
         """(least time in ms, what bounds it) on an H100 SXM at 700 W."""
@@ -210,6 +225,12 @@ def _rotate_case(U, L, m, rng, dtype, block=None) -> Case:
         plain=lambda: (eref.eigvec_rotate_ref(Ub, *ops, tauk, m,
                                               at.get("row_offset")),),
         library=lambda: torch.matmul(Ub, Wn),
+        calls={"kernel": (eops.rotate_vectors, (Ub, *ops, m),
+                          dict(tau=tauk, **at)),
+               "plain": (eref.eigvec_rotate_ref,
+                         (Ub, *ops, tauk, m, at.get("row_offset")), {}),
+               "library": (torch.matmul, (Ub, Wn), {}),
+               "exact": (Ub, W, invk, live)},
         tols=(_gamma(mi, dtype) * mag,),
         tol_reason="2(m+2)eps·(|U||W|)_ij·|inv_j| per entry: two length-m "
                    "dot products (Higham gamma_m), W formed in the working "
@@ -268,6 +289,11 @@ def _rotate2_case(U, L, m, rng, dtype, block=None) -> Case:
                                                at.get("row_offset"),
                                                **taus),),
         library=lambda: torch.matmul(torch.matmul(Ub, W1), W2),
+        calls={"kernel": (eops.rotate_vectors2, (Ub, *ops, m),
+                          dict(**taus, **at)),
+               "plain": (eref.eigvec_rotate2_ref,
+                         (Ub, *ops, m, at.get("row_offset")), taus),
+               "library": (_two_products, (Ub, W1, W2), {})},
         tols=(_gamma(2 * mi, dtype) * mag,),
         tol_reason="2(2m+2)eps·(|U||W1||W2|)_ij per entry: the second "
                    "length-m product carries the first one's error "
@@ -307,6 +333,10 @@ def _project_case(U, m, rng, dtype, block=None) -> Case:
         plain=lambda: (eref.eigvec_project_ref(Ub, V, m,
                                                at.get("row_offset")),),
         library=lambda: Ub.T @ Vm,
+        calls={"kernel": (eops.project_vectors, (Ub, V, m), at),
+               "plain": (eref.eigvec_project_ref,
+                         (Ub, V, m, at.get("row_offset")), {}),
+               "library": (_tmatmul, (Ub, Vm), {})},
         tols=(_gamma(rn, dtype) * mag,),
         tol_reason="2(r+2)eps·(|U|ᵀ|V|)_ij per entry: two dot products over "
                    "the r live rows",
@@ -367,6 +397,12 @@ def _krow_case(U, X, K1, m, rng, spec, dtype, block=None,
         plain=lambda: krow_project_ref(Ub, Xb, x_new, auxb, m,
                                        at.get("row_offset"), spec=spec),
         library=None,
+        calls={"kernel": (kops.krow_project, (Ub, Xb, x_new, auxb, m),
+                          dict(spec=spec, **at)),
+               "plain": (krow_project_ref,
+                         (Ub, Xb, x_new, auxb, m, at.get("row_offset")),
+                         dict(spec=spec)),
+               "library": None},
         tols=(tol_a, tol_p),
         tol_reason="per entry. a_i: (d+4)eps-rounded norm expansion "
                    "times the epilogue's d2-Lipschitz constant (0 at "
@@ -429,6 +465,11 @@ def _transform_case(U, L, X, m, rng, spec, dtype, nq: int = N_QUERIES,
         kernel=lambda: nops.transform_project(xq, X, S, m, spec=spec),
         plain=lambda: transform_project_ref(xq, X, S, m, spec=spec),
         library=None,
+        calls={"kernel": (nops.transform_project, (xq, X, S, m),
+                          dict(spec=spec)),
+               "plain": (transform_project_ref, (xq, X, S, m),
+                         dict(spec=spec)),
+               "library": None},
         tols=(tol_y, tol_r),
         tol_reason="per entry. Y_ic: 2(m+2)eps·(|Kq||S|)_ic + "
                    "(tol_Kq |S|)_ic; rowsum_i: 2(m+2)eps·(|Kq|1)_i + "
@@ -438,22 +479,33 @@ def _transform_case(U, L, X, m, rng, spec, dtype, nq: int = N_QUERIES,
         flops=nq * mi * (3.0 * dim + 2 * C + 20))
 
 
-def cases(n: int, m: int, dtype, device, seed: int = 0) -> list[Case]:
-    """The KPCA path's kernels' cases at bucket ``n`` with ``m`` active
-    pairs."""
+def _context(n: int, m: int, dtype, device, seed: int):
     U, L, mt, X, rng = _state(n, m, dtype, device, seed)
     spec = kf.KernelSpec(name="rbf", sigma=float(DIM))
     K1 = torch.where(rankone.active_mask(n, mt),
                      torch.as_tensor(rng.uniform(50.0, 150.0, size=n),
                                      dtype=dtype, device=device), 0.0)
-    block = (n // 2, n // 4)
-    # Rows m .. n: a block wholly past the active rows (none where m = n).
-    past = [(n - m, m)] if m < n else []
+    return U, L, mt, X, rng, spec, K1
+
+
+def _main_cases(U, L, mt, X, rng, spec, K1, dtype) -> list[Case]:
+    """The five kernels at the main path's shapes (the order fixes what
+    each draws from ``rng``)."""
     return [_rotate_case(U, L, mt, rng, dtype),
             _rotate2_case(U, L, mt, rng, dtype),
             _project_case(U, mt, rng, dtype),
             _krow_case(U, X, K1, mt, rng, spec, dtype),
-            _transform_case(U, L, X, mt, rng, spec, dtype),
+            _transform_case(U, L, X, mt, rng, spec, dtype)]
+
+
+def cases(n: int, m: int, dtype, device, seed: int = 0) -> list[Case]:
+    """The KPCA path's kernels' cases at bucket ``n`` with ``m`` active
+    pairs."""
+    U, L, mt, X, rng, spec, K1 = _context(n, m, dtype, device, seed)
+    block = (n // 2, n // 4)
+    # Rows m .. n: a block wholly past the active rows (none where m = n).
+    past = [(n - m, m)] if m < n else []
+    return [*_main_cases(U, L, mt, X, rng, spec, K1, dtype),
             _rotate_case(U, L, mt, rng, dtype, block),
             *[_rotate2_case(U, L, mt, np.random.default_rng(seed + 1),
                             dtype, b) for b in [block, *past]],
@@ -464,6 +516,100 @@ def cases(n: int, m: int, dtype, device, seed: int = 0) -> list[Case]:
             _transform_case(U, L, X, mt, rng, spec, dtype, nq=512,
                             comps=64),
             _transform_case(U, L, X, mt, rng, spec, dtype, comps=1)]
+
+
+def _two_products(u: Tensor, w1: Tensor, w2: Tensor) -> Tensor:
+    return torch.matmul(torch.matmul(u, w1), w2)
+
+
+def _tmatmul(u: Tensor, v: Tensor) -> Tensor:
+    return u.mT @ v
+
+
+def _stack(vals: list):
+    """Tenants' values of one argument: tensors stacked on a leading axis,
+    anything else (a row offset, a kernel spec) shared."""
+    if torch.is_tensor(vals[0]):
+        return torch.stack(vals).contiguous()
+    return vals[0]
+
+
+def _stacked_call(calls: list[tuple]) -> Callable[[], object]:
+    fn = calls[0][0]
+    args = [_stack([c[1][i] for c in calls]) for i in range(len(calls[0][1]))]
+    kwargs = {k: _stack([c[2][k] for c in calls]) for k in calls[0][2]}
+    return lambda: fn(*args, **kwargs)
+
+
+def stack_cases(singles: list[Case]) -> Case:
+    """One case over a leading tenant axis from B cases of one kernel and
+    one shape (tenant b's operands are case b's): one launch of the
+    batched wrapper; its plain version, tolerances, pruned entries and
+    bound are the tenants' stacked (the bound's bytes and operations
+    summed); ``singles`` runs the B single launches."""
+    c0 = singles[0]
+    kernel = _stacked_call([c.calls["kernel"] for c in singles])
+    plain = _stacked_call([c.calls["plain"] for c in singles])
+    lib = (None if c0.calls["library"] is None else _stacked_call(
+        [c.calls["library"] for c in singles]))
+
+    def as_tuple(fn):
+        def call():
+            out = fn()
+            return out if isinstance(out, tuple) else (out,)
+        return call
+
+    def singles_out():
+        outs = [c.kernel() for c in singles]
+        return tuple(torch.stack(o) for o in zip(*outs))
+
+    def stacked_zero(k):
+        zs = [c.exact_zero if not isinstance(c.exact_zero, tuple)
+              else c.exact_zero[k] for c in singles]
+        return None if zs[0] is None else torch.stack(zs)
+
+    nout = len(c0.tols)
+    exact_zero = (tuple(stacked_zero(k) for k in range(nout))
+                  if isinstance(c0.exact_zero, tuple) else stacked_zero(0))
+    exact = None
+    if "exact" in c0.calls:
+        Ub, W, inv, live = (torch.stack(v) for v in zip(
+            *[c.calls["exact"] for c in singles]))
+        exact = lambda: torch.where(  # noqa: E731
+            live, (Ub.double() @ W.double()) * inv.double()[:, None, :], 0.0)
+    return Case(
+        name=c0.name, variant=f"B {len(singles)}",
+        kernel=as_tuple(kernel), plain=as_tuple(plain), library=lib,
+        tols=tuple(torch.stack(t) for t in zip(*[c.tols for c in singles])),
+        tol_reason=c0.tol_reason + "; per tenant",
+        bytes=sum(c.bytes for c in singles),
+        flops=sum(c.flops for c in singles),
+        exact_zero=exact_zero,
+        keep=(None if c0.keep is None
+              else torch.stack([c.keep for c in singles])),
+        peak=c0.peak, ops_label=c0.ops_label, exact=exact,
+        singles=singles_out, loop=lambda: [c.kernel() for c in singles],
+        tenants=len(singles))
+
+
+BATCHED = ("eigvec_rotate", "eigvec_rotate2", "eigvec_project",
+           "krow_project", "transform_project")
+
+
+def batched_cases(n: int, ms, dtype, device, seed: int = 0) -> list[Case]:
+    """The five kernels of the KPCA path over a tenant axis at bucket n,
+    tenant b with ms[b] active pairs (its own state and operands: the
+    main-path case of ``cases(n, ms[b], ..., seed + b)``)."""
+    per = [_main_cases(*_context(n, m, dtype, device, seed + b), dtype)
+           for b, m in enumerate(ms)]
+    return [stack_cases(list(group)) for group in zip(*per)]
+
+
+def batched_bitwise(case: Case) -> bool:
+    """Whether each tenant of the batched launch equals the single launch
+    on its operands bit for bit."""
+    return all(torch.equal(a, b) for a, b in zip(case.kernel(),
+                                                 case.singles()))
 
 
 def features_case(n: int, m: int, dtype, device, seed: int = 0) -> Case:
@@ -751,11 +897,15 @@ def compare(case: Case) -> dict:
         torch.cuda.synchronize()
     errs, ratios = [], []
     for k, (g, w, tol) in enumerate(zip(got, want, case.tols)):
-        if k == 0 and case.keep is not None:
-            g, w, tol = g[:, case.keep], w[:, case.keep], tol[:, case.keep]
-        if g.shape != w.shape or not torch.isfinite(g).all():
+        if g.shape != w.shape:
             raise AssertionError(f"{case.name}: output shape {g.shape} vs "
-                                 f"{w.shape}, or not finite")
+                                 f"{w.shape}")
+        if k == 0 and case.keep is not None:
+            # Only the columns the caller keeps (per tenant where batched).
+            sel = case.keep.to(g.device)[..., None, :]
+            g, w = torch.where(sel, g, 0.0), torch.where(sel, w, 0.0)
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{case.name}: output {k} not finite")
         err = (g.double() - w.double()).abs()
         tol = tol.to(err.device).expand_as(err)
         bad = ~(err <= tol)
@@ -794,12 +944,13 @@ def error_vs_exact(case: Case) -> dict:
     columns the caller keeps, and their ratio."""
     exact = case.exact()
     cols = (case.keep if case.keep is not None
-            else torch.ones(exact.shape[1], dtype=torch.bool,
+            else torch.ones(exact.shape[-1], dtype=torch.bool,
                             device=exact.device))
     errs = {}
     for key, fn in (("kernel", case.kernel), ("plain", case.plain)):
         out = fn()[0]
-        errs[key] = float((out.double() - exact)[:, cols].abs().max())
+        err = (out.double() - exact).abs()
+        errs[key] = float(torch.where(cols[..., None, :], err, 0.0).max())
     return {"kernel_err_vs_f64": errs["kernel"],
             "plain_err_vs_f64": errs["plain"],
             "err_ratio": (errs["kernel"] / errs["plain"] if errs["plain"] > 0

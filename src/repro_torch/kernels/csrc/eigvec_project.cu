@@ -12,6 +12,13 @@
 // (columns of U) in slabs at or beyond ceil(m / 32) are exact zeros (32 is
 // ops.PROJECT_SLAB).
 //
+// Tenants (the reference's pallas_call under jax.vmap): one launch serves
+// nb tenants, each with operands of the single call's shape laid one after
+// another (U by R x n, V by R x ncol, P by n x ncol, m by one int).  The
+// tenant is the grid's z axis, beside the cluster's y: it picks the rows a
+// block reads, never the order of a sum, so tenant b of a launch equals a
+// launch on its operands alone bit for bit.
+//
 // What bounds it on an H100, and the design: project_tile.cuh (64-column
 // slabs x 8 row ranks, one cluster per slab, the chunk's loads of U in
 // flight before the first FMA, partials added in rank order through
@@ -30,7 +37,11 @@ __global__ void __cluster_dims__(1, pj::kCluster, 1)
 eigvec_project_kernel(const T* __restrict__ u,
                       const T* __restrict__ v, const int* __restrict__ m_ptr,
                       T* __restrict__ out, int R, int n, int ncol, int r0) {
-  const int m = repro::active_count(m_ptr, n);
+  const int b = blockIdx.z;                  // the tenant
+  u += (size_t)b * R * n;
+  v += (size_t)b * R * ncol;
+  out += (size_t)b * n * ncol;
+  const int m = repro::active_count(m_ptr + b, n);
   const int rows = pj::live_rows(m, r0, R);
   pj::project<T, Vec>(u, n, ncol, m, rows, out,
                       [&](T (*vs)[pj::kMaxCols], int base) {
@@ -44,9 +55,9 @@ eigvec_project_kernel(const T* __restrict__ u,
 
 template <typename T>
 int launch(const void* u, const void* v, const void* m, void* out, int R,
-           int n, int r0, int ncol, void* stream) {
-  if (n > 0 && ncol > 0) {
-    const dim3 grid((n + pj::kCols - 1) / pj::kCols, pj::kCluster);
+           int n, int r0, int ncol, int nb, void* stream) {
+  if (n > 0 && ncol > 0 && nb > 0) {
+    const dim3 grid((n + pj::kCols - 1) / pj::kCols, pj::kCluster, nb);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     auto* kernel = pj::vector_rows<T>(u, n) ? eigvec_project_kernel<T, true>
                                             : eigvec_project_kernel<T, false>;
@@ -61,12 +72,12 @@ int launch(const void* u, const void* v, const void* m, void* out, int R,
 
 extern "C" int eigvec_project_f32(const void* u, const void* v,
                                   const void* m, void* out, int R, int n,
-                                  int r0, int ncol, void* stream) {
-  return launch<float>(u, v, m, out, R, n, r0, ncol, stream);
+                                  int r0, int ncol, int nb, void* stream) {
+  return launch<float>(u, v, m, out, R, n, r0, ncol, nb, stream);
 }
 
 extern "C" int eigvec_project_f64(const void* u, const void* v,
                                   const void* m, void* out, int R, int n,
-                                  int r0, int ncol, void* stream) {
-  return launch<double>(u, v, m, out, R, n, r0, ncol, stream);
+                                  int r0, int ncol, int nb, void* stream) {
+  return launch<double>(u, v, m, out, R, n, r0, ncol, nb, stream);
 }

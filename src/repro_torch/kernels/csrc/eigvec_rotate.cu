@@ -6,7 +6,13 @@
 //
 // Computes C = (U @ W) * inv with W[k, j] = z[k] / ((d[k] - org[j]) - tau[j])
 // for a row block U (R rows, leading dim ldu, its first row the state's row
-// r0; R = n and r0 = 0 for the whole state).  z, inv are (n,) in T; d,
+// r0; R = n and r0 = 0 for the whole state), for each of nb tenants at
+// once (the reference's pallas_call under jax.vmap).  Tenant b's operands
+// follow tenant b - 1's, each of the single call's shape: U, C and the
+// scratch by their whole extents, the vectors by n, the active count by
+// one int.  The tenant is the grid's z axis: it picks which tile a block
+// reads, never the order of a sum, so tenant b of a launch equals a launch
+// on tenant b's operands alone bit for bit.  z, inv are (n,) in T; d,
 // org, tau are (n,) in double, the secular solve's type: root j is org[j] +
 // tau[j], kept as its origin pole and the offset from it
 // (repro_torch/core/rankone.py, _Roots), so that d[k] - org[j] is exact for
@@ -17,7 +23,7 @@
 // divided by it; inv is applied after the sum, as the reference's _done.
 //
 // Pruning contract (the reference's _tile_counts, without a host read):
-// the active count m is read by pointer; the reduction stops at k = m;
+// the tenant's active count m is read by pointer; the reduction stops at k = m;
 // output entries in columns at or beyond ceil(m / 64) * 64, or in rows at
 // or beyond ceil(clamp(m - r0, 0, R) / 64) * 64, are exact zeros (64 is
 // ops.ROTATE_TILE).  On the padding contract (z = inv = 0 beyond m, U
@@ -33,7 +39,8 @@
 //    takes both operands K-major) as two planes, head = tf32(w) and tail =
 //    tf32(w - head), each n x ldw with ldw = 32 ceil(n / 32); within each
 //    32-wide slab of k the entries are permuted (slab_perm below) so that
-//    a thread's U fragments are two 16-byte vectors of its row.
+//    a thread's U fragments are two 16-byte vectors of its row.  The
+//    planes of the nb tenants lie one after another.
 //
 // 2. The product.
 //    float32: on the tensor cores as three TF32 products.  One TF32 pass
@@ -49,7 +56,10 @@
 //    brings U's slab (128 rows x 32 floats, row-major, so K-major already)
 //    and the two Wt planes' slabs (64 x 32 each) into a ring of 4 stages
 //    of 32 KB by TMA (128-byte swizzle; mbarriers: `full` counts a stage's
-//    bytes in, `empty` one arrival per consumer warp out).  A consumer
+//    bytes in, `empty` one arrival per consumer warp out).  U's map has
+//    the tenant as a third dimension (rows past R read as zeros within
+//    the tenant: a box never reaches into the next tenant's rows) and the
+//    planes' map it as a fourth.  A consumer
 //    reads its U fragments from the stage (two 16-byte loads per row, free
 //    of bank conflicts under the swizzle), splits them in registers and
 //    issues wgmma with A from registers and B from shared memory.  The
@@ -119,7 +129,13 @@ factor_planes_kernel(const float* __restrict__ z,
                      const double* __restrict__ tau,
                      const int* __restrict__ m_ptr, float* __restrict__ planes,
                      int n, int ldw, double guard) {
-  const int m = repro::active_count(m_ptr, n);
+  const int b = blockIdx.z;                  // the tenant
+  z += (size_t)b * n;
+  d += (size_t)b * n;
+  org += (size_t)b * n;
+  tau += (size_t)b * n;
+  planes += (size_t)b * 2 * n * ldw;
+  const int m = repro::active_count(m_ptr + b, n);
   const int j = blockIdx.y * 8 + threadIdx.y;
   const int s = blockIdx.x;
   if (j >= live_cols(m, n) || s * kDepth >= m) return;
@@ -149,7 +165,13 @@ factor_rows_kernel(const double* __restrict__ z,
                    const double* __restrict__ tau,
                    const int* __restrict__ m_ptr, double* __restrict__ w,
                    int n, double guard) {
-  const int m = repro::active_count(m_ptr, n);
+  const int b = blockIdx.z;                  // the tenant
+  z += (size_t)b * n;
+  d += (size_t)b * n;
+  org += (size_t)b * n;
+  tau += (size_t)b * n;
+  w += (size_t)b * n * n;
+  const int m = repro::active_count(m_ptr + b, n);
   const int j = blockIdx.x * kGenCols + threadIdx.x;
   const int k0 = blockIdx.y * kGenRows;
   if (j >= live_cols(m, n) || k0 >= m) return;
@@ -196,7 +218,10 @@ rotate_tf32_kernel(const __grid_constant__ CUtensorMap umap,
                    const float* __restrict__ inv,
                    const int* __restrict__ m_ptr, float* __restrict__ out,
                    int R, int n, int r0) {
-  const int m = repro::active_count(m_ptr, n);
+  const int b = blockIdx.z;                  // the tenant
+  inv += (size_t)b * n;
+  out += (size_t)b * R * n;
+  const int m = repro::active_count(m_ptr + b, n);
   const int lr = live_rows(m, r0, R);
   const int row0 = blockIdx.y * kRows, col0 = blockIdx.x * kCols;
   if (row0 >= lr || col0 >= live_cols(m, n)) {     // pruned: exact zeros
@@ -226,9 +251,11 @@ rotate_tf32_kernel(const __grid_constant__ CUtensorMap umap,
         if (s >= kStages)
           hw::mbar_wait(&sm.empty[st], ((s / kStages) - 1) & 1);
         hw::mbar_expect_tx(&sm.full[st], kUBytes + 2 * kWBytes);
-        hw::tma_load_2d(sm.u[st], &umap, &sm.full[st], s * kDepth, row0);
-        hw::tma_load_3d(sm.wh[st], &wmap, &sm.full[st], s * kDepth, col0, 0);
-        hw::tma_load_3d(sm.wl[st], &wmap, &sm.full[st], s * kDepth, col0, 1);
+        hw::tma_load_3d(sm.u[st], &umap, &sm.full[st], s * kDepth, row0, b);
+        hw::tma_load_4d(sm.wh[st], &wmap, &sm.full[st], s * kDepth, col0, 0,
+                        b);
+        hw::tma_load_4d(sm.wl[st], &wmap, &sm.full[st], s * kDepth, col0, 1,
+                        b);
       }
     }
     return;
@@ -347,20 +374,24 @@ rotate_tf32_kernel(const __grid_constant__ CUtensorMap umap,
   }
 }
 
-// A 2-d (rows, ncols) float32 map with leading dim ld, or a 3-d one over
-// `planes` such matrices; boxes of 32 columns (128 bytes) x box_rows,
-// 128-byte swizzle, reads past the edges as zeros.
+// A float32 map over `outer` stacked (rows, ncols) matrices with leading
+// dim ld, each matrix following the last: rank 2 + the count of outer
+// dimensions (the planes, the tenants).  Boxes of 32 columns (128 bytes)
+// x box_rows x 1 ..., 128-byte swizzle, reads past each dimension's edge
+// as zeros.
 bool encode(CUtensorMap* map, const void* base, int ncols, int rows, int ld,
-            int planes, int box_rows) {
+            const int* outer, int n_outer, int box_rows) {
   const hw::EncodeTiled fn = hw::encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)ncols, (cuuint64_t)rows,
-                              (cuuint64_t)planes};
-  const cuuint64_t strides[2] = {(cuuint64_t)ld * 4,
-                                 (cuuint64_t)ld * 4 * rows};
-  const cuuint32_t box[3] = {kDepth, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, planes > 1 ? 3 : 2,
+  if (fn == nullptr || n_outer > 2) return false;
+  cuuint64_t dims[4] = {(cuuint64_t)ncols, (cuuint64_t)rows, 1, 1};
+  cuuint64_t strides[3] = {(cuuint64_t)ld * 4, (cuuint64_t)ld * 4 * rows, 0};
+  for (int i = 0; i < n_outer; ++i) {
+    dims[2 + i] = (cuuint64_t)outer[i];
+    if (i > 0) strides[1 + i] = strides[i] * (cuuint64_t)outer[i - 1];
+  }
+  const cuuint32_t box[4] = {kDepth, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2 + n_outer,
             const_cast<void*>(base), dims, strides, box, elem,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -378,7 +409,12 @@ rotate_f64_kernel(const double* __restrict__ u, int ldu,
                   const int* __restrict__ m_ptr, double* __restrict__ out,
                   int R, int n, int r0) {
   extern __shared__ float4 smem4[];
-  const int m = repro::active_count(m_ptr, n);
+  const int b = blockIdx.z;                  // the tenant
+  u += (size_t)b * R * ldu;
+  w += (size_t)b * n * n;
+  inv += (size_t)b * n;
+  out += (size_t)b * R * n;
+  const int m = repro::active_count(m_ptr + b, n);
   const int lr = live_rows(m, r0, R), lc = live_cols(m, n);
   const int row0 = blockIdx.y * tl::kRows, col0 = blockIdx.x * tl::kCols;
   if (row0 >= lr || col0 >= lc) {
@@ -394,7 +430,7 @@ rotate_f64_kernel(const double* __restrict__ u, int ldu,
 template <bool Vec>
 cudaError_t product_f64(const double* u, int ldu, const double* w,
                         const double* inv, const int* m, double* out, int R,
-                        int n, int r0, cudaStream_t s) {
+                        int n, int r0, int nb, cudaStream_t s) {
   static bool attr = false;
   if (!attr) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -404,7 +440,7 @@ cudaError_t product_f64(const double* u, int ldu, const double* w,
     attr = true;
   }
   const dim3 grid((n + tl::kCols - 1) / tl::kCols,
-                  (R + tl::kRows - 1) / tl::kRows);
+                  (R + tl::kRows - 1) / tl::kRows, nb);
   rotate_f64_kernel<Vec><<<grid, tl::kThreads, tl::Shape<double>::kSmem,
                            s>>>(u, ldu, w, inv, m, out, R, n, r0);
   return cudaGetLastError();
@@ -412,16 +448,19 @@ cudaError_t product_f64(const double* u, int ldu, const double* w,
 
 }  // namespace
 
-// scratch: float32, two n x 32 ceil(n / 32) planes; float64, one n x n
-// matrix.  U (R x n, leading dim ldu): for float32 ldu is a multiple of 4
-// and u 16-byte aligned (TMA's strides), as ops.rotate_vectors makes it.
+// Per tenant (nb of them, one after another): scratch, float32, two
+// n x 32 ceil(n / 32) planes, float64, one n x n matrix; U (R x n, leading
+// dim ldu): for float32 ldu is a multiple of 4 and u 16-byte aligned
+// (TMA's strides), as ops.rotate_vectors makes it; C (R x n); z, d, org,
+// tau, inv (n); m (1).
 extern "C" int eigvec_rotate_f32(const void* u, const void* z, const void* d,
                                  const void* org, const void* tau,
                                  const void* inv, const void* m,
                                  void* scratch, void* out, int R, int n,
-                                 int ldu, int r0, double guard,
+                                 int ldu, int r0, int nb, double guard,
                                  void* stream) {
-  if (R <= 0 || n <= 0) return static_cast<int>(cudaGetLastError());
+  if (R <= 0 || n <= 0 || nb <= 0)
+    return static_cast<int>(cudaGetLastError());
   if (ldu % 4 != 0 || reinterpret_cast<uintptr_t>(u) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -436,14 +475,15 @@ extern "C" int eigvec_rotate_f32(const void* u, const void* z, const void* d,
   if (hw::encode_tiled() == nullptr)
     return static_cast<int>(cudaErrorNotSupported);
   const int ldw = round_up(n, kDepth);
+  const int u_outer[1] = {nb}, w_outer[2] = {2, nb};
   CUtensorMap umap, wmap;
-  if (!tc::encode(&umap, u, n, R, ldu, 1, tc::kRows) ||
-      !tc::encode(&wmap, scratch, ldw, n, ldw, 2, tc::kCols))
+  if (!tc::encode(&umap, u, n, R, ldu, u_outer, 1, tc::kRows) ||
+      !tc::encode(&wmap, scratch, ldw, n, ldw, w_outer, 2, tc::kCols))
     return static_cast<int>(cudaErrorInvalidValue);
   const int* mp = static_cast<const int*>(m);
   float* planes = static_cast<float*>(scratch);
-  factor_planes_kernel<<<dim3(ldw / kDepth, (n + 7) / 8), dim3(kDepth, 8), 0,
-                         s>>>(static_cast<const float*>(z),
+  factor_planes_kernel<<<dim3(ldw / kDepth, (n + 7) / 8, nb),
+                         dim3(kDepth, 8), 0, s>>>(static_cast<const float*>(z),
                               static_cast<const double*>(d),
                               static_cast<const double*>(org),
                               static_cast<const double*>(tau), mp, planes, n,
@@ -451,7 +491,7 @@ extern "C" int eigvec_rotate_f32(const void* u, const void* z, const void* d,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((n + tc::kCols - 1) / tc::kCols,
-                  (R + tc::kRows - 1) / tc::kRows);
+                  (R + tc::kRows - 1) / tc::kRows, nb);
   tc::rotate_tf32_kernel<<<grid, tc::kThreads, tc::kSmem, s>>>(
       umap, wmap, static_cast<const float*>(inv), mp,
       static_cast<float*>(out), R, n, r0);
@@ -462,14 +502,15 @@ extern "C" int eigvec_rotate_f64(const void* u, const void* z, const void* d,
                                  const void* org, const void* tau,
                                  const void* inv, const void* m,
                                  void* scratch, void* out, int R, int n,
-                                 int ldu, int r0, double guard,
+                                 int ldu, int r0, int nb, double guard,
                                  void* stream) {
-  if (R <= 0 || n <= 0) return static_cast<int>(cudaGetLastError());
+  if (R <= 0 || n <= 0 || nb <= 0)
+    return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* mp = static_cast<const int*>(m);
   double* w = static_cast<double*>(scratch);
   factor_rows_kernel<<<dim3((n + kGenCols - 1) / kGenCols,
-                            (n + kGenRows - 1) / kGenRows),
+                            (n + kGenRows - 1) / kGenRows, nb),
                        kGenCols, 0, s>>>(
       static_cast<const double*>(z), static_cast<const double*>(d),
       static_cast<const double*>(org), static_cast<const double*>(tau), mp, w,
@@ -477,13 +518,13 @@ extern "C" int eigvec_rotate_f64(const void* u, const void* z, const void* d,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   // 16-byte copies where every row of U, W and C starts on a 16-byte
-  // boundary.
+  // boundary (every tenant's too: its U starts R ldu doubles on).
   const double* up = static_cast<const double*>(u);
   const bool vec = n % 2 == 0 && ldu % 2 == 0 &&
                    reinterpret_cast<uintptr_t>(u) % 16 == 0;
   const double* iv = static_cast<const double*>(inv);
   double* o = static_cast<double*>(out);
-  err = vec ? product_f64<true>(up, ldu, w, iv, mp, o, R, n, r0, s)
-            : product_f64<false>(up, ldu, w, iv, mp, o, R, n, r0, s);
+  err = vec ? product_f64<true>(up, ldu, w, iv, mp, o, R, n, r0, nb, s)
+            : product_f64<false>(up, ldu, w, iv, mp, o, R, n, r0, nb, s);
   return static_cast<int>(err);
 }

@@ -19,6 +19,14 @@
 // Accumulates in T (float for f32, double for f64: the reference's
 // promote(dtype, f32)).
 //
+// Tenants (the reference's pallas_call under jax.vmap): one call serves nb
+// tenants, each with operands of the single call's shape laid one after
+// another (U and C by R x n, the factor vectors by n, the active count by
+// one int, the scratch by three n x n matrices).  The tenant folds into
+// the factor pass's z axis (z = 2 tenant + factor) and is the products' z
+// axis: it picks the tile a block reads, never the order of a sum, so
+// tenant b of a launch equals a launch on its operands alone bit for bit.
+//
 // Design.  The TPU kernel keeps the intermediate row block U_rows @ W1,
 // (block, Mp), in VMEM: 512 KB at Mp = 1024, block 128, f32, beyond the
 // 227 KB of shared memory a Hopper block can have.  Here the two factors
@@ -92,29 +100,32 @@ __host__ __device__ __forceinline__ int live_extent(int m, int n) {
 }
 
 // W1[k, j] (k < m, j < m) and W2[k, j] (k < m, j < g64) into w1 and w2
-// (leading dim n); blockIdx.z picks the factor.  A thread takes one column
-// and walks the block's rows, so its column's values load once.
+// (leading dim n); blockIdx.z is 2 tenant + factor.  A thread takes one
+// column and walks the block's rows, so its column's values load once.
 template <typename T>
 __global__ void __launch_bounds__(kGenCols)
 factor_kernel(Factor<T> f1, Factor<T> f2, const int* __restrict__ m_ptr,
-              T* __restrict__ w1, T* __restrict__ w2, int n, double guard) {
-  const int m = repro::active_count(m_ptr, n);
-  const bool second = blockIdx.z == 1;
+              T* __restrict__ scratch, int n, double guard) {
+  const int b = blockIdx.z / 2;              // the tenant
+  const size_t vb = (size_t)b * n;           // its vectors' offset
+  const int m = repro::active_count(m_ptr + b, n);
+  const bool second = blockIdx.z % 2 == 1;
   const int cols = second ? live_extent(m, n) : m;
   const int j = blockIdx.x * kGenCols + threadIdx.x;
   const int k0 = blockIdx.y * kGenRows;
   if (j >= cols || k0 >= m) return;
   // The factor's vectors by value (selecting a reference between the two
   // parameter structs would copy both to the stack).
-  const T* z = second ? f2.z : f1.z;
-  const double* d = second ? f2.d : f1.d;
-  T* w = second ? w2 : w1;
+  const T* z = (second ? f2.z : f1.z) + vb;
+  const double* d = (second ? f2.d : f1.d) + vb;
+  T* w = scratch + (size_t)n * n * (3 * b + (second ? 1 : 0));
+  const size_t jb = vb + j;
   // A deflated column (defl > 0) is the identity column e_{cid[j]}.
-  const int e = (second ? f2.defl[j] : f1.defl[j]) > T(0)
-                    ? (second ? f2.cid[j] : f1.cid[j]) : -1;
-  const double org = second ? f2.org[j] : f1.org[j];
-  const double tau = second ? f2.tau[j] : f1.tau[j];
-  const T inv = second ? f2.inv[j] : f1.inv[j];
+  const int e = (second ? f2.defl[jb] : f1.defl[jb]) > T(0)
+                    ? (second ? f2.cid[jb] : f1.cid[jb]) : -1;
+  const double org = second ? f2.org[jb] : f1.org[jb];
+  const double tau = second ? f2.tau[jb] : f1.tau[jb];
+  const T inv = second ? f2.inv[jb] : f1.inv[jb];
   const int k1 = min(k0 + kGenRows, m);
   for (int k = k0; k < k1; ++k) {
     T v;
@@ -139,14 +150,20 @@ __device__ __forceinline__ int live_rows(int m, int r0, int rows) {
 // second == false: W12 = W1[:m, :m] @ W2[:m, :g64], tiles past g64 skipped
 // (rows = n, r0 = 0).  second == true: C = U[:, :m] @ W12[:m, :] for the
 // `rows` rows of U from the state's row r0, entries past g64 columns or
-// the live rows zero.
+// the live rows zero.  blockIdx.z is the tenant; sa, sb and sc are the
+// tenants' strides of a, b and c in elements.
 template <typename T, bool Vec>
 __global__ void __launch_bounds__(tl::kThreads)
 rotate_product_kernel(const T* __restrict__ a, const T* __restrict__ b,
                       const int* __restrict__ m_ptr, T* __restrict__ c, int n,
-                      int rows, int r0, bool second) {
+                      int rows, int r0, bool second, size_t sa, size_t sb,
+                      size_t sc) {
   extern __shared__ float4 smem4[];
-  const int m = repro::active_count(m_ptr, n);
+  const int t = blockIdx.z;                  // the tenant
+  a += t * sa;
+  b += t * sb;
+  c += t * sc;
+  const int m = repro::active_count(m_ptr + t, n);
   const int live_c = live_extent(m, n);
   const int live_r = live_rows(m, r0, rows);
   const int row0 = blockIdx.y * tl::kRows, col0 = blockIdx.x * tl::kCols;
@@ -162,7 +179,8 @@ rotate_product_kernel(const T* __restrict__ a, const T* __restrict__ b,
 
 template <typename T, bool Vec>
 cudaError_t products(const T* u, const T* w1, const T* w2, T* w12, T* out,
-                     const int* m, int n, int rows, int r0, cudaStream_t s) {
+                     const int* m, int n, int rows, int r0, int nb,
+                     cudaStream_t s) {
   static bool attr = false;
   if (!attr) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -173,14 +191,17 @@ cudaError_t products(const T* u, const T* w1, const T* w2, T* w12, T* out,
     attr = true;
   }
   const int col_tiles = (n + tl::kCols - 1) / tl::kCols;
+  const size_t nn = (size_t)n * n, scr = 3 * nn, blk = (size_t)rows * n;
   rotate_product_kernel<T, Vec>
-      <<<dim3(col_tiles, (n + tl::kRows - 1) / tl::kRows), tl::kThreads,
-         tl::Shape<T>::kSmem, s>>>(w1, w2, m, w12, n, n, 0, false);
+      <<<dim3(col_tiles, (n + tl::kRows - 1) / tl::kRows, nb), tl::kThreads,
+         tl::Shape<T>::kSmem, s>>>(w1, w2, m, w12, n, n, 0, false, scr, scr,
+                                   scr);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || rows <= 0) return err;
   rotate_product_kernel<T, Vec>
-      <<<dim3(col_tiles, (rows + tl::kRows - 1) / tl::kRows), tl::kThreads,
-         tl::Shape<T>::kSmem, s>>>(u, w12, m, out, n, rows, r0, true);
+      <<<dim3(col_tiles, (rows + tl::kRows - 1) / tl::kRows, nb),
+         tl::kThreads, tl::Shape<T>::kSmem, s>>>(u, w12, m, out, n, rows, r0,
+                                                 true, blk, scr, blk);
   return cudaGetLastError();
 }
 
@@ -194,7 +215,9 @@ Factor<T> factor(const void* z, const void* d, const void* org,
           static_cast<const int*>(cid)};
 }
 
-// scratch: three n x n matrices, W1, W2 and W12.  u and out: rows x n.
+// Per tenant (nb of them, one after another): scratch, three n x n
+// matrices, W1, W2 and W12; u and out, rows x n; the factor vectors, n;
+// m, one int.
 template <typename T>
 int launch(const void* u, const void* z1, const void* d1, const void* org1,
            const void* tau1, const void* inv1, const void* defl1,
@@ -202,27 +225,29 @@ int launch(const void* u, const void* z1, const void* d1, const void* org1,
            const void* z2, const void* d2, const void* org2, const void* tau2,
            const void* inv2, const void* defl2, const void* cid2,
            const void* m, void* scratch, void* out, int n, int rows, int r0,
-           double guard, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaGetLastError());
+           int nb, double guard, void* stream) {
+  if (n <= 0 || nb <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   T* w1 = static_cast<T*>(scratch);
   T* w2 = w1 + (size_t)n * n;
   T* w12 = w2 + (size_t)n * n;
   const int* mp = static_cast<const int*>(m);
   const dim3 gen((n + kGenCols - 1) / kGenCols,
-                 (n + kGenRows - 1) / kGenRows, 2);
+                 (n + kGenRows - 1) / kGenRows, 2 * nb);
   factor_kernel<T><<<gen, kGenCols, 0, s>>>(
       factor<T>(z1, d1, org1, tau1, inv1, defl1, cid1),
-      factor<T>(z2, d2, org2, tau2, inv2, defl2, cid2), mp, w1, w2, n, guard);
+      factor<T>(z2, d2, org2, tau2, inv2, defl2, cid2), mp, w1, n, guard);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  // 16-byte copies where every row starts on a 16-byte boundary.
+  // 16-byte copies where every row starts on a 16-byte boundary (every
+  // tenant's too: its blocks start a multiple of n values on).
   const bool vec = (n % tl::Shape<T>::kVec) == 0 &&
                    reinterpret_cast<uintptr_t>(u) % 16 == 0;
   const T* up = static_cast<const T*>(u);
   T* o = static_cast<T*>(out);
-  err = vec ? products<T, true>(up, w1, w2, w12, o, mp, n, rows, r0, s)
-            : products<T, false>(up, w1, w2, w12, o, mp, n, rows, r0, s);
+  err = vec ? products<T, true>(up, w1, w2, w12, o, mp, n, rows, r0, nb, s)
+            : products<T, false>(up, w1, w2, w12, o, mp, n, rows, r0, nb,
+                                 s);
   return static_cast<int>(err);
 }
 
@@ -235,10 +260,11 @@ int launch(const void* u, const void* z1, const void* d1, const void* org1,
                       const void* d2, const void* org2, const void* tau2,    \
                       const void* inv2, const void* defl2, const void* cid2, \
                       const void* m, void* scratch, void* out, int n,        \
-                      int rows, int r0, double guard, void* stream) {        \
+                      int rows, int r0, int nb, double guard,                \
+                      void* stream) {                                        \
     return launch<T>(u, z1, d1, org1, tau1, inv1, defl1, cid1, z2, d2, org2, \
                      tau2, inv2, defl2, cid2, m, scratch, out, n, rows, r0,  \
-                     guard, stream);                                         \
+                     nb, guard, stream);                                     \
   }
 
 REPRO_ROTATE2_ENTRY(eigvec_rotate2_f32, float)

@@ -29,6 +29,14 @@
 // chunk's U loads are in flight.  Every slab recomputes a for its rows
 // (16 m dim FMAs at n = 1024, X in L2): no second pass and no atomics;
 // the ranks of slab 0 also write a.
+//
+// Tenants (the reference's pallas_call under jax.vmap): one launch serves
+// nb tenants, each with operands of the single call's shape laid one after
+// another (U by R x n, X by R x dim, x_new by dim, aux by R x naux, a by
+// R, P by n x (1 + naux), m by one int).  The tenant is the grid's z axis,
+// beside the cluster's y: it picks the rows a block reads, never the order
+// of a sum, so tenant b of a launch equals a launch on its operands alone
+// bit for bit.
 #include "project_tile.cuh"
 
 namespace {
@@ -47,7 +55,14 @@ krow_project_kernel(const T* __restrict__ u, const T* __restrict__ x,
                     int r0, int kind, T sigma, T scale) {
   using P = pj::Pack<T, 16 / sizeof(T)>;
   constexpr int kUnit = 16 / sizeof(T);
-  const int m = repro::active_count(m_ptr, n);
+  const int b = blockIdx.z;                     // the tenant
+  u += (size_t)b * R * n;
+  x += (size_t)b * R * dim;
+  xq += (size_t)b * dim;
+  aux += (size_t)b * R * naux;
+  a_out += (size_t)b * R;
+  p_out += (size_t)b * n * (1 + naux);
+  const int m = repro::active_count(m_ptr + b, n);
   const int rows = pj::live_rows(m, r0, R);
   const bool writer = blockIdx.x == 0;          // slab 0's ranks write a
   if (writer)                                   // a's masked rows
@@ -101,12 +116,12 @@ krow_project_kernel(const T* __restrict__ u, const T* __restrict__ x,
 template <typename T>
 int launch(const void* u, const void* x, const void* xq, const void* aux,
            const void* m, void* a, void* p, int R, int n, int dim, int naux,
-           int r0, int slabs, int ranks, int kind, double sigma,
+           int r0, int nb, int slabs, int ranks, int kind, double sigma,
            double scale, void* stream) {
   if (slabs != (n + pj::kCols - 1) / pj::kCols || ranks != pj::kCluster)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (n > 0) {
-    const dim3 grid(slabs, ranks);
+  if (n > 0 && nb > 0) {
+    const dim3 grid(slabs, ranks, nb);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     auto* kernel = pj::vector_rows<T>(u, n) ? krow_project_kernel<T, true>
                                             : krow_project_kernel<T, false>;
@@ -125,17 +140,19 @@ int launch(const void* u, const void* x, const void* xq, const void* aux,
 extern "C" int krow_project_f32(const void* u, const void* x, const void* xq,
                                 const void* aux, const void* m, void* a,
                                 void* p, int R, int n, int dim, int naux,
-                                int r0, int slabs, int ranks, int kind,
-                                double sigma, double scale, void* stream) {
-  return launch<float>(u, x, xq, aux, m, a, p, R, n, dim, naux, r0, slabs,
-                       ranks, kind, sigma, scale, stream);
+                                int r0, int nb, int slabs, int ranks,
+                                int kind, double sigma, double scale,
+                                void* stream) {
+  return launch<float>(u, x, xq, aux, m, a, p, R, n, dim, naux, r0, nb,
+                       slabs, ranks, kind, sigma, scale, stream);
 }
 
 extern "C" int krow_project_f64(const void* u, const void* x, const void* xq,
                                 const void* aux, const void* m, void* a,
                                 void* p, int R, int n, int dim, int naux,
-                                int r0, int slabs, int ranks, int kind,
-                                double sigma, double scale, void* stream) {
-  return launch<double>(u, x, xq, aux, m, a, p, R, n, dim, naux, r0, slabs,
-                        ranks, kind, sigma, scale, stream);
+                                int r0, int nb, int slabs, int ranks,
+                                int kind, double sigma, double scale,
+                                void* stream) {
+  return launch<double>(u, x, xq, aux, m, a, p, R, n, dim, naux, r0, nb,
+                        slabs, ranks, kind, sigma, scale, stream);
 }

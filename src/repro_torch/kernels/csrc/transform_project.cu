@@ -9,7 +9,13 @@
 // masked to columns j < m (m read by pointer),
 //   Y      = Kq @ S          (nq, ncomp)
 //   rowsum = Kq @ 1          (nq,)
-// in one launch: the query gram is never stored in memory.  The epilogue
+// in one launch: the query gram is never stored in memory.  One launch
+// serves nb tenants (the reference's pallas_call under jax.vmap), each
+// with operands of the single call's shape laid one after another (xq by
+// nq x dim, X by n x dim, S by n x ncomp, Y by nq x ncomp, rowsum by nq,
+// m by one int); the tenant is the grid's z axis, beside the cluster's x.
+// It picks the rows a block reads, never the order of a sum, so tenant b
+// of a launch equals a launch on its operands alone bit for bit.  The epilogue
 // and the norm expansion d2 = max(|xq_i|^2 + |X_j|^2 - 2 xq_i.X_j, 0)
 // follow kernels_fn.gram_block term for term.
 //
@@ -122,7 +128,13 @@ transform_project_kernel(const T* __restrict__ xq, const T* __restrict__ x,
   const int rank = static_cast<int>(cluster.block_rank());
   const int q0 = blockIdx.x / kRanks * kTQ;
   const int c0 = blockIdx.y * TC;
-  const int m = repro::active_count(m_ptr, n);
+  const int b = blockIdx.z;                          // the tenant
+  xq += (size_t)b * nq * dim;
+  x += (size_t)b * n * dim;
+  s += (size_t)b * n * ncomp;
+  y += (size_t)b * nq * ncomp;
+  rowsum += (size_t)b * nq;
+  const int m = repro::active_count(m_ptr + b, n);
   const int tid = threadIdx.x;
   const int nds = max(1, (dim + G::kDS - 1) / G::kDS);
   const int chunks = (m + kChunk - 1) / kChunk;
@@ -291,14 +303,15 @@ int launch_tile(const void* xq, const void* x, const void* s, const void* m,
 template <typename T>
 int launch(const void* xq, const void* x, const void* s, const void* m,
            void* y, void* rowsum, int nq, int n, int dim, int ncomp, int kind,
-           double sigma, double scale, int grid_x, int grid_y, int q_tile,
-           int c_tile, int ranks, int chunk, void* stream) {
+           double sigma, double scale, int grid_x, int grid_y, int grid_z,
+           int q_tile, int c_tile, int ranks, int chunk, void* stream) {
   if (q_tile != kTQ || ranks != kRanks || chunk != kChunk || c_tile <= 0 ||
       grid_x != kRanks * ((nq + kTQ - 1) / kTQ) ||
-      grid_y != (ncomp + c_tile - 1) / c_tile)
+      grid_y != (ncomp + c_tile - 1) / c_tile || grid_z < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (nq == 0 || ncomp == 0) return static_cast<int>(cudaGetLastError());
-  const dim3 grid(grid_x, grid_y);
+  if (nq == 0 || ncomp == 0 || grid_z == 0)
+    return static_cast<int>(cudaGetLastError());
+  const dim3 grid(grid_x, grid_y, grid_z);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (c_tile) {
     case 8:
@@ -325,11 +338,11 @@ extern "C" int transform_project_f32(const void* xq, const void* x,
                                      void* rowsum, int nq, int n, int dim,
                                      int ncomp, int kind, double sigma,
                                      double scale, int grid_x, int grid_y,
-                                     int q_tile, int c_tile, int ranks,
-                                     int chunk, void* stream) {
+                                     int grid_z, int q_tile, int c_tile,
+                                     int ranks, int chunk, void* stream) {
   return launch<float>(xq, x, s, m, y, rowsum, nq, n, dim, ncomp, kind, sigma,
-                       scale, grid_x, grid_y, q_tile, c_tile, ranks, chunk,
-                       stream);
+                       scale, grid_x, grid_y, grid_z, q_tile, c_tile, ranks,
+                       chunk, stream);
 }
 
 extern "C" int transform_project_f64(const void* xq, const void* x,
@@ -337,9 +350,9 @@ extern "C" int transform_project_f64(const void* xq, const void* x,
                                      void* rowsum, int nq, int n, int dim,
                                      int ncomp, int kind, double sigma,
                                      double scale, int grid_x, int grid_y,
-                                     int q_tile, int c_tile, int ranks,
-                                     int chunk, void* stream) {
+                                     int grid_z, int q_tile, int c_tile,
+                                     int ranks, int chunk, void* stream) {
   return launch<double>(xq, x, s, m, y, rowsum, nq, n, dim, ncomp, kind,
-                        sigma, scale, grid_x, grid_y, q_tile, c_tile, ranks,
-                        chunk, stream);
+                        sigma, scale, grid_x, grid_y, grid_z, q_tile, c_tile,
+                        ranks, chunk, stream);
 }

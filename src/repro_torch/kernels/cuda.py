@@ -10,7 +10,10 @@ and one more ``nvcc`` links the objects.
 
 Every C entry point takes its pointers and the stream as ``void*`` and
 returns ``cudaGetLastError()``; ``launch`` raises on anything but 0 and
-counts the launch.
+counts the launch.  The five kernels of the KPCA path take a tenant count
+``nb``: one launch serves nb tenants whose operands lie one after another
+(a leading tenant axis), the counterpart of the reference's ``pallas_call``
+under ``jax.vmap``; a single call is nb = 1.
 """
 from __future__ import annotations
 
@@ -38,11 +41,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # C signature of each entry point (its typed variants share one).
 SIGNATURES = {
-    "eigvec_rotate": (P,) * 9 + (I, I, I, I, F, P),
-    "eigvec_rotate2": (P,) * 18 + (I, I, I, F, P),
-    "eigvec_project": (P, P, P, P, I, I, I, I, P),
-    "krow_project": (P,) * 7 + (I,) * 8 + (F, F, P),
-    "transform_project": (P,) * 6 + (I,) * 5 + (F, F) + (I,) * 6 + (P,),
+    "eigvec_rotate": (P,) * 9 + (I,) * 5 + (F, P),
+    "eigvec_rotate2": (P,) * 18 + (I,) * 4 + (F, P),
+    "eigvec_project": (P, P, P, P) + (I,) * 5 + (P,),
+    "krow_project": (P,) * 7 + (I,) * 9 + (F, F, P),
+    "transform_project": (P,) * 6 + (I,) * 5 + (F, F) + (I,) * 7 + (P,),
     "scaled_gram": (P, P, P, P, I, I, P),
     "rbf_gram": (P, P, P, I, I, I, F, I, P),
     "flash_attention": (P, P, P, P, I, I, I, I, I, F, P),
@@ -191,13 +194,17 @@ def check_operands(name: str, *tensors: torch.Tensor) -> torch.dtype:
     return dtype
 
 
-def active_count(m, device: torch.device) -> torch.Tensor:
-    """The active count as the 0-d int32 device tensor the kernels read by
-    pointer (no copy when it already is one)."""
+def active_count(m, device: torch.device,
+                 tenants: int | None = None) -> torch.Tensor:
+    """The active count as the int32 device tensor the kernels read by
+    pointer (no copy when it already is one): 0-d for a single call, or
+    (tenants,) per tenant for a call over a leading tenant axis."""
     m = torch.as_tensor(m, dtype=torch.int32, device=device)
-    if m.dim() != 0:
-        raise ValueError(f"active count must be a scalar, got {m.shape}")
-    return m
+    want = () if tenants is None else (tenants,)
+    if m.shape != want:
+        raise ValueError(f"active count must have shape {want}, got "
+                         f"{tuple(m.shape)}")
+    return m.contiguous()
 
 
 def launch(name: str, dtype: torch.dtype, *args) -> None:

@@ -1,11 +1,16 @@
 """Plain PyTorch versions of the Cauchy eigenvector rotation kernels.
 
 The wrappers in ``ops.py`` run these for tensors on the CPU; the tests and
-``chip_smoke.py`` hold the CUDA kernels against them on the card.
+``chip_smoke.py`` hold the CUDA kernels against them on the card.  Each
+takes the kernels' optional leading tenant axis: operands (B, ...) with
+active counts (B,), every tenant computed as the unbatched call computes
+it.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels import tenantwise
 
 Tensor = torch.Tensor
 
@@ -40,14 +45,17 @@ def eigvec_rotate_ref(u: Tensor, zhat: Tensor, d: Tensor, lam: Tensor,
 
     Otherwise, with operands of one type, this is the reference's formula.
     """
+    if u.dim() == 3:
+        return tenantwise(eigvec_rotate_ref, u, zhat, d, lam, inv, tau,
+                          num_active, row_offset)
     den = _denominators(d, lam, tau, zhat.dtype)
-    W = zhat[:, None] / den.to(zhat.dtype)
-    C = (u @ W) * inv[None, :]
+    W = zhat[..., :, None] / den.to(zhat.dtype)
+    C = (u @ W) * inv[..., None, :]
     if num_active is None:
         return C
-    rows, cols = pruned_region_mask(*u.shape, num_active, row_offset,
+    rows, cols = pruned_region_mask(*u.shape[-2:], num_active, row_offset,
                                     block=ROTATE_TILE, device=u.device)
-    return torch.where(rows[:, None] & cols[None, :], C, 0.0)
+    return torch.where(rows[..., :, None] & cols[..., None, :], C, 0.0)
 
 
 def offset_guard(dtype) -> float:
@@ -68,7 +76,8 @@ def _denominators(d: Tensor, lam: Tensor, tau: Tensor,
     of ``out_dtype``, the type the denominator is rounded to, so the
     rounding cannot make it zero.  (The reference guards its absolute
     roots at ±eps.)"""
-    return guard_zero((d[:, None] - lam[None, :]) - tau[None, :], out_dtype)
+    return guard_zero((d[..., :, None] - lam[..., None, :])
+                      - tau[..., None, :], out_dtype)
 
 
 def guard_zero(den: Tensor, out_dtype) -> Tensor:
@@ -89,15 +98,17 @@ def eigvec_project_ref(u: Tensor, v: Tensor, num_active=None,
     ``num_active`` = m the output rows at or beyond ceil(m / PROJECT_SLAB)
     · PROJECT_SLAB are exact zeros, as the kernel writes them (on the
     padding contract they are zeros anyway)."""
+    if u.dim() == 3:
+        return tenantwise(eigvec_project_ref, u, v, num_active, row_offset)
     if num_active is None:
-        return u.T @ v
+        return u.mT @ v
     r0 = 0 if row_offset is None else row_offset
     m = torch.as_tensor(num_active, device=u.device)
-    live = (r0 + torch.arange(u.shape[0], device=u.device)) < m
-    P = u.T @ torch.where(live[:, None], v, 0.0)
-    cols = pruned_region_mask(*u.shape, num_active, row_offset,
+    live = (r0 + torch.arange(u.shape[-2], device=u.device)) < m[..., None]
+    P = u.mT @ torch.where(live[..., :, None], v, 0.0)
+    cols = pruned_region_mask(*u.shape[-2:], num_active, row_offset,
                               block=PROJECT_SLAB, device=u.device)[1]
-    return torch.where(cols[:, None], P, 0.0)
+    return torch.where(cols[..., :, None], P, 0.0)
 
 
 def pruned_region_mask(R: int, M: int, m, row_offset=None, *, block: int,
@@ -105,14 +116,15 @@ def pruned_region_mask(R: int, M: int, m, row_offset=None, *, block: int,
     """(row_mask (R,), col_mask (M,)) of the tiles a pruned kernel WRITES:
     True inside the active tile range (real values), False where the
     kernel writes exact zeros.  ``block`` is the kernel's output tile;
-    the masks lie on ``device`` (default the CPU)."""
+    the masks lie on ``device`` (default the CPU).  Counts m of shape (B,)
+    give masks (B, R) and (B, M)."""
     r0 = 0 if row_offset is None else row_offset
     m = torch.as_tensor(m, dtype=torch.int32, device=device)
     rows_active = torch.clamp(m - r0, 0, R)
     g_rows = -(-rows_active // block)
     g_cols = -(-m // block)
-    row_mask = torch.arange(R, device=device) < g_rows * block
-    col_mask = torch.arange(M, device=device) < g_cols * block
+    row_mask = torch.arange(R, device=device) < (g_rows * block)[..., None]
+    col_mask = torch.arange(M, device=device) < (g_cols * block)[..., None]
     return row_mask, col_mask
 
 
@@ -126,16 +138,16 @@ def cauchy_factor_ref(z: Tensor, d: Tensor, lam: Tensor, inv: Tensor,
     ``_denominators`` on the denominator; columns with defl[j] != 0
     are replaced by e_{cid[j]} (cid defaults to j).
     """
-    M = z.shape[0]
+    M = z.shape[-1]
     den = _denominators(d, lam, tau, z.dtype)
-    W = z[:, None] * inv[None, :] / den.to(z.dtype)
+    W = z[..., :, None] * inv[..., None, :] / den.to(z.dtype)
     if defl is None:
         return W
     idx = torch.arange(M, device=z.device)
     if cid is None:
         cid = idx
-    E = (idx[:, None] == cid[None, :]).to(W.dtype)
-    return torch.where(defl[None, :] > 0, E, W)
+    E = (idx[:, None] == cid[..., None, :]).to(W.dtype)
+    return torch.where(defl[..., None, :] > 0, E, W)
 
 
 def eigvec_rotate2_ref(u: Tensor,
@@ -153,11 +165,15 @@ def eigvec_rotate2_ref(u: Tensor,
     entries outside ``pruned_region_mask(R, M, m, row_offset,
     block=ROTATE2_TILE)`` are exact zeros, as the kernel writes them (on
     the padding contract they are zeros anyway)."""
+    if u.dim() == 3:
+        return tenantwise(eigvec_rotate2_ref, u, z1, d1, lam1, inv1, defl1,
+                          cid1, z2, d2, lam2, inv2, defl2, cid2, num_active,
+                          row_offset, tau1=tau1, tau2=tau2)
     W1 = cauchy_factor_ref(z1, d1, lam1, inv1, defl1, cid1, tau=tau1)
     W2 = cauchy_factor_ref(z2, d2, lam2, inv2, defl2, cid2, tau=tau2)
     C = (u @ W1.to(u.dtype)) @ W2.to(u.dtype)
     if num_active is None:
         return C
-    rows, cols = pruned_region_mask(*u.shape, num_active, row_offset,
+    rows, cols = pruned_region_mask(*u.shape[-2:], num_active, row_offset,
                                     block=ROTATE2_TILE, device=u.device)
-    return torch.where(rows[:, None] & cols[None, :], C, 0.0)
+    return torch.where(rows[..., :, None] & cols[..., None, :], C, 0.0)

@@ -112,25 +112,33 @@ def transform_project(xq: Tensor, x: Tensor, s: Tensor, num_active, *,
     """(Y, rowsum): Y = Kq_masked @ s and rowsum = Kq_masked @ 1 for a
     query batch xq (Q, d) against stored points x (n, d) and a projection
     s (n, C), any C >= 1; the query gram is never stored.  One launch, on
-    ``transform_geometry(Q, C)``."""
+    ``transform_geometry(Q, C)``.  Every operand may carry a leading tenant
+    axis B, with counts (B,): one launch for the B tenants, the tenant on
+    the grid's z axis."""
     if s.device.type == "cpu":
         return transform_project_ref(xq, x, s, num_active, spec=spec)
     kind = fused_kind(spec, "transform_project")
     xq = xq.to(s.dtype).contiguous()
-    x = x.to(s.dtype)
+    x = x.to(s.dtype).contiguous()
+    s = s.contiguous()
     dtype = cuda.check_operands("transform_project", s, xq, x)
-    n, ncomp = s.shape
-    nq, dim = xq.shape
-    if x.shape != (n, dim):
+    if s.dim() not in (2, 3) or xq.dim() != s.dim():
+        raise ValueError(f"transform_project: shapes xq {xq.shape}, "
+                         f"x {x.shape}, s {s.shape}")
+    nb = s.shape[0] if s.dim() == 3 else None
+    lead = s.shape[:-2]
+    n, ncomp = s.shape[-2:]
+    nq, dim = xq.shape[-2:]
+    if x.shape != lead + (n, dim) or xq.shape[:-2] != lead:
         raise ValueError(f"transform_project: shapes xq {xq.shape}, "
                          f"x {x.shape}, s {s.shape}")
     if ncomp < 1:
         raise ValueError("transform_project takes at least one component")
-    m = cuda.active_count(num_active, s.device)
-    y = torch.empty((nq, ncomp), dtype=dtype, device=s.device)
-    rs = torch.empty((nq,), dtype=dtype, device=s.device)
+    m = cuda.active_count(num_active, s.device, nb)
+    y = torch.empty(lead + (nq, ncomp), dtype=dtype, device=s.device)
+    rs = torch.empty(lead + (nq,), dtype=dtype, device=s.device)
     geo = transform_geometry(nq, ncomp)
     cuda.launch("transform_project", dtype, xq, x, s, m, y, rs, nq, n, dim,
                 ncomp, kind, float(spec.sigma), float(spec.scale), *geo.grid,
-                geo.q_tile, geo.c_tile, geo.ranks, geo.chunk)
+                nb or 1, geo.q_tile, geo.c_tile, geo.ranks, geo.chunk)
     return y, rs

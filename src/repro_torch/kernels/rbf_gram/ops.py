@@ -112,32 +112,36 @@ def krow_project(u: Tensor, x: Tensor, x_new: Tensor, aux: Tensor,
     row block whose first row is the state's row ``row_offset`` (a host
     int; rows are masked by their global index), x (R, d), x_new (d,),
     aux (R, naux) with 0 <= naux <= 7; a is (R,), P the block's (n, 1 +
-    naux) partial.  Masked rows of a and output rows of P at or beyond
-    ceil(m/32)·32 are exact zeros."""
+    naux) partial.  Every operand may carry a leading tenant axis B, with
+    counts (B,): one launch for the B tenants.  Masked rows of a and
+    output rows of P at or beyond ceil(m/32)·32 are exact zeros."""
     if u.device.type == "cpu":
         return krow_project_ref(u, x, x_new, aux, num_active, row_offset,
                                 spec=spec)
     kind = fused_kind(spec, "krow_project")
+    x_new, aux = x_new.contiguous(), aux.contiguous()
     dtype = cuda.check_operands("krow_project", u, x, x_new, aux)
-    if u.dim() != 2 or x.dim() != 2 or aux.dim() != 2:
+    if u.dim() not in (2, 3) or x.dim() != u.dim() or aux.dim() != u.dim():
         raise ValueError(f"krow_project: need u (R, n), x (R, d), aux "
                          f"(R, naux), got {u.shape}, {x.shape}, {aux.shape}")
-    R, n = u.shape
-    dim = x.shape[1]
-    naux = aux.shape[1]
-    if (x.shape != (R, dim) or x_new.shape != (dim,)
-            or aux.shape != (R, naux)):
+    nb = u.shape[0] if u.dim() == 3 else None
+    lead = u.shape[:-2]
+    R, n = u.shape[-2:]
+    dim = x.shape[-1]
+    naux = aux.shape[-1]
+    if (x.shape != lead + (R, dim) or x_new.shape != lead + (dim,)
+            or aux.shape != lead + (R, naux)):
         raise ValueError(f"krow_project: shapes u {u.shape}, x {x.shape}, "
                          f"x_new {x_new.shape}, aux {aux.shape}")
     if naux + 1 > NAUX:
         raise ValueError(f"krow_project: at most {NAUX - 1} aux columns, "
                          f"got {naux}")
     r0 = 0 if row_offset is None else int(row_offset)
-    m = cuda.active_count(num_active, u.device)
-    a = torch.empty((R,), dtype=dtype, device=u.device)
-    P = torch.empty((n, 1 + naux), dtype=dtype, device=u.device)
+    m = cuda.active_count(num_active, u.device, nb)
+    a = torch.empty(lead + (R,), dtype=dtype, device=u.device)
+    P = torch.empty(lead + (n, 1 + naux), dtype=dtype, device=u.device)
     geo = project_geometry(n)
     cuda.launch("krow_project", dtype, u, x, x_new, aux, m, a, P, R, n, dim,
-                naux, r0, geo.slabs, geo.ranks, kind, float(spec.sigma),
-                float(spec.scale))
+                naux, r0, nb or 1, geo.slabs, geo.ranks, kind,
+                float(spec.sigma), float(spec.scale))
     return a, P

@@ -21,6 +21,12 @@
   points: past a full window each point first evicts the oldest one
   through the decremental pipeline (``core/downdate.py``), so the service
   runs on an unbounded stream in bounded memory.
+  ``--tenants B`` serves B independent streams as one ``StreamBatch``:
+  each step folds a point into every tenant with each kernel launched once
+  for the cohort; ``--cohorts bucket`` groups the tenants by their own
+  bucket, ``bucket-padded`` pads each group to a power of two (the
+  reference's geometries).  ``--decouple`` and ``--mesh`` are accepted and
+  raise: they wait for ROADMAP.md items 6 and 10.
 * ``--mode nystrom``: the incremental Nyström landmark service (paper §4,
   grow_rows): each point becomes an observed row and is offered as a
   landmark.  ``--landmark-policy append`` admits every offer until the
@@ -59,6 +65,9 @@ rotation), the fused kernel-row prologue and query transform
         --device cpu --capacity 64 --points 40 --dim 8
     PYTHONPATH=src python -m repro_torch.launch.serve --mode kpca \\
         --device cpu --capacity 64 --window 24 --points 60 --dim 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode kpca \\
+        --device cpu --tenants 3 --cohorts bucket --capacity 32 \\
+        --points 20 --dim 4
     PYTHONPATH=src python -m repro_torch.launch.serve --mode nystrom \\
         --device cpu --capacity 64 --points 80 --dim 8 --matmul pallas2
     PYTHONPATH=src python -m repro_torch.launch.serve --mode nystrom \\
@@ -218,6 +227,104 @@ def kpca_main(args) -> dict:
     print(f"[serve/kpca] {args.dispatch}: {args.points} updates to "
           f"m={result['m_final']} (capacity {args.capacity}) on "
           f"{result['device']}, update p50 {result['update_ms_p50']:.3f} ms, "
+          f"query p50 {result['query_ms_p50']:.3f} ms  {result}")
+    return result
+
+
+def multitenant_draws(args):
+    """(x0, steps): the multi-tenant service's numpy inputs from
+    ``--seed``, in the reference service's order — the (B, 4, d) seeds,
+    then for each step the (B, d) points and, every ``--transform-every``
+    steps, the (B, batch, d) queries drawn after them (else None)."""
+    rng = np.random.default_rng(args.seed)
+    B, d = args.tenants, args.dim
+    x0 = rng.normal(size=(B, 4, d))
+    steps = []
+    for i in range(args.points):
+        xs = rng.normal(size=(B, d))
+        q = (rng.normal(size=(B, args.batch, d))
+             if (i + 1) % args.transform_every == 0 else None)
+        steps.append((xs, q))
+    return x0, steps
+
+
+def kpca_multitenant_service(args, on_step=None
+                             ) -> tuple[dict, eng.StreamBatch]:
+    """B independent tenant streams through one ``StreamBatch``: one
+    batched step per point (per occupied bucket under grouped cohorts).
+    The points move to the card in one copy before the loop, so a step
+    reads nothing back but at a bucket crossing; under ``--health`` each
+    step's points go as numpy to the quarantine gate's host check.
+    ``on_step(i, batch, xs)``, when given, returns the (B, d) points to
+    offer at step i (a testing seam).  Returns the result dict (the
+    reference service's keys) and the cohort."""
+    device = resolve_device(args.device)
+    dtype = DTYPES[args.dtype]
+    B, d = args.tenants, args.dim
+    spec = kf.KernelSpec(name="rbf", sigma=float(d))
+    plan = make_plan(args)
+    x0, steps = multitenant_draws(args)
+    batch = eng.StreamBatch(torch.as_tensor(x0, dtype=dtype, device=device),
+                            args.capacity, spec, plan=plan, adjusted=True,
+                            dtype=dtype, cohorts=args.cohorts,
+                            window=args.window, device=device)
+    gated = plan.health is not None and plan.health.quarantine
+    points = (None if gated or on_step is not None else torch.as_tensor(
+        np.stack([xs for xs, _ in steps]), dtype=dtype, device=device))
+
+    hub = obs.fresh_hub()
+    upd, qry = hub.histogram("step_ms"), hub.histogram("query_ms")
+    n_served = 0
+    t_total = time.perf_counter()
+    for i, (xs, q) in enumerate(steps):
+        if on_step is not None:
+            xs = on_step(i, batch, xs)
+        rungs = tuple(sorted({
+            batch._tenant_bucket(int(m)) if args.dispatch == "bucketed"
+            else -1 for m in batch._m_host}))
+        with upd.timed(key=rungs) as t:
+            batch.update(xs if points is None else points[i])
+            t.sync(batch.working_states()[-1].L)   # syncs the device
+        if q is not None:
+            n_comp = min(8, int(batch._m_host.min()))
+            with qry.timed(key=n_comp) as t:
+                t.sync(batch.transform(torch.as_tensor(q, device=device),
+                                       n_components=n_comp))
+            n_served += B * args.batch
+    t_total = time.perf_counter() - t_total
+
+    sts = batch.states
+    m_final = [int(v) for v in sts.m.tolist()]
+    steady = float(np.median(upd.ms)) if upd.ms else float("nan")
+    result = {
+        "mode": "kpca-multitenant", "tenants": B,
+        "dispatch": args.dispatch, "cohorts": args.cohorts,
+        "window": args.window, "capacity": args.capacity,
+        "points": args.points, "m_final": m_final,
+        **upd.summary("step_ms"), **qry.summary("query_ms"),
+        "aggregate_updates_per_s": float(B / (steady / 1e3)),
+        "transforms_served": n_served, "total_s": t_total,
+        "finite": bool(torch.isfinite(sts.L).all()),
+        "device": (torch.cuda.get_device_name(device)
+                   if device.type == "cuda" else "cpu"),
+        "dtype": args.dtype,
+    }
+    if args.health:
+        result["quarantined"] = batch.health_summary()["quarantined"]
+    if batch.metrics is not None:
+        report = hub.observe_metrics_state(batch.metrics)
+        result["metrics"] = {k: (v.tolist() if hasattr(v, "tolist") else v)
+                             for k, v in report.items()}
+    export_metrics(args, hub)
+    return result, batch
+
+
+def kpca_multitenant_main(args) -> dict:
+    result, _ = kpca_multitenant_service(args)
+    print(f"[serve/kpca] {args.tenants} tenants x {args.points} updates to "
+          f"m={result['m_final'][0]} (capacity {args.capacity}) on "
+          f"{result['device']}, step p50 {result['step_ms_p50']:.3f} ms = "
+          f"{result['aggregate_updates_per_s']:.0f} updates/s aggregate, "
           f"query p50 {result['query_ms_p50']:.3f} ms  {result}")
     return result
 
@@ -464,6 +571,21 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--stop-patience", type=int, default=3,
                     help="sufficient-subset rule (leverage): consecutive "
                          "flat admissions before offers stop")
+    ap.add_argument("--tenants", type=int, default=1,
+                    help="kpca mode: serve B independent tenant streams "
+                         "as one StreamBatch (one batched step per point)")
+    ap.add_argument("--cohorts", choices=("max", "bucket", "bucket-padded"),
+                    default="max",
+                    help="multi-tenant bucket geometry: 'max' runs the "
+                         "cohort at its largest tenant's bucket; 'bucket' "
+                         "groups tenants by their own bucket; "
+                         "'bucket-padded' pads each group to a power of two")
+    ap.add_argument("--decouple", action="store_true",
+                    help="decoupled ingest/serve (not ported: ROADMAP.md "
+                         "item 6)")
+    ap.add_argument("--mesh", default=None, metavar="PtxPr",
+                    help="tenant x data mesh of the decoupled queries (not "
+                         "ported: ROADMAP.md item 10)")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
     ap.add_argument("--dtype", choices=tuple(DTYPES), default="float32")
@@ -476,6 +598,14 @@ def main(argv=None) -> dict:
         return lm_main(configs.get_config(args.arch, smoke=args.smoke),
                        batch=args.batch, prompt_len=args.prompt_len,
                        gen=args.gen, seed=args.seed, device=args.device)
+    if args.decouple:
+        raise NotImplementedError(
+            "serve --decouple (IngestServeLoop) is not ported yet: "
+            "ROADMAP.md item 6")
+    if args.mesh is not None:
+        raise NotImplementedError(
+            "serve --mesh (the tenant mesh) is not ported yet: ROADMAP.md "
+            "item 10")
     server = None
     if args.metrics_port is not None:
         # Started before the service, so the run is scrapeable live; the
@@ -485,8 +615,11 @@ def main(argv=None) -> dict:
     if args.metrics_jsonl:
         obs.get_hub().open_jsonl(args.metrics_jsonl)
     try:
-        return (nystrom_main(args) if args.mode == "nystrom"
-                else kpca_main(args))
+        if args.mode == "nystrom":
+            return nystrom_main(args)
+        if args.tenants > 1:
+            return kpca_multitenant_main(args)
+        return kpca_main(args)
     finally:
         if server is not None:
             server.shutdown()

@@ -595,3 +595,75 @@ def test_stream_runs_repeat_bit_for_bit_on_cuda(device):
     assert all(torch.equal(x, y) for x, y in zip(on.state, off.state))
     assert on.metrics_report()["rejections"] == 1
     assert on.health_report()["quarantined"] == 1 and on.m == 203
+
+
+# ------------------------------------------------------------ tenant axis --
+@pytest.mark.parametrize("n,ms", [(131, (8, 37, 100, 131)),
+                                  (256, (9, 129, 200)), (64, (64,))])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_batched_kernels_match_plain_and_single_launches(device, n, ms,
+                                                         dtype):
+    """The five KPCA kernels over a tenant axis (``checks.batched_cases``):
+    one launch each, per entry within the single kernels' bounds of the
+    plain versions, and each tenant bit for bit the single launch on its
+    own operands (its own m read by pointer), at capacities that are no
+    multiple of the 64-wide tiles or of 16 bytes, and at B = 1."""
+    before = dict(cuda.LAUNCHES)
+    cases = checks.batched_cases(n, ms, getattr(torch, dtype), device,
+                                 seed=n)
+    for case in cases:
+        launched = cuda.LAUNCHES[case.name]
+        case.kernel()
+        assert cuda.LAUNCHES[case.name] == launched + 1
+        checks.compare(case)
+        assert checks.batched_bitwise(case), case.name
+    assert cuda.LAUNCHES != before
+
+
+def test_batched_wrappers_refuse_mismatched_counts(device):
+    """A tenant axis needs one active count per tenant."""
+    from repro_torch.kernels.eigvec_update import ops as eops
+
+    u = torch.eye(8, dtype=torch.float64, device=device).expand(3, 8, 8)
+    v = torch.ones(3, 8, 1, dtype=torch.float64, device=device)
+    with pytest.raises(ValueError, match="active count"):
+        eops.project_vectors(u.contiguous(), v, torch.tensor(
+            [8, 8], dtype=torch.int32, device=device))
+
+
+@pytest.mark.parametrize("matmul,cohorts", [("pallas", "max"),
+                                            ("pallas2", "bucket")])
+def test_cohort_on_cuda_matches_cpu(device, matmul, cohorts):
+    """A multi-tenant cohort (f64, B = 3, masked steps spreading the
+    tenants, then a block) on the card against the same cohort on the
+    CPU: each tenant within the bars of ``test_stream_on_cuda_matches_cpu``
+    (1e-6 of the scale), one launch of each kernel per group step."""
+    rng = np.random.default_rng(4)
+    B, d = 3, 5
+    x0 = rng.normal(size=(B, 4, d))
+    steps = [(rng.normal(size=(B, d)),
+              np.array([t % (i + 1) == 0 for i in range(B)]))
+             for t in range(16)]
+    blk = rng.normal(size=(4, B, d))
+    spec = kf.KernelSpec(sigma=10.0)
+    plan = engine.UpdatePlan(matmul=matmul, fuse_krow=True,
+                             dispatch="bucketed", min_bucket=16)
+    out = {}
+    for dev in ("cpu", device):
+        cuda.reset_launches()
+        b = engine.StreamBatch(torch.tensor(x0), 64, spec, plan=plan,
+                               dtype=torch.float64, cohorts=cohorts,
+                               device=dev)
+        for xs, act in steps:
+            b.update(xs, active=act)
+        b.update_block(blk)
+        out[str(dev)] = b.states
+    krow = cuda.LAUNCHES["krow_project"]
+    assert 0 < krow <= (16 + 4) * 2        # one per group step, not tenant
+    cpu, gpu = out["cpu"], out[str(device)]
+    assert gpu.m.tolist() == cpu.m.tolist()
+    scale = float(cpu.L.abs().max())
+    for i in range(B):
+        m = int(cpu.m[i])
+        np.testing.assert_allclose(gpu.L[i, :m].cpu().numpy(),
+                                   cpu.L[i, :m].numpy(), atol=1e-6 * scale)
