@@ -49,8 +49,9 @@ Phases, each printing one JSON line per row:
 3. ``service`` — the KPCA service, ``repro_torch.launch.serve --mode
    kpca`` (Algorithm 2, fused k-row prologue, bucketed dispatch), on the
    sequential route (``--matmul pallas``) and on the fused-pair route
-   (``--matmul pallas2``): capacity 1024, d = 16, 4 seed + 1000 streamed
-   points in f32, a batch of 64 queries every 16 points; then capacity
+   (``--matmul pallas2``): capacity 1024, d = 16, 4 seed + 600 streamed
+   points in f32 (m = 604 runs the 1024 bucket), a batch of 64 queries
+   every 16 points; then capacity
    256 with 200 points in f64.  Every kernel's launch count is reset just
    before each run and read just after, and must match the reckoning
    (sequential: 4 rotations per point; fused: rotate2 + rotate / 2 = 2
@@ -73,10 +74,10 @@ Phases, each printing one JSON line per row:
    ``approximation_error`` against ``trace_error`` (K - K̃ is PSD: the
    same quantity), and the trace error non-increasing (nested sets).
 6. ``window`` — the sliding-window service, ``serve --mode kpca --window
-   W``: f32 on the sequential route at capacity 1024, W = 1000, d = 16,
-   4 seed + 1296 points (about 300 steady-state evict + ingest steps at
-   the full bucket), queries of 64 every 16 points; f64 on the fused-pair
-   route at capacity 256, W = 200, 4 + 396 points.  Launches against the
+   W``: f32 on the sequential route at capacity 1024, W = 600, d = 16,
+   4 seed + 700 points (104 steady-state evict + ingest steps in the
+   1024 bucket), queries of 64 every 16 points; f64 on the fused-pair
+   route at capacity 256, W = 200, 4 + 300 points.  Launches against the
    reckoning (a growth point as in the service; a steady-state point adds
    the downdate's two inverse pairs: 8 rotations on the sequential route),
    the state's rows exactly the last W streamed points in arrival order
@@ -98,13 +99,13 @@ Phases, each printing one JSON line per row:
    eigh, and a donating swap equal to the copying one on its own storage.
 8. ``truncate`` — the f32 ``pallas`` Algorithm-2 service at capacity 1024,
    600 points, then ``truncate(64)`` compacted and uncompacted, and the
-   uncompacted one also under fixed dispatch, then 300 points each (100
+   uncompacted one also under fixed dispatch, then 150 points each (100
    under fixed dispatch):
    64 active, orthonormal kept columns, finite; uncompacted, the kept
    eigenvalues the 64 largest bit for bit and the stream equal to fixed
    dispatch within the f32 eigenvalue bar (the row-support floor); the
    top-3 eigenvalues against eigh reported.
-9. ``krr`` — ``core/krr.py`` in f64 at capacity 1024, 1000 points,
+9. ``krr`` — ``core/krr.py`` in f64 at capacity 1024, 700 points,
    lambda = 0.1: α against a dense solve on the card, 256 held-out
    predictions through the published head (``transform_project`` at
    C = 1) against ``predict``, LOOCV residuals against 128 refits.
@@ -162,6 +163,30 @@ Phases, each printing one JSON line per row:
    the rejected lane bit for bit, the others advance, each tenant's rows
    its last W accepted points, f64 eigh bars, tallies and metric lanes
    equal to a host tally.
+12c. ``decoupled`` — ``serve --mode kpca --decouple`` (``IngestServeLoop``)
+   at full width: 8 tenants, capacity 1024, f32 ``pallas``, d = 16, 4 +
+   600 points, 2 batches of 64 queries a step, republished every 4 steps,
+   ``--health``: 150 generations, every answer bit for bit
+   ``serving.query_batch`` on the snapshot it read, every tenant's top-8
+   against f64 eigh, launches to the reckoning; ingest, query and publish
+   p50/p99.  A ``--publish-on-drift 0.05 --drift-probe-every 4
+   --serve-every 64`` run (200 points): the probes equal the loop's rule
+   for the publications that happened.  A fault run through ``on_step``:
+   a tilted tenant healed and published, a tenant poisoned beyond repair
+   refusing every later publication, the answers the frozen snapshot's.
+12d. ``sharded`` — ``core/distributed``'s builders at P = 1 over NCCL in
+   this process: 100 sharded updates (``pallas``) and 100 pairs
+   (``pallas2``) from the multitenant phase's tenant 0 (m = 604), an f32
+   ``pallas`` window block (capacity 1024, W = 1000, 100 steps, the fused
+   k-row ingest), an f64 ``pallas2`` guarded window block (capacity 256,
+   W = 200, 50 steps, every 10th point poisoned), a block of poison, and
+   ``serve --decouple --mesh 1x1``: f32 against f64 eigh at the service
+   bars, the f64 block against the local ``Engine`` path (1e-10 of
+   λmax), a poisoned block bit for bit, each rank's launches to the
+   reckoning.  ``sharded_p2``: the same jobs on two gloo ranks on the one
+   card (``testing/spmd``; gloo stages CUDA tensors through the host),
+   rank 1 at row offset 512 (128 at capacity 256), ``--mesh 2x1`` whose
+   answers are held to the one-process run's for the same tenants.
 13. ``roofline`` — ``repro_torch.launch.roofline`` at the reference
    driver's shapes: a STREAM triad on the card, one row per kernel with
    its rate against it, and the fused-against-unfused ingest and query
@@ -184,9 +209,10 @@ Phases, each printing one JSON line per row:
    (profiler records; where the profiler records nothing, CUDA events
    around calls queued behind a spin kernel) beside the plain version's,
    one library call's and its bound, and each call's event-timed time,
-   host work included; each batched kernel's beside the 8 single
-   launches' (``singles_ms``).  It runs after the services so that the
-   profiler is never attached to one.
+   host work included, at every shape of the kernel phase but the KPCA
+   kernels' m = 300 rows (checked there, not timed); each batched
+   kernel's beside the 8 single launches' (``singles_ms``).  It runs after the services so that the profiler is
+   never attached to one.
 16. ``lm_profile`` — one prefill of the ``lm`` phase under the profiler:
    device time by kernel group (the two LM kernels, cuBLAS's matmuls, the
    rest) and the idle share.  It runs last: on one H100 host the
@@ -204,6 +230,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from typing import Callable
@@ -380,15 +407,21 @@ def all_cases(torch, checks):
 
 def timing_phase(torch, checks) -> dict:
     """Each kernel's time beside its plain version's, one library call's
-    and its bound, at the shapes of the kernel phase.  Runs after the
+    and its bound, at the kernel phase's shapes but the KPCA kernels'
+    m = 300 rows.  Runs after the
     service, so the profiler (CUPTI) is never attached while the main path
-    is timed.  ``ms``, ``plain_ms`` and ``library_ms`` are device time per
-    call (the profiler's CUDA activity records, or ``checks.queued_ms``
-    where the profiler records nothing: ``timed_by`` says which); the
-    ``*call_ms`` twins time whole calls between CUDA events, the wrapper's
-    host work included."""
+    is timed.  ``ms`` and ``plain_ms`` are device time per call (the
+    profiler's CUDA activity records, or ``checks.queued_ms`` where the
+    profiler records nothing: ``timed_by`` says which).  ``library_ms`` is
+    ``checks.queued_ms``'s: the script does not know how many kernels a
+    library call launches, so a profile that lost every record of one of
+    them passes ``device_ms``'s check (the f64 two-product call once read
+    half its queued time, one launch a call).  The ``*call_ms`` twins time
+    whole calls between CUDA events, the wrapper's host work included."""
     rows = {}
     for dtype, n, m, case in all_cases(torch, checks):
+        if n == MAIN_N and m == 300:      # no table reads these shapes
+            continue
         ms, per_call = checks.device_ms(case.kernel)
         plain_ms, plain_per_call = checks.device_ms(case.plain)
         bound_ms, bound_by = case.bound(dtype)
@@ -402,7 +435,7 @@ def timing_phase(torch, checks) -> dict:
                "plain_ms": plain_ms,
                "plain_device_launches_per_call": plain_per_call,
                "plain_call_ms": checks.call_ms(case.plain),
-               "library_ms": (checks.device_ms(case.library)[0]
+               "library_ms": (checks.queued_ms(case.library)
                               if case.library else None),
                "library_call_ms": (checks.call_ms(case.library)
                                    if case.library else None),
@@ -889,7 +922,7 @@ def swap_phase(torch, cuda, capacity: int = 256, budget: int = 128,
     return row
 
 
-def truncate_phase(torch, cuda, serve, points: int = 600, more: int = 300,
+def truncate_phase(torch, cuda, serve, points: int = 600, more: int = 150,
                    k: int = 64, capacity: int = 1024) -> dict:
     """``KPCAStream.truncate`` on the f32 ``pallas`` Algorithm-2 service:
     ``points`` points, then ``truncate(k)`` compacted (at unchanged
@@ -993,7 +1026,7 @@ def truncate_phase(torch, cuda, serve, points: int = 600, more: int = 300,
     return row
 
 
-def krr_phase(torch, cuda, capacity: int = 1024, points: int = 1000,
+def krr_phase(torch, cuda, capacity: int = 1024, points: int = 700,
               lam: float = 0.1, held_out: int = 256, loo: int = 128) -> dict:
     """``core/krr.py`` in f64 on the card (its rotations on the f64
     ``eigvec_rotate``): α against a dense solve of (K + λI)α = y, the
@@ -1632,7 +1665,8 @@ def batched_kernel_phase(torch, checks) -> dict:
 def batched_timing_phase(torch, checks) -> dict:
     """Each batched kernel's device time beside the B single launches'
     (the loop it replaces), its plain version's, the library's batched
-    call's and its bound, at the batched kernel phase's shapes."""
+    call's (``checks.queued_ms``, as in ``timing_phase``) and its bound,
+    at the batched kernel phase's shapes."""
     rows = {}
     for dtype in (torch.float32, torch.float64):
         for case in checks.batched_cases(MAIN_N, TENANT_MS, dtype, "cuda"):
@@ -1651,7 +1685,7 @@ def batched_timing_phase(torch, checks) -> dict:
                    "call_ms": checks.call_ms(case.kernel),
                    "singles_call_ms": checks.call_ms(case.loop),
                    "plain_ms": checks.device_ms(case.plain)[0],
-                   "library_ms": (checks.device_ms(case.library)[0]
+                   "library_ms": (checks.queued_ms(case.library)
                                   if case.library else None),
                    "bound_ms": bound_ms, "bound_by": bound_by}
             emit(row)
@@ -1791,7 +1825,7 @@ def multitenant_phase(torch, cuda, serve, points: int = 600,
             and one["syncs_per_step"] == many["syncs_per_step"] == 0):
         raise AssertionError(f"multitenant: {row} (launches expected "
                              f"{expect}, syncs only at {sorted(crossings)})")
-    return row
+    return row, batch.state_of(0)
 
 
 def multitenant_cohorts_phase(torch, cuda, steps: int = 64,
@@ -1968,6 +2002,508 @@ def multitenant_window_phase(torch, cuda, serve, window: int = 200,
             raise AssertionError(f"multitenant_window: {row}")
         out[cohorts] = row
     return out
+
+
+# ------------------------------ decoupled serving, the sharded update --
+DECOUPLED_POINTS, DECOUPLED_EVERY, DECOUPLED_RATE = 600, 4, 2
+FAULT_TILT, FAULT_POISON = 5, 3      # the fault run's tenants
+
+
+def _decoupled_args(serve, *extra) -> list:
+    return ["--mode", "kpca", "--decouple", "--device", "cuda", "--dtype",
+            "float32", "--tenants", str(TENANTS), "--capacity", "1024",
+            "--dim", "16", "--batch", "64", "--serve-components", "8",
+            "--matmul", "pallas", *extra]
+
+
+def _recording_query(serve, log: list):
+    """Wrap ``IngestServeLoop.query`` to log (snapshots read, queries,
+    answers); returns the original to restore."""
+    orig = serve.IngestServeLoop.query
+
+    def query(self, q):
+        y = orig(self, q)
+        log.append((self.snaps, q, y))
+        return y
+
+    serve.IngestServeLoop.query = query
+    return orig
+
+
+def _drift_reckoning(published: list, every: int, probe_every: int) -> int:
+    """The drift probes ``IngestServeLoop`` must run, from the steps at
+    which it published: the cadence first, else a probe every
+    ``probe_every``-th non-publishing step, the count restarting at each
+    publication."""
+    since = since_probe = probes = 0
+    for pub in published:
+        since += 1
+        if since < every:
+            since_probe += 1
+            if since_probe >= probe_every:
+                since_probe = 0
+                probes += 1
+        if pub:
+            since = since_probe = 0
+    return probes
+
+
+def decoupled_phase(torch, cuda, serve) -> dict:
+    """``serve --mode kpca --decouple`` at full width: 8 tenants, capacity
+    1024, f32 ``pallas``, d = 16, 4 + 600 points, 2 query batches of 64 a
+    step, republished every 4 steps, ``--health``: 150 generations, every
+    answer bit for bit ``serving.query_batch`` on the snapshot it read,
+    every tenant's top-8 against f64 eigh, launches to the reckoning.
+    Then a ``--publish-on-drift 0.05 --drift-probe-every 4 --serve-every
+    64`` run (200 points): the probes that ran equal the count the loop's
+    rule gives for the publications that happened (drift publications are
+    reported, not gated: the stream is i.i.d.).  Then a fault run through
+    ``on_step`` (64 points, every 4): tenant 5 tilted at step 20 (healed at
+    the next publication, which then goes ahead), tenant 3 poisoned beyond
+    repair (U and a stored row) at step 40: every later publication
+    refused, the generation frozen, the answers finite and bit for bit the
+    frozen snapshot's."""
+    from repro_torch.core import serving
+    from repro_torch.core.inkpca import unstack_state
+    from repro_torch.testing import faults
+
+    log: list = []
+    args = serve.parse_args(_decoupled_args(
+        serve, "--points", str(DECOUPLED_POINTS), "--query-rate",
+        str(DECOUPLED_RATE), "--serve-every", str(DECOUPLED_EVERY),
+        "--health"))
+    orig = _recording_query(serve, log)
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    result, loop = serve.kpca_decoupled_service(args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    serve.IngestServeLoop.query = orig
+    launches = dict(cuda.LAUNCHES)
+    n = DECOUPLED_POINTS
+    expect = {"eigvec_rotate": 4 * n, "eigvec_rotate2": 0,
+              "krow_project": n, "eigvec_project": n,
+              "transform_project": n * DECOUPLED_RATE, "scaled_gram": 0,
+              "rbf_gram": 0, "flash_attention": 0, "ssd_intra_chunk": 0}
+    bitwise = all(torch.equal(y, serving.query_batch(s, q, spec=loop.spec,
+                                                     plan=loop.plan))
+                  for s, q, y in log)
+    gens = sorted({int(s.generation[0]) for s, _, _ in log})
+    oracle = [oracle_check(torch, loop.batch.state_of(i), loop.spec, True,
+                           "float32") for i in range(TENANTS)]
+    del log[:]
+
+    # The drift trigger, rate-limited.
+    published: list = []
+    dargs = serve.parse_args(_decoupled_args(
+        serve, "--points", "200", "--query-rate", "1", "--serve-every",
+        "64", "--publish-on-drift", "0.05", "--drift-probe-every", "4"))
+    pub = serve.IngestServeLoop._publish_due
+    serve.IngestServeLoop._publish_due = (
+        lambda self: published.append(pub(self)) or published[-1])
+    dres, _ = serve.kpca_decoupled_service(dargs)
+    serve.IngestServeLoop._publish_due = pub
+    reckoned = _drift_reckoning(published, 64, 4)
+
+    # Faults through the seam.
+    frozen: dict = {}
+
+    def on_step(i, batch, xs):
+        if i in (20, 40):
+            batch._flush()
+            full = batch._full
+            U, X = full.U.clone(), full.X.clone()
+            if i == 20:          # into the polish band (m = 24): heals
+                U[FAULT_TILT] = faults.corrupt_eigvecs(
+                    unstack_state(full, FAULT_TILT),
+                    magnitude=4e-3 / 48 ** 0.5, seed=1).U
+            else:                # beyond repair: U and a stored row
+                U[FAULT_POISON, :, 0] = float("nan")
+                X[FAULT_POISON, 0, 0] = float("nan")
+            batch._full = full._replace(U=U, X=X)
+        return xs
+
+    fargs = serve.parse_args(_decoupled_args(
+        serve, "--points", "64", "--query-rate", "1", "--serve-every", "4",
+        "--health"))
+    orig = _recording_query(serve, log)
+    fres, floop = serve.kpca_decoupled_service(fargs, on_step=on_step)
+    serve.IngestServeLoop.query = orig
+    frozen_gen = int(floop.snaps.generation[0])
+    late = [(s, q, y) for i, (s, q, y) in enumerate(log) if i >= 44]
+    stale_ok = all(s is floop.snaps and bool(torch.isfinite(y).all())
+                   and torch.equal(y, serving.query_batch(
+                       s, q, spec=floop.spec, plan=floop.plan))
+                   for s, q, y in late)
+    del log[:]
+
+    keep = ("generations", "skipped_publishes", "heals", "drift_probes",
+            "drift_publishes", "quarantined", "ingest_ms_p50",
+            "ingest_ms_p99", "query_ms_p50", "query_ms_p99",
+            "publish_ms_p50", "publish_ms_p99", "queries_served", "total_s")
+    row = {"phase": "decoupled", "dtype": "float32", "matmul": "pallas",
+           "tenants": TENANTS, "capacity": 1024, "points": n,
+           "query_rate": DECOUPLED_RATE, "serve_every": DECOUPLED_EVERY,
+           "seconds": seconds, **{k: result[k] for k in keep},
+           "m_final": result["m_final"], "launches": launches,
+           "answers_bitwise_query_batch": bitwise,
+           "generations_read": [gens[0], gens[-1], len(gens)],
+           "top8_eig_rel_err": max(o["top8_eig_rel_err"] for o in oracle),
+           "top8_subspace_min_cos": min(o["top8_subspace_min_cos"]
+                                        for o in oracle),
+           "drift": {k: dres[k] for k in ("generations", "drift_probes",
+                                          "drift_publishes")},
+           "drift_probes_reckoned": reckoned,
+           "faults": {k: fres[k] for k in ("generations",
+                                           "skipped_publishes", "heals")},
+           "faults_frozen_generation": frozen_gen,
+           "faults_stale_answers_ok": stale_ok}
+    emit(row)
+    bar_rel, bar_cos = BARS["float32"]
+    if not (result["generations"] == n // DECOUPLED_EVERY
+            and result["skipped_publishes"] == 0 and bitwise
+            and launches == expect and result["finite"]
+            and result["m_final"] == [4 + n] * TENANTS
+            and row["top8_eig_rel_err"] <= bar_rel
+            and row["top8_subspace_min_cos"] >= bar_cos
+            and dres["drift_probes"] == reckoned
+            and fres["heals"] >= 1 and fres["generations"] == 10
+            and fres["skipped_publishes"] == 64 - 43
+            and frozen_gen == 10 and stale_ok and len(late) == 20):
+        raise AssertionError(f"decoupled: {row} (launches expected "
+                             f"{expect})")
+    return row
+
+
+SHARD_UPDATES, SHARD_STEPS, SHARD_GUARDED = 100, 100, 50
+
+
+def _unit_rows(rng, n: int, m: int, M: int, scale: float):
+    """n vectors of norm ``scale`` on the first m entries, zero past."""
+    import numpy as np
+
+    V = np.zeros((n, M))
+    V[:, :m] = rng.normal(size=(n, m))
+    return V * (scale / np.linalg.norm(V, axis=1, keepdims=True))
+
+
+def sharded_jobs(torch, state0, *, p_tenant: int) -> tuple[list, dict]:
+    """The sharded phases' jobs (the same for P = 1 and P = 2) and what
+    their checks need.  ``state0``: tenant 0 of the multi-tenant phase (f32,
+    capacity 1024, m = 604 after 600 points)."""
+    import numpy as np
+
+    from repro_torch.core import inkpca, kernels_fn as kf, window as wnd
+
+    rng = np.random.default_rng(11)
+    M = state0.L.shape[0]
+    m = int(state0.m)
+    lmax = float(state0.L[:m].abs().max())
+    # 100 updates of norm² 0.3·λmax with alternating signs, and 100 ±σ
+    # pairs of the same size.
+    V = _unit_rows(rng, SHARD_UPDATES, m, M, (0.3 * lmax) ** 0.5)
+    S = np.where(np.arange(SHARD_UPDATES) % 2, -0.5, 1.0)
+    V1 = _unit_rows(rng, SHARD_UPDATES, m, M, (0.3 * lmax) ** 0.5)
+    V2 = _unit_rows(rng, SHARD_UPDATES, m, M, (0.3 * lmax) ** 0.5)
+    S1 = rng.uniform(0.5, 1.0, size=SHARD_UPDATES)
+    f32 = dict(dtype=torch.float32)
+    jobs = [dict(kind="update", plan={"matmul": "pallas",
+                                      "dispatch": "bucketed"},
+                 L=state0.L.cpu(), U=state0.U.cpu(),
+                 V=torch.tensor(V, **f32), S=torch.tensor(S, **f32),
+                 m=state0.m.cpu()),
+            dict(kind="pair", plan={"matmul": "pallas2",
+                                    "dispatch": "bucketed"},
+                 L=state0.L.cpu(), U=state0.U.cpu(),
+                 V1=torch.tensor(V1, **f32), S1=torch.tensor(S1, **f32),
+                 V2=torch.tensor(V2, **f32), S2=torch.tensor(-S1, **f32),
+                 m=state0.m.cpu())]
+    # Windows: full windows built by eigh of their points (unadjusted),
+    # arrival order = row order.
+    d = 16
+    spec = kf.KernelSpec(name="rbf", sigma=float(d))
+    windows = {}
+    for key, (cap, W, dtype, T, plan) in {
+            "window_f32": (1024, 1000, torch.float32, SHARD_STEPS,
+                           {"matmul": "pallas", "fuse_krow": True,
+                            "dispatch": "bucketed"}),
+            "window_f64_guarded": (256, 200, torch.float64, SHARD_GUARDED,
+                                   {"matmul": "pallas2", "fuse_krow": True,
+                                    "dispatch": "bucketed",
+                                    "health": True})}.items():
+        pts = rng.normal(size=(W, d))
+        st = inkpca.init_state(torch.tensor(pts, dtype=torch.float64,
+                                            device="cuda"), cap, spec,
+                               adjusted=False, dtype=dtype)
+        ages = torch.full((cap,), wnd.age_sentinel(), dtype=torch.int64)
+        ages[:W] = torch.arange(W)
+        xs = rng.normal(size=(T, d))
+        if plan.get("health"):
+            xs[5::10, 3] = np.nan          # every 10th point poisoned
+        windows[key] = dict(points=pts, xs=xs, W=W, plan=plan, spec=spec)
+        jobs.append(dict(kind="window", sigma=float(d), plan=plan,
+                         L=st.L.cpu(), U=st.U.cpu(), X=st.X.cpu(), ages=ages,
+                         clock=torch.tensor(W, dtype=torch.int64),
+                         xs=torch.tensor(xs, dtype=dtype), m=st.m.cpu()))
+    # A block of poison: the state bit for bit.
+    g = jobs[-1]
+    jobs.append(dict(g, xs=torch.full((3, d), float("nan"),
+                                      dtype=torch.float64)))
+    mesh = f"{p_tenant}x1"
+    jobs.append(dict(kind="decoupled", mesh=(p_tenant, 1), argv=[
+        "--mode", "kpca", "--decouple", "--mesh", mesh, "--device", "cuda",
+        "--dtype", "float32", "--tenants", str(TENANTS), "--capacity", "256",
+        "--points", "40", "--dim", "16", "--batch", "16", "--query-rate",
+        "1", "--serve-every", "4", "--serve-components", "8", "--matmul",
+        "pallas"]))
+    return jobs, {"V": V, "S": S, "V1": V1, "V2": V2, "S1": S1,
+                  "windows": windows}
+
+
+def _eigh_check(torch, L, U, K, m: int) -> dict:
+    """Top-8 of (L, U) against f64 eigh of the dense target K (m × m)."""
+    lam_ref, vec_ref = torch.linalg.eigh(K)
+    lam_ref, vec_ref = lam_ref.flip(0)[:8], vec_ref.flip(1)[:, :8]
+    order = torch.argsort(torch.where(torch.arange(L.shape[0],
+                                                   device=L.device) < m,
+                                      -L, torch.inf))[:8]
+    lam, vec = L[order].double(), U[:m, order].double()
+    rel = float(((lam - lam_ref).abs() / lam_ref.abs()).max())
+    cos = float(torch.linalg.svdvals(vec_ref.T @ vec).min())
+    return {"top8_eig_rel_err": rel, "top8_subspace_min_cos": cos}
+
+
+def sharded_checks(torch, state0, jobs, aux, outs_by_rank, single=None
+                   ) -> dict:
+    """Hold one run of ``sharded_jobs`` (each rank's outputs) to the
+    oracles: f32 updates, pairs and window against f64 eigh at the
+    service bars (the window's rows also its last W points in arrival
+    order); the f64 guarded window against the local ``Engine`` path
+    within 1e-10 of λmax (U within 1e-8), rejected points left out, a
+    poisoned block bit for bit; with ``single`` (the P = 1 run's outputs)
+    the decoupled mesh's answers against it for the same tenants."""
+    import numpy as np
+
+    from repro_torch.core import engine as eng, health as hl
+    from repro_torch.core import inkpca, kernels_fn as kf
+    from repro_torch.core import window as wnd
+
+    dev = "cuda"
+    f64 = {"dtype": torch.float64, "device": dev}
+    P = len(outs_by_rank)
+
+    def whole(j, key="U"):
+        return torch.cat([o[j][key] for o in outs_by_rank], dim=-2).to(dev)
+
+    r0 = outs_by_rank[0]
+    m = int(state0.m)
+    out = {}
+    bar_rel, bar_cos = BARS["float32"]
+    # Updates and pairs: the dense f64 target.
+    K0 = ((state0.U[:m, :m].double() * state0.L[:m].double())
+          @ state0.U[:m, :m].double().T)
+    Kup, Kpair = K0.clone(), K0.clone()
+    V = torch.tensor(aux["V"][:, :m], device=dev)
+    for v, s in zip(V, aux["S"]):
+        Kup += float(s) * torch.outer(v, v)
+    V1 = torch.tensor(aux["V1"][:, :m], device=dev)
+    V2 = torch.tensor(aux["V2"][:, :m], device=dev)
+    for v1, v2, s in zip(V1, V2, aux["S1"]):
+        Kpair += float(s) * (torch.outer(v1, v1) - torch.outer(v2, v2))
+    for j, (name, K) in enumerate((("updates", Kup), ("pairs", Kpair))):
+        out[name] = _eigh_check(torch, r0[j]["L"].to(dev), whole(j), K, m)
+    # The f32 window.
+    w = aux["windows"]["window_f32"]
+    j = 2
+    W = w["W"]
+    seq = np.concatenate([w["points"], w["xs"]])[-W:]
+    ages = r0[j]["ages"][:W]
+    X = r0[j]["X"][:W].double().numpy()
+    rows_ok = bool(np.array_equal(X[np.argsort(ages.numpy())],
+                                  seq.astype(np.float32).astype(np.float64)))
+    Xw = torch.tensor(seq, device=dev)
+    Kw = kf.gram_block(Xw, Xw, spec=w["spec"])
+    out["window_f32"] = {**_eigh_check(torch, r0[j]["L"].to(dev), whole(j),
+                                       Kw, W), "rows_in_order": rows_ok}
+    # The guarded f64 window against the local Engine path.
+    g = aux["windows"]["window_f64_guarded"]
+    j = 3
+    job = jobs[j]
+    plan = eng.UpdatePlan(matmul="pallas2", fuse_krow=True,
+                          dispatch="bucketed", window=g["W"],
+                          health=hl.DEFAULT_POLICY)
+    engine = eng.Engine(g["spec"], plan, adjusted=False)
+    st = inkpca.KPCAState(L=job["L"].to(dev), U=job["U"].to(dev),
+                          m=job["m"].to(dev), S=torch.zeros((), **f64),
+                          K1=torch.zeros(job["L"].shape[0], **f64),
+                          X=job["X"].to(dev))
+    stream = eng.make_stream(wnd.WindowState(st, job["ages"].to(dev),
+                                             job["clock"].to(dev)),
+                             health=hl.init_health(torch.float64, dev))
+    stream = engine.step_block(stream, job["xs"].to(dev), window=g["W"])
+    Lg, Ug = r0[j]["L"].to(dev), whole(j)
+    lmax = float(stream.kpca.L[:g["W"]].abs().max())
+    accepted = int(np.isfinite(g["xs"]).all(axis=1).sum())
+    out["window_f64_guarded"] = {
+        "L_err_over_lmax": float((Lg - stream.kpca.L).abs()[:g["W"]].max())
+        / lmax,
+        "U_err": float((Ug - stream.kpca.U).abs().max()),
+        "clock_advance": int(r0[j]["clock"]) - g["W"],
+        "accepted": accepted,
+        "ages_equal": bool(torch.equal(r0[j]["ages"].to(dev), stream.ages))}
+    j = 4
+    out["poisoned_block_bitwise"] = bool(
+        torch.equal(r0[j]["L"], jobs[j]["L"])
+        and torch.equal(whole(j).cpu(), jobs[j]["U"])
+        and all(torch.equal(r0[j][k], jobs[j][k])
+                for k in ("X", "ages", "clock")))
+    # The decoupled service on the mesh.
+    j = 5
+    dec = r0[j]["result"]
+    out["decoupled"] = {k: dec[k] for k in ("generations", "m_final",
+                                            "queries_served",
+                                            "tenant_sharded_queries")}
+    if single is not None:
+        # Each slice's cohort is a smaller stack than the one process's, and
+        # the stacked torch operations around the kernels (the secular
+        # solve's sums) may round otherwise at another stack size: held to
+        # the f32 service bar relative to the answers' size, bitwise
+        # reported.
+        per = TENANTS // P
+        ref = single[j]["answers"]
+        errs = [float((o[j]["answers"] - ref[:, r * per:(r + 1) * per])
+                      .abs().max()) for r, o in enumerate(outs_by_rank)]
+        out["decoupled"]["answers_max_abs_err_vs_p1"] = max(errs)
+        out["decoupled"]["answers_max_abs"] = float(ref.abs().max())
+        out["decoupled"]["answers_bitwise_vs_p1"] = all(
+            torch.equal(o[j]["answers"], ref[:, r * per:(r + 1) * per])
+            for r, o in enumerate(outs_by_rank))
+    ok = (all(out[k]["top8_eig_rel_err"] <= bar_rel
+              and out[k]["top8_subspace_min_cos"] >= bar_cos
+              for k in ("updates", "pairs", "window_f32"))
+          and rows_ok
+          and out["window_f64_guarded"]["L_err_over_lmax"] <= 1e-10
+          and out["window_f64_guarded"]["U_err"] <= 1e-8
+          and out["window_f64_guarded"]["clock_advance"] == accepted
+          and out["window_f64_guarded"]["ages_equal"]
+          and out["poisoned_block_bitwise"]
+          and dec["generations"] == 10 and dec["finite"]
+          and (single is None
+               or out["decoupled"]["answers_max_abs_err_vs_p1"]
+               <= BARS["float32"][0] * out["decoupled"]["answers_max_abs"]))
+    return out, ok
+
+
+def _shard_reckoning() -> dict:
+    """Each rank's kernel launches per job of ``sharded_jobs``."""
+    steps, guarded = SHARD_STEPS, SHARD_GUARDED
+    return [
+        # An update: one projection of the row block, one rotation.
+        {"eigvec_project": SHARD_UPDATES, "eigvec_rotate": SHARD_UPDATES},
+        # A fused pair: the two-column projection and the balancing one;
+        # one rotate2 (two rotations where the merge fired).
+        {"eigvec_project": 2 * SHARD_UPDATES, "pairs": SHARD_UPDATES},
+        # A window step (sequential): the evict's two projections and two
+        # rotations, the ingest's k-row pass, projection, two rotations.
+        {"krow_project": steps, "eigvec_project": 3 * steps,
+         "eigvec_rotate": 4 * steps},
+        # A window step (fused pairs): the evict's two projections and pair,
+        # the ingest's k-row pass, balancing projection and pair.
+        {"krow_project": guarded, "eigvec_project": 3 * guarded,
+         "pairs": 2 * guarded},
+        {"krow_project": 3, "eigvec_project": 9, "pairs": 6},
+    ]
+
+
+def _launches_ok(got: dict, want: dict) -> bool:
+    got = dict(got)
+    if "pairs" in want:
+        rot = got.get("eigvec_rotate", 0)
+        got["pairs"] = got.pop("eigvec_rotate2", 0) + rot / 2
+        got.pop("eigvec_rotate", None)
+    return got == want
+
+
+def sharded_phase(torch, cuda, state0, workdir) -> dict:
+    """The row-sharded builders at P = 1 over NCCL in this process: 100
+    sharded updates (f32 ``pallas``) and 100 sharded pairs (``pallas2``)
+    from the multi-tenant phase's state (m = 604, capacity 1024); an f32
+    ``pallas`` window block (capacity 1024, W = 1000, 100 steady steps,
+    the fused k-row ingest); an f64 ``pallas2`` guarded window block
+    (capacity 256, W = 200, 50 steps, every 10th point poisoned) and a
+    block of poison; ``serve --decouple --mesh 1x1`` (8 tenants, capacity
+    256, 40 points).  Held to ``sharded_checks``; launches to the
+    reckoning."""
+    import torch.distributed as tdist
+
+    from repro_torch.core import distributed as dist
+    from repro_torch.testing import spmd
+
+    jobs, aux = sharded_jobs(torch, state0, p_tenant=1)
+    t0 = time.perf_counter()
+    dist.init_world(rank=0, world_size=1, backend="nccl",
+                    store=tdist.FileStore(str(workdir / "store1"), 1),
+                    timeout=300)
+    try:
+        outs = spmd.run_jobs(jobs, device="cuda", timeout=300)
+    finally:       # a live NCCL group would hold the process at its exit
+        tdist.destroy_process_group()
+    seconds = time.perf_counter() - t0
+    checks, ok = sharded_checks(torch, state0, jobs, aux, [outs])
+    reckon = _shard_reckoning()
+    launches_ok = all(_launches_ok(o["launches"], want)
+                      for o, want in zip(outs, reckon))
+    row = {"phase": "sharded", "ranks": 1, "backend": "nccl",
+           "staging": outs[0]["staging"], "seconds": seconds,
+           "job_seconds": [o["seconds"] for o in outs],
+           "launches": [o["launches"] for o in outs[:5]],
+           "collectives": [o["collectives"] for o in outs],
+           "row_offsets": [o.get("row_offsets") for o in outs],
+           "launches_match_reckoning": launches_ok, **checks}
+    emit(row)
+    if not (ok and launches_ok):
+        raise AssertionError(f"sharded: {row}")
+    return {"outs": outs, "jobs": jobs, "aux": aux}
+
+
+def sharded_p2_phase(torch, cuda, state0, single: dict, workdir) -> dict:
+    """The same work as two ranks on the one card (gloo: NCCL refuses two
+    ranks on one GPU, and gloo stages CUDA tensors through host memory);
+    ``--decouple --mesh 2x1`` in place of 1x1.  The kernels were built by
+    this process; the ranks load them.  Rank 1's kernels run at row offset
+    512 (capacity 1024) and 128 (capacity 256); each rank's launches equal
+    the reckoning; the answers of each tenant slice against the P = 1
+    run's for its tenants."""
+    from repro_torch.testing import spmd
+
+    jobs, aux = sharded_jobs(torch, state0, p_tenant=2)
+    t0 = time.perf_counter()
+    ranks = spmd.launch(2, jobs, workdir=workdir, backend="gloo",
+                        device="cuda", timeout=600)
+    seconds = time.perf_counter() - t0
+    outs = [r["outs"] for r in ranks]
+    checks, ok = sharded_checks(torch, state0, jobs, aux, outs,
+                                single=single["outs"])
+    reckon = _shard_reckoning()
+    launches_ok = all(_launches_ok(o[j]["launches"], want)
+                      for o in outs for j, want in enumerate(reckon))
+    offsets = [[o[j].get("row_offsets") for j in range(5)] for o in outs]
+    offsets_ok = offsets[1][:3] == [[512]] * 3 and offsets[1][3] == [128]
+    row = {"phase": "sharded_p2", "ranks": 2, "backend": "gloo",
+           "staging": outs[0][0]["staging"], "seconds": seconds,
+           "job_seconds": [[o[j]["seconds"] for j in range(len(jobs))]
+                           for o in outs],
+           "launches_per_rank": [[o[j]["launches"] for j in range(5)]
+                                 for o in outs],
+           "collectives": [o[0]["collectives"] for o in outs],
+           "row_offsets": offsets, "reference_loaded":
+               [r["reference_loaded"] for r in ranks],
+           "launches_match_reckoning": launches_ok, **checks}
+    emit(row)
+    if not (ok and launches_ok and offsets_ok
+            and not any(r["reference_loaded"] for r in ranks)):
+        raise AssertionError(f"sharded_p2: {row}")
+    return row
 
 
 def roofline_phase(torch, cuda) -> dict:
@@ -2154,17 +2690,17 @@ def main() -> int:
 
     checked = kernel_phase(torch, checks, cuda)
     checked_b = batched_kernel_phase(torch, checks)
-    runs = {"pallas": service_phase(torch, cuda, serve, 1024, 1000,
+    runs = {"pallas": service_phase(torch, cuda, serve, 1024, 600,
                                     "float32", "pallas"),
-            "pallas2": service_phase(torch, cuda, serve, 1024, 1000,
+            "pallas2": service_phase(torch, cuda, serve, 1024, 600,
                                      "float32", "pallas2")}
     service_phase(torch, cuda, serve, 256, 200, "float64", "pallas")
     service_phase(torch, cuda, serve, 256, 200, "float64", "pallas2")
     _, nystrom_state = nystrom_phase(torch, cuda, serve, "float32")
     nystrom_phase(torch, cuda, serve, "float64")
     runs["fig2"] = fig2_phase(torch, cuda, checks)
-    window_phase(torch, cuda, serve, 1024, 1000, 1296, "float32", "pallas")
-    window_phase(torch, cuda, serve, 256, 200, 396, "float64", "pallas2")
+    window_phase(torch, cuda, serve, 1024, 600, 700, "float32", "pallas")
+    window_phase(torch, cuda, serve, 256, 200, 300, "float64", "pallas2")
     lifecycle_phase(torch, cuda, serve, "float32", 512, 256, 2000)
     lifecycle_phase(torch, cuda, serve, "float64", 256, 128, 1000,
                     ("--stop-rel-tol", "0"))
@@ -2178,10 +2714,15 @@ def main() -> int:
     restore_phase(torch, cuda)
     guarded_window_phase(torch, cuda, serve)
     guarded_nystrom_phase(torch, cuda, serve)
-    runs["multitenant"] = multitenant_phase(torch, cuda, serve)
+    runs["multitenant"], state0 = multitenant_phase(torch, cuda, serve)
     runs["multitenant_cohorts"] = multitenant_cohorts_phase(
         torch, cuda)["bucket"]
     multitenant_window_phase(torch, cuda, serve)
+    decoupled_phase(torch, cuda, serve)
+    with tempfile.TemporaryDirectory() as tmp:
+        single = sharded_phase(torch, cuda, state0, Path(tmp))
+        sharded_p2_phase(torch, cuda, state0, single, Path(tmp) / "p2")
+    del state0, single
     runs["roofline"] = roofline_phase(torch, cuda)
     runs["lm"], prefill_call = lm_phase(torch, cuda)
     timed = timing_phase(torch, checks)

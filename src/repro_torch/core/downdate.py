@@ -62,9 +62,15 @@ def permute_to_boundary(state, i: Tensor):
                           X=take_rows(state.X, order))
 
 
-def contract_rows(L: Tensor, U: Tensor, w: Tensor, m: Tensor
+def contract_rows(L: Tensor, U: Tensor, w: Tensor, m: Tensor, *,
+                  row_ids: Tensor | None = None
                   ) -> tuple[Tensor, Tensor, Tensor]:
     """Remove the decoupled eigenpair at row q = m−1.
+
+    The reflector and the permutation act on U's columns, so ``U`` may be
+    a row block: ``row_ids`` then names its rows' global indices (the
+    row-sharded downdate of ``core/distributed.py``; None is the square
+    state).
 
     ``w`` is row q of U on the active columns: a unit vector, ±e_{j*} in
     exact arithmetic.  A Householder H concentrates it into column
@@ -98,8 +104,9 @@ def contract_rows(L: Tensor, U: Tensor, w: Tensor, m: Tensor
     # Force the exact identity pair at position q.
     at_q = idx == q[..., None]
     e_q = at_q.to(dtype)
-    U = torch.where(at_q[..., None, :], e_q[..., :, None], U)
-    U = torch.where(at_q[..., :, None], e_q[..., None, :], U)
+    row_q = at_q if row_ids is None else row_ids == q[..., None]
+    U = torch.where(at_q[..., None, :], row_q.to(dtype)[..., :, None], U)
+    U = torch.where(row_q[..., :, None], e_q[..., None, :], U)
     m_new = m - 1
     L = rankone.sentinelize(L, m_new, L.new_zeros(()))
     return L, U, m_new

@@ -1369,6 +1369,21 @@ class StreamBatch:
 
         return {} if self.metrics is None else tm.metrics_report(self.metrics)
 
+    def note_skipped_publish(self) -> None:
+        """Telemetry hook of the serving loop: a publication was refused on
+        health grounds (counted on every lane: the verdict is the
+        cohort's)."""
+        if self.metrics is not None:
+            from repro_torch.core import telemetry as tm
+            self.metrics = tm.note_skipped_publish(self.metrics)
+
+    def note_drift(self, drift) -> None:
+        """Record the last probed per-tenant spectral drift as a gauge."""
+        if self.metrics is not None:
+            from repro_torch.core import telemetry as tm
+            self.metrics = tm.note_drift(self.metrics,
+                                         torch.as_tensor(np.asarray(drift)))
+
     def update(self, xs, active=None):
         """Fold xs[b] ((B, d)) into tenant b: one batched step per occupied
         bucket (one for ``cohorts="max"``), preceded under a window by one
@@ -1617,6 +1632,40 @@ class StreamBatch:
         return {"quarantined": int(self.quarantined.sum()),
                 "quarantined_per_tenant": self.quarantined.copy()}
 
+    def _parts(self) -> list:
+        """(working state, tenant ids of its first lanes) per occupied
+        group (grouped cohorts), else the cohort's, without a flush."""
+        if self._grouped and self._groups is not None:
+            return [(g["state"], g["idx"]) for g in self._groups]
+        return [(self._sub if self._sub is not None else self._full,
+                 np.arange(self.n_tenants))]
+
+    def top_spectra(self, C: int) -> Tensor:
+        """(B, C) each tenant's descending top-C active eigenvalues
+        (``health.top_spectrum``), without a flush: the drift reference a
+        serving loop freezes at a publication."""
+        from repro_torch.core import health as hl
+        from repro_torch.core.inkpca import unstack_state
+
+        out = None
+        for st, idx in self._parts():
+            lam = torch.stack([hl.top_spectrum(unstack_state(st, j), C)
+                               for j in range(len(idx))])
+            if out is None:
+                out = lam.new_zeros((self.n_tenants, C))
+            out[torch.as_tensor(idx, device=self.device)] = lam
+        return out
+
+    def stored_finite(self) -> np.ndarray:
+        """Host (B,) flags: tenant b's stored active points X[:m_b] are all
+        finite.  Where one is not, the heal ladder raises
+        ``health.HealthError`` for that tenant (``health._check_stored``):
+        a caller that must not catch decides on this predicate first."""
+        st = self.states
+        finite = torch.isfinite(st.X).all(dim=-1)
+        rows = torch.arange(st.X.shape[-2], device=self.device)
+        return (finite | (rows >= st.m[:, None])).all(dim=-1).cpu().numpy()
+
     def probe_all(self, ref_lam=None):
         """A health probe of every tenant's working state, without a flush.
         Returns host arrays ``(healthy, drift)`` of shape (B,); ``drift``
@@ -1630,14 +1679,9 @@ class StreamBatch:
         policy = self.plan.health or hl.DEFAULT_POLICY
         healthy = np.zeros(self.n_tenants, bool)
         drift = None if ref_lam is None else np.zeros(self.n_tenants)
-        if self._grouped and self._groups is not None:
-            parts = [(g["state"], g["idx"]) for g in self._groups]
-        else:
-            parts = [(self._sub if self._sub is not None else self._full,
-                      np.arange(self.n_tenants))]
         ref = None if ref_lam is None else torch.as_tensor(
             ref_lam, device=self.device)
-        for st, idx in parts:
+        for st, idx in self._parts():
             oks, drs = [], []
             for j, tenant in enumerate(idx):
                 one = unstack_state(st, j)

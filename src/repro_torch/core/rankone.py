@@ -412,8 +412,10 @@ def _solve_factor(d_sent: Tensor, z: Tensor, sigma: Tensor, m: Tensor,
 
 
 def _apply_factor(U: Tensor, f: _Factor, mask: Tensor, m: Tensor, *,
-                  matmul: str) -> Tensor:
-    """U @ Ŵn for one factor, keeping the padding invariants.
+                  matmul: str, row_offset: int | None = None) -> Tensor:
+    """U @ Ŵn for one factor, keeping the padding invariants.  ``U`` may
+    be a row block whose first row is the state's row ``row_offset`` (a
+    host int; the row-sharded update of ``core/distributed.py``).
 
     ``"pallas"``: the rotation kernel generates the factor from five O(M)
     vectors (``kernel_operands``: padded factor entries are exactly 0) and
@@ -423,7 +425,8 @@ def _apply_factor(U: Tensor, f: _Factor, mask: Tensor, m: Tensor, *,
     """
     if matmul == "pallas":
         z, d, org, inv, tau = kernel_operands(f, mask, U.dtype)
-        C = eigvec_ops.rotate_vectors(U, z, d, org, inv, m, tau=tau)
+        C = eigvec_ops.rotate_vectors(U, z, d, org, inv, m, tau=tau,
+                                      row_offset=row_offset)
         return torch.where(f.defl[..., None, :], U, C)
     Wn = cauchy_factor_ref(f.z, f.d, f.org, f.inv, f.defl.to(f.z.dtype),
                            tau=f.tau).to(dtype=U.dtype)
@@ -450,9 +453,12 @@ def kernel_operands(f: _Factor, mask: Tensor, dtype
 
 def _update_body(L: Tensor, U: Tensor, v: Tensor, sigma: Tensor, m: Tensor,
                  *, iters: int, method: str, matmul: str, precise: bool,
-                 z: Tensor | None = None) -> tuple[Tensor, Tensor]:
+                 z: Tensor | None = None, row_offset: int | None = None
+                 ) -> tuple[Tensor, Tensor]:
     """One rank-one update; ``z`` = Uᵀv may come precomputed (the fused
-    ingest kernel produces it), else it is the dense product here."""
+    ingest kernel produces it, or a row-sharded update all-reduces it),
+    else it is the dense product here.  With ``row_offset`` U is a row
+    block of the state (``_apply_factor``) and ``z`` must be given."""
     M = L.shape[-1]
     dtype = L.dtype
     mask = active_mask(M, m)
@@ -478,7 +484,8 @@ def _update_body(L: Tensor, U: Tensor, v: Tensor, sigma: Tensor, m: Tensor,
 
     f = _solve_factor(d_sent, z, sigma, m, scale, iters=iters, method=method,
                       precise=precise)
-    U_new = _apply_factor(U, f, mask, m, matmul=matmul)
+    U_new = _apply_factor(U, f, mask, m, matmul=matmul,
+                          row_offset=row_offset)
     # Deflation can locally reorder roots; the next update's interlacing
     # needs ascending order.  Stable, as jnp.argsort is, so ties among
     # deflated roots and sentinels keep their column order.
@@ -614,8 +621,9 @@ def _pair_solve(L: Tensor, z1: Tensor, sigma1: Tensor, z2_raw: Tensor,
 
 
 def _pair_rotate_block(U: Tensor, pf: _PairFactors, m: Tensor, *,
-                       matmul: str) -> Tensor:
-    """Fused double rotation (U @ W1n @ W2n)[:, perm2].
+                       matmul: str, row_offset: int | None = None) -> Tensor:
+    """Fused double rotation (U @ W1n @ W2n)[:, perm2].  ``U`` may be a
+    row block whose first row is the state's row ``row_offset``.
 
     ``"pallas"``: the ``eigvec_rotate2`` kernel generates both factors from
     their vectors (z, inv in the state's type; d, org, tau in the solve's,
@@ -629,7 +637,8 @@ def _pair_rotate_block(U: Tensor, pf: _PairFactors, m: Tensor, *,
             U, pf.z1.to(dtype), pf.d1, pf.org1, pf.inv1.to(dtype),
             pf.defl1.to(dtype), pf.cid1,
             pf.z2.to(dtype), pf.d2, pf.org2, pf.inv2.to(dtype),
-            pf.defl2.to(dtype), pf.cid2, m, tau1=pf.tau1, tau2=pf.tau2)
+            pf.defl2.to(dtype), pf.cid2, m, tau1=pf.tau1, tau2=pf.tau2,
+            row_offset=row_offset)
         C = torch.where(mask[..., None, :], C, U)
     else:
         W1 = cauchy_factor_ref(pf.z1, pf.d1, pf.org1, pf.inv1,

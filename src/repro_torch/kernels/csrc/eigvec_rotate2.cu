@@ -66,7 +66,7 @@
 // What bounds it on an H100: operations, 4 m^3 (two m x m x m products)
 // at the FP32 (or FP64) CUDA-core rate.  For a block of r live rows the
 // function needs 4 r m^2; this order does 2 m^3 + 2 r m^2, since every
-// call forms W12 again (ROADMAP, module item 10: shards of one update
+// call forms W12 again (ROADMAP §1b: the shards of one sharded update
 // should share one W12).
 //
 // ptxas reports 4 bytes of spill stores, all in factor_kernel<double>: it

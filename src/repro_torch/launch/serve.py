@@ -25,8 +25,18 @@
   each step folds a point into every tenant with each kernel launched once
   for the cohort; ``--cohorts bucket`` groups the tenants by their own
   bucket, ``bucket-padded`` pads each group to a power of two (the
-  reference's geometries).  ``--decouple`` and ``--mesh`` are accepted and
-  raise: they wait for ROADMAP.md items 6 and 10.
+  reference's geometries).
+  ``--decouple`` serves through ``IngestServeLoop``: each step first
+  answers ``--query-rate`` query batches against the last published
+  immutable snapshot, then folds a point into every tenant's working
+  state, and republishes every ``--serve-every`` steps (or, with
+  ``--publish-on-drift``, when a tenant's top spectrum drifts; the probe
+  every ``--drift-probe-every`` steps).  Under ``--health`` a publication
+  is gated on the probes: heal once, else refuse and keep serving the
+  last healthy snapshot.  ``--mesh PtxPr`` runs it over P_t·P_r ranks of
+  ``torch.distributed`` (``torchrun``): each tenant slice of P_r ranks
+  owns B/P_t tenants, ingests, publishes and answers them with no
+  collective on the query path, and rank 0 gathers the report.
 * ``--mode nystrom``: the incremental Nyström landmark service (paper §4,
   grow_rows): each point becomes an observed row and is offered as a
   landmark.  ``--landmark-policy append`` admits every offer until the
@@ -68,6 +78,12 @@ rotation), the fused kernel-row prologue and query transform
     PYTHONPATH=src python -m repro_torch.launch.serve --mode kpca \\
         --device cpu --tenants 3 --cohorts bucket --capacity 32 \\
         --points 20 --dim 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode kpca \\
+        --device cpu --decouple --tenants 4 --capacity 32 --points 20 \\
+        --dim 4 --query-rate 2 --serve-every 4 --health
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve --mode kpca \\
+        --device cpu --decouple --mesh 2x1 --tenants 4 --capacity 32 \\
+        --points 20 --dim 4
     PYTHONPATH=src python -m repro_torch.launch.serve --mode nystrom \\
         --device cpu --capacity 64 --points 80 --dim 8 --matmul pallas2
     PYTHONPATH=src python -m repro_torch.launch.serve --mode nystrom \\
@@ -108,8 +124,18 @@ def make_plan(args) -> eng.UpdatePlan:
     return eng.UpdatePlan(matmul=args.matmul, dispatch=args.dispatch,
                           window=args.window, fuse_krow=args.fuse_krow,
                           landmark_policy=args.landmark_policy,
+                          serve_every=args.serve_every,
+                          serve_components=args.serve_components,
                           health=hl.DEFAULT_POLICY if args.health else None,
                           metrics=metrics)
+
+
+def parse_mesh(text):
+    """'PtxPr' -> (P_t, P_r), e.g. '2x1'; None passes through."""
+    if not text:
+        return None
+    pt, _, pr = text.lower().partition("x")
+    return int(pt), int(pr or 1)
 
 
 def export_metrics(args, hub) -> None:
@@ -326,6 +352,383 @@ def kpca_multitenant_main(args) -> dict:
           f"{result['device']}, step p50 {result['step_ms_p50']:.3f} ms = "
           f"{result['aggregate_updates_per_s']:.0f} updates/s aggregate, "
           f"query p50 {result['query_ms_p50']:.3f} ms  {result}")
+    return result
+
+
+class IngestServeLoop:
+    """Decoupled ingest/serve over a ``StreamBatch`` (the reference's
+    loop): ingest folds points into the working state while query batches
+    read the last PUBLISHED immutable snapshot (``core/serving``).
+
+    A service step issues its queries before its ingest: they read only
+    the published snapshot, so they never wait on the update.  Every
+    ``plan.serve_every`` ingests the working state is republished (the
+    projection S and the affine fields, never the (M, M) eigenvectors) and
+    the snapshot reference is swapped on the host.  ``query_fn`` replaces
+    the query executor (``distributed.make_tenant_query`` on a tenant
+    mesh).
+
+    **Graceful degradation** (``plan.health``): each publication is gated
+    on a probe of every tenant's working state.  An unhealthy cohort gets
+    one walk down the heal ladder (``StreamBatch.heal``) — unless an
+    unhealthy tenant's stored points are corrupt, where the ladder would
+    raise ``health.HealthError`` (restore from a checkpoint belongs to
+    whoever owns it): that is decided beforehand on the state
+    (``StreamBatch.stored_finite``), as the reference decides it by
+    catching the error.  If the cohort is still unhealthy the publication
+    is refused (``skipped``) and queries keep reading the last healthy
+    snapshot.
+
+    **Staleness-aware publication** (``publish_on_drift``): republish when
+    a tenant's working top-C spectrum has drifted (relative L2) past the
+    threshold from the one frozen at the last publication; ``serve_every``
+    is then the longest staleness, and ``drift_probe_every`` rate-limits
+    the probe (``drift_probes`` counts the probes that ran).
+
+    Publish, heal and drift decisions are mirrored into a ``TelemetryHub``
+    (``hub=``, default the process hub) and, with the plan's metric lane,
+    into the cohort's ``MetricsState``.
+    """
+
+    def __init__(self, batch: eng.StreamBatch, spec: kf.KernelSpec, *,
+                 plan: eng.UpdatePlan | None = None,
+                 n_components: int | None = None, query_fn=None,
+                 publish_on_drift: float | None = None,
+                 drift_probe_every: int = 1, hub=None):
+        self.batch = batch
+        self.spec = spec
+        self.plan = plan if plan is not None else batch.plan
+        self.serve_every = max(1, int(self.plan.serve_every))
+        self.n_components = n_components
+        self._query_fn = query_fn
+        self.policy = self.plan.health
+        self.publish_on_drift = publish_on_drift
+        self.drift_probe_every = max(1, int(drift_probe_every))
+        self.hub = hub if hub is not None else obs.get_hub()
+        self.skipped = 0           # publications refused on health
+        self.heals = 0             # tenants sent down the heal ladder
+        self.drift_publishes = 0   # publications the drift triggered
+        self.drift_probes = 0      # drift probes that ran
+        self.ref_lam = None        # (B, C) top spectrum at the last publish
+        self._last_drift = 0.0     # the last probed largest drift
+        self._since_probe = 0
+        self.snaps = batch.publish(n_components)
+        self.generation = 0        # host mirror of the snapshots' generation
+        self._since = 0
+        self._record_ref()
+
+    def _record_ref(self) -> None:
+        """Freeze the published top-C spectrum as the drift reference."""
+        if self.policy is None and self.publish_on_drift is None:
+            return
+        nc = int(self.n_components if self.n_components is not None
+                 else self.plan.serve_components)
+        self.ref_lam = self.batch.top_spectra(nc)
+        self._last_drift = 0.0
+        self._since_probe = 0
+
+    def query(self, q):
+        """(B, nq, d) queries against the published snapshot; safe at any
+        point relative to ingest (snapshots are immutable)."""
+        if self._query_fn is not None:
+            return self._query_fn(self.snaps, self.batch._points(q))
+        from repro_torch.core import serving
+
+        return serving.query_batch(self.snaps, self.batch._points(q),
+                                   spec=self.spec, plan=self.plan)
+
+    def publish(self):
+        """Republish the working state and swap the snapshot.  With a
+        health policy the publication is gated on the probe verdicts (heal
+        once, then refuse: the previous snapshot keeps serving and
+        ``skipped`` counts the refusal).  Returns the current snapshot
+        either way."""
+        if self.policy is not None:
+            healthy, _ = self.batch.probe_all()
+            if not healthy.all():
+                if self.batch.stored_finite()[~healthy].all():
+                    n = self.batch.heal()
+                    self.heals += n
+                    self.hub.inc("heals_total", n)
+                healthy, _ = self.batch.probe_all()
+            if not healthy.all():
+                self.skipped += 1
+                self.hub.inc("skipped_publishes_total")
+                self.hub.emit({"event": "skipped_publish",
+                               "generation": self.generation})
+                self.batch.note_skipped_publish()
+                return self.snaps
+        self.snaps = self.batch.publish(self.n_components)
+        self.generation += 1
+        self.hub.inc("publishes_total")
+        self.hub.set_gauge("generation", self.generation)
+        self.hub.emit({"event": "publish", "generation": self.generation,
+                       "drift": self._last_drift})
+        self._since = 0
+        self._record_ref()
+        return self.snaps
+
+    def _drift_due(self) -> bool:
+        """True when a tenant's spectrum has left the published one.  The
+        probe runs every ``drift_probe_every``-th call; between probes the
+        decision rides the last probed drift (a publish resets it)."""
+        if self.publish_on_drift is None or self.ref_lam is None:
+            return False
+        self._since_probe += 1
+        if self._since_probe < self.drift_probe_every:
+            return self._last_drift > self.publish_on_drift
+        self._since_probe = 0
+        self.drift_probes += 1
+        self.hub.inc("drift_probes_total")
+        _, drift = self.batch.probe_all(ref_lam=self.ref_lam)
+        self._last_drift = float(np.max(drift))
+        self.hub.set_gauge("spectral_drift", self._last_drift)
+        self.batch.note_drift(drift)
+        return self._last_drift > self.publish_on_drift
+
+    def _publish_due(self) -> bool:
+        """The publish decision: the ``serve_every`` cadence first, else
+        the rate-limited drift trigger."""
+        cadence = self._since >= self.serve_every
+        drifted = (not cadence) and self._drift_due()
+        if drifted:
+            self.drift_publishes += 1
+            self.hub.inc("drift_publishes_total")
+        return cadence or drifted
+
+    def ingest(self, xs) -> bool:
+        """Fold one (B, d) block into the working state and republish when
+        the cadence (or the drift trigger) says so.  True iff a publication
+        happened."""
+        self.batch.update(xs)
+        self._since += 1
+        if not self._publish_due():
+            return False
+        gen0 = self.generation
+        self.publish()
+        return self.generation != gen0
+
+    def step(self, xs, queries=None):
+        """One service step: queries first (against the snapshot), then
+        ingest.  Returns (answers or None, published)."""
+        y = self.query(queries) if queries is not None else None
+        return y, self.ingest(xs)
+
+
+def decoupled_draws(args):
+    """(x0, steps): the decoupled service's numpy inputs from ``--seed``,
+    in the reference service's order — the (B, 4, d) seeds, then for each
+    step the (B, d) points and the ``--query-rate`` (B, batch, d) query
+    batches drawn after them."""
+    rng = np.random.default_rng(args.seed)
+    B, d = args.tenants, args.dim
+    x0 = rng.normal(size=(B, 4, d))
+    steps = []
+    for _ in range(args.points):
+        xs = rng.normal(size=(B, d))
+        steps.append((xs, [rng.normal(size=(B, args.batch, d))
+                           for _ in range(args.query_rate)]))
+    return x0, steps
+
+
+def _rank_device(mesh: str, device: torch.device, env, cards: int
+                 ) -> torch.device:
+    """This rank's card when ``torchrun`` starts the ranks of ``--mesh``
+    on CUDA: NCCL with one rank per card, so ``cuda`` (no index) becomes
+    ``cuda:LOCAL_RANK``.  Raises when the host runs more ranks than it has
+    visible cards, or when an index would put every rank on one card."""
+    per_host = int(env.get("LOCAL_WORLD_SIZE", env.get("WORLD_SIZE", "1")))
+    if per_host > cards:
+        raise ValueError(f"--mesh {mesh} on CUDA runs NCCL with one rank "
+                         f"per card: {per_host} ranks on this host, but "
+                         f"{cards} visible card(s)")
+    if device.index is not None:
+        if per_host > 1:
+            raise ValueError(f"--mesh {mesh}: --device {device} would put "
+                             f"all {per_host} ranks of this host on one "
+                             f"card; give --device cuda")
+        return device
+    return torch.device("cuda", int(env.get("LOCAL_RANK", "0")))
+
+
+def _tenant_mesh(args, mesh_shape, device):
+    """The tenant mesh of ``--mesh PtxPr`` and this rank's device.  Raises
+    unless the world has exactly P_t·P_r ranks.  A caller that joined the
+    world chose its backend and device; otherwise the service joins it
+    from ``torchrun``'s environment: gloo on the CPU, NCCL with one rank
+    per card on CUDA (``_rank_device``), the card bound before the
+    group is made."""
+    import os
+
+    import torch.distributed as tdist
+
+    from repro_torch.core import distributed as dist
+
+    pt, pr = mesh_shape
+    world = (tdist.get_world_size() if tdist.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", "1")))
+    if world != pt * pr:
+        raise ValueError(f"--mesh {args.mesh} needs WORLD_SIZE == P_t·P_r "
+                         f"== {pt * pr}, but WORLD_SIZE is {world}")
+    if not tdist.is_initialized():
+        if "RANK" not in os.environ:
+            raise ValueError(f"--mesh {args.mesh} runs under torchrun (or "
+                             f"in a process group its caller made)")
+        if device.type == "cuda":
+            device = _rank_device(args.mesh, device, os.environ,
+                                  torch.cuda.device_count())
+            torch.cuda.set_device(device)
+        dist.init_world(backend="nccl" if device.type == "cuda" else "gloo")
+    elif device.type == "cuda" and device.index is not None:
+        torch.cuda.set_device(device)
+    return dist.make_tenant_mesh(pt, pr, device=device), device
+
+
+def kpca_decoupled_service(args, on_step=None
+                           ) -> tuple[dict, IngestServeLoop]:
+    """``--decouple``: B tenant streams ingest into the working state while
+    ``--query-rate`` query batches a step read the published snapshot
+    (``IngestServeLoop``).  Query latencies are taken under the
+    concurrent ingest; publication is timed apart.  ``on_step(i, batch,
+    xs)``, when given, returns the (B, d) points to fold at step i (the
+    testing seam of ``kpca_multitenant_service``).
+
+    With ``--mesh PtxPr`` this rank's tenant slice serves its B/P_t
+    tenants (the draws are the whole cohort's, so tenant b sees the same
+    inputs at any mesh); the queries run ``distributed.make_tenant_query``
+    (no collective), and the report is gathered from every slice (rank 0
+    prints it).  Returns the result dict (the reference's keys) and the
+    loop."""
+    device = resolve_device(args.device)
+    dtype = DTYPES[args.dtype]
+    B, d = args.tenants, args.dim
+    spec = kf.KernelSpec(name="rbf", sigma=float(d))
+    plan = make_plan(args)
+    mesh_shape = parse_mesh(args.mesh)
+    mesh = None
+    if mesh_shape is not None:
+        mesh, device = _tenant_mesh(args, mesh_shape, device)
+    own = range(B) if mesh is None else mesh.tenants(B)
+    lo, hi = own.start, own.stop
+    x0, steps = decoupled_draws(args)
+    batch = eng.StreamBatch(torch.as_tensor(x0[lo:hi], dtype=dtype,
+                                            device=device),
+                            args.capacity, spec, plan=plan, adjusted=True,
+                            dtype=dtype, cohorts=args.cohorts,
+                            window=args.window, device=device)
+    query_fn = None
+    if mesh is not None:
+        from repro_torch.core import distributed as dist
+        query_fn = dist.make_tenant_query(mesh, spec, plan=plan)
+    gated = plan.health is not None and plan.health.quarantine
+    # One copy of the run's points and queries to the card before the loop
+    # (numpy points for the quarantine gate's host check).
+    points = (None if gated or on_step is not None else torch.as_tensor(
+        np.stack([xs[lo:hi] for xs, _ in steps]), dtype=dtype,
+        device=device))
+    queries = torch.as_tensor(np.stack([np.stack(qs)[:, lo:hi]
+                                        for _, qs in steps]),
+                              dtype=dtype, device=device)
+
+    hub = obs.fresh_hub()
+    loop = IngestServeLoop(batch, spec, plan=plan, query_fn=query_fn,
+                           publish_on_drift=args.publish_on_drift,
+                           drift_probe_every=args.drift_probe_every, hub=hub)
+    ing, qry, pub = (hub.histogram("ingest_ms"), hub.histogram("query_ms"),
+                     hub.histogram("publish_ms"))
+    n_served = 0
+    t_total = time.perf_counter()
+    for i, (xs, _) in enumerate(steps):
+        xs = xs[lo:hi]
+        if on_step is not None:
+            xs = on_step(i, batch, xs)
+        # Queries first: they read only the published snapshot.
+        for q in queries[i]:
+            with qry.timed(key=loop.generation == 0) as t:
+                t.sync(loop.query(q))
+            n_served += (hi - lo) * args.batch
+        rungs = tuple(sorted({
+            batch._tenant_bucket(int(m)) if args.dispatch == "bucketed"
+            else -1 for m in batch._m_host}))
+        with ing.timed(key=rungs) as t:
+            batch.update(xs if points is None else points[i])
+            t.sync(batch.working_states()[-1].L)   # syncs the device
+        loop._since += 1
+        if loop._publish_due():
+            with pub.timed(key=rungs) as t:
+                t.sync(loop.publish().S)
+    t_total = time.perf_counter() - t_total
+
+    sts = batch.states
+    result = {
+        "mode": "kpca-decoupled", "tenants": B,
+        "dispatch": args.dispatch, "cohorts": args.cohorts,
+        "capacity": args.capacity, "window": args.window,
+        "mesh": args.mesh, "tenant_sharded_queries": query_fn is not None,
+        "staging": None if mesh is None else mesh.rows.staging,
+        "serve_every": args.serve_every, "query_rate": args.query_rate,
+        "publish_on_drift": args.publish_on_drift,
+        "points": args.points, "m_final": [int(v) for v in sts.m.tolist()],
+        "generations": loop.generation,
+        "drift_publishes": loop.drift_publishes,
+        "drift_probes": loop.drift_probes,
+        "skipped_publishes": loop.skipped, "heals": loop.heals,
+        "quarantined": int(batch.quarantined.sum()),
+        **ing.summary("ingest_ms"), **qry.summary("query_ms"),
+        **pub.summary("publish_ms"),
+        "queries_served": n_served, "total_s": t_total,
+        "finite": bool(torch.isfinite(sts.L).all()),
+        "device": (torch.cuda.get_device_name(device)
+                   if device.type == "cuda" else "cpu"),
+        "dtype": args.dtype,
+    }
+    if batch.metrics is not None:
+        report = hub.observe_metrics_state(batch.metrics)
+        result["metrics"] = {k: (v.tolist() if hasattr(v, "tolist") else v)
+                             for k, v in report.items()}
+    if mesh is not None:
+        result = _gather_report(result, mesh)
+    export_metrics(args, hub)
+    return result, loop
+
+
+def _gather_report(local: dict, mesh) -> dict:
+    """Every rank's report, joined: the per-tenant lists concatenated over
+    the tenant slices (each slice's first rank), the counts of slice 0
+    with each slice's beside them, the latencies of this rank."""
+    import torch.distributed as tdist
+
+    parts = [None] * tdist.get_world_size()
+    tdist.all_gather_object(parts, local)
+    slices = parts[::mesh.p_rows]
+    out = dict(local)
+    out["m_final"] = [m for p in slices for m in p["m_final"]]
+    out["quarantined"] = sum(p["quarantined"] for p in slices)
+    out["queries_served"] = sum(p["queries_served"] for p in slices)
+    out["finite"] = all(p["finite"] for p in parts)
+    for key in ("generations", "skipped_publishes", "heals", "drift_probes",
+                "drift_publishes"):
+        out[f"{key}_per_slice"] = [p[key] for p in slices]
+    out["world_size"] = len(parts)
+    return out
+
+
+def kpca_decoupled_main(args) -> dict:
+    import torch.distributed as tdist
+
+    joined = tdist.is_initialized()
+    result, _ = kpca_decoupled_service(args)
+    rank = tdist.get_rank() if tdist.is_initialized() else 0
+    if tdist.is_initialized() and not joined:   # the service joined it
+        tdist.destroy_process_group()
+    if rank == 0:
+        print(f"[serve/kpca-decoupled] {args.tenants} tenants x "
+              f"{args.points} steps (publish every {args.serve_every}) on "
+              f"{result['device']}, ingest p50 "
+              f"{result['ingest_ms_p50']:.3f} ms, query p50 "
+              f"{result['query_ms_p50']:.3f} / p99 "
+              f"{result['query_ms_p99']:.3f} ms under ingest, publish p50 "
+              f"{result['publish_ms_p50']:.3f} ms  {result}")
     return result
 
 
@@ -581,11 +984,28 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "groups tenants by their own bucket; "
                          "'bucket-padded' pads each group to a power of two")
     ap.add_argument("--decouple", action="store_true",
-                    help="decoupled ingest/serve (not ported: ROADMAP.md "
-                         "item 6)")
+                    help="decoupled ingest/serve: queries read the last "
+                         "published snapshot, not the working state")
+    ap.add_argument("--query-rate", type=int, default=1,
+                    help="decoupled mode: query batches (of --batch points a "
+                         "tenant) a step, against the published snapshot")
+    ap.add_argument("--serve-every", type=int, default=1,
+                    help="decoupled mode: republish every N steps")
+    ap.add_argument("--serve-components", type=int, default=8,
+                    help="components C frozen into published snapshots")
+    ap.add_argument("--drift-probe-every", type=int, default=4, metavar="K",
+                    help="decoupled mode: run the spectral-drift probe every "
+                         "K-th step that does not publish")
+    ap.add_argument("--publish-on-drift", type=float, default=None,
+                    metavar="THRESH",
+                    help="decoupled mode: republish when a tenant's top-C "
+                         "spectrum drifts (relative L2) past THRESH from the "
+                         "last published one; --serve-every is then the "
+                         "longest staleness")
     ap.add_argument("--mesh", default=None, metavar="PtxPr",
-                    help="tenant x data mesh of the decoupled queries (not "
-                         "ported: ROADMAP.md item 10)")
+                    help="decoupled mode: a (tenant, data) mesh of P_t x P_r "
+                         "torch.distributed ranks (torchrun); each tenant "
+                         "slice serves B/P_t tenants")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
     ap.add_argument("--dtype", choices=tuple(DTYPES), default="float32")
@@ -598,14 +1018,9 @@ def main(argv=None) -> dict:
         return lm_main(configs.get_config(args.arch, smoke=args.smoke),
                        batch=args.batch, prompt_len=args.prompt_len,
                        gen=args.gen, seed=args.seed, device=args.device)
-    if args.decouple:
-        raise NotImplementedError(
-            "serve --decouple (IngestServeLoop) is not ported yet: "
-            "ROADMAP.md item 6")
-    if args.mesh is not None:
-        raise NotImplementedError(
-            "serve --mesh (the tenant mesh) is not ported yet: ROADMAP.md "
-            "item 10")
+    if args.mesh is not None and not args.decouple:
+        raise ValueError("--mesh shards the decoupled service: pass "
+                         "--decouple")
     server = None
     if args.metrics_port is not None:
         # Started before the service, so the run is scrapeable live; the
@@ -617,6 +1032,8 @@ def main(argv=None) -> dict:
     try:
         if args.mode == "nystrom":
             return nystrom_main(args)
+        if args.decouple:
+            return kpca_decoupled_main(args)
         if args.tenants > 1:
             return kpca_multitenant_main(args)
         return kpca_main(args)

@@ -667,3 +667,117 @@ def test_cohort_on_cuda_matches_cpu(device, matmul, cohorts):
         m = int(cpu.m[i])
         np.testing.assert_allclose(gpu.L[i, :m].cpu().numpy(),
                                    cpu.L[i, :m].numpy(), atol=1e-6 * scale)
+
+
+@pytest.fixture
+def nccl_world(device, tmp_path):
+    """A one-rank NCCL world in this process, destroyed after the test."""
+    import torch.distributed as tdist
+
+    from repro_torch.core import distributed as dist
+
+    dist.init_world(rank=0, world_size=1, backend="nccl",
+                    store=tdist.FileStore(str(tmp_path / "store"), 1),
+                    timeout=120)
+    yield dist.row_group(device=device)
+    tdist.destroy_process_group()
+
+
+@pytest.mark.parametrize("matmul", ["pallas", "pallas2"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_sharded_update_and_pair_at_p1_over_nccl(nccl_world, device, matmul,
+                                                 dtype):
+    """``make_sharded_update`` and ``make_sharded_update_pair`` at P = 1
+    over NCCL (each update one all-reduce, each pair two) against the
+    local path on the card: the same kernels on the same operands, so
+    equal up to the order the all-reduce adds in (here none)."""
+    from repro_torch.core import distributed as dist
+
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(5)
+    M, m = 256, 200
+    spec = kf.KernelSpec(name="rbf", sigma=16.0)
+    st = inkpca.init_state(torch.tensor(rng.normal(size=(m, 16)),
+                                        device=device), M, spec,
+                           adjusted=False, dtype=dt)
+    plan = engine.UpdatePlan(matmul=matmul, dispatch="bucketed")
+    V = torch.zeros(3, M, dtype=dt, device=device)
+    V[:, :m] = torch.tensor(rng.normal(size=(3, m)), dtype=dt)
+    upd = dist.make_sharded_update(nccl_world, plan=plan)
+    pair = dist.make_sharded_update_pair(nccl_world, plan=plan)
+    c0 = nccl_world.collectives
+    Ls, Us = upd(st.L, st.U, V[0], 0.7, st.m)
+    Ls, Us = pair(Ls, Us, V[1], 0.9, V[2], -0.9, st.m)
+    assert nccl_world.collectives - c0 == 3
+    Ll, Ul = engine.rank_one(st.L, st.U, V[0], 0.7, st.m,
+                             plan=plan._replace(matmul="pallas"))
+    Ll, Ul = engine.apply_pair(Ll, Ul, V[1], torch.tensor(0.9, dtype=dt,
+                                                          device=device),
+                               V[2], torch.tensor(-0.9, dtype=dt,
+                                                  device=device),
+                               st.m, plan=plan)
+    tol = 1e-10 if dtype == "float64" else 1e-4
+    scale = float(Ll[:m].abs().max())
+    assert float((Ls - Ll)[:m].abs().max()) <= tol * scale
+    assert float((Us - Ul).abs().max()) <= (1e-8 if dtype == "float64"
+                                            else 1e-3)
+
+
+def test_decoupled_answers_are_query_batch_on_the_published_snapshot(device):
+    """``serve --decouple`` on the card (f32 ``pallas``, 4 tenants,
+    capacity 256): every answer equals ``serving.query_batch`` on the
+    snapshot it read, bit for bit, and the generations advance on the
+    cadence."""
+    from repro_torch.core import serving
+    from repro_torch.launch import serve
+
+    log = []
+    orig = serve.IngestServeLoop.query
+
+    def query(self, q):
+        y = orig(self, q)
+        log.append((self.snaps, q, y))
+        return y
+
+    serve.IngestServeLoop.query = query
+    try:
+        result, loop = serve.kpca_decoupled_service(serve.parse_args([
+            "--mode", "kpca", "--decouple", "--tenants", "4", "--capacity",
+            "256", "--points", "40", "--dim", "16", "--batch", "32",
+            "--query-rate", "2", "--serve-every", "4", "--health"]))
+    finally:
+        serve.IngestServeLoop.query = orig
+    assert result["generations"] == 10 and result["finite"]
+    assert len(log) == 80
+    assert len({int(s.generation[0]) for s, _, _ in log}) == 10
+    for s, q, y in log:
+        assert y.is_cuda
+        assert torch.equal(y, serving.query_batch(s, q, spec=loop.spec,
+                                                  plan=loop.plan))
+
+
+def test_decoupled_mesh_under_torchrun_takes_a_card_over_nccl(device):
+    """``torchrun --nproc-per-node 1 ... --decouple --mesh 1x1`` with the
+    device left at ``cuda``: the rank binds ``cuda:LOCAL_RANK``, joins the
+    world over NCCL (one rank per card) and serves; the kernels are the
+    ones this process built."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    cuda.build()
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = {**os.environ,
+           "PYTHONPATH": src + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "1", "-m", "repro_torch.launch.serve",
+         "--mode", "kpca", "--decouple", "--mesh", "1x1", "--tenants", "2",
+         "--capacity", "64", "--points", "12", "--dim", "8", "--batch", "8",
+         "--serve-every", "4"],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stdout[-3000:] + run.stderr[-3000:]
+    assert "'staging': 'device (nccl)'" in run.stdout, run.stdout[-3000:]
+    assert "'generations': 3" in run.stdout
+    assert "'finite': True" in run.stdout
