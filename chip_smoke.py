@@ -17,7 +17,8 @@ Phases, each printing one JSON line per row:
    the Fig. 2 data's full 4096 x 4096 gram, d = 10, in f64 and the ragged
    1000 x 300, d = 16 and 130 x 129, d = 3 in f32; ``flash_attention``
    at the LM prefill's B = 1, T = 4096, 64 q heads over 8 kv heads,
-   hd = 128 in bf16, at T = 1000 (not a multiple of the tile) and at
+   hd = 128 in bf16, at DBRX's 48 over 8 (a group of 6), at T = 1000
+   (not a multiple of the tile) and at
    B = 2, T = 2048, 16 / 4 heads, hd = 64 in bf16, and at a small f32
    shape; ``ssd_intra_chunk`` at the prefill's 16 chunks of
    256, N = 128, 256 heads of 64 with bf16 x and f32 cum, and at a small
@@ -150,7 +151,7 @@ Phases, each printing one JSON line per row:
    each kernel launched once a step for the cohort (the single stream's
    reckoning), synchronizing calls inside a step only at bucket
    crossings, every tenant's top-8 against f64 eigh (the f32 bars); then
-   the same stream at B = 1 and B = 8 for 40 steps at the top bucket:
+   the same stream at B = 1 and B = 8 for 10 steps at the top bucket:
    kernel launches per step equal, device launches within 10 %, no
    synchronizing call, aggregate updates/s of both.
    ``multitenant_cohorts``: f64 ``pallas2``, capacity 256, B = 6, the
@@ -193,32 +194,52 @@ Phases, each printing one JSON line per row:
    (16 components).  It is ``rbf_gram``'s path: the kernels' launches
    are counted around it and held to ``roofline.launch_reckoning`` (one
    a call; C = 64 is one ``transform_project`` launch).
-14. ``lm``      — the LM zoo's serving path at the full width of
-   Jamba-1.5-Large, one period (8 layers: 7 mamba + 1 attention), without
-   experts (every layer its dense FFN: 8.9 B parameters, 16.6 GiB bf16),
-   parameters drawn on the card from seed 0.  ``make_prefill_step`` at
-   B = 1, T = 4096: 3 warm-up and 10 timed calls (host clock around
-   synchronised calls: p50, p99, tokens/s, peak memory), launches held to
-   the reckoning (1 ``flash_attention`` and 7 ``ssd_intra_chunk`` per
-   forward); then the forward over a 256-token prompt against
-   ``decode_step`` teacher-forced over the same tokens (no kernel
-   launch), logits finite and within ``LM_BAR``; then ``lm_main`` as
-   ``serve --mode lm`` runs it (batch 4, prompt 16, gen 32): decode
-   tokens/s, tokens in the vocabulary, finite logits, no kernel launch.
-15. ``timing`` — at the kernel phase's shapes, each kernel's device time
-   (profiler records; where the profiler records nothing, CUDA events
-   around calls queued behind a spin kernel) beside the plain version's,
-   one library call's and its bound, and each call's event-timed time,
-   host work included, at every shape of the kernel phase but the KPCA
-   kernels' m = 300 rows (checked there, not timed); each batched
-   kernel's beside the 8 single launches' (``singles_ms``).  It runs after the services so that the profiler is
+14. ``lm_moe`` — DBRX-132B at its full widths (d_model 6144, 48 q / 8 kv
+   heads of 128, 16 experts top-4 of width 10752, vocab 100352), cut to 4
+   of its 40 layers (14.3 B parameters, 26.6 GiB bf16 drawn on the card):
+   the prefill at B = 1, T = 4096 (3 warm-up and 10 timed calls, one
+   ``flash_attention`` launch a layer), the routing of one such prefill
+   (dropped share, tokens per expert), prefill against teacher-forced
+   decode over 256 tokens from caches built at 256 (so decode's capacity
+   is the prefill's) with both runs' routes recorded (``recorded_routes``
+   wraps the router and the slot positions for the duration): the share
+   of (token, layer, k) choices that agree, overall and up to each
+   position's first differing layer (the latter at least
+   ``ROUTE_AGREEMENT``), the positions routed otherwise counted, the
+   others' logits within ``LM_MOE_BAR``; then ``lm_main`` as ``serve
+   --mode lm`` runs it (batch 4, prompt 16, gen 32).  ``lm_xlstm``:
+   xLSTM-125m whole (10 mLSTM + 2 sLSTM layers, bf16; no kernel, every
+   launch count 0): the prefill (1 + 3 calls), prefill against decode
+   reported beside ``LM_XLSTM_BAR``, each block kind's parallel form
+   against its recurrence within ``LM_XLSTM_BLOCK_BAR``, ``serve --mode
+   lm``.  ``lm``: the same path at the full width of Jamba-1.5-Large, one
+   period (8 layers: 7 mamba + 1 attention) with ``moe=None`` (every layer
+   its dense FFN: 8.9 B parameters, 16.6 GiB bf16; its experts would make
+   84 GiB): prefill timed, launches held to the reckoning (1
+   ``flash_attention`` and 7 ``ssd_intra_chunk`` per forward), the forward
+   over a 256-token prompt against ``decode_step`` teacher-forced over
+   the same tokens (no kernel launch), logits finite and within
+   ``LM_BAR``, ``serve --mode lm``.
+15. ``timing`` — at the kernel phase's shapes that PERF.md's kernel
+   table reads (``timed_row``: each kernel's main-path shape in both
+   types and the table's variants; the others are checked, not timed),
+   each kernel's device time (profiler records over 25 calls; where the
+   profiler records nothing, CUDA events around calls queued behind a
+   spin kernel) beside the plain version's (5 calls), one library call's
+   and its bound, and each call's event-timed time, host work included;
+   each batched kernel's beside the 8 single launches' (``singles_ms``,
+   10 calls each).  It runs after the services so that the profiler is
    never attached to one.
 16. ``lm_profile`` — one prefill of the ``lm`` phase under the profiler:
    device time by kernel group (the two LM kernels, cuBLAS's matmuls, the
    rest) and the idle share.  It runs last: on one H100 host the
    profiler recorded no device activity after a prefill had been profiled.
 
-Then the card's name and power limit, the kernels' summary line (rows 1-5
+Each of the previously unsplit phases (build, kernels, the batched
+kernels, roofline, timing, batched timing, lm_profile) closes with a
+``total_s``; ``main`` clocks every phase whole and prints the ``wall``
+row (seconds by phase and in all).  Then the card's name and power
+limit, the kernels' summary line (rows 1-5
 with a ``batched`` entry: the B = 8 launch's time, its singles' time, its
 launches on the multi-tenant paths), and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -226,6 +247,7 @@ script exits non-zero; without a CUDA device it exits 1 at once.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
@@ -275,6 +297,7 @@ FIG2_REL = 1e-8          # approximation_error's trace vs trace_error
 # the prefill's shape first (its row is the kernel's main-path row), then
 # the others.
 FLASH_SHAPES = (((1, 4096, 64, 8, 128), "bfloat16"),
+                ((1, 4096, 48, 8, 128), "bfloat16"),     # DBRX's prefill
                 ((1, 1000, 8, 2, 128), "bfloat16"),
                 ((2, 2048, 16, 4, 64), "bfloat16"),
                 ((2, 256, 4, 2, 64), "float32"))
@@ -303,6 +326,31 @@ TF32_ERR_RATIO = 2.0
 # 2u·sqrt(R) = 0.144 of the logits' largest magnitude, for the last
 # position and for the worst position alike.
 LM_BAR = 2 * 2.0 ** -8 * (10 * 8 + 2 + LM_DECODE_T) ** 0.5
+# DBRX cut to 4 of its 40 layers (every width as published).  Its bar is
+# LM_BAR's reckoning for 4 layers: 2u·sqrt(10·4 + 2 + 256) = 0.135.  It
+# holds on the positions whose routes agree in every layer: a near tie in
+# the bf16-rounded router input can send one position to another expert,
+# which moves its logits far past rounding; those positions are counted,
+# and at least ROUTE_AGREEMENT of the (token, layer, k) choices must agree
+# up to each position's first differing layer (a position routed
+# elsewhere in layer l carries another hidden state into every later
+# layer; the share over all choices is reported beside it).
+LM_MOE_LAYERS = 4
+LM_MOE_BAR = 2 * 2.0 ** -8 * (10 * LM_MOE_LAYERS + 2 + LM_DECODE_T) ** 0.5
+ROUTE_AGREEMENT = 0.99
+# xLSTM-125m whole.  LM_BAR's reckoning for its 12 layers (0.152) assumes
+# independent roundings; the xLSTM's recurrences carry each rounding on
+# through every later layer and token, in the reference as in the port, so
+# the whole model's prefill-against-decode gap in bf16 is reported beside
+# it, not held to it.  What is held: each block kind at full width, its
+# parallel form against its recurrence over the same LM_DECODE_T inputs,
+# each position's relative error within 2u·sqrt(10 + LM_DECODE_T) = 0.127
+# (~10 roundings in the block and one of the state a step).  The prefill
+# is 1 warm-up and 3 timed calls: its two sLSTM layers step through the
+# 4096 tokens one at a time.
+LM_XLSTM_BAR = 2 * 2.0 ** -8 * (10 * 12 + 2 + LM_DECODE_T) ** 0.5
+LM_XLSTM_BLOCK_BAR = 2 * 2.0 ** -8 * (10 + LM_DECODE_T) ** 0.5
+LM_XLSTM_CALLS = (1, 3)
 # Device records of a prefill by what launched them (lower-case substrings
 # of the kernel names; cuBLAS's GEMMs run as nvjet, sm90 xmma or cutlass
 # kernels).
@@ -314,6 +362,33 @@ LM_GROUPS = (("flash_attention", ("flash_attention_kernel",)),
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+class PhaseClock:
+    """Each phase's wall seconds as ``main`` runs it, all of its work
+    included (a phase's own ``seconds`` or ``total_s`` may cover only its
+    timed part), and the seconds since the clock started."""
+
+    def __init__(self):
+        self.start = time.perf_counter()
+        self.seconds: dict[str, float] = {}
+
+    def __call__(self, name: str, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        self.seconds[name] = time.perf_counter() - t0
+        return out
+
+    def emit(self) -> None:
+        emit({"phase": "wall", "seconds_by_phase": self.seconds,
+              "phases_s": sum(self.seconds.values()),
+              "total_s": time.perf_counter() - self.start})
+
+
+def emit_total(phase: str, t0: float, rows: int) -> None:
+    """A phase's closing row: its row count and seconds since ``t0``."""
+    emit({"phase": phase, "rows": rows,
+          "total_s": time.perf_counter() - t0})
 
 
 def ptxas_summary(reports: dict) -> dict:
@@ -339,6 +414,7 @@ def kernel_phase(torch, checks, cuda) -> dict:
     bound; returns the rows by (kernel name, dtype, m, variant).
     ``launches`` counts this phase's launches of the kernel; the service's
     counts start from zero after it."""
+    t0 = time.perf_counter()
     rows = {}
     for dtype, n, m, case in all_cases(torch, checks):
         before = cuda.LAUNCHES[case.name]
@@ -368,6 +444,7 @@ def kernel_phase(torch, checks, cuda) -> dict:
             raise AssertionError(f"{case.name} {case.variant} "
                                  f"{row['dtype']} m={m}: two runs differ")
         rows[case.name, row["dtype"], m, case.variant] = row
+    emit_total("kernels", t0, len(rows))
     return rows
 
 
@@ -405,10 +482,46 @@ def all_cases(torch, checks):
                                                            dtype, "cuda")
 
 
+# The rows of the kernel phase that PERF.md's kernel table reads, and so
+# the timing phase times: each kernel's main-path shape in both types,
+# eigvec_rotate2's f32 row block, transform_project at C = 1 and as the
+# Nyström feature head, scaled_gram at width 512, rbf_gram at 1024² and
+# Fig. 2's 4096², the LM kernels at the prefills' shapes (Jamba's and
+# DBRX's attention).  The kernel phase checks every row.
+TIMED_VARIANTS = {"": None, "C 1": None, "C 512, features": None,
+                  "rows 256:768": ("eigvec_rotate2", "float32")}
+
+
+# Profiled calls a timing row: 25 of a kernel (checks.device_ms's
+# default), 10 of a batched launch and of its 8 singles, 5 of a plain
+# version (the slowest calls, and the profiler's costliest events).
+BATCHED_REPS, PLAIN_REPS = 10, 5
+
+
+def timed_row(name: str, variant: str, n: int, m: int, dtype) -> bool:
+    if variant not in TIMED_VARIANTS:
+        return False
+    only = TIMED_VARIANTS[variant]
+    dtype_name = str(dtype).removeprefix("torch.")
+    if only is not None and only != (name, dtype_name):
+        return False
+    if name in ("eigvec_rotate", "eigvec_rotate2", "eigvec_project",
+                "krow_project", "transform_project"):
+        return n != MAIN_N or m == MAIN_M
+    if name == "scaled_gram":
+        return m == GRAM_K[0]
+    if name == "rbf_gram":
+        return (n, m) in ((1024, 1024), (GRAM_N, GRAM_N))
+    if name == "flash_attention":
+        return (m, dtype_name) in ((shape[2], dt) for shape, dt
+                                   in FLASH_SHAPES[:2])
+    return (m, dtype_name) == (SSD_SHAPES[0][0][3], SSD_SHAPES[0][1])
+
+
 def timing_phase(torch, checks) -> dict:
     """Each kernel's time beside its plain version's, one library call's
-    and its bound, at the kernel phase's shapes but the KPCA kernels'
-    m = 300 rows.  Runs after the
+    and its bound, at the kernel phase's shapes that the kernel table
+    reads (``timed_row``).  Runs after the
     service, so the profiler (CUPTI) is never attached while the main path
     is timed.  ``ms`` and ``plain_ms`` are device time per call (the
     profiler's CUDA activity records, or ``checks.queued_ms`` where the
@@ -418,12 +531,15 @@ def timing_phase(torch, checks) -> dict:
     them passes ``device_ms``'s check (the f64 two-product call once read
     half its queued time, one launch a call).  The ``*call_ms`` twins time
     whole calls between CUDA events, the wrapper's host work included."""
+    t_phase = time.perf_counter()
     rows = {}
     for dtype, n, m, case in all_cases(torch, checks):
-        if n == MAIN_N and m == 300:      # no table reads these shapes
+        if not timed_row(case.name, case.variant, n, m, dtype):
             continue
+        t0 = time.perf_counter()
         ms, per_call = checks.device_ms(case.kernel)
-        plain_ms, plain_per_call = checks.device_ms(case.plain)
+        plain_ms, plain_per_call = checks.device_ms(case.plain,
+                                                    reps=PLAIN_REPS)
         bound_ms, bound_by = case.bound(dtype)
         row = {"phase": "timing", "name": case.name,
                "variant": case.variant,
@@ -439,9 +555,11 @@ def timing_phase(torch, checks) -> dict:
                               if case.library else None),
                "library_call_ms": (checks.call_ms(case.library)
                                    if case.library else None),
-               "bound_ms": bound_ms, "bound_by": bound_by}
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "seconds": time.perf_counter() - t0}
         emit(row)
         rows[case.name, row["dtype"], m, case.variant] = row
+    emit_total("timing", t_phase, len(rows))
     return rows
 
 
@@ -1641,6 +1759,7 @@ def batched_kernel_phase(torch, checks) -> dict:
     tenant bit for bit equal to the single launch on its operands, two
     runs bit for bit, f32 ``eigvec_rotate`` within ``TF32_ERR_RATIO`` of
     the plain f32 error against f64."""
+    t0 = time.perf_counter()
     rows = {}
     for dtype in (torch.float32, torch.float64):
         for case in checks.batched_cases(MAIN_N, TENANT_MS, dtype, "cuda"):
@@ -1659,6 +1778,7 @@ def batched_kernel_phase(torch, checks) -> dict:
                     and row.get("err_ratio", 0.0) <= TF32_ERR_RATIO):
                 raise AssertionError(f"batched {case.name}: {row}")
             rows[case.name, row["dtype"]] = row
+    emit_total("kernels_batched", t0, len(rows))
     return rows
 
 
@@ -1667,11 +1787,14 @@ def batched_timing_phase(torch, checks) -> dict:
     (the loop it replaces), its plain version's, the library's batched
     call's (``checks.queued_ms``, as in ``timing_phase``) and its bound,
     at the batched kernel phase's shapes."""
+    t_phase = time.perf_counter()
     rows = {}
     for dtype in (torch.float32, torch.float64):
         for case in checks.batched_cases(MAIN_N, TENANT_MS, dtype, "cuda"):
-            ms, per_call = checks.device_ms(case.kernel)
-            singles_ms, singles_per_call = checks.device_ms(case.loop)
+            t0 = time.perf_counter()
+            ms, per_call = checks.device_ms(case.kernel, reps=BATCHED_REPS)
+            singles_ms, singles_per_call = checks.device_ms(
+                case.loop, reps=BATCHED_REPS)
             bound_ms, bound_by = case.bound(dtype)
             row = {"phase": "timing", "name": case.name,
                    "variant": case.variant,
@@ -1684,12 +1807,15 @@ def batched_timing_phase(torch, checks) -> dict:
                    "singles_device_launches": singles_per_call,
                    "call_ms": checks.call_ms(case.kernel),
                    "singles_call_ms": checks.call_ms(case.loop),
-                   "plain_ms": checks.device_ms(case.plain)[0],
+                   "plain_ms": checks.device_ms(case.plain,
+                                                reps=PLAIN_REPS)[0],
                    "library_ms": (checks.queued_ms(case.library)
                                   if case.library else None),
-                   "bound_ms": bound_ms, "bound_by": bound_by}
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "seconds": time.perf_counter() - t0}
             emit(row)
             rows[case.name, row["dtype"]] = row
+    emit_total("timing_batched", t_phase, len(rows))
     return rows
 
 
@@ -1744,7 +1870,7 @@ def _cohort_steps(torch, cuda, batch, xs) -> dict:
 
 
 def multitenant_phase(torch, cuda, serve, points: int = 600,
-                      reckon_steps: int = 40) -> dict:
+                      reckon_steps: int = 10) -> dict:
     """``serve --mode kpca --tenants 8 --cohorts max`` (f32 ``pallas``, the
     fused prologue, bucketed, capacity 1024, d = 16, 4 + ``points``
     points a tenant, 64 queries x 8 components every 16 points): each
@@ -2513,6 +2639,7 @@ def roofline_phase(torch, cuda) -> dict:
     ``transform_project`` launch)."""
     from repro_torch.launch import roofline
 
+    t0 = time.perf_counter()
     cuda.reset_launches()
     res = roofline.main(out=None)
     torch.cuda.synchronize()
@@ -2525,45 +2652,45 @@ def roofline_phase(torch, cuda) -> dict:
         emit({"phase": "roofline", **r})
     row = {"phase": "roofline", "device": res["device"],
            "peak_gbps": res["peak_gbps"], "triad_bytes": res["triad_bytes"],
-           "fused": res["fused"], "launches": launches}
+           "fused": res["fused"], "launches": launches,
+           "total_s": time.perf_counter() - t0}
     emit(row)
     return row
 
 
-def lm_phase(torch, cuda) -> tuple[dict, Callable[[], object]]:
-    """The LM serving path at Jamba-1.5-Large's full width (one period, no
-    experts, bf16): the prefill step timed with its launches reckoned, the
-    prefill held against teacher-forced decode, and ``serve --mode lm``.
-    Returns the row and one prefill call on the same parameters, for
-    ``lm_profile_phase``."""
-    import dataclasses
-
-    import numpy as np
-
-    from repro_torch.configs import get_config
-    from repro_torch.data.synthetic import TokenStream
-    from repro_torch.launch import serve, steps
+def _lm_params(torch, cfg):
+    """The model drawn from seed 0 on the card: (model, weight bytes,
+    seconds to draw them)."""
     from repro_torch.models import lm
-    from repro_torch.models.config import param_count
 
-    cfg = dataclasses.replace(get_config("jamba_1_5_large_398b"),
-                              n_layers=8)
-    t_phase = time.perf_counter()
     t0 = time.perf_counter()
     params = lm.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
     weights = sum(p.numel() * p.element_size() for p in params.parameters())
+    return params, weights, time.perf_counter() - t0
+
+
+def _prefill_timing(torch, cuda, cfg, params, warmup: int,
+                    timed: int) -> tuple[dict, object, Callable]:
+    """``make_prefill_step`` at B = 1, T = ``LM_T``: ``warmup`` + ``timed``
+    calls (host clock around synchronised calls), the kernels' launches
+    held to the reckoning (one ``flash_attention`` an attention layer, one
+    ``ssd_intra_chunk`` a Mamba layer), finite logits of the right shape,
+    peak memory.  Returns (row entries, the tokens, the prefill step)."""
+    import numpy as np
+
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.launch import steps
+
     kinds = [cfg.block_kind(i) for i in range(cfg.n_layers)]
     per_forward = {"flash_attention": kinds.count("attn"),
                    "ssd_intra_chunk": kinds.count("mamba")}
-
-    # 1. The prefill step, B = 1, T = 4096.
     prefill = steps.make_prefill_step(cfg)
     tokens = TokenStream(vocab=cfg.vocab, seq_len=LM_T, global_batch=1,
                          seed=0).batch_at(0, "cuda")["tokens"]
     torch.cuda.reset_peak_memory_stats()
-    calls = LM_WARMUP + LM_TIMED
+    resident = torch.cuda.memory_allocated()
+    calls = warmup + timed
     times = []
     cuda.reset_launches()
     for i in range(calls):
@@ -2571,78 +2698,347 @@ def lm_phase(torch, cuda) -> tuple[dict, Callable[[], object]]:
         t0 = time.perf_counter()
         logits = prefill(params, {"tokens": tokens})
         torch.cuda.synchronize()
-        if i >= LM_WARMUP:
+        if i >= warmup:
             times.append((time.perf_counter() - t0) * 1e3)
     launches = dict(cuda.LAUNCHES)
     expect = {name: calls * per_forward.get(name, 0) for name in launches}
     if launches != expect:
-        raise AssertionError(f"lm prefill launches {launches} != {expect} "
-                             f"({calls} forwards of {per_forward})")
+        raise AssertionError(f"{cfg.name} prefill launches {launches} != "
+                             f"{expect} ({calls} forwards of "
+                             f"{per_forward})")
     if (tuple(logits.shape) != (1, LM_T, cfg.vocab)
             or not torch.isfinite(logits).all()):
-        raise AssertionError(f"lm prefill logits {tuple(logits.shape)} "
-                             f"or not finite")
-    peak = torch.cuda.max_memory_allocated()
+        raise AssertionError(f"{cfg.name} prefill logits "
+                             f"{tuple(logits.shape)} or not finite")
     del logits
     p50 = float(np.percentile(times, 50))
+    return ({"prefill_B": 1, "prefill_T": LM_T, "prefill_calls": calls,
+             "prefill_ms_p50": p50,
+             "prefill_ms_p99": float(np.percentile(times, 99)),
+             "prefill_ms": times, "prefill_tokens_per_s": LM_T / p50 * 1e3,
+             "max_memory_allocated_gib":
+                 torch.cuda.max_memory_allocated() / 2 ** 30,
+             "resident_before_gib": resident / 2 ** 30,
+             "launches": launches, "launches_per_forward": per_forward},
+            tokens, prefill)
 
-    # 2. Prefill against teacher-forced decode over a 256-token prompt.
-    prompt = tokens[:, :LM_DECODE_T]
-    full = lm.forward(params, cfg, prompt).float()
+
+def _decode_logits(torch, cuda, cfg, params, prompt):
+    """Float32 logits of ``decode_step`` teacher-forced over ``prompt``
+    (1, T) from caches built at T positions, and its kernel launches."""
+    from repro_torch.models import lm
+
+    T = prompt.shape[1]
     cuda.reset_launches()
-    caches = lm.init_caches(params, cfg, 1, LM_DECODE_T)
+    caches = lm.init_caches(params, cfg, 1, T)
     dec = []
-    for t in range(LM_DECODE_T):
+    for t in range(T):
         lg, caches = lm.decode_step(params, cfg, caches, prompt[:, t:t + 1],
-                                    torch.full((1, 1), t, device="cuda"))
+                                    torch.full((1, 1), t,
+                                               device=prompt.device))
         dec.append(lg.float())
-    dec = torch.cat(dec, dim=1)
     torch.cuda.synchronize()
-    dec_launches = sum(cuda.LAUNCHES.values())
+    return torch.cat(dec, dim=1), sum(cuda.LAUNCHES.values())
+
+
+def _prefill_and_decode(torch, cuda, cfg, params, prompt):
+    """Float32 logits of the forward over ``prompt`` and of the
+    teacher-forced decode (``_decode_logits``), and the decode's kernel
+    launches."""
+    from repro_torch.models import lm
+
+    full = lm.forward(params, cfg, prompt).float()
+    return (full, *_decode_logits(torch, cuda, cfg, params, prompt))
+
+
+def _logit_check(torch, full, dec, launches: int, bar: float,
+                 held=None, gate: bool = True) -> dict:
+    """Prefill against decode logits, each position's largest difference
+    over the prefill's largest |logit|; the worst over the positions
+    ``held`` (a (T,) bool mask; all by default) must be within ``bar``
+    (where ``gate``), as must the last position where it is held; finite
+    logits and no kernel launch in decode."""
     scale = float(full.abs().max())
     diff = (full - dec).abs()
-    last_rel = float(diff[:, -1].max()) / scale
-    max_rel = float(diff.max()) / scale
-    mean_rel = float(diff.mean()) / scale
-    argmax_agree = float((full.argmax(-1) == dec.argmax(-1)).float().mean())
-    finite = bool(torch.isfinite(full).all() and torch.isfinite(dec).all())
-    del full, dec, diff, caches
-    if not (finite and dec_launches == 0 and last_rel <= LM_BAR
-            and max_rel <= LM_BAR):
-        raise AssertionError(f"lm prefill vs decode: last position "
-                             f"{last_rel:.3e}, worst position {max_rel:.3e} "
-                             f"of max |logit| {scale!r} (bar {LM_BAR:.3e}); "
-                             f"finite {finite}; {dec_launches} kernel "
-                             f"launches in decode")
+    per_pos = diff.amax(-1)[0] / scale                      # (T,)
+    if held is None:
+        held = torch.ones_like(per_pos, dtype=torch.bool)
+    worst = float(per_pos[held].max()) if bool(held.any()) else 0.0
+    res = {"prompt": full.shape[1], "max_abs_logit": scale,
+           "last_position_rel": float(per_pos[-1]),
+           "last_position_held": bool(held[-1]),
+           "worst_position_rel": worst,
+           "mean_rel": float(diff.mean()) / scale,
+           "argmax_agreement": float((full.argmax(-1) == dec.argmax(-1))
+                                     .float().mean()),
+           "finite": bool(torch.isfinite(full).all()
+                          and torch.isfinite(dec).all()),
+           "bar": bar, "held_to_bar": gate, "kernel_launches": launches}
+    if not (res["finite"] and launches == 0 and (worst <= bar or not gate)):
+        raise AssertionError(f"prefill vs decode: {res}")
+    return res
 
-    # 3. serve --mode lm: batch 4, prompt 16, gen 32.
+
+def _serve_check(torch, cuda, cfg, params) -> dict:
+    """``serve --mode lm`` as ``lm_main`` runs it (batch 4, prompt 16, gen
+    32): finite logits, tokens in the vocabulary, no kernel launch."""
+    from repro_torch.launch import serve
+
     cuda.reset_launches()
     served = serve.lm_main(cfg, batch=4, prompt_len=16, gen=32, seed=0,
                            device="cuda", params=params)
-    serve_launches = sum(cuda.LAUNCHES.values())
+    launches = sum(cuda.LAUNCHES.values())
     if not (served["finite"] and served["tokens_in_vocab"]
-            and serve_launches == 0):
-        raise AssertionError(f"lm serve: {served}, {serve_launches} kernel "
-                             f"launches")
+            and launches == 0):
+        raise AssertionError(f"{cfg.name} serve: {served}, {launches} "
+                             f"kernel launches")
+    return {**served, "kernel_launches": launches}
+
+
+def lm_phase(torch, cuda) -> tuple[dict, Callable[[], object]]:
+    """The LM serving path at Jamba-1.5-Large's full width (one period,
+    without its experts, bf16): the prefill step timed with its launches
+    reckoned, the prefill held against teacher-forced decode, and ``serve
+    --mode lm``.  Returns the row and one prefill call on the same
+    parameters, for ``lm_profile_phase``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import param_count
+
+    cfg = dataclasses.replace(get_config("jamba_1_5_large_398b"),
+                              n_layers=8, moe=None)
+    t_phase = time.perf_counter()
+    params, weights, init_s = _lm_params(torch, cfg)
+    timing, tokens, prefill = _prefill_timing(torch, cuda, cfg, params,
+                                              LM_WARMUP, LM_TIMED)
+    check = _logit_check(torch, *_prefill_and_decode(
+        torch, cuda, cfg, params, tokens[:, :LM_DECODE_T]), LM_BAR)
     row = {"phase": "lm", "arch": cfg.name, "n_layers": cfg.n_layers,
            "moe": None, "dtype": cfg.dtype, "params": param_count(cfg),
-           "weights_gib": weights / 2 ** 30, "init_s": init_s,
-           "prefill_B": 1, "prefill_T": LM_T, "prefill_calls": calls,
-           "prefill_ms_p50": p50,
-           "prefill_ms_p99": float(np.percentile(times, 99)),
-           "prefill_ms": times, "prefill_tokens_per_s": LM_T / p50 * 1e3,
-           "max_memory_allocated_gib": peak / 2 ** 30,
-           "launches": launches, "launches_per_forward": per_forward,
-           "decode_check": {"prompt": LM_DECODE_T, "max_abs_logit": scale,
-                            "last_position_rel": last_rel,
-                            "worst_position_rel": max_rel,
-                            "mean_rel": mean_rel,
-                            "argmax_agreement": argmax_agree,
-                            "bar": LM_BAR, "kernel_launches": dec_launches},
-           "serve": {**served, "kernel_launches": serve_launches},
+           "weights_gib": weights / 2 ** 30, "init_s": init_s, **timing,
+           "decode_check": check,
+           "serve": _serve_check(torch, cuda, cfg, params),
            "total_s": time.perf_counter() - t_phase}
     emit(row)
     return row, lambda: prefill(params, {"tokens": tokens})
+
+
+@contextlib.contextmanager
+def recorded_routes(moe_mod):
+    """While open, every MoE layer call records its expert ids and slot
+    positions, each (tokens, K), in call order: the module's router and
+    position functions are wrapped for the duration (the main path has no
+    switch for it), and restored on leaving."""
+    log = {"idx": [], "pos": []}
+    router, positions = moe_mod._router, moe_mod._causal_positions
+
+    def recording_router(p, cfg, x2d):
+        out = router(p, cfg, x2d)
+        log["idx"].append(out[1])
+        return out
+
+    def recording_positions(onehot, counts0=None):
+        out = positions(onehot, counts0)
+        log["pos"].append(out[0].reshape(-1, onehot.shape[2]))
+        return out
+
+    moe_mod._router = recording_router
+    moe_mod._causal_positions = recording_positions
+    try:
+        yield log
+    finally:
+        moe_mod._router, moe_mod._causal_positions = router, positions
+
+
+def _route_stats(torch, cfg, log, T: int) -> dict:
+    """A recorded T-token prefill's routing over its MoE layers: tokens per
+    expert (assignments, dropped ones included) and the dropped share."""
+    from repro_torch.models import moe
+
+    idx = torch.stack(log["idx"])                          # (L, T, K)
+    pos = torch.stack(log["pos"])
+    C = moe._capacity(cfg, T)
+    per_expert = torch.stack([torch.bincount(i.reshape(-1),
+                                             minlength=cfg.moe.n_experts)
+                              for i in idx])               # (L, E)
+    return {"T": T, "capacity": C, "moe_layers": idx.shape[0],
+            "assignments": idx.numel(),
+            "dropped_share": float((pos >= C).float().mean()),
+            "tokens_per_expert_min": int(per_expert.min()),
+            "tokens_per_expert_max": int(per_expert.max()),
+            "tokens_per_expert_by_layer": per_expert.tolist()}
+
+
+def _route_agreement(torch, cfg, prefill_log, decode_log, T: int):
+    """Prefill's routes against teacher-forced decode's over T tokens.  A
+    (token, layer, k) choice agrees where decode chose the same expert for
+    that token and layer; a position's route agrees in a layer where it
+    chose the same experts there and kept or dropped each alike.  A
+    position whose route differs in layer l carries another hidden state
+    into every later layer, so its later choices follow from that first
+    difference: ``choice_agreement_to_first_flip`` counts each position's
+    choices up to and including the first layer where its route differs,
+    and must reach ``ROUTE_AGREEMENT``; ``choice_agreement`` counts all of
+    them.  Returns (the report, the (T,) mask of positions whose routes
+    agree in every layer)."""
+    from repro_torch.models import moe
+
+    C = moe._capacity(cfg, T)
+    pre_idx = torch.stack(prefill_log["idx"])              # (L, T, K)
+    L, K = pre_idx.shape[0], pre_idx.shape[2]
+    # decode: one call a layer a step, step-major
+    dec_idx = torch.stack(decode_log["idx"]).reshape(T, L, K).transpose(0, 1)
+    dec_pos = torch.stack(decode_log["pos"]).reshape(T, L, K).transpose(0, 1)
+    pre_keep = torch.stack(prefill_log["pos"]) < C
+    choice = (pre_idx[..., :, None] == dec_idx[..., None, :]).any(-1)
+    p_sorted, p_order = pre_idx.sort(-1)
+    d_sorted, d_order = dec_idx.sort(-1)
+    same_experts = (p_sorted == d_sorted).all(-1)          # (L, T)
+    same_keep = (pre_keep.gather(-1, p_order)
+                 == (dec_pos < C).gather(-1, d_order)).all(-1)
+    same = same_experts & same_keep
+    # layers whose every earlier layer routed the position alike
+    before_flip = torch.cat([torch.ones_like(same[:1]), same[:-1]]
+                            ).long().cumprod(0).bool()
+    to_flip = choice[before_flip]
+    report = {"choices": choice.numel(),
+              "choice_agreement": float(choice.float().mean()),
+              "choice_agreement_by_layer":
+                  choice.float().mean((1, 2)).tolist(),
+              "choices_to_first_flip": to_flip.numel(),
+              "choice_agreement_to_first_flip":
+                  float(to_flip.float().mean()),
+              "positions_agreeing": int(same.all(0).sum()),
+              "positions_other_experts": int((~same_experts.all(0)).sum()),
+              "positions_other_drops": int((same_experts.all(0)
+                                            & ~same_keep.all(0)).sum()),
+              "first_flip_by_layer": [int(v) for v in (
+                  before_flip & ~same).sum(1)],
+              "bar_choice_agreement_to_first_flip": ROUTE_AGREEMENT}
+    return report, same.all(0)
+
+
+def lm_moe_phase(torch, cuda) -> dict:
+    """DBRX-132B's serving path at its full widths (d_model 6144, 48 q / 8
+    kv heads of 128, 16 experts top-4 of width 10752, vocab 100352; bf16),
+    cut to ``LM_MOE_LAYERS`` of its 40 layers, weights drawn on the card:
+    the prefill timed with one ``flash_attention`` a layer, the routing of
+    one 4096-token prefill (dropped share, tokens per expert), prefill
+    against teacher-forced decode over ``LM_DECODE_T`` tokens with caches
+    built there (so decode's capacity is the prefill's), the routes of
+    both recorded: at least ``ROUTE_AGREEMENT`` of the (token, layer, k)
+    choices agree up to each position's first differing layer
+    (``_route_agreement``), and the positions whose routes agree in every
+    layer hold ``LM_MOE_BAR``; then ``serve --mode lm``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm, moe
+    from repro_torch.models.config import param_count
+
+    full_cfg = get_config("dbrx_132b")
+    cfg = dataclasses.replace(full_cfg, n_layers=LM_MOE_LAYERS)
+    t_phase = time.perf_counter()
+    params, weights, init_s = _lm_params(torch, cfg)
+    timing, tokens, prefill = _prefill_timing(torch, cuda, cfg, params,
+                                              LM_WARMUP, LM_TIMED)
+    with recorded_routes(moe) as log:
+        prefill(params, {"tokens": tokens})
+    routing = _route_stats(torch, cfg, log, LM_T)
+    del log
+    prompt = tokens[:, :LM_DECODE_T]
+    with recorded_routes(moe) as log_p:
+        full = lm.forward(params, cfg, prompt).float()
+    with recorded_routes(moe) as log_d:
+        dec, launches = _decode_logits(torch, cuda, cfg, params, prompt)
+    routes, agree = _route_agreement(torch, cfg, log_p, log_d, LM_DECODE_T)
+    if routes["choice_agreement_to_first_flip"] < ROUTE_AGREEMENT:
+        raise AssertionError(f"{cfg.name} routes: {routes}")
+    check = _logit_check(torch, full, dec, launches, LM_MOE_BAR, agree)
+    del full, dec, log_p, log_d
+    served = _serve_check(torch, cuda, cfg, params)
+    row = {"phase": "lm_moe", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "reduced": {"n_layers": [cfg.n_layers, full_cfg.n_layers]},
+           "widths": {k: getattr(cfg, k) for k in (
+               "d_model", "n_heads", "n_kv_heads", "head_dim", "vocab")},
+           "moe": dataclasses.asdict(cfg.moe), "dtype": cfg.dtype,
+           "params": param_count(cfg), "weights_gib": weights / 2 ** 30,
+           "init_s": init_s, **timing, "routing_prefill": routing,
+           "decode_routes": routes, "decode_check": check,
+           "serve": served, "total_s": time.perf_counter() - t_phase}
+    emit(row)
+    del params
+    torch.cuda.empty_cache()
+    return row
+
+
+def _xlstm_block_check(torch, cfg, params) -> dict:
+    """Each xLSTM block kind at the model's width, the first layer of the
+    kind: its parallel form against its recurrence, step by step from a
+    fresh cache, over ``LM_DECODE_T`` tokens of seeded N(0, 1) inputs in
+    the model's type; each position's relative error (L2 over the width)
+    within ``LM_XLSTM_BLOCK_BAR``."""
+    from repro_torch.models import xlstm
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    x = torch.randn((1, LM_DECODE_T, cfg.d_model), generator=gen,
+                    device="cuda").to(getattr(torch, cfg.dtype))
+    out = {}
+    for kind in ("mlstm", "slstm"):
+        i = next(i for i in range(cfg.n_layers) if cfg.block_kind(i) == kind)
+        mixer = params.layers[i].mixer
+        y = getattr(xlstm, f"{kind}_apply")(mixer, cfg, x).float()
+        cache = getattr(xlstm, f"{kind}_cache_init")(cfg, 1, "cuda")
+        ys = []
+        for t in range(LM_DECODE_T):
+            yt, cache = getattr(xlstm, f"{kind}_decode")(
+                mixer, cfg, x[:, t:t + 1], cache)
+            ys.append(yt.float())
+        rel = ((y - torch.cat(ys, 1)).norm(dim=-1) / y.norm(dim=-1))[0]
+        out[kind] = {"layer": i, "worst_position_rel": float(rel.max()),
+                     "median_position_rel": float(rel.median())}
+    out["bar"] = LM_XLSTM_BLOCK_BAR
+    if not all(out[k]["worst_position_rel"] <= LM_XLSTM_BLOCK_BAR
+               for k in ("mlstm", "slstm")):
+        raise AssertionError(f"{cfg.name} blocks, parallel vs recurrent: "
+                             f"{out}")
+    return out
+
+
+def lm_xlstm_phase(torch, cuda) -> dict:
+    """xLSTM-125m whole (12 layers: 10 mLSTM, 2 sLSTM; d 768, 4 heads,
+    vocab 50304; bf16): the prefill timed (``LM_XLSTM_CALLS``: the two
+    sLSTM layers step through 4096 tokens one at a time), prefill against
+    teacher-forced decode over ``LM_DECODE_T`` tokens (reported beside
+    ``LM_XLSTM_BAR``; each block kind held to ``LM_XLSTM_BLOCK_BAR``), and
+    ``serve --mode lm``.  No kernel is on this path: every launch count
+    must stay 0."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import param_count
+
+    cfg = get_config("xlstm_125m")
+    t_phase = time.perf_counter()
+    params, weights, init_s = _lm_params(torch, cfg)
+    timing, tokens, _ = _prefill_timing(torch, cuda, cfg, params,
+                                        *LM_XLSTM_CALLS)
+    check = _logit_check(torch, *_prefill_and_decode(
+        torch, cuda, cfg, params, tokens[:, :LM_DECODE_T]), LM_XLSTM_BAR,
+        gate=False)
+    row = {"phase": "lm_xlstm", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "reduced": None, "dtype": cfg.dtype, "params": param_count(cfg),
+           "weights_gib": weights / 2 ** 30, "init_s": init_s, **timing,
+           "kernels": "none: mLSTM and sLSTM run in plain PyTorch (the "
+                      "reference's reach no kernel)",
+           "decode_check": check,
+           "blocks_check": _xlstm_block_check(torch, cfg, params),
+           "serve": _serve_check(torch, cuda, cfg, params),
+           "total_s": time.perf_counter() - t_phase}
+    emit(row)
+    del params
+    torch.cuda.empty_cache()
+    return row
 
 
 def lm_profile_phase(checks, prefill_call) -> dict:
@@ -2652,6 +3048,7 @@ def lm_profile_phase(checks, prefill_call) -> dict:
     no device activity at all in the timing phase once a prefill had been
     profiled before it.  Where it records none here, the breakdown and the
     idle share are None: not measured."""
+    t0 = time.perf_counter()
     records, wall = checks.device_breakdown(prefill_call)
     breakdown = {}
     for name, ms in records.items():
@@ -2664,7 +3061,8 @@ def lm_profile_phase(checks, prefill_call) -> dict:
            "device_busy_ms": busy,
            "idle_share": None if busy is None else 1.0 - busy / wall,
            "device_ms_by_group": breakdown or None,
-           "top_device_records_ms": dict(top) or None}
+           "top_device_records_ms": dict(top) or None,
+           "total_s": time.perf_counter() - t0}
     emit(row)
     return row
 
@@ -2680,56 +3078,74 @@ def main() -> int:
     from repro_torch.launch import serve
 
     resolve_device("cuda")        # pins TF32 off for every product below
+    clock = PhaseClock()
     t0 = time.perf_counter()
     info = cuda.build()
     cuda.library()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+    built_s = time.perf_counter() - t0
+    sass = cuda.sass_counts()
+    clock.seconds["build"] = time.perf_counter() - t0
+    emit({"phase": "build", "seconds": built_s,
           "nvcc_seconds": info["seconds"], "cached": info["cached"],
           "ptxas_registers": ptxas_summary(info.get("ptxas", {})),
-          "sass_mma": cuda.sass_counts()})
+          "sass_mma": sass, "total_s": clock.seconds["build"]})
 
-    checked = kernel_phase(torch, checks, cuda)
-    checked_b = batched_kernel_phase(torch, checks)
-    runs = {"pallas": service_phase(torch, cuda, serve, 1024, 600,
-                                    "float32", "pallas"),
-            "pallas2": service_phase(torch, cuda, serve, 1024, 600,
-                                     "float32", "pallas2")}
-    service_phase(torch, cuda, serve, 256, 200, "float64", "pallas")
-    service_phase(torch, cuda, serve, 256, 200, "float64", "pallas2")
-    _, nystrom_state = nystrom_phase(torch, cuda, serve, "float32")
-    nystrom_phase(torch, cuda, serve, "float64")
-    runs["fig2"] = fig2_phase(torch, cuda, checks)
-    window_phase(torch, cuda, serve, 1024, 600, 700, "float32", "pallas")
-    window_phase(torch, cuda, serve, 256, 200, 300, "float64", "pallas2")
-    lifecycle_phase(torch, cuda, serve, "float32", 512, 256, 2000)
-    lifecycle_phase(torch, cuda, serve, "float64", 256, 128, 1000,
-                    ("--stop-rel-tol", "0"))
-    swap_phase(torch, cuda)
-    truncate_phase(torch, cuda, serve)
-    krr_phase(torch, cuda)
-    snapshots_phase(torch, cuda, nystrom_state)
+    checked = clock("kernels", kernel_phase, torch, checks, cuda)
+    checked_b = clock("kernels_batched", batched_kernel_phase, torch, checks)
+    runs = {"pallas": clock("service f32 pallas", service_phase, torch,
+                            cuda, serve, 1024, 600, "float32", "pallas"),
+            "pallas2": clock("service f32 pallas2", service_phase, torch,
+                             cuda, serve, 1024, 600, "float32", "pallas2")}
+    clock("service f64 pallas", service_phase, torch, cuda, serve, 256, 200,
+          "float64", "pallas")
+    clock("service f64 pallas2", service_phase, torch, cuda, serve, 256,
+          200, "float64", "pallas2")
+    _, nystrom_state = clock("nystrom f32", nystrom_phase, torch, cuda,
+                             serve, "float32")
+    clock("nystrom f64", nystrom_phase, torch, cuda, serve, "float64")
+    runs["fig2"] = clock("fig2", fig2_phase, torch, cuda, checks)
+    clock("window f32", window_phase, torch, cuda, serve, 1024, 600, 700,
+          "float32", "pallas")
+    clock("window f64", window_phase, torch, cuda, serve, 256, 200, 300,
+          "float64", "pallas2")
+    clock("lifecycle f32", lifecycle_phase, torch, cuda, serve, "float32",
+          512, 256, 2000)
+    clock("lifecycle f64", lifecycle_phase, torch, cuda, serve, "float64",
+          256, 128, 1000, ("--stop-rel-tol", "0"))
+    clock("lifecycle_swaps", swap_phase, torch, cuda)
+    clock("truncate", truncate_phase, torch, cuda, serve)
+    clock("krr", krr_phase, torch, cuda)
+    clock("snapshots", snapshots_phase, torch, cuda, nystrom_state)
     del nystrom_state
-    reproducible_phase(torch, cuda)
-    health_phase(torch, cuda, serve)
-    restore_phase(torch, cuda)
-    guarded_window_phase(torch, cuda, serve)
-    guarded_nystrom_phase(torch, cuda, serve)
-    runs["multitenant"], state0 = multitenant_phase(torch, cuda, serve)
-    runs["multitenant_cohorts"] = multitenant_cohorts_phase(
-        torch, cuda)["bucket"]
-    multitenant_window_phase(torch, cuda, serve)
-    decoupled_phase(torch, cuda, serve)
+    clock("reproducible", reproducible_phase, torch, cuda)
+    clock("health", health_phase, torch, cuda, serve)
+    clock("restore", restore_phase, torch, cuda)
+    clock("health_window", guarded_window_phase, torch, cuda, serve)
+    clock("health_nystrom", guarded_nystrom_phase, torch, cuda, serve)
+    runs["multitenant"], state0 = clock("multitenant", multitenant_phase,
+                                        torch, cuda, serve)
+    runs["multitenant_cohorts"] = clock(
+        "multitenant_cohorts", multitenant_cohorts_phase, torch,
+        cuda)["bucket"]
+    clock("multitenant_window", multitenant_window_phase, torch, cuda,
+          serve)
+    clock("decoupled", decoupled_phase, torch, cuda, serve)
     with tempfile.TemporaryDirectory() as tmp:
-        single = sharded_phase(torch, cuda, state0, Path(tmp))
-        sharded_p2_phase(torch, cuda, state0, single, Path(tmp) / "p2")
+        single = clock("sharded", sharded_phase, torch, cuda, state0,
+                       Path(tmp))
+        clock("sharded_p2", sharded_p2_phase, torch, cuda, state0, single,
+              Path(tmp) / "p2")
     del state0, single
-    runs["roofline"] = roofline_phase(torch, cuda)
-    runs["lm"], prefill_call = lm_phase(torch, cuda)
-    timed = timing_phase(torch, checks)
-    timed_b = batched_timing_phase(torch, checks)
-    lm_profile_phase(checks, prefill_call)
+    runs["roofline"] = clock("roofline", roofline_phase, torch, cuda)
+    runs["lm_moe"] = clock("lm_moe", lm_moe_phase, torch, cuda)
+    clock("lm_xlstm", lm_xlstm_phase, torch, cuda)
+    runs["lm"], prefill_call = clock("lm", lm_phase, torch, cuda)
+    timed = clock("timing", timing_phase, torch, checks)
+    timed_b = clock("timing_batched", batched_timing_phase, torch, checks)
+    clock("lm_profile", lm_profile_phase, checks, prefill_call)
     del prefill_call
     torch.cuda.empty_cache()
+    clock.emit()
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -1,13 +1,14 @@
-"""jamba-1.5-large-398b [hybrid] — Mamba + attention at 1:7 interleave
-(arXiv:2403.19887), at its full widths, without its experts.
+"""jamba-1.5-large-398b [hybrid] — Mamba + attention at 1:7 interleave with
+MoE every other layer (arXiv:2403.19887).  Mamba decode state is O(1) and
+the single attention layer per period uses a KV cache.
 
-72L d_model=8192 64H (GQA kv=8) d_ff=24576 vocab=65536.  The reference's
-config adds MoE 16e top-2 (d_ff_expert=24576) on every odd layer; the
-port runs it with ``moe=None``, so every layer takes the dense FFN, until
-the experts are ported (ROADMAP.md §1 item 11).  One period (8 layers)
-then holds 8.9 B parameters, 16.6 GiB in bf16.
+72L d_model=8192 64H (GQA kv=8) d_ff=24576 vocab=65536, MoE 16e top-2 on
+the odd layers, dense FFN on the even ones: the reference's config, field
+for field.  One period (8 layers) with its experts holds 84 GiB of bf16
+weights, more than one H100's 80 GB; ``dataclasses.replace(CONFIG,
+moe=None)`` gives every layer the dense FFN (16.6 GiB a period).
 """
-from repro_torch.models.config import ArchConfig
+from repro_torch.models.config import ArchConfig, MoEConfig
 
 CONFIG = ArchConfig(
     name="jamba-1.5-large-398b",
@@ -22,9 +23,9 @@ CONFIG = ArchConfig(
     # one attention layer per 8 (position 4 of the Jamba block), rest Mamba
     block_pattern=("mamba", "mamba", "mamba", "attn",
                    "mamba", "mamba", "mamba", "mamba"),
-    moe=None,
-    moe_every=2,                 # the reference's expert layers (unused)
-    moe_offset=1,
+    moe=MoEConfig(n_experts=16, top_k=2, d_ff_expert=24576),
+    moe_every=2,
+    moe_offset=1,                # MoE on odd layers, dense FFN on even
     ssm_d_state=128,
     ssm_expand=2,
     ssm_head_dim=64,

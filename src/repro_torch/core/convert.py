@@ -285,8 +285,11 @@ def lm_params_from_numpy(params: dict, cfg: ArchConfig, device=None
     """The port's ``LM`` from the reference's ``lm.init_params`` tree as
     numpy arrays: ``{'embed', 'slots': {'slot{j}': leaves stacked over
     periods}, 'final_norm'}``.  Layer i takes period i // period of slot
-    i % period; every leaf keeps its type (``dt_bias``, ``a_log`` and
-    ``d_skip`` are float32 in a bfloat16 model)."""
+    i % period: its mixer (attention, Mamba, mLSTM or sLSTM), and its FFN
+    (dense, or the experts' ``router``, ``w_up``/``w_gate``/``w_down``
+    banks and ``shared`` experts).  Every leaf keeps its type
+    (``dt_bias``, ``a_log``, ``d_skip``, the router and the xLSTM gates
+    are float32 in a bfloat16 model)."""
     tree = {"embed": params["embed"], "final_norm": params["final_norm"],
             "layers": {}}
     for i in range(cfg.n_layers):

@@ -6,12 +6,18 @@ in which, with probability 1/2, token t is a fixed permutation of token
 t - 1 (a Markov chain a model can learn), else a fresh Zipf draw.  The
 draws come from a ``torch.Generator``, so the tokens are not the
 reference's bits (the tests hand both packages the same numpy tokens).
+
+``frontend_embeddings`` attaches the modality frontends' stub embeddings.
+The reference's ``make_batch_specs`` builds the dry run's shape stand-ins
+and is not ported (the dry run parses XLA HLO: ROADMAP.md §1 item 11).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import torch
+
+from repro_torch.models.config import ArchConfig
 
 Tensor = torch.Tensor
 
@@ -51,3 +57,23 @@ class TokenStream:
         labels = torch.cat([tokens[:, 1:], torch.full((B, 1), -1,
                                                       dtype=tokens.dtype)], 1)
         return {"tokens": tokens.to(device), "labels": labels.to(device)}
+
+
+def frontend_embeddings(cfg: ArchConfig, batch: dict, seed: int = 7) -> dict:
+    """Attach stub modality embeddings (precomputed frame or patch
+    features): for a config with ``frontend == 'embeddings'``, ``batch``
+    gains ``embeddings`` (B, frontend_len, d_model) of N(0, 0.02²) draws
+    from a ``torch.Generator`` seeded with ``seed`` (on the tokens'
+    device, in the model's type) and its labels over those positions
+    become -1; any other batch is returned as it is."""
+    if cfg.frontend != "embeddings":
+        return batch
+    tokens = batch["tokens"]
+    gen = torch.Generator(device=tokens.device)
+    gen.manual_seed(seed)
+    emb = torch.randn((tokens.shape[0], cfg.frontend_len, cfg.d_model),
+                      generator=gen, device=tokens.device) * 0.02
+    labels = batch["labels"].clone()
+    labels[:, :cfg.frontend_len] = -1
+    return {**batch, "embeddings": emb.to(getattr(torch, cfg.dtype)),
+            "labels": labels}

@@ -9,9 +9,10 @@
       PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \\
           --device cpu --arch jamba_1_5_large_398b --smoke
 
-  The port runs an architecture with experts with ``moe=None``: every
-  layer takes its dense FFN (``configs``; the experts are ROADMAP.md §1
-  item 11).
+  ``--arch`` takes every id of ``repro_torch.configs.ARCH_IDS`` (the
+  reference's ten): attention, Mamba, mLSTM and sLSTM blocks, dense and
+  expert FFNs.  An MoE layer's count cache is built at ``prompt_len +
+  gen`` positions, so prompt and continuation share one capacity.
 
 * ``--mode kpca``: incremental-KPCA ingest + transform.  Points arrive one
   at a time; each is folded into the eigendecomposition (Algorithm 2) and

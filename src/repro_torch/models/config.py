@@ -19,7 +19,10 @@ class MoEConfig:
     d_ff_expert: int
     capacity_factor: float = 1.25
     n_shared_experts: int = 0
-    impl: Literal["einsum", "scatter"] = "einsum"
+    # 'ep' is expert parallelism over a mesh; the port has no mesh yet
+    # (ROADMAP.md §1 item 11), so it runs as 'einsum', as the reference's
+    # does without one.
+    impl: Literal["einsum", "scatter", "ep"] = "einsum"
     router_dtype: str = "float32"
 
 

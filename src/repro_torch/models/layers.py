@@ -12,7 +12,8 @@ reference's ``*_init`` does (the same distributions, not the same bits).
 
 The prefill's attention runs the ``flash_attention`` CUDA kernel
 (``kernels/flash_attn``) for both ``attn_impl`` values; decode attends to
-the KV cache in plain PyTorch, as the reference does.
+the KV cache in plain PyTorch, as the reference does, with its scores in
+float32 as the kernel keeps them.
 """
 from __future__ import annotations
 
@@ -140,8 +141,12 @@ def attention_decode(p: Attention, cfg: ArchConfig, x: Tensor, cache: dict,
     S = k_cache.shape[1]
     groups = cfg.n_heads // cfg.n_kv_heads
     qh = q.reshape(B, 1, cfg.n_kv_heads, groups, hd)
-    logits = torch.einsum("btkgh,bskh->bkgts", qh, k_cache) / math.sqrt(hd)
-    logits = logits.float()
+    # Scores in float32, as the prefill's kernel keeps them.  The reference
+    # rounds them to the activation type first; in bfloat16 that moves
+    # decode's hidden states off the prefill's by enough to flip a near
+    # tie in an MoE router downstream (ROADMAP.md §3).
+    logits = torch.einsum("btkgh,bskh->bkgts", qh.float(),
+                          k_cache.float()) / math.sqrt(hd)
     valid = (torch.arange(S, device=x.device)[None, :]
              <= positions[:, 0][:, None])                      # (B, S)
     logits = torch.where(valid[:, None, None, None, :], logits, -1e30)

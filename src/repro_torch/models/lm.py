@@ -7,8 +7,8 @@ reference stacks each slot's parameters over periods and scans over
 periods; here the layers are an ``nn.ModuleList`` over ``n_layers`` and
 the scan is a loop (layer i is slot i % period of period i // period).
 
-The port runs block kinds ``attn`` and ``mamba`` with FFN kinds ``dense``
-and ``none``.  Experts (``moe``), xLSTM blocks and Nyström attention raise,
+The port runs block kinds ``attn``, ``mamba``, ``mlstm`` and ``slstm``
+with FFN kinds ``dense``, ``moe`` and ``none``.  Nyström attention raises,
 naming ROADMAP.md §1 item 11.
 """
 from __future__ import annotations
@@ -16,7 +16,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.models import ssm
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm, xlstm
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (MLP, Attention, Embed, RMSNorm,
                                        attention_apply, attention_cache_init,
@@ -28,21 +29,19 @@ Tensor = torch.Tensor
 
 UNPORTED = "is not ported yet (ROADMAP.md §1 item 11)"
 
+MIXERS = {"attn": Attention, "mamba": ssm.Mamba, "mlstm": xlstm.MLSTM,
+          "slstm": xlstm.SLSTM}
+
 
 def check_config(cfg: ArchConfig) -> None:
     """Raise for what the port does not run yet."""
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: mixture-of-experts FFN "
-                                  f"(models/moe.py) {UNPORTED}; run it with "
-                                  f"moe=None")
     if cfg.attention != "full":
         raise NotImplementedError(f"{cfg.name}: attention="
                                   f"{cfg.attention!r} (models/"
                                   f"nystrom_attention.py) {UNPORTED}")
-    bad = sorted(set(cfg.block_pattern) - {"attn", "mamba"})
+    bad = sorted(set(cfg.block_pattern) - set(MIXERS))
     if bad:
-        raise NotImplementedError(f"{cfg.name}: block kinds {bad} (models/"
-                                  f"xlstm.py) {UNPORTED}")
+        raise ValueError(f"{cfg.name}: unknown block kinds {bad}")
     if cfg.n_layers % cfg.period:
         raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} is not a "
                          f"multiple of the period {cfg.period}")
@@ -57,12 +56,13 @@ class Block(nn.Module):
         self.kind, self.ffn_kind = cfg.block_kind(i), cfg.ffn_kind(i)
         dt = model_dtype(cfg)
         self.norm1 = RMSNorm(cfg.d_model, dt, device)
-        self.mixer = (Attention(cfg, device) if self.kind == "attn"
-                      else ssm.Mamba(cfg, device))
+        self.mixer = MIXERS[self.kind](cfg, device)
         if self.ffn_kind != "none" and not cfg.parallel_block:
             self.norm2 = RMSNorm(cfg.d_model, dt, device)
         if self.ffn_kind == "dense":
             self.ffn = MLP(cfg, device=device)
+        elif self.ffn_kind == "moe":
+            self.ffn = moe_mod.MoE(cfg, device)
 
 
 class LM(nn.Module):
@@ -103,7 +103,17 @@ def _mixer_apply(p, cfg: ArchConfig, kind: str, h: Tensor,
                  positions: Tensor) -> Tensor:
     if kind == "attn":
         return attention_apply(p, cfg, h, positions)
-    return ssm.mamba_apply(p, cfg, h)
+    if kind == "mamba":
+        return ssm.mamba_apply(p, cfg, h)
+    if kind == "mlstm":
+        return xlstm.mlstm_apply(p, cfg, h)
+    return xlstm.slstm_apply(p, cfg, h)
+
+
+def _ffn_apply(p: Block, cfg: ArchConfig, h: Tensor) -> Tensor:
+    if p.ffn_kind == "moe":
+        return moe_mod.moe_apply(p.ffn, cfg, h)
+    return mlp_apply(p.ffn, cfg, h)
 
 
 def _block(p: Block, cfg: ArchConfig, h: Tensor, positions: Tensor
@@ -113,10 +123,10 @@ def _block(p: Block, cfg: ArchConfig, h: Tensor, positions: Tensor
     if cfg.parallel_block and p.ffn_kind != "none":
         # command-r style: attention and FFN read the same normed input.
         return h + rs * (_mixer_apply(p.mixer, cfg, p.kind, hn, positions)
-                         + mlp_apply(p.ffn, cfg, hn))
+                         + _ffn_apply(p, cfg, hn))
     h = h + rs * _mixer_apply(p.mixer, cfg, p.kind, hn, positions)
     if p.ffn_kind != "none":
-        h = h + rs * mlp_apply(p.ffn, cfg, rmsnorm_apply(p.norm2, h))
+        h = h + rs * _ffn_apply(p, cfg, rmsnorm_apply(p.norm2, h))
     return h
 
 
@@ -145,14 +155,44 @@ def forward(params: LM, cfg: ArchConfig, tokens: Tensor,
 
 
 # ------------------------------------------------------------- decode -------
+def _mixer_cache_init(cfg: ArchConfig, kind: str, batch: int, max_seq: int,
+                      device) -> dict:
+    if kind == "attn":
+        return attention_cache_init(cfg, batch, max_seq, device)
+    if kind == "mamba":
+        return ssm.mamba_cache_init(cfg, batch, device)
+    if kind == "mlstm":
+        return xlstm.mlstm_cache_init(cfg, batch, device)
+    return xlstm.slstm_cache_init(cfg, batch, device)
+
+
 def init_caches(params: LM, cfg: ArchConfig, batch: int, max_seq: int
                 ) -> list[dict]:
-    """One decode cache per layer: the KV cache of an attention layer, the
-    chunk state and conv window of a Mamba layer."""
+    """One decode cache per layer, ``{'mixer': ...}``: the KV cache of an
+    attention layer, the chunk state and conv window of a Mamba layer, the
+    recurrent state of an xLSTM layer; an MoE layer adds ``'ffn'``, its
+    per-expert counts and the capacity of a ``max_seq``-token prefill
+    (``moe.moe_cache_init``)."""
     dev = params.final_norm.scale.device
-    return [attention_cache_init(cfg, batch, max_seq, dev)
-            if layer.kind == "attn" else ssm.mamba_cache_init(cfg, batch, dev)
-            for layer in params.layers]
+    caches = []
+    for layer in params.layers:
+        cache = {"mixer": _mixer_cache_init(cfg, layer.kind, batch, max_seq,
+                                            dev)}
+        if layer.ffn_kind == "moe":
+            cache["ffn"] = moe_mod.moe_cache_init(cfg, batch, max_seq, dev)
+        caches.append(cache)
+    return caches
+
+
+def _mixer_decode(p, cfg: ArchConfig, kind: str, h: Tensor, cache: dict,
+                  pos: Tensor) -> tuple[Tensor, dict]:
+    if kind == "attn":
+        return attention_decode(p, cfg, h, cache, pos)
+    if kind == "mamba":
+        return ssm.mamba_decode(p, cfg, h, cache)
+    if kind == "mlstm":
+        return xlstm.mlstm_decode(p, cfg, h, cache)
+    return xlstm.slstm_decode(p, cfg, h, cache)
 
 
 @torch.no_grad()
@@ -165,17 +205,25 @@ def decode_step(params: LM, cfg: ArchConfig, caches: list[dict],
     new_caches = []
     for layer, cache in zip(params.layers, caches):
         hn = rmsnorm_apply(layer.norm1, h)
-        if layer.kind == "attn":
-            y, cache = attention_decode(layer.mixer, cfg, hn, cache, pos)
-        else:
-            y, cache = ssm.mamba_decode(layer.mixer, cfg, hn, cache)
-        new_caches.append(cache)
+        y, mixer_cache = _mixer_decode(layer.mixer, cfg, layer.kind, hn,
+                                       cache["mixer"], pos)
+        new_cache = {"mixer": mixer_cache}
+
+        def ffn_decode(x):
+            # An MoE layer threads its count cache, so decode replays the
+            # prefill's capacity drops.
+            if layer.ffn_kind == "moe":
+                out, new_cache["ffn"] = moe_mod.moe_decode(
+                    layer.ffn, cfg, x, cache["ffn"])
+                return out
+            return mlp_apply(layer.ffn, cfg, x)
+
         if cfg.parallel_block and layer.ffn_kind != "none":
-            h = h + rs * (y + mlp_apply(layer.ffn, cfg, hn))
+            h = h + rs * (y + ffn_decode(hn))
         else:
             h = h + rs * y
             if layer.ffn_kind != "none":
-                h = h + rs * mlp_apply(layer.ffn, cfg,
-                                       rmsnorm_apply(layer.norm2, h))
+                h = h + rs * ffn_decode(rmsnorm_apply(layer.norm2, h))
+        new_caches.append(new_cache)
     h = rmsnorm_apply(params.final_norm, h)
     return logits_apply(params.embed, cfg, h), new_caches

@@ -538,6 +538,42 @@ def test_lm_on_cuda_matches_cpu(device):
     np.testing.assert_allclose(outs[0], outs[1], atol=1e-4)
 
 
+@pytest.mark.parametrize("arch,flash", [("dbrx_132b", 2), ("xlstm_125m", 0)])
+def test_zoo_smoke_on_cuda_matches_cpu(device, arch, flash):
+    """DBRX's smoke config (top-2 of 4 experts on both layers) and xLSTM's
+    (5 mLSTM + 1 sLSTM layers) on the card and on the CPU from the same
+    weights: the forward (one flash_attention launch an attention layer,
+    none for xLSTM) and every step of a 16-token teacher-forced decode
+    agree at 1e-4, the reference's flash-vs-naive bar."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    cfg = get_config(arch, smoke=True)
+    cpu = lm.init_params(cfg, seed=0)
+    gpu = lm.init_params(cfg, seed=0, device=device)
+    gpu.load_state_dict(cpu.state_dict())
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 16)))
+    cuda.reset_launches()
+    got = lm.forward(gpu, cfg, tokens.to(device))
+    torch.cuda.synchronize()
+    assert (cuda.LAUNCHES["flash_attention"],
+            cuda.LAUNCHES["ssd_intra_chunk"]) == (flash, 0)
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               lm.forward(cpu, cfg, tokens).numpy(),
+                               atol=1e-4)
+    caches = {dev: lm.init_caches(params, cfg, 2, 16)
+              for dev, params in (("cuda", gpu), ("cpu", cpu))}
+    for t in range(16):
+        outs = []
+        for dev, params in (("cuda", gpu), ("cpu", cpu)):
+            lg, caches[dev] = lm.decode_step(
+                params, cfg, caches[dev], tokens[:, t:t + 1].to(dev),
+                torch.full((2, 1), t, device=dev))
+            outs.append(lg.cpu().numpy())
+        np.testing.assert_allclose(outs[0], outs[1], atol=1e-4)
+
+
 def test_lm_wrappers_refuse_bad_operands(device):
     from repro_torch.kernels.flash_attn import ops as fops
     from repro_torch.kernels.ssd_chunk import ops as sops

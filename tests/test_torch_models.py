@@ -9,6 +9,7 @@ in different orders.  Then, in the port alone, decode against the
 parallel forward (the reference's 2e-2) and causality.
 """
 import dataclasses
+import importlib
 
 import numpy as np
 import pytest
@@ -22,7 +23,7 @@ from repro.models import layers as jl  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
 from repro.models import ssm as jssm  # noqa: E402
 from repro.models.config import ArchConfig as JArchConfig  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.core import convert  # noqa: E402
 from repro_torch.models import layers as tl  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
@@ -44,12 +45,11 @@ def _cfgs(**kw):
     return JArchConfig(**args), ArchConfig(**args)
 
 
-def _jamba_smoke():
-    """Jamba's smoke config without experts in both packages; the port's
-    registry holds it so."""
-    tcfg = get_config("jamba_1_5_large_398b", smoke=True)
-    jcfg = dataclasses.replace(j_get_config("jamba_1_5_large_398b",
-                                            smoke=True), moe=None)
+def _smoke(arch, **kw):
+    """An architecture's smoke config in both packages, equal field for
+    field, with ``kw`` replaced in both."""
+    jcfg = dataclasses.replace(j_get_config(arch, smoke=True), **kw)
+    tcfg = dataclasses.replace(get_config(arch, smoke=True), **kw)
     assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
     return jcfg, tcfg
 
@@ -176,17 +176,28 @@ DENSE = {"dense_gqa_qk_norm": dict(qk_norm=True),
                                      tie_embeddings=True,
                                      logit_soft_cap=30.0,
                                      residual_scale=0.5, act="gelu")}
+# Registry smoke configs: Jamba with its experts (odd layers) and without
+# them, DBRX (top-2 of 4 experts every layer), Kimi (a shared expert and
+# qk_norm) and xLSTM (5 mLSTM + 1 sLSTM layers, two chunks of 8).
+SMOKE = {"jamba": ("jamba_1_5_large_398b", {}),
+         "jamba_dense": ("jamba_1_5_large_398b", {"moe": None}),
+         "dbrx": ("dbrx_132b", {}), "kimi": ("kimi_k2_1t_a32b", {}),
+         "xlstm": ("xlstm_125m", {})}
 
 
 def _models(name):
-    jcfg, tcfg = _jamba_smoke() if name == "jamba" else _cfgs(**DENSE[name])
+    jcfg, tcfg = (_smoke(SMOKE[name][0], **SMOKE[name][1]) if name in SMOKE
+                  else _cfgs(**DENSE[name]))
     params = jlm.init_params(jax.random.PRNGKey(0), jcfg)
     return (jcfg, tcfg, params,
             convert.lm_params_from_numpy(_tree(params), tcfg, "cpu"))
 
 
-@pytest.mark.parametrize("name", ["jamba", *DENSE])
+@pytest.mark.parametrize("name", [*SMOKE, *DENSE])
 def test_lm_forward_and_decode_match_reference(name):
+    """The forward, then decode streamed token by token (one jitted
+    reference step, compiled once), logits at every step; the decode's
+    caches are built at T, so an MoE layer's capacity is the forward's."""
     jcfg, tcfg, jp, tp = _models(name)
     tokens = _tokens(tcfg)
     _close(tlm.forward(tp, tcfg, torch.from_numpy(tokens)),
@@ -194,10 +205,11 @@ def test_lm_forward_and_decode_match_reference(name):
                        remat=False))
     jc = jlm.init_caches(jp, jcfg, B, T)
     tc = tlm.init_caches(tp, tcfg, B, T)
+    jstep = jax.jit(lambda p, c, tok, pos: jlm.decode_step(p, jcfg, c, tok,
+                                                           pos))
     for t in range(T):
-        jlog, jc = jlm.decode_step(jp, jcfg, jc,
-                                   jnp.asarray(tokens[:, t:t + 1], jnp.int32),
-                                   jnp.full((B, 1), t, jnp.int32))
+        jlog, jc = jstep(jp, jc, jnp.asarray(tokens[:, t:t + 1], jnp.int32),
+                         jnp.full((B, 1), t, jnp.int32))
         tlog, tc = tlm.decode_step(tp, tcfg, tc,
                                    torch.from_numpy(tokens[:, t:t + 1]),
                                    torch.full((B, 1), t))
@@ -218,13 +230,40 @@ def test_embed_tokens_takes_frontend_embeddings():
                             jnp.asarray(emb)), 0.0)
 
 
+def test_frontend_embeddings_match_the_references_contract():
+    """``frontend_embeddings`` as the reference's: a frontend config's batch
+    gains (B, frontend_len, d_model) embeddings of scale 0.02 in the
+    model's type, its labels over those positions become -1, the rest
+    unchanged; the draws are a function of the seed; a token-only config's
+    batch is returned as it is."""
+    from repro.data import synthetic as jsyn
+    from repro_torch.data import synthetic as tsyn
+
+    jcfg, tcfg = _smoke("pixtral_12b")
+    tokens = _tokens(tcfg)
+    labels = np.roll(tokens, -1, axis=1)
+    want = jsyn.frontend_embeddings(jcfg, {"tokens": jnp.asarray(tokens),
+                                           "labels": jnp.asarray(labels)})
+    batch = {"tokens": torch.from_numpy(tokens),
+             "labels": torch.from_numpy(labels)}
+    got = tsyn.frontend_embeddings(tcfg, batch)
+    assert got["embeddings"].shape == want["embeddings"].shape
+    assert got["embeddings"].dtype == torch.float32
+    assert np.array_equal(got["labels"].numpy(), np.asarray(want["labels"]))
+    assert 0.01 < float(got["embeddings"].std()) < 0.03
+    assert torch.equal(got["embeddings"],
+                       tsyn.frontend_embeddings(tcfg, batch)["embeddings"])
+    assert not torch.equal(got["embeddings"], tsyn.frontend_embeddings(
+        tcfg, batch, seed=8)["embeddings"])
+    assert tsyn.frontend_embeddings(get_config("qwen3_32b", smoke=True),
+                                    batch) is batch
+    assert torch.equal(batch["labels"], torch.from_numpy(labels))
+
+
 def test_converted_leaves_keep_their_type():
-    """A bfloat16 model's float32 leaves (dt_bias, a_log, d_skip) stay
-    float32; every other leaf is bfloat16, value for value."""
-    jcfg, _ = _jamba_smoke()
-    jcfg = dataclasses.replace(jcfg, dtype="bfloat16")
-    tcfg = dataclasses.replace(get_config("jamba_1_5_large_398b", smoke=True),
-                               dtype="bfloat16")
+    """A bfloat16 model's float32 leaves (dt_bias, a_log, d_skip, the
+    router) stay float32; every other leaf is bfloat16, value for value."""
+    jcfg, tcfg = _smoke("jamba_1_5_large_398b", dtype="bfloat16")
     params = jlm.init_params(jax.random.PRNGKey(0), jcfg)
     model = convert.lm_params_from_numpy(_tree(params), tcfg, "cpu")
     mamba = model.layers[0].mixer
@@ -234,6 +273,13 @@ def test_converted_leaves_keep_their_type():
     assert model.layers[3].kind == "attn"
     want = np.asarray(params["slots"]["slot3"]["mixer"]["wq"][0], np.float32)
     assert np.array_equal(model.layers[3].mixer.wq.float().numpy(), want)
+    experts = model.layers[1].ffn
+    assert (model.layers[1].ffn_kind, model.layers[2].ffn_kind) == ("moe",
+                                                                    "dense")
+    assert experts.router.dtype == torch.float32
+    assert experts.w_down.dtype == torch.bfloat16
+    want = np.asarray(params["slots"]["slot1"]["ffn"]["w_up"][0], np.float32)
+    assert np.array_equal(experts.w_up.float().numpy(), want)
 
 
 def _port_model(name):
@@ -270,11 +316,27 @@ def test_port_causality(name):
 
 
 def test_unported_blocks_raise():
-    for kw in (dict(block_pattern=("mlstm",)), dict(attention="nystrom")):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            tlm.LM(ArchConfig(**{**BASE, **kw}), "meta")
     with pytest.raises(NotImplementedError, match="item 11"):
-        get_config("kimi_k2_1t_a32b")
+        tlm.LM(ArchConfig(**{**BASE, "attention": "nystrom"}), "meta")
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_registry_configs_equal_the_references(arch):
+    """Every reference id is registered, full and smoke, field for field
+    the reference's (Jamba with its experts); the training path's module
+    constants stay beside the configs."""
+    from repro.configs import ARCH_IDS as J_ARCH_IDS
+
+    assert ARCH_IDS == J_ARCH_IDS
+    for smoke in (False, True):
+        assert (dataclasses.asdict(get_config(arch, smoke=smoke))
+                == dataclasses.asdict(j_get_config(arch, smoke=smoke)))
+    assert get_config(arch.replace("_", "-")) == get_config(arch)
+    consts = {"kimi_k2_1t_a32b": ("OPTIMIZER", "adafactor"),
+              "minicpm_2b": ("SCHEDULE", "wsd")}
+    if arch in consts:
+        mod = importlib.import_module(f"repro_torch.configs.{arch}")
+        assert getattr(mod, consts[arch][0]) == consts[arch][1]
 
 
 def test_token_stream_is_a_function_of_seed_and_step():

@@ -263,9 +263,9 @@ def test_roofline_launch_reckoning():
 
 
 def test_serve_lm_runs_on_cpu():
-    """``--mode lm`` on Jamba's smoke config without experts: the prompt
-    through teacher-forced decode steps, then greedy decode; the tokens lie
-    in the vocabulary and the logits are finite."""
+    """``--mode lm`` on Jamba's smoke config (experts on the odd layers):
+    the prompt through teacher-forced decode steps, then greedy decode; the
+    tokens lie in the vocabulary and the logits are finite."""
     res = serve.main(["--mode", "lm", "--device", "cpu", "--arch",
                       "jamba_1_5_large_398b", "--smoke", "--batch", "2",
                       "--prompt-len", "8", "--gen", "6"])
