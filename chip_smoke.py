@@ -17,10 +17,13 @@ Phases, each printing one JSON line per row:
    the Fig. 2 data's full 4096 x 4096 gram, d = 10, in f64 and the ragged
    1000 x 300, d = 16 and 130 x 129, d = 3 in f32; ``flash_attention``
    at the LM prefill's B = 1, T = 4096, 64 q heads over 8 kv heads,
-   hd = 128 in bf16, at DBRX's 48 over 8 (a group of 6), at T = 1000
+   hd = 128 in bf16, at DBRX's 48 over 8 (a group of 6), at MiniCPM-2B's
+   training shape (B = 4, T = 2048, 36 / 36 heads of 64), at T = 1000
    (not a multiple of the tile) and at
    B = 2, T = 2048, 16 / 4 heads, hd = 64 in bf16, and at a small f32
-   shape; ``ssd_intra_chunk`` at the prefill's 16 chunks of
+   shape; its backward ``flash_attention_bwd`` at MiniCPM-2B's training
+   shape in bf16 and f32, at DBRX's 48 / 8 heads of 128, at T = 1000 and
+   at a small f32 GQA shape; ``ssd_intra_chunk`` at the prefill's 16 chunks of
    256, N = 128, 256 heads of 64 with bf16 x and f32 cum, and at a small
    f32 shape), each output entry within its own bound as
    ``repro_torch.kernels.checks`` states it, pruned entries exact zeros
@@ -220,6 +223,29 @@ Phases, each printing one JSON line per row:
    over a 256-token prompt against ``decode_step`` teacher-forced over
    the same tokens (no kernel launch), logits finite and within
    ``LM_BAR``, ``serve --mode lm``.
+14b. ``lm_train`` — MiniCPM-2B trained whole on the card (40 layers,
+   d_model 2304, 36 heads of 64, d_ff 5760, vocab 122753, tied
+   embeddings, residual scale 1.4/√40; 2.72 B parameters in bf16 drawn
+   from seed 0): 4 steps of ``make_train_step`` (AdamW, f32 moments, the
+   WSD schedule, clipping to norm 1, remat per layer) on ``TokenStream``
+   batches of B = 4, T = 2048.  Its memory is reckoned and printed before
+   it runs (``train_reckoning``), the peak printed beside it; each step's
+   loss, gradient norm and rate, finite; ``flash_attention`` 80 and
+   ``flash_attention_bwd`` 40 launches a step (forward and recompute per
+   layer, one backward per layer); step ms p50, tokens/s, the model-FLOP
+   share of the bf16 dense peak; then two steps from seed 0 twice: the
+   gradient norms and the parameters bit for bit.  ``lm_train_check``:
+   one step of MiniCPM-2B's smoke config (f32) on the card against the
+   CPU from the same weights: the loss, every gradient leaf and the
+   parameters after one AdamW step within the bounds its docstring
+   derives.  ``lm_nystrom``: a 2-layer dense config at MiniCPM's widths
+   with Nyström attention (f32, 256 landmarks set to each layer's keys of
+   a 256-token prompt): prefill against teacher-forced decode within
+   ``NYSTROM_BAR``; then ``grow_landmark`` 64 times on the card (f64,
+   two ``eigvec_rotate`` launches a landmark), its eigenvalues within
+   ``GROW_BAR`` of f64 eigh of the grown gram.  The serving LM phases
+   (``lm_moe``, ``lm_xlstm``, ``lm``, ``lm_profile``) run under
+   ``torch.inference_mode``.
 15. ``timing`` — at the kernel phase's shapes that PERF.md's kernel
    table reads (``timed_row``: each kernel's main-path shape in both
    types and the table's variants; the others are checked, not timed),
@@ -298,9 +324,19 @@ FIG2_REL = 1e-8          # approximation_error's trace vs trace_error
 # the others.
 FLASH_SHAPES = (((1, 4096, 64, 8, 128), "bfloat16"),
                 ((1, 4096, 48, 8, 128), "bfloat16"),     # DBRX's prefill
+                ((4, 2048, 36, 36, 64), "bfloat16"),     # MiniCPM's step
                 ((1, 1000, 8, 2, 128), "bfloat16"),
                 ((2, 2048, 16, 4, 64), "bfloat16"),
                 ((2, 256, 4, 2, 64), "float32"))
+# The flash_attention backward: MiniCPM-2B's training shape (B 4, T 2048,
+# 36 / 36 heads of 64) first (its row is the kernel's main-path row), in
+# bf16 and f32, DBRX's 48 / 8 heads of 128, T = 1000 (not a multiple of
+# the 64-row tile) and a small f32 GQA shape.
+FLASH_BWD_SHAPES = (((4, 2048, 36, 36, 64), "bfloat16"),
+                    ((1, 4096, 48, 8, 128), "bfloat16"),
+                    ((4, 2048, 36, 36, 64), "float32"),
+                    ((1, 1000, 8, 2, 128), "bfloat16"),
+                    ((2, 300, 4, 2, 48), "float32"))
 SSD_SHAPES = (((16, 256, 128, 256, 64), "bfloat16"),
               ((3, 32, 16, 4, 8), "float32"))
 LM_T, LM_DECODE_T, LM_WARMUP, LM_TIMED = 4096, 256, 3, 10
@@ -476,6 +512,10 @@ def all_cases(torch, checks):
         dtype = getattr(torch, dtype_name)
         yield dtype, T, H, checks.flash_attention_case(B, T, H, Hkv, hd,
                                                        dtype, "cuda")
+    for (B, T, H, Hkv, hd), dtype_name in FLASH_BWD_SHAPES:
+        dtype = getattr(torch, dtype_name)
+        yield dtype, T, H, checks.flash_attention_bwd_case(B, T, H, Hkv, hd,
+                                                           dtype, "cuda")
     for (G, Q, N, H, P), dtype_name in SSD_SHAPES:
         dtype = getattr(torch, dtype_name)
         yield dtype, G * Q, H, checks.ssd_intra_chunk_case(G, Q, N, H, P,
@@ -514,7 +554,10 @@ def timed_row(name: str, variant: str, n: int, m: int, dtype) -> bool:
         return (n, m) in ((1024, 1024), (GRAM_N, GRAM_N))
     if name == "flash_attention":
         return (m, dtype_name) in ((shape[2], dt) for shape, dt
-                                   in FLASH_SHAPES[:2])
+                                   in FLASH_SHAPES[:3])
+    if name == "flash_attention_bwd":
+        return (m, dtype_name) in ((shape[2], dt) for shape, dt
+                                   in FLASH_BWD_SHAPES[:2])
     return (m, dtype_name) == (SSD_SHAPES[0][0][3], SSD_SHAPES[0][1])
 
 
@@ -605,6 +648,7 @@ def service_phase(torch, cuda, serve, capacity: int, points: int,
               "krow_project": points, "eigvec_project": points,
               "transform_project": points // args.transform_every,
               "scaled_gram": 0, "rbf_gram": 0, "flash_attention": 0,
+              "flash_attention_bwd": 0,
               "ssd_intra_chunk": 0}
     if matmul == "pallas2":
         expect.update(pair_reckoning(launches, 2 * points))
@@ -678,7 +722,8 @@ def nystrom_phase(torch, cuda, serve, dtype_name: str) -> dict:
     adm = capacity - 1 - 4
     expect = {"eigvec_project": 0, "krow_project": adm,
               "transform_project": 0, "scaled_gram": 0, "rbf_gram": 0,
-              "flash_attention": 0, "ssd_intra_chunk": 0,
+              "flash_attention": 0,
+              "flash_attention_bwd": 0, "ssd_intra_chunk": 0,
               **pair_reckoning(launches, adm)}
     if result["admitted"] != adm or launches != expect:
         raise AssertionError(f"nystrom: {result['admitted']} admissions, "
@@ -782,7 +827,8 @@ def fig2_phase(torch, cuda, checks) -> dict:
     grown = max(checkpoints) - m0
     expect = {"eigvec_project": 0, "krow_project": grown,
               "transform_project": 0, "scaled_gram": len(checkpoints),
-              "rbf_gram": 0, "flash_attention": 0, "ssd_intra_chunk": 0,
+              "rbf_gram": 0, "flash_attention": 0,
+              "flash_attention_bwd": 0, "ssd_intra_chunk": 0,
               **pair_reckoning(launches, grown)}
     if launches != expect:
         raise AssertionError(f"fig2 launch counts {launches} != {expect}")
@@ -818,6 +864,7 @@ def window_phase(torch, cuda, serve, capacity: int, window: int,
               "krow_project": points, "eigvec_project": points,
               "transform_project": points // args.transform_every,
               "scaled_gram": 0, "rbf_gram": 0, "flash_attention": 0,
+              "flash_attention_bwd": 0,
               "ssd_intra_chunk": 0}
     if matmul == "pallas2":
         expect.update(pair_reckoning(launches, 2 * growth + 4 * steady))
@@ -1602,6 +1649,7 @@ def guarded_window_phase(torch, cuda, serve, capacity: int = 256,
               "krow_project": points, "eigvec_project": points,
               "transform_project": points // args.transform_every,
               "scaled_gram": 0, "rbf_gram": 0, "flash_attention": 0,
+              "flash_attention_bwd": 0,
               "ssd_intra_chunk": 0}
     expect.update(pair_reckoning(launches, 2 * growth + 4 * steady))
     x0, draws = serve.kpca_draws(args)
@@ -1903,6 +1951,7 @@ def multitenant_phase(torch, cuda, serve, points: int = 600,
               "krow_project": points, "eigvec_project": points,
               "transform_project": points // args.transform_every,
               "scaled_gram": 0, "rbf_gram": 0, "flash_attention": 0,
+              "flash_attention_bwd": 0,
               "ssd_intra_chunk": 0}
     # A step of tenants at m needs m + 1 rows: the cohort crosses into
     # buckets 256, 512 and 1024 at the steps where 4 + i + 1 passes 128,
@@ -2210,7 +2259,8 @@ def decoupled_phase(torch, cuda, serve) -> dict:
     expect = {"eigvec_rotate": 4 * n, "eigvec_rotate2": 0,
               "krow_project": n, "eigvec_project": n,
               "transform_project": n * DECOUPLED_RATE, "scaled_gram": 0,
-              "rbf_gram": 0, "flash_attention": 0, "ssd_intra_chunk": 0}
+              "rbf_gram": 0, "flash_attention": 0,
+              "flash_attention_bwd": 0, "ssd_intra_chunk": 0}
     bitwise = all(torch.equal(y, serving.query_batch(s, q, spec=loop.spec,
                                                      plan=loop.plan))
                   for s, q, y in log)
@@ -3041,6 +3091,348 @@ def lm_xlstm_phase(torch, cuda) -> dict:
     return row
 
 
+# MiniCPM-2B trained whole (lm_train): B sequences of T tokens, STEPS
+# optimizer steps (AdamW, the WSD schedule over STEPS steps, remat per
+# layer).
+TRAIN_B, TRAIN_T, TRAIN_STEPS = 4, 2048, 4
+# The smoke step on the card against the CPU (lm_train_check): the loss
+# within 1e-5 and each gradient leaf within 1e-4 of its largest magnitude,
+# the reference's bar between its naive and flash attention carried
+# through the backward (float32 both sides; the card's attention is the
+# SIMT kernel and its backward, the CPU's the plain versions).
+TRAIN_CHECK_LOSS, TRAIN_CHECK_GRAD = 1e-5, 1e-4
+# Nyström attention at MiniCPM's widths (lm_nystrom), 2 layers, f32, one
+# chunk of T = 256 tokens with each layer's landmarks set to its 256 keys:
+# the prefill is exact attention in the chunk; decode reads every key
+# through the landmarks, g(q, L) G⁻¹ g(L, k) = g(q, k) for k in L up to
+# the jitter 1e-4 on a gram near the identity (~1e-4 relative).  On a CPU
+# in f32 the gap read 1.3e-5 of the largest logit.  Bar 1e-3.
+NYSTROM_T, NYSTROM_BAR = 256, 1e-3
+# grow_landmark on the card: 64 landmarks added by Algorithm 1 (f64, the
+# rotation kernel's route) to 8 seed landmarks of hd 64 (spread 0.3, so
+# the RBF gram at σ = 16 has a spread spectrum); the eigenvalues within
+# 1e-9 of λmax of f64 eigh of the grown gram (the reference test's 1e-8
+# for 1 update, carried over 64 updates of ~1e-14 each).
+GROW_SEED, GROW_STEPS, GROW_BAR = 8, 64, 1e-9
+
+
+def _smi() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True,
+                          timeout=60).stdout.strip().splitlines()[0]
+
+
+def train_reckoning(cfg, B: int, T: int) -> dict:
+    """What a MiniCPM-2B train step holds on the card, reckoned before it
+    runs: parameters and gradients in the model's type, two float32
+    moments, the inputs remat keeps (one (B, T, d) activation a layer),
+    the logits in bf16, their float32 copy and its gradient; and the
+    flash_attention launches a step (forward and recompute per layer,
+    one backward per layer)."""
+    from repro_torch.models.config import param_count
+
+    n = param_count(cfg)
+    item = 2 if cfg.dtype == "bfloat16" else 4
+    layers = sum(cfg.block_kind(i) == "attn" for i in range(cfg.n_layers))
+    logits = B * T * cfg.vocab
+    parts = {"params_and_grads_gb": 2 * n * item / 1e9,
+             "moments_gb": 2 * n * 4 / 1e9,
+             "remat_inputs_gb": cfg.n_layers * B * T * cfg.d_model * item
+             / 1e9,
+             "logits_gb": logits * (item + 4 + 4) / 1e9}
+    return {"params": n, **parts, "total_gb": sum(parts.values()),
+            "flash_attention_per_step": 2 * layers,
+            "flash_attention_bwd_per_step": layers}
+
+
+def _model_flops(cfg, n: int, B: int, T: int) -> float:
+    """Model FLOPs of one train step: 6·N·tokens for the weights, and the
+    causal attention's QKᵀ and PV (4·hd flops per pair s <= t a head)
+    three times (forward, and twice that in the backward); remat's
+    recompute is not counted."""
+    attn = sum(4.0 * cfg.hd * cfg.n_heads * B * T * (T + 1) / 2
+               for i in range(cfg.n_layers) if cfg.block_kind(i) == "attn")
+    return 6.0 * n * B * T + 3 * attn
+
+
+def lm_train_phase(torch, cuda) -> dict:
+    """MiniCPM-2B trained whole on the card (40 layers, d_model 2304, 36
+    heads of 64, d_ff 5760, vocab 122753, tied embeddings, residual scale
+    1.4/√40; bf16 parameters drawn from seed 0 on the card): ``STEPS``
+    steps of ``make_train_step`` (AdamW with float32 moments, the WSD
+    schedule, clipping to norm 1, remat per layer) on ``TokenStream``
+    batches of B = 4, T = 2048.  Each step's loss, gradient norm and rate;
+    finite losses and norms; the ``flash_attention`` forward and backward
+    launches per step against the reckoning; step ms, tokens/s, the
+    model-FLOP share of the bf16 dense peak, the peak memory beside its
+    reckoning.  Then the same two first steps from seed 0 again: their
+    gradient norms and the parameters after them bit for bit."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.launch import steps
+
+    cfg = get_config("minicpm_2b")
+    reck = train_reckoning(cfg, TRAIN_B, TRAIN_T)
+    emit({"phase": "lm_train", "reckoning": reck, "card": _smi()})
+    t_phase = time.perf_counter()
+    optimizer = steps.optimizer_for("minicpm_2b")
+    schedule = steps.schedule_for("minicpm_2b", total=TRAIN_STEPS)
+    stream = TokenStream(vocab=cfg.vocab, seq_len=TRAIN_T,
+                         global_batch=TRAIN_B, seed=0)
+    batches = [stream.batch_at(i, "cuda") for i in range(TRAIN_STEPS)]
+
+    def run(n_steps: int, record: bool):
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        state = steps.init_train_state(cfg, optimizer, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        train_step = steps.make_train_step(cfg, optimizer, schedule)
+        init = ({k: p.detach().clone() for k, p in
+                 state.params.named_parameters()} if record else None)
+        torch.cuda.reset_peak_memory_stats()
+        out = []
+        for i in range(n_steps):
+            cuda.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = train_step(state, batches[i])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            out.append({"step": i, "ms": ms, "loss": float(m["loss"]),
+                        "grad_norm": float(m["grad_norm"]),
+                        "grad_norm_bits": m["grad_norm"].cpu().view(
+                            torch.int32).item(),
+                        "lr": m["lr"], "accuracy": float(m["accuracy"]),
+                        "launches": {k: v for k, v in cuda.LAUNCHES.items()
+                                     if v}})
+        peak = torch.cuda.max_memory_allocated()
+        params = None
+        if record:
+            params = {k: p.detach().cpu() for k, p in
+                      state.params.named_parameters()}
+            out[-1]["params_moved"] = sum(
+                int(not torch.equal(init[k], p)) for k, p in
+                state.params.named_parameters())
+            out[-1]["params"] = len(init)
+        del state, init
+        return out, peak, init_s, params
+
+    steps_out, peak, init_s, _ = run(TRAIN_STEPS, record=False)
+    want = {"flash_attention": reck["flash_attention_per_step"],
+            "flash_attention_bwd": reck["flash_attention_bwd_per_step"]}
+    for r in steps_out:
+        if r["launches"] != want:
+            raise AssertionError(f"lm_train step {r['step']} launches "
+                                 f"{r['launches']} != {want}")
+        if not (np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])):
+            raise AssertionError(f"lm_train step {r['step']}: {r}")
+    times = [r["ms"] for r in steps_out]
+    p50 = float(np.percentile(times, 50))
+    tokens = TRAIN_B * TRAIN_T
+    flops = _model_flops(cfg, reck["params"], TRAIN_B, TRAIN_T)
+    # Determinism: two steps from seed 0 twice, bit for bit.
+    det = {}
+    first, _, _, p_first = run(2, record=True)
+    again, _, _, p_again = run(2, record=True)
+    det["grad_norms_bitwise"] = [a["grad_norm_bits"] == b["grad_norm_bits"]
+                                 for a, b in zip(first, again)]
+    det["grad_norms_equal_the_run"] = [
+        a["grad_norm_bits"] == b["grad_norm_bits"]
+        for a, b in zip(first, steps_out)]
+    det["params_bitwise"] = all(torch.equal(p_first[k], p_again[k])
+                                for k in p_first)
+    det["params_moved_of"] = (first[-1]["params_moved"],
+                              first[-1]["params"])
+    del p_first, p_again
+    torch.cuda.empty_cache()
+    if not (all(det["grad_norms_bitwise"]) and det["params_bitwise"]
+            and det["params_moved_of"][0] > 0):
+        raise AssertionError(f"lm_train: two runs from seed 0 differ: {det}")
+    row = {"phase": "lm_train", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "reduced": None, "dtype": cfg.dtype, "B": TRAIN_B, "T": TRAIN_T,
+           "optimizer": optimizer.name, "schedule": "wsd",
+           "remat": "per layer", "init_s": init_s, "steps": steps_out,
+           "step_ms_p50": p50, "step_ms": times,
+           "tokens_per_s": tokens / p50 * 1e3,
+           "model_flops_per_step": flops,
+           "model_flop_share_of_bf16_peak": flops / (p50 / 1e3) / 989e12,
+           "peak_memory_gb": peak / 1e9, "peak_memory_gib": peak / 2 ** 30,
+           "reckoned_memory_gb": reck["total_gb"],
+           "launches_per_step": want, "determinism": det, "card": _smi(),
+           "total_s": time.perf_counter() - t_phase}
+    emit(row)
+    return {**row, "launches": {
+        "flash_attention": sum(r["launches"]["flash_attention"]
+                               for r in steps_out),
+        "flash_attention_bwd": sum(r["launches"]["flash_attention_bwd"]
+                                   for r in steps_out)}}
+
+
+def lm_train_check_phase(torch, cuda) -> dict:
+    """One train step of MiniCPM-2B's smoke config (2 layers, d 64, float32)
+    on the card against the same step on the CPU from the same weights and
+    batch: the loss (``TRAIN_CHECK_LOSS``), every gradient leaf
+    (``TRAIN_CHECK_GRAD`` of its largest magnitude) and the parameters
+    after one AdamW step at a constant rate of 1e-3.  AdamW's first step
+    moves an entry by lr·(g/(|g| + eps) + wd·p): with the gradients within
+    δ = TRAIN_CHECK_GRAD·max|g| of each other, the step's u differs by at
+    most min(2, 2δ/(|g| + eps)), so each entry is held to lr times that
+    plus four float32 roundings of |p|."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.optim import optimizers, schedules
+
+    import numpy as np
+
+    t0 = time.perf_counter()
+    cfg = get_config("minicpm_2b", smoke=True)
+    cpu = lm.init_params(cfg, seed=0)
+    gpu = lm.init_params(cfg, seed=0, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    tok = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (4, 65)))
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    out = {}
+    cuda.reset_launches()
+    for dev, model in (("cuda", gpu), ("cpu", cpu)):
+        b = {k: v.to(dev) for k, v in batch.items()}
+        loss, _ = lm.loss_fn(model, cfg, b)
+        leaves = dict(model.named_parameters())
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        out[dev] = (float(loss.detach()), {k: g.detach().cpu() for k, g in
+                                           zip(leaves, grads)})
+    launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+    loss_err = abs(out["cuda"][0] - out["cpu"][0])
+    worst = 0.0
+    for k, g in out["cpu"][1].items():
+        err = float((out["cuda"][1][k] - g).abs().max())
+        worst = max(worst, err / max(float(g.abs().max()), 1e-30))
+    params = {}
+    lr = 1e-3
+    for dev, model in (("cuda", gpu), ("cpu", cpu)):
+        opt = optimizers.adamw()
+        state = steps.TrainState(torch.zeros((), dtype=torch.int32), model,
+                                 opt.init(steps.param_dict(model)))
+        step = steps.make_train_step(cfg, opt, schedules.constant(lr))
+        step(state, {k: v.to(dev) for k, v in batch.items()})
+        params[dev] = {k: p.detach().cpu() for k, p in
+                       model.named_parameters()}
+    eps32 = torch.finfo(torch.float32).eps
+    p_worst = 0.0
+    for k, p in params["cpu"].items():
+        g = out["cpu"][1][k]
+        delta = TRAIN_CHECK_GRAD * float(g.abs().max())
+        bound = lr * torch.clamp(2 * delta / (g.abs() + 1e-8), max=2.0) \
+            + 4 * eps32 * p.abs()
+        ratio = float(((params["cuda"][k] - p).abs() / bound).max())
+        p_worst = max(p_worst, ratio)
+    row = {"phase": "lm_train_check", "arch": cfg.name, "dtype": cfg.dtype,
+           "loss_cuda": out["cuda"][0], "loss_cpu": out["cpu"][0],
+           "loss_err": loss_err, "loss_bar": TRAIN_CHECK_LOSS,
+           "worst_grad_rel_err": worst, "grad_bar": TRAIN_CHECK_GRAD,
+           "worst_param_err_over_bound": p_worst,
+           "launches_loss_and_grads": launches,
+           "total_s": time.perf_counter() - t0}
+    emit(row)
+    if not (loss_err <= TRAIN_CHECK_LOSS and worst <= TRAIN_CHECK_GRAD
+            and p_worst <= 1.0):
+        raise AssertionError(f"lm_train_check: {row}")
+    want = {"flash_attention": 2 * cfg.n_layers,
+            "flash_attention_bwd": cfg.n_layers}
+    if launches != want:
+        raise AssertionError(f"lm_train_check launches {launches} != {want}")
+    return row
+
+
+def lm_nystrom_phase(torch, cuda) -> dict:
+    """Nyström attention on the card: a dense config at MiniCPM-2B's widths
+    (d 2304, 36 heads of 64, d_ff 5760, vocab 122753) with
+    ``attention="nystrom"``, 2 layers, float32, landmarks m = 256; each
+    layer's landmarks set to its keys of a T = 256 prompt, then the
+    prefill against teacher-forced decode within ``NYSTROM_BAR``.  Then
+    ``grow_landmark`` ``GROW_STEPS`` times on the card (f64, the rotation
+    kernel's route: two ``eigvec_rotate`` launches a landmark), its
+    eigenvalues against f64 eigh of the grown gram within ``GROW_BAR`` of
+    λmax."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import kernels_fn as kf
+    from repro_torch.core import inkpca
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.models import layers, lm
+    from repro_torch.models import nystrom_attention as nys
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("minicpm_2b"), n_layers=2,
+                              attention="nystrom", dtype="float32")
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    prompt = TokenStream(vocab=cfg.vocab, seq_len=NYSTROM_T, global_batch=1,
+                         seed=1).batch_at(0, "cuda")["tokens"]
+    pos = torch.arange(NYSTROM_T, device="cuda")[None]
+    with torch.inference_mode():
+        h = lm.embed_tokens(params, cfg, prompt)
+        for layer in params.layers:
+            hn = layers.rmsnorm_apply(layer.norm1, h)
+            _, k, _ = layers._qkv(layer.mixer, cfg, hn, pos)
+            layer.mixer.landmarks.copy_(k[0].permute(1, 0, 2).float())
+            h = lm._block(layer, cfg, h, pos)
+        full, dec, launches = _prefill_and_decode(torch, cuda, cfg, params,
+                                                  prompt)
+    check = _logit_check(torch, full, dec, launches, NYSTROM_BAR)
+    del params, full, dec
+    torch.cuda.empty_cache()
+
+    # grow_landmark on the card, f64.
+    hd = cfg.hd
+    sigma = 2.0 * hd ** 0.5
+    M = GROW_SEED + GROW_STEPS
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    rows = 0.3 * torch.randn((M, hd), generator=gen, device="cuda",
+                             dtype=torch.float64)
+    spec = kf.KernelSpec(name="rbf", sigma=sigma)
+    st = inkpca.init_state(rows[:GROW_SEED], M, spec, adjusted=False,
+                           dtype=torch.float64)
+    lms = torch.zeros_like(rows)
+    lms[:GROW_SEED] = rows[:GROW_SEED]
+    state = (lms, st.L, st.U, st.m)
+    cuda.reset_launches()
+    for i in range(GROW_SEED, M):
+        state = nys.grow_landmark(*state, rows[i], sigma)
+    torch.cuda.synchronize()
+    grow_launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+    lms, L, U, m = state
+    G = kf.gram_block(rows, rows, spec=spec)
+    lam = torch.linalg.eigvalsh(G)
+    lam_inc = torch.sort(L[:M]).values
+    grow_err = float((lam_inc - lam).abs().max() / lam.abs().max())
+    ginv = nys.ginv_from_eig(L, U, m, jitter=0.0)
+    ginv_err = float((ginv @ G - torch.eye(M, dtype=G.dtype,
+                                          device="cuda")).abs().max())
+    row = {"phase": "lm_nystrom", "widths": {k: getattr(cfg, k) for k in (
+        "d_model", "n_heads", "n_kv_heads", "hd", "d_ff", "vocab",
+        "nystrom_landmarks")}, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+           "decode_check": check,
+           "grow": {"seed_landmarks": GROW_SEED, "grown": GROW_STEPS,
+                    "m": int(m), "dtype": "float64",
+                    "eig_rel_err": grow_err, "bar": GROW_BAR,
+                    "ginv_times_g_minus_i": ginv_err,
+                    "launches": grow_launches},
+           "total_s": time.perf_counter() - t0}
+    emit(row)
+    want = {"eigvec_rotate": 2 * GROW_STEPS}
+    if not (grow_err <= GROW_BAR and int(m) == M and grow_launches == want):
+        raise AssertionError(f"lm_nystrom grow_landmark: {row['grow']}, "
+                             f"launches {grow_launches} != {want}")
+    return row
+
+
 def lm_profile_phase(checks, prefill_call) -> dict:
     """Where one prefill's device time goes: one call under the profiler
     (device records by kernel group, the device's busy and idle share).
@@ -3137,32 +3529,41 @@ def main() -> int:
               Path(tmp) / "p2")
     del state0, single
     runs["roofline"] = clock("roofline", roofline_phase, torch, cuda)
-    runs["lm_moe"] = clock("lm_moe", lm_moe_phase, torch, cuda)
-    clock("lm_xlstm", lm_xlstm_phase, torch, cuda)
-    runs["lm"], prefill_call = clock("lm", lm_phase, torch, cuda)
+    # Training first, on an empty card (it holds ~50 GB); the serving phases
+    # after it ask for no autograd graph.
+    torch.cuda.empty_cache()
+    runs["lm_train"] = clock("lm_train", lm_train_phase, torch, cuda)
+    torch.cuda.empty_cache()
+    clock("lm_train_check", lm_train_check_phase, torch, cuda)
+    clock("lm_nystrom", lm_nystrom_phase, torch, cuda)
+    with torch.inference_mode():
+        runs["lm_moe"] = clock("lm_moe", lm_moe_phase, torch, cuda)
+        clock("lm_xlstm", lm_xlstm_phase, torch, cuda)
+        runs["lm"], prefill_call = clock("lm", lm_phase, torch, cuda)
     timed = clock("timing", timing_phase, torch, checks)
     timed_b = clock("timing_batched", batched_timing_phase, torch, checks)
-    clock("lm_profile", lm_profile_phase, checks, prefill_call)
+    with torch.inference_mode():
+        clock("lm_profile", lm_profile_phase, checks, prefill_call)
     del prefill_call
     torch.cuda.empty_cache()
     clock.emit()
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(_smi(), flush=True)
     # Each kernel's launches are read from the run of the path it belongs
     # to (counts reset just before that run): the sequential service for
     # the single rotation and the prologue/projection/transform kernels,
     # the fused-pair service for rotate2, the Fig. 2 loop for scaled_gram,
-    # the roofline for rbf_gram, the LM prefill for the LM kernels.
+    # the roofline for rbf_gram, the LM prefill for the LM kernels, the
+    # MiniCPM-2B training run for the attention backward.
     path_of = {"eigvec_rotate2": "pallas2", "scaled_gram": "fig2",
                "rbf_gram": "roofline", "flash_attention": "lm",
-               "ssd_intra_chunk": "lm"}
+               "ssd_intra_chunk": "lm", "flash_attention_bwd": "lm_train"}
     main_key_of = {"scaled_gram": ("float64", GRAM_K[0]),   # Fig. 2's type
                    "rbf_gram": ("float32", RBF_SHAPES[0][1]),
                    "flash_attention": (FLASH_SHAPES[0][1],
                                        FLASH_SHAPES[0][0][2]),
+                   "flash_attention_bwd": (FLASH_BWD_SHAPES[0][1],
+                                           FLASH_BWD_SHAPES[0][0][2]),
                    "ssd_intra_chunk": (SSD_SHAPES[0][1],
                                        SSD_SHAPES[0][0][3])}
     # The batched forms' launches: the multi-tenant service (f32 pallas,

@@ -1,8 +1,8 @@
 """kimi-k2-1t-a32b [moe] — trillion-param MoE, 384 experts top-8 + 1 shared
 expert, fine-grained experts (d_ff_expert=2048)  [arXiv:2501.kimi2,
 paper-table].  Optimizer plan: Adafactor (factored 2nd moment), bf16
-params; ``OPTIMIZER`` names it for the training path (not ported yet:
-ROADMAP.md §1 item 11).
+params; ``OPTIMIZER`` names it for the training path
+(``launch/steps.optimizer_for``).
 
 61L d_model=7168 64H (GQA kv=8) vocab=163840, MoE 384e top-8.
 """

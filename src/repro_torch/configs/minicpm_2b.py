@@ -1,6 +1,6 @@
 """minicpm-2b [dense] — llama-like with depth-scaled residuals and the WSD
 (warmup–stable–decay) schedule (arXiv:2404.06395); ``SCHEDULE`` names it
-for the training path (not ported yet: ROADMAP.md §1 item 11).
+for the training path (``launch/steps.schedule_for``).
 
 40L d_model=2304 36H (MHA kv=36) d_ff=5760 vocab=122753.
 """

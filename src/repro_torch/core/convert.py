@@ -22,7 +22,13 @@ which ``engine.StreamBatch.from_states`` continues;
 the reference keeps none.  ``state_to_numpy`` and ``window_to_numpy`` take
 stacked states as they are.
 ``lm_params_from_numpy`` turns the reference's LM parameter tree (as
-numpy arrays) into the port's ``models.lm.LM``.
+numpy arrays) into the port's ``models.lm.LM`` (Nyström attention's
+``landmarks`` included).  ``train_state_from_numpy`` and
+``train_state_to_numpy`` carry a ``TrainState`` (step, parameters and
+optimizer state, the reference's tree laid out over periods) across;
+``train_state_tree`` is the same layout in tensors, which the port's
+checkpoints store, so a checkpoint written by either package's trainer
+loads in the other.
 """
 from __future__ import annotations
 
@@ -255,13 +261,14 @@ def _tensor(arr) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))
 
 
-def load_numpy_(module: torch.nn.Module, tree: dict, device=None
-                ) -> torch.nn.Module:
+def load_numpy_(module: torch.nn.Module, tree: dict, device=None,
+                requires_grad: bool = False) -> torch.nn.Module:
     """Replace every parameter of ``module`` by the leaf of the same dotted
     path in the nested dict ``tree`` (the reference's parameter tree of
     the same layer, as numpy arrays), on ``device``, each leaf keeping its
     type; returns the module.  A leaf the module lacks, a parameter no
-    leaf fills, or a shape that differs raises."""
+    leaf fills, or a shape that differs raises.  The parameters are
+    frozen (loaded weights to serve) unless ``requires_grad``."""
     dev = resolve_device(device)
     flat = dict(_leaves(tree))
     names = dict(module.named_parameters())
@@ -276,20 +283,21 @@ def load_numpy_(module: torch.nn.Module, tree: dict, device=None
                              f"{tuple(names[name].shape)}")
         mod_name, _, leaf = name.rpartition(".")
         setattr(module.get_submodule(mod_name), leaf,
-                torch.nn.Parameter(t.to(dev), requires_grad=False))
+                torch.nn.Parameter(t.to(dev), requires_grad=requires_grad))
     return module
 
 
-def lm_params_from_numpy(params: dict, cfg: ArchConfig, device=None
-                         ) -> lm.LM:
+def lm_params_from_numpy(params: dict, cfg: ArchConfig, device=None,
+                         requires_grad: bool = False) -> lm.LM:
     """The port's ``LM`` from the reference's ``lm.init_params`` tree as
     numpy arrays: ``{'embed', 'slots': {'slot{j}': leaves stacked over
     periods}, 'final_norm'}``.  Layer i takes period i // period of slot
     i % period: its mixer (attention, Mamba, mLSTM or sLSTM), and its FFN
     (dense, or the experts' ``router``, ``w_up``/``w_gate``/``w_down``
     banks and ``shared`` experts).  Every leaf keeps its type
-    (``dt_bias``, ``a_log``, ``d_skip``, the router and the xLSTM gates
-    are float32 in a bfloat16 model)."""
+    (``dt_bias``, ``a_log``, ``d_skip``, the router, the xLSTM gates and
+    Nyström attention's ``landmarks`` are float32 in a bfloat16 model).
+    Frozen unless ``requires_grad`` (to train)."""
     tree = {"embed": params["embed"], "final_norm": params["final_norm"],
             "layers": {}}
     for i in range(cfg.n_layers):
@@ -298,4 +306,154 @@ def lm_params_from_numpy(params: dict, cfg: ArchConfig, device=None
             k: np.asarray(v)[period]
             for k, v in _leaves(params["slots"][f"slot{slot}"])}
     model = lm.LM(cfg, torch.device("meta"))
-    return load_numpy_(model, tree, device)
+    return load_numpy_(model, tree, device, requires_grad)
+
+
+# ------------------------------------------------------------ train state --
+def _ref_key(name: str, cfg: ArchConfig) -> tuple[tuple, int | None]:
+    """A port parameter name ("layers.5.mixer.wq") as the reference's path
+    (("slots", "slot1", "mixer", "wq")) and period index (2), or a
+    top-level path ("embed.table") with no period."""
+    parts = name.split(".")
+    if parts[0] != "layers":
+        return tuple(parts), None
+    period, slot = divmod(int(parts[1]), cfg.period)
+    return ("slots", f"slot{slot}", *parts[2:]), period
+
+
+def _nest(flat: dict) -> dict:
+    out: dict = {}
+    for path, val in flat.items():
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = val
+    return out
+
+
+def lm_tree(leaves: dict, cfg: ArchConfig) -> dict:
+    """Tensors by port parameter name (a moment of each parameter, or a
+    dict of them per parameter: Adafactor's ``vr``/``vc``) as the
+    reference's nested tree, each slot's leaves stacked over periods."""
+    groups: dict = {}
+    for name, val in leaves.items():
+        path, period = _ref_key(name, cfg)
+        subs = val.items() if isinstance(val, dict) else [(None, val)]
+        for sub, t in subs:
+            full = path + ((sub,) if sub is not None else ())
+            groups.setdefault(full, []).append((period, t))
+    flat = {}
+    for path, items in groups.items():
+        if items[0][0] is None:
+            flat[path] = items[0][1]
+        else:
+            flat[path] = torch.stack([t for _, t in sorted(
+                items, key=lambda it: it[0])])
+    return _nest(flat)
+
+
+def lm_untree(tree: dict, cfg: ArchConfig, names) -> dict:
+    """The inverse of ``lm_tree`` for the port parameter ``names``: each
+    name's leaf (its period's slice of a stacked slot leaf), or the dict of
+    its leaves where the tree holds one per parameter (Adafactor's)."""
+    out = {}
+    for name in names:
+        path, period = _ref_key(name, cfg)
+        node = tree
+        for k in path:
+            node = node[k]
+        pick = (lambda t: t) if period is None else (lambda t: t[period])
+        out[name] = ({k: pick(v) for k, v in node.items()}
+                     if isinstance(node, dict) else pick(node))
+    return out
+
+
+def _is_adamw(inner) -> bool:
+    return isinstance(inner, dict) and set(inner) == {"mu", "nu"}
+
+
+def train_state_tree(state, cfg: ArchConfig):
+    """The ``TrainState``'s leaves in the reference's layout, as tensors:
+    a ``TrainState`` of (step, the parameter tree, ``OptState``(step,
+    inner)), each slot stacked over periods (copies)."""
+    from repro_torch.launch.steps import TrainState, param_dict
+    from repro_torch.optim import OptState
+
+    params = lm_tree({k: p.detach() for k, p in
+                      param_dict(state.params).items()}, cfg)
+    inner = state.opt.inner
+    if _is_adamw(inner):
+        inner = {k: lm_tree(v, cfg) for k, v in inner.items()}
+    else:
+        inner = lm_tree(inner, cfg)
+    return TrainState(step=state.step, params=params,
+                      opt=OptState(step=state.opt.step, inner=inner))
+
+
+def train_state_from_numpy(tree, cfg: ArchConfig, device=None):
+    """The port's ``TrainState`` from the reference's layout: any object
+    with ``step``, ``params`` and ``opt.step``, ``opt.inner`` whose leaves
+    are numpy arrays (the reference's state) or tensors (``train_state_tree``'s,
+    as a checkpoint loads them).  The model gets trainable parameters on
+    ``device``, the optimizer state the port's parameter names (moments
+    keep their type); the steps become 0-d int32 host tensors."""
+    from repro_torch.launch.steps import TrainState, param_dict
+    from repro_torch.optim import OptState
+
+    def np_leaf(t):
+        if torch.is_tensor(t):
+            t = t.detach().cpu()
+            return t.float().numpy() if t.dtype == torch.bfloat16 else \
+                t.numpy()
+        return t
+
+    def np_tree(node):
+        return ({k: np_tree(v) for k, v in node.items()}
+                if isinstance(node, dict) else np_leaf(node))
+
+    dev = resolve_device(device)
+    model = lm_params_from_numpy(np_tree(tree.params), cfg, dev,
+                                 requires_grad=True)
+    # bfloat16 leaves came as float32 arrays (exactly): back to the model's
+    # type.
+    for name, want in lm.LM(cfg, torch.device("meta")).named_parameters():
+        mod_name, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(mod_name)
+        if getattr(mod, leaf).dtype != want.dtype:
+            setattr(mod, leaf, torch.nn.Parameter(
+                getattr(mod, leaf).detach().to(want.dtype)))
+    names = list(param_dict(model))
+    inner = tree.opt.inner
+
+    def dev_tree(node):
+        if isinstance(node, dict):
+            return {k: dev_tree(v) for k, v in node.items()}
+        return torch.tensor(np.asarray(np_leaf(node))).to(dev)   # a copy
+
+    if _is_adamw(inner):
+        inner = {k: dev_tree(lm_untree(v, cfg, names))
+                 for k, v in inner.items()}
+    else:
+        inner = dev_tree(lm_untree(inner, cfg, names))
+
+    def step_of(x):
+        return torch.tensor(int(np.asarray(np_leaf(x))), dtype=torch.int32)
+
+    return TrainState(step=step_of(tree.step), params=model,
+                      opt=OptState(step=step_of(tree.opt.step), inner=inner))
+
+
+def train_state_to_numpy(state, cfg: ArchConfig):
+    """``train_state_tree`` with numpy leaves (bfloat16 as float32,
+    exactly): the reference's ``TrainState`` layout, for
+    ``train_state_from_numpy`` or the reference's own code."""
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        t = node.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    tree = train_state_tree(state, cfg)
+    return type(tree)(step=conv(tree.step), params=conv(tree.params),
+                      opt=type(tree.opt)(step=conv(tree.opt.step),
+                                         inner=conv(tree.opt.inner)))

@@ -9,7 +9,7 @@ reference's bits (the tests hand both packages the same numpy tokens).
 
 ``frontend_embeddings`` attaches the modality frontends' stub embeddings.
 The reference's ``make_batch_specs`` builds the dry run's shape stand-ins
-and is not ported (the dry run parses XLA HLO: ROADMAP.md §1 item 11).
+and is not ported (the dry run parses XLA HLO; ROADMAP.md §1).
 """
 from __future__ import annotations
 

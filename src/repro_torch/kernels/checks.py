@@ -85,7 +85,8 @@ from repro_torch.kernels.nystrom_recon import ref as nref
 from repro_torch.kernels.nystrom_recon.ref import transform_project_ref
 from repro_torch.kernels.rbf_gram import ops as kops
 from repro_torch.kernels.flash_attn import ops as fops
-from repro_torch.kernels.flash_attn.ref import flash_attention_ref
+from repro_torch.kernels.flash_attn.ref import (flash_attention_bwd_ref,
+                                                flash_attention_ref)
 from repro_torch.kernels.rbf_gram.ref import krow_project_ref, rbf_gram_ref
 from repro_torch.kernels.ssd_chunk import ops as sops
 from repro_torch.kernels.ssd_chunk.ref import ssd_intra_chunk_ref
@@ -115,6 +116,11 @@ SOURCES = {
                  "src/repro/kernels/rbf_gram/rbf_gram.py:46"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attn/flash_attn.py:73"),
+    # The forward TPU kernel's gradient: the reference differentiates its
+    # jnp attention, the port this kernel (no pallas_call of its own).
+    "flash_attention_bwd": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/kernels/flash_attn/flash_attn.py:73"),
     "ssd_intra_chunk": ("src/repro_torch/kernels/csrc/ssd_intra_chunk.cu",
                         "src/repro/kernels/ssd_chunk/ssd_chunk.py:48"),
 }
@@ -825,6 +831,111 @@ def flash_attention_case(B: int, T: int, H: int, Hkv: int, hd: int, dtype,
                    "through the softmax",
         **dict(zip(("bytes", "flops"),
                    flash_attention_work(B, T, H, Hkv, hd, item))))
+
+
+def flash_attention_bwd_tol(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
+                            dout: Tensor, grads: tuple[Tensor, ...]
+                            ) -> tuple[Tensor, Tensor, Tensor]:
+    """Per-entry bounds on two evaluations of the backward (dq, dk, dv)
+    that read the same operands into float32, sum in float32 in different
+    orders and round each output to the operands' type once (u its unit
+    roundoff; ``grads`` the plain version's outputs):
+      - the scores and dP = dout vᵀ, length-hd float32 dot products, and
+        D = rowsum(dout ∘ out), and the output sums of at most T terms
+        (over the group's heads: gT): each term within γ = 2(gT + hd +
+        2)eps of its magnitude;
+      - P = exp(S - lse): the scores' error δ_t = 2(hd+2)eps·scale·max_s
+        |q_t||k_s| moves P by a factor e^{±2δ}, and exp, lse by (64 + 8
+        T/64)eps;
+    so with rel = γ + 2δ + (64 + 8T/64)eps and the magnitudes A of each
+    output's terms (A_dv = Pᵀ|dout|, A_dS = P∘(|dout||v|ᵀ + rowsum(|dout|
+    ∘|out|) + |dP - D|), A_dq = scale·A_dS|k|, A_dk = scale·A_dSᵀ|q|):
+    tol = rel·A + 2u|out|, the last for the two roundings to the type.
+    One kv head (its group of q heads) at a time, in float32."""
+    B, T, H, hd = q.shape
+    Hkv = k.shape[2]
+    g = H // Hkv
+    eps = torch.finfo(torch.float32).eps
+    u = _unit_roundoff(q.dtype)
+    scale = 1.0 / hd ** 0.5
+    base = (2 * (g * T + hd + 2) + 64 + 8 * -(-T // 64)) * eps
+    causal = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
+    tq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    tk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    tv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
+    for j in range(Hkv):
+        heads = slice(j * g, (j + 1) * g)
+        qj, oj, doj = (x[:, :, heads].float() for x in (q, out, dout))
+        kj, vj = k[:, :, j].float(), v[:, :, j].float()
+        s = torch.einsum("btgd,bsd->bgts", qj, kj) * scale
+        p = torch.softmax(torch.where(causal, s, -torch.inf), dim=-1)
+        del s
+        qk = torch.einsum("btgd,bsd->bgts", qj.abs(), kj.abs())
+        delta = 2 * (hd + 2) * eps * scale * torch.where(
+            causal, qk, 0.0).amax(dim=-1, keepdim=True)      # (B, g, T, 1)
+        del qk
+        rel = base + 2 * delta
+        dsum = (doj * oj).sum(-1).permute(0, 2, 1)[..., None]
+        dsum_abs = (doj.abs() * oj.abs()).sum(-1).permute(0, 2, 1)[..., None]
+        dp = torch.einsum("btgd,bsd->bgts", doj, vj)
+        a_ds = p * (torch.einsum("btgd,bsd->bgts", doj.abs(), vj.abs())
+                    + dsum_abs + (dp - dsum).abs()) * rel
+        del dp
+        tv[:, :, j] = torch.einsum("bgts,btgd->bsd", p * rel, doj.abs())
+        del p
+        tq[:, :, heads] = scale * torch.einsum("bgts,bsd->btgd", a_ds,
+                                               kj.abs())
+        tk[:, :, j] = scale * torch.einsum("bgts,btgd->bsd", a_ds, qj.abs())
+    tiny = torch.finfo(torch.float32).tiny
+    return tuple(t + 2 * u * gr.float().abs() + tiny
+                 for t, gr in zip((tq, tk, tv), grads))
+
+
+def flash_attention_bwd_work(B: int, T: int, H: int, Hkv: int, hd: int,
+                             item: int) -> tuple[float, float]:
+    """(bytes, flops) the backward needs: q, out, dout (H heads) and k, v
+    read once, dq, dk, dv written once; five products of 2 hd flops (S,
+    dP, dv, dk, dq) for each pair s <= t of each q head."""
+    return (item * B * T * hd * (4 * H + 4 * Hkv),
+            10.0 * hd * H * B * T * (T + 1) / 2)
+
+
+def flash_attention_bwd_case(B: int, T: int, H: int, Hkv: int, hd: int,
+                             dtype, device, seed: int = 0) -> Case:
+    """The backward at (B, T, H, Hkv, hd): q, k, v standard normal as in
+    ``flash_attention_case``, out their attention (the plain forward, in
+    ``dtype``), dout standard normal.  The library call is the backward
+    of ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
+    alone (its forward graph kept), timed as a yardstick only."""
+    rng = np.random.default_rng(seed)
+
+    def draw(h):
+        return torch.as_tensor(rng.normal(size=(B, T, h, hd)),
+                               dtype=torch.float32).to(dtype).to(device)
+
+    q, k, v = draw(H), draw(Hkv), draw(Hkv)
+    dout = draw(H)
+    out = flash_attention_ref(q, k, v)
+    want = flash_attention_bwd_ref(q, k, v, out, dout)
+    item = q.element_size()
+    lib_in = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*lib_in, is_causal=True,
+                                             enable_gqa=True)
+    lib_dout = dout.transpose(1, 2)
+    return Case(
+        name="flash_attention_bwd",
+        kernel=lambda: fops.attention_backward(q, k, v, out, dout),
+        plain=lambda: flash_attention_bwd_ref(q, k, v, out, dout),
+        library=lambda: torch.autograd.grad(lib_out, lib_in, lib_dout,
+                                            retain_graph=True),
+        tols=flash_attention_bwd_tol(q, k, v, out, dout, want),
+        tol_reason="per entry rel·A + 2u|grad|, rel = 2(gT+hd+2)eps32 + "
+                   "(64 + 8T/64)eps32 + 2δ_t, A the magnitudes of the "
+                   "output's terms (Pᵀ|dout|, scale·A_dS|k|, scale·"
+                   "A_dSᵀ|q|, A_dS = P∘(|dout||v|ᵀ + Σ|dout||out| + "
+                   "|dP - D|)), u the operands' unit roundoff",
+        **dict(zip(("bytes", "flops"),
+                   flash_attention_bwd_work(B, T, H, Hkv, hd, item))))
 
 
 def ssd_intra_chunk_tol(c: Tensor, b: Tensor, x: Tensor, cum: Tensor

@@ -33,7 +33,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("errors.cu", "eigvec_rotate.cu", "eigvec_rotate2.cu",
            "eigvec_project.cu", "krow_project.cu", "transform_project.cu",
            "scaled_gram.cu", "rbf_gram.cu", "flash_attention.cu",
-           "ssd_intra_chunk.cu")
+           "flash_attention_bwd.cu", "ssd_intra_chunk.cu")
 HEADERS = ("common.cuh", "hopper.cuh", "rotate_tile.cuh", "project_tile.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -49,6 +49,7 @@ SIGNATURES = {
     "scaled_gram": (P, P, P, P, I, I, P),
     "rbf_gram": (P, P, P, I, I, I, F, I, P),
     "flash_attention": (P, P, P, P, I, I, I, I, I, F, P),
+    "flash_attention_bwd": (P,) * 10 + (I,) * 5 + (F, P),
     "ssd_intra_chunk": (P, P, P, P, P, I, I, I, I, I, P),
 }
 # The typed variants of each entry point, by the operands' type; the LM
@@ -57,6 +58,7 @@ SUFFIXES = {torch.float32: "_f32", torch.float64: "_f64",
             torch.bfloat16: "_bf16"}
 TYPES = {name: (torch.float32, torch.float64) for name in SIGNATURES}
 TYPES.update(flash_attention=(torch.float32, torch.bfloat16),
+             flash_attention_bwd=(torch.float32, torch.bfloat16),
              ssd_intra_chunk=(torch.float32, torch.bfloat16))
 
 # Launches per kernel since the last ``reset_launches`` — a plain count,
@@ -173,10 +175,36 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
+# Kernels with a gradient (a backward kernel bound as a
+# ``torch.autograd.Function``); every other kernel refuses operands that
+# ask for one, naming where its backward is queued.
+DIFFERENTIABLE = ("flash_attention", "flash_attention_bwd")
+NO_BACKWARD = {"ssd_intra_chunk": "ROADMAP.md §1 item 11.4 (the "
+                                  "ssd_intra_chunk backward, to train the "
+                                  "Mamba family on the card)"}
+KPCA_NO_BACKWARD = ("ROADMAP.md §1 item 12 (gradients through the KPCA "
+                    "kernels; no path differentiates the streaming update)")
+
+
+def check_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise ``NotImplementedError`` when grad mode is on and an operand
+    requires a gradient that ``name``'s kernel cannot give: its output
+    would carry none, silently."""
+    if name in DIFFERENTIABLE or not torch.is_grad_enabled():
+        return
+    if any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel has no backward, so its output would "
+            f"carry no gradient; run it without grad or see "
+            f"{NO_BACKWARD.get(name, KPCA_NO_BACKWARD)}")
+
+
 def check_operands(name: str, *tensors: torch.Tensor) -> torch.dtype:
     """Raise unless every operand is a contiguous CUDA tensor of one float
     type that ``name`` takes (``TYPES``) on one device; returns that
-    type."""
+    type.  A kernel without a backward also refuses operands that require
+    a gradient while grad mode is on (``check_grad``)."""
+    check_grad(name, *tensors)
     dtype = tensors[0].dtype
     if dtype not in TYPES[name]:
         raise TypeError(f"{name}: CUDA kernel takes "

@@ -865,6 +865,7 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+@torch.inference_mode()
 def lm_main(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 16,
             gen: int = 32, seed: int = 0, device=None,
             params: lm.LM | None = None) -> dict:
@@ -872,7 +873,8 @@ def lm_main(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 16,
     from the synthetic stream, fed through teacher-forced decode steps,
     then ``gen`` greedy decode steps.  ``params`` defaults to the model
     drawn from ``seed`` on ``device``.  Times are host clock around work
-    that ends in a device synchronize."""
+    that ends in a device synchronize.  Serving keeps no autograd graph
+    (``torch.inference_mode``)."""
     dev = resolve_device(device)
     if params is None:
         params = lm.init_params(cfg, seed, dev)

@@ -20,7 +20,7 @@ class MoEConfig:
     capacity_factor: float = 1.25
     n_shared_experts: int = 0
     # 'ep' is expert parallelism over a mesh; the port has no mesh yet
-    # (ROADMAP.md §1 item 11), so it runs as 'einsum', as the reference's
+    # (ROADMAP.md §1 item 11.3), so it runs as 'einsum', as the reference's
     # does without one.
     impl: Literal["einsum", "scatter", "ep"] = "einsum"
     router_dtype: str = "float32"

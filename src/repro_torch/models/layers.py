@@ -6,9 +6,10 @@ reference's leaf names, with weights laid out as the reference keeps them
 (``x @ w``, w of shape (in, out)), and a function ``*_apply(p, ...)`` that
 computes it from the module, so both packages are called alike.  The
 reference's sharding constraints have no counterpart and are dropped.
-Parameters are created empty; each module's ``reset_parameters(gen)``
-draws its own (not its children's) from a ``torch.Generator`` as the
-reference's ``*_init`` does (the same distributions, not the same bits).
+Parameters are created empty and trainable; each module's
+``reset_parameters(gen)`` draws its own (not its children's) from a
+``torch.Generator`` as the reference's ``*_init`` does (the same
+distributions, not the same bits).
 
 The prefill's attention runs the ``flash_attention`` CUDA kernel
 (``kernels/flash_attn``) for both ``attn_impl`` values; decode attends to
@@ -34,8 +35,9 @@ def model_dtype(cfg: ArchConfig) -> torch.dtype:
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad=False)
+    """A trainable parameter, created empty (``reset_parameters`` or a
+    converter fills it)."""
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 
 
 def dense_fill_(w: Tensor, gen: torch.Generator, scale: float = 1.0) -> None:

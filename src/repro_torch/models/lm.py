@@ -7,16 +7,22 @@ reference stacks each slot's parameters over periods and scans over
 periods; here the layers are an ``nn.ModuleList`` over ``n_layers`` and
 the scan is a loop (layer i is slot i % period of period i // period).
 
-The port runs block kinds ``attn``, ``mamba``, ``mlstm`` and ``slstm``
-with FFN kinds ``dense``, ``moe`` and ``none``.  Nyström attention raises,
-naming ROADMAP.md §1 item 11.
+The port runs block kinds ``attn`` (full or Nyström attention),
+``mamba``, ``mlstm`` and ``slstm`` with FFN kinds ``dense``, ``moe`` and
+``none``.  ``forward`` is differentiable (``loss_fn`` trains through it,
+with ``remat`` per period as the reference's ``jax.checkpoint``); the
+serving entry points ask for no graph (``decode_step`` runs under
+``torch.inference_mode``, as do ``launch/steps``'s prefill and serve
+steps).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import nystrom_attention as nys
 from repro_torch.models import ssm, xlstm
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (MLP, Attention, Embed, RMSNorm,
@@ -27,18 +33,15 @@ from repro_torch.models.layers import (MLP, Attention, Embed, RMSNorm,
 
 Tensor = torch.Tensor
 
-UNPORTED = "is not ported yet (ROADMAP.md §1 item 11)"
-
 MIXERS = {"attn": Attention, "mamba": ssm.Mamba, "mlstm": xlstm.MLSTM,
           "slstm": xlstm.SLSTM}
 
 
 def check_config(cfg: ArchConfig) -> None:
-    """Raise for what the port does not run yet."""
-    if cfg.attention != "full":
-        raise NotImplementedError(f"{cfg.name}: attention="
-                                  f"{cfg.attention!r} (models/"
-                                  f"nystrom_attention.py) {UNPORTED}")
+    """Raise for a config the port cannot build."""
+    if cfg.attention not in ("full", "nystrom"):
+        raise ValueError(f"{cfg.name}: unknown attention "
+                         f"{cfg.attention!r}")
     bad = sorted(set(cfg.block_pattern) - set(MIXERS))
     if bad:
         raise ValueError(f"{cfg.name}: unknown block kinds {bad}")
@@ -56,7 +59,10 @@ class Block(nn.Module):
         self.kind, self.ffn_kind = cfg.block_kind(i), cfg.ffn_kind(i)
         dt = model_dtype(cfg)
         self.norm1 = RMSNorm(cfg.d_model, dt, device)
-        self.mixer = MIXERS[self.kind](cfg, device)
+        mixer = MIXERS[self.kind]
+        if self.kind == "attn" and cfg.attention == "nystrom":
+            mixer = nys.NystromAttention
+        self.mixer = mixer(cfg, device)
         if self.ffn_kind != "none" and not cfg.parallel_block:
             self.norm2 = RMSNorm(cfg.d_model, dt, device)
         if self.ffn_kind == "dense":
@@ -102,6 +108,8 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> LM:
 def _mixer_apply(p, cfg: ArchConfig, kind: str, h: Tensor,
                  positions: Tensor) -> Tensor:
     if kind == "attn":
+        if cfg.attention == "nystrom":
+            return nys.nystrom_attention_apply(p, cfg, h, positions)
         return attention_apply(p, cfg, h, positions)
     if kind == "mamba":
         return ssm.mamba_apply(p, cfg, h)
@@ -141,23 +149,69 @@ def embed_tokens(params: LM, cfg: ArchConfig, tokens: Tensor,
     return h
 
 
-@torch.no_grad()
+def _period(layers, cfg: ArchConfig, h: Tensor, positions: Tensor
+            ) -> Tensor:
+    for layer in layers:
+        h = _block(layer, cfg, h, positions)
+    return h
+
+
 def forward(params: LM, cfg: ArchConfig, tokens: Tensor,
-            embeddings: Tensor | None = None) -> Tensor:
-    """tokens: (B, T) -> logits (B, T, vocab)."""
+            embeddings: Tensor | None = None, *, remat: bool = True
+            ) -> Tensor:
+    """tokens: (B, T) -> logits (B, T, vocab).  Differentiable.  With
+    ``remat`` and grad mode on, each period of layers runs under
+    ``torch.utils.checkpoint`` (non-reentrant): its activations are not
+    kept but computed again in the backward, as the reference's
+    ``jax.checkpoint`` per period does (the same function, the same
+    numbers).  Without grad mode ``remat`` changes nothing."""
     B, T = tokens.shape
     h = embed_tokens(params, cfg, tokens, embeddings)
     positions = torch.arange(T, device=tokens.device)[None].expand(B, T)
-    for layer in params.layers:
-        h = _block(layer, cfg, h, positions)
+    remat = remat and torch.is_grad_enabled()
+    for i in range(0, cfg.n_layers, cfg.period):
+        period = params.layers[i:i + cfg.period]
+        if remat:
+            h = checkpoint(_period, period, cfg, h, positions,
+                           use_reentrant=False)
+        else:
+            h = _period(period, cfg, h, positions)
     h = rmsnorm_apply(params.final_norm, h)
     return logits_apply(params.embed, cfg, h)
 
 
+def loss_fn(params: LM, cfg: ArchConfig, batch: dict, *, remat: bool = True
+            ) -> tuple[Tensor, dict]:
+    """Next-token cross entropy in float32, the reference's ``loss_fn``:
+    labels < 0 are masked (frontend positions, padding).  Returns (loss,
+    {'loss', 'accuracy', 'tokens'}).  The label's logit is gathered (the
+    reference's one-hot reduction keeps its vocab axis sharded; here there
+    is one device), the normaliser is the float32 log-sum-exp.  ``remat``
+    as ``forward``'s."""
+    logits = forward(params, cfg, batch["tokens"], batch.get("embeddings"),
+                     remat=remat)
+    labels = batch["labels"]
+    mask = (labels >= 0).float()
+    l32 = logits.float()
+    lse = torch.logsumexp(l32, dim=-1)                         # (B, T)
+    label_logit = torch.gather(l32, -1, labels.clamp_min(0)[..., None]
+                               )[..., 0]
+    ll = label_logit - lse
+    denom = torch.clamp_min(mask.sum(), 1.0)
+    loss = -(ll * mask).sum() / denom
+    with torch.no_grad():
+        hit = (torch.argmax(logits, dim=-1) == labels).float()
+        acc = (hit * mask).sum() / denom
+    return loss, {"loss": loss.detach(), "accuracy": acc,
+                  "tokens": mask.sum()}
+
+
 # ------------------------------------------------------------- decode -------
-def _mixer_cache_init(cfg: ArchConfig, kind: str, batch: int, max_seq: int,
-                      device) -> dict:
+def _mixer_cache_init(p, cfg: ArchConfig, kind: str, batch: int,
+                      max_seq: int, device):
     if kind == "attn":
+        if cfg.attention == "nystrom":
+            return nys.nystrom_cache_init(p, cfg, batch)
         return attention_cache_init(cfg, batch, max_seq, device)
     if kind == "mamba":
         return ssm.mamba_cache_init(cfg, batch, device)
@@ -166,18 +220,20 @@ def _mixer_cache_init(cfg: ArchConfig, kind: str, batch: int, max_seq: int,
     return xlstm.slstm_cache_init(cfg, batch, device)
 
 
+@torch.no_grad()
 def init_caches(params: LM, cfg: ArchConfig, batch: int, max_seq: int
                 ) -> list[dict]:
     """One decode cache per layer, ``{'mixer': ...}``: the KV cache of an
-    attention layer, the chunk state and conv window of a Mamba layer, the
+    attention layer (a ``NystromCache`` for Nyström attention), the chunk
+    state and conv window of a Mamba layer, the
     recurrent state of an xLSTM layer; an MoE layer adds ``'ffn'``, its
     per-expert counts and the capacity of a ``max_seq``-token prefill
     (``moe.moe_cache_init``)."""
     dev = params.final_norm.scale.device
     caches = []
     for layer in params.layers:
-        cache = {"mixer": _mixer_cache_init(cfg, layer.kind, batch, max_seq,
-                                            dev)}
+        cache = {"mixer": _mixer_cache_init(layer.mixer, cfg, layer.kind,
+                                            batch, max_seq, dev)}
         if layer.ffn_kind == "moe":
             cache["ffn"] = moe_mod.moe_cache_init(cfg, batch, max_seq, dev)
         caches.append(cache)
@@ -187,6 +243,8 @@ def init_caches(params: LM, cfg: ArchConfig, batch: int, max_seq: int
 def _mixer_decode(p, cfg: ArchConfig, kind: str, h: Tensor, cache: dict,
                   pos: Tensor) -> tuple[Tensor, dict]:
     if kind == "attn":
+        if cfg.attention == "nystrom":
+            return nys.nystrom_decode(p, cfg, h, cache, pos)
         return attention_decode(p, cfg, h, cache, pos)
     if kind == "mamba":
         return ssm.mamba_decode(p, cfg, h, cache)
@@ -195,11 +253,12 @@ def _mixer_decode(p, cfg: ArchConfig, kind: str, h: Tensor, cache: dict,
     return xlstm.slstm_decode(p, cfg, h, cache)
 
 
-@torch.no_grad()
+@torch.inference_mode()
 def decode_step(params: LM, cfg: ArchConfig, caches: list[dict],
                 token: Tensor, pos: Tensor) -> tuple[Tensor, list[dict]]:
     """One decode step.  token: (B, 1) integers; pos: (B, 1) positions.
-    Returns (logits (B, 1, vocab), the updated caches)."""
+    Returns (logits (B, 1, vocab), the updated caches).  Serving: runs
+    under ``torch.inference_mode`` (no graph, caches updated in place)."""
     h = embed_apply(params.embed, token)
     rs = cfg.residual_scale
     new_caches = []

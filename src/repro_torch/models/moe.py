@@ -15,7 +15,7 @@ where the reference's roundings differ: ``einsum`` sums a token's K gated
 expert rows in float32 and rounds once, ``scatter`` rounds each gated row
 and each add to the activation type.  ``impl='ep'`` is the reference's
 expert parallelism over a mesh; without one (the port has none yet:
-ROADMAP.md §1 item 11) it runs as ``einsum``, as the reference's does.
+ROADMAP.md §1 item 11.3) it runs as ``einsum``, as the reference's does.
 
 The expert products are batched matmuls (``torch.bmm``), as the
 reference's are plain einsums outside any kernel.  The router runs in

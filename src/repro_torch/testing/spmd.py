@@ -197,11 +197,30 @@ def _job_decoupled(job, mesh, dev):
             "m_final": loop.batch.states.m}
 
 
+def _job_compressed_psum(job, comm, dev):
+    """``optim.compressed_psum`` over the default group for each step of
+    ``job["grads"]`` (a list over steps of a list over ranks of gradient
+    dicts; this rank takes its own), carrying the error feedback; returns
+    each step's means and the last residual."""
+    import torch.distributed as tdist
+
+    from repro_torch.optim import compression
+
+    rank = tdist.get_rank()
+    state = compression.init_state(job["grads"][0][rank])
+    means = []
+    for per_rank in job["grads"]:
+        mean, state = compression.compressed_psum(per_rank[rank], state)
+        means.append(mean)
+    return {"means": means, "error": state.error}
+
+
 JOBS = {"update": _job_update, "pair": _job_pair, "downdate": _job_downdate,
         "evict": _job_evict, "window": _job_window, "expand": _job_expand,
         "gram_row": _job_gram_row, "rebalanced": _job_rebalanced,
         "tenant_pair": _job_tenant_pair, "tenant_query": _job_tenant_query,
-        "decoupled": _job_decoupled}
+        "decoupled": _job_decoupled,
+        "compressed_psum": _job_compressed_psum}
 # Jobs that take the tenant mesh (job["mesh"] = (P_t, P_r)), not a row
 # group.
 MESH_JOBS = ("tenant_pair", "tenant_query", "decoupled")

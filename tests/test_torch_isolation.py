@@ -51,7 +51,10 @@ def test_the_slice_modules_are_covered():
                 "core/distributed.py", "core/batch.py", "configs/paper.py",
                 "testing/spmd.py", "models/moe.py", "models/xlstm.py",
                 "configs/dbrx_132b.py", "configs/xlstm_125m.py",
-                "configs/kimi_k2_1t_a32b.py"):
+                "configs/kimi_k2_1t_a32b.py", "optim/optimizers.py",
+                "optim/schedules.py", "optim/compression.py",
+                "distributed/straggler.py", "launch/train.py",
+                "models/nystrom_attention.py"):
         assert rel in names, rel
 
 

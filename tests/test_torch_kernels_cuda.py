@@ -145,6 +145,7 @@ def test_stream_on_cuda_matches_cpu(device):
                              "krow_project": 40, "eigvec_project": 40,
                              "transform_project": 1, "scaled_gram": 0,
                              "rbf_gram": 0, "flash_attention": 0,
+                             "flash_attention_bwd": 0,
                              "ssd_intra_chunk": 0}
     K = kf.gram_block(torch.tensor(X), torch.tensor(X), spec=spec)
     lam_ref = batch.batch_kpca(K, adjusted=True)[0].numpy()
@@ -495,6 +496,102 @@ def test_flash_attention_matches_plain_version(device, B, T, H, Hkv, hd,
         B, T, H, Hkv, hd, getattr(torch, dtype), device, seed=T + H))
 
 
+@pytest.mark.parametrize("B,T,H,Hkv,hd", [
+    (1, 1, 2, 1, 64), (2, 77, 6, 3, 100), (1, 130, 4, 4, 128),
+    (1, 64, 8, 2, 32), (1, 129, 4, 2, 128), (3, 200, 6, 2, 16)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_bwd_matches_plain_version(device, B, T, H, Hkv, hd,
+                                                   dtype):
+    """The backward kernel against its plain version: T = 1, T one past a
+    64-row tile and off it, head dims that are no multiple of 4 rows of
+    the padded tile (100) and the largest (128), GQA groups of 1 to 4;
+    two runs bit for bit (no atomics)."""
+    case = checks.flash_attention_bwd_case(
+        B, T, H, Hkv, hd, getattr(torch, dtype), device, seed=T + H)
+    checks.compare(case)
+    assert checks.repeats_bitwise(case)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_gradient_is_the_backward_kernels(device, dtype):
+    """Autograd through ``causal_attention`` on the card launches the
+    forward kernel once and the backward kernel once, and its gradients
+    are the plain backward's on the forward kernel's output; hd = 100 is
+    padded for the bf16 forward, the gradients keep hd."""
+    from repro_torch.kernels.flash_attn import ops as fops
+    from repro_torch.kernels.flash_attn.ref import flash_attention_bwd_ref
+
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.tensor(rng.normal(size=(2, 90, h, 100)),
+                            dtype=getattr(torch, dtype), device=device)
+               .requires_grad_() for h in (4, 2, 2))
+    cuda.reset_launches()
+    out = fops.causal_attention(q, k, v)
+    dout = torch.ones_like(out)
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    assert (cuda.LAUNCHES["flash_attention"],
+            cuda.LAUNCHES["flash_attention_bwd"]) == (1, 1)
+    want = fops.attention_backward(q.detach(), k.detach(), v.detach(),
+                                   out.detach(), dout)
+    assert all(torch.equal(g, w) for g, w in zip(grads, want))
+    assert grads[0].shape == q.shape
+    plain = flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(),
+                                    out.detach(), dout)
+    tols = checks.flash_attention_bwd_tol(q.detach(), k.detach(), v.detach(),
+                                          out.detach(), dout, plain)
+    for g, p, t in zip(grads, plain, tols):
+        assert bool(((g.double() - p.double()).abs() <= t).all())
+
+
+def test_kernels_without_a_backward_raise_under_grad(device):
+    """With grad mode on, ``ssd_intra_chunk`` refuses an operand that
+    requires a gradient (its output would carry none); without grad mode
+    it runs."""
+    from repro_torch.kernels.ssd_chunk import ops as sops
+
+    c = torch.randn(2, 8, 4, device=device)
+    x = torch.randn(2, 8, 3, 16, device=device, requires_grad=True)
+    cum = -torch.rand(2, 8, 3, device=device).cumsum(1)
+    with pytest.raises(NotImplementedError, match="item 11.4"):
+        sops.intra_chunk(c, c, x, cum)
+    with torch.no_grad():
+        assert sops.intra_chunk(c, c, x, cum).shape == x.shape
+
+
+def test_train_step_on_cuda_matches_cpu(device):
+    """One AdamW train step of MiniCPM-2B's smoke config on the card and on
+    the CPU from the same weights: the loss and the gradient norm at 1e-5,
+    the launches of one step (forward and recompute per layer, one
+    backward per layer)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.optim import optimizers, schedules
+
+    cfg = get_config("minicpm_2b", smoke=True)
+    cpu = lm.init_params(cfg, seed=0)
+    gpu = lm.init_params(cfg, seed=0, device=device)
+    gpu.load_state_dict(cpu.state_dict())
+    tok = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 33)))
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    out = {}
+    for dev, model in (("cuda", gpu), ("cpu", cpu)):
+        opt = optimizers.adamw()
+        state = steps.TrainState(torch.zeros((), dtype=torch.int32), model,
+                                 opt.init(steps.param_dict(model)))
+        step = steps.make_train_step(cfg, opt, schedules.constant(1e-3))
+        cuda.reset_launches()
+        _, m = step(state, {k: v.to(dev) for k, v in batch.items()})
+        out[dev] = (float(m["loss"]), float(m["grad_norm"]),
+                    dict(cuda.LAUNCHES))
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5
+    assert abs(out["cuda"][1] - out["cpu"][1]) <= 1e-5 * out["cpu"][1]
+    assert (out["cuda"][2]["flash_attention"],
+            out["cuda"][2]["flash_attention_bwd"]) == (2 * cfg.n_layers,
+                                                       cfg.n_layers)
+
+
 @pytest.mark.parametrize("G,Q,N,H,P", [
     (1, 1, 8, 3, 8), (3, 40, 16, 5, 8), (2, 256, 128, 20, 64),
     (2, 100, 33, 17, 63)])
@@ -522,11 +619,13 @@ def test_lm_on_cuda_matches_cpu(device):
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab, (2, 16)))
     cuda.reset_launches()
-    got = lm.forward(gpu, cfg, tokens.to(device))
+    with torch.inference_mode():        # serving: no graph
+        got = lm.forward(gpu, cfg, tokens.to(device))
     torch.cuda.synchronize()
     assert (cuda.LAUNCHES["flash_attention"],
             cuda.LAUNCHES["ssd_intra_chunk"]) == (1, 7)
-    want = lm.forward(cpu, cfg, tokens)
+    with torch.inference_mode():
+        want = lm.forward(cpu, cfg, tokens)
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4)
     outs = []
     for params, dev in ((gpu, device), (cpu, "cpu")):
@@ -555,13 +654,13 @@ def test_zoo_smoke_on_cuda_matches_cpu(device, arch, flash):
     tokens = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab, (2, 16)))
     cuda.reset_launches()
-    got = lm.forward(gpu, cfg, tokens.to(device))
+    with torch.inference_mode():        # serving: no graph
+        got = lm.forward(gpu, cfg, tokens.to(device))
+        want = lm.forward(cpu, cfg, tokens)
     torch.cuda.synchronize()
     assert (cuda.LAUNCHES["flash_attention"],
             cuda.LAUNCHES["ssd_intra_chunk"]) == (flash, 0)
-    np.testing.assert_allclose(got.cpu().numpy(),
-                               lm.forward(cpu, cfg, tokens).numpy(),
-                               atol=1e-4)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4)
     caches = {dev: lm.init_caches(params, cfg, 2, 16)
               for dev, params in (("cuda", gpu), ("cpu", cpu))}
     for t in range(16):

@@ -1,7 +1,9 @@
 """The port's LM zoo (``repro_torch.models``) against the reference's, at
-smoke width in float32 on the same weights: the reference's parameter
-trees go to the port through ``convert.load_numpy_`` and
-``convert.lm_params_from_numpy``, its inputs are the same numpy arrays.
+smoke width in float32 on the same weights: the blocks' reference trees go
+to the port through ``convert.load_numpy_``, the whole models' port
+weights to the reference through ``convert.lm_tree`` (and
+``convert.lm_params_from_numpy`` is held leaf for leaf); the inputs are
+the same numpy arrays.
 
 Held at 1e-4 absolute, the reference's own bar between its naive and
 flash attention (``tests/test_models.py``): both sides compute in float32,
@@ -120,9 +122,11 @@ def test_attention_decode_matches_reference():
     x = _x((B, T, 64), 4)
     jc = jl.attention_cache_init(jcfg, B, T)
     tc = tl.attention_cache_init(tcfg, B, T)
+    jstep = jax.jit(lambda p, x, c, pos: jl.attention_decode(p, jcfg, x, c,
+                                                             pos))
     for t in range(T):
-        jy, jc = jl.attention_decode(jp, jcfg, jnp.asarray(x[:, t:t + 1]),
-                                     jc, jnp.full((B, 1), t, jnp.int32))
+        jy, jc = jstep(jp, jnp.asarray(x[:, t:t + 1]), jc,
+                       jnp.full((B, 1), t, jnp.int32))
         ty, tc = tl.attention_decode(tp, tcfg, torch.from_numpy(x[:, t:t + 1]),
                                      tc, torch.full((B, 1), t))
         _close(ty, jy)
@@ -160,8 +164,9 @@ def test_mamba_decode_matches_reference():
     jcfg, tcfg, jp, tp = _mamba(seed=4)
     x = _x((B, T, 64), 7)
     jc, tc = jssm.mamba_cache_init(jcfg, B), tssm.mamba_cache_init(tcfg, B)
+    jstep = jax.jit(lambda p, x, c: jssm.mamba_decode(p, jcfg, x, c))
     for t in range(T):
-        jy, jc = jssm.mamba_decode(jp, jcfg, jnp.asarray(x[:, t:t + 1]), jc)
+        jy, jc = jstep(jp, jnp.asarray(x[:, t:t + 1]), jc)
         ty, tc = tssm.mamba_decode(tp, tcfg, torch.from_numpy(x[:, t:t + 1]),
                                    tc)
         _close(ty, jy)
@@ -186,11 +191,19 @@ SMOKE = {"jamba": ("jamba_1_5_large_398b", {}),
 
 
 def _models(name):
+    """Both packages' models on the same weights: the port's drawn from
+    seed 0 (by the reference's distributions) and handed to the reference
+    as its tree (``convert.lm_tree``, stacked over periods), which skips
+    the reference's eager ``init_params`` (~10 s for Jamba's smoke config
+    on a CPU).  The reference-to-port direction is held by
+    ``test_converted_leaves_keep_their_type`` and
+    ``test_embed_tokens_takes_frontend_embeddings``."""
     jcfg, tcfg = (_smoke(SMOKE[name][0], **SMOKE[name][1]) if name in SMOKE
                   else _cfgs(**DENSE[name]))
-    params = jlm.init_params(jax.random.PRNGKey(0), jcfg)
-    return (jcfg, tcfg, params,
-            convert.lm_params_from_numpy(_tree(params), tcfg, "cpu"))
+    tp = tlm.init_params(tcfg, seed=0)
+    params = jax.tree.map(lambda t: jnp.asarray(t.numpy()), convert.lm_tree(
+        {k: p.detach() for k, p in tp.named_parameters()}, tcfg))
+    return jcfg, tcfg, params, tp
 
 
 @pytest.mark.parametrize("name", [*SMOKE, *DENSE])
@@ -316,8 +329,33 @@ def test_port_causality(name):
 
 
 def test_unported_blocks_raise():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tlm.LM(ArchConfig(**{**BASE, "attention": "nystrom"}), "meta")
+    """Nyström attention is ported (ROADMAP.md §1 item 11.1): its config
+    builds Nyström layers, the forward runs over two chunks, decode keeps
+    a ``NystromCache`` per layer and gives finite logits; an unknown
+    attention kind still raises.  (Its parity with the reference:
+    ``test_torch_nystrom_attention.py``, ``test_torch_train.py``.)"""
+    from repro_torch.models import nystrom_attention as tnys
+
+    cfg = ArchConfig(**{**BASE, "attention": "nystrom",
+                        "nystrom_landmarks": 8})
+    params = tlm.init_params(cfg, seed=0)
+    assert all(isinstance(layer.mixer, tnys.NystromAttention)
+               for layer in params.layers)
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (B, 256)))
+    full = tlm.forward(params, cfg, tokens)
+    assert full.shape == (B, 256, cfg.vocab) and bool(
+        torch.isfinite(full).all())
+    caches = tlm.init_caches(params, cfg, B, 4)
+    assert isinstance(caches[0]["mixer"], tnys.NystromCache)
+    for t in range(4):
+        logits, caches = tlm.decode_step(params, cfg, caches,
+                                         tokens[:, t:t + 1],
+                                         torch.full((B, 1), t))
+        assert logits.shape == (B, 1, cfg.vocab)
+        assert bool(torch.isfinite(logits).all())
+    with pytest.raises(ValueError, match="attention"):
+        tlm.LM(ArchConfig(**{**BASE, "attention": "linear"}), "meta")
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)

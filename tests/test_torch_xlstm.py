@@ -66,9 +66,10 @@ def test_decode_matches_reference_and_the_parallel_form(kind):
     jc = getattr(jx, f"{kind}_cache_init")(jcfg, B)
     tc = getattr(tx, f"{kind}_cache_init")(tcfg, B)
     outs = []
+    jdecode = getattr(jx, f"{kind}_decode")
+    jstep = jax.jit(lambda p, x, c: jdecode(p, jcfg, x, c))
     for t in range(T):
-        jy, jc = getattr(jx, f"{kind}_decode")(jp, jcfg,
-                                               jnp.asarray(x[:, t:t + 1]), jc)
+        jy, jc = jstep(jp, jnp.asarray(x[:, t:t + 1]), jc)
         ty, tc = getattr(tx, f"{kind}_decode")(
             tp, tcfg, torch.from_numpy(x[:, t:t + 1]), tc)
         _close(ty, jy)
