@@ -21,9 +21,13 @@ Phases, each printing one JSON line per row:
    training shape (B = 4, T = 2048, 36 / 36 heads of 64), at T = 1000
    (not a multiple of the tile) and at
    B = 2, T = 2048, 16 / 4 heads, hd = 64 in bf16, and at a small f32
-   shape; its backward ``flash_attention_bwd`` at MiniCPM-2B's training
-   shape in bf16 and f32, at DBRX's 48 / 8 heads of 128, at T = 1000 and
-   at a small f32 GQA shape; ``ssd_intra_chunk`` at the prefill's 16 chunks of
+   shape; the bf16 forward as a training step calls it (variant "lse":
+   the output and each row's log-sum-exp, ``FLASH_LSE_SHAPES``:
+   MiniCPM-2B's step and T = 1000); its backward ``flash_attention_bwd``
+   (bf16: three kernels on ``wgmma`` and TMA reading the forward's
+   log-sum-exp; f32: two SIMT kernels) at MiniCPM-2B's training shape in
+   bf16 and f32, at DBRX's 48 / 8 heads of 128, at T = 1000 and at a
+   small f32 GQA shape; ``ssd_intra_chunk`` at the prefill's 16 chunks of
    256, N = 128, 256 heads of 64 with bf16 x and f32 cum, and at a small
    f32 shape), each output entry within its own bound as
    ``repro_torch.kernels.checks`` states it, pruned entries exact zeros
@@ -337,6 +341,10 @@ FLASH_BWD_SHAPES = (((4, 2048, 36, 36, 64), "bfloat16"),
                     ((4, 2048, 36, 36, 64), "float32"),
                     ((1, 1000, 8, 2, 128), "bfloat16"),
                     ((2, 300, 4, 2, 48), "float32"))
+# The bf16 forward as a training step calls it (variant "lse": the output
+# and each row's log-sum-exp, which the backward reads): MiniCPM-2B's step
+# (timed beside the prefill's rows) and a T that is no multiple of 64.
+FLASH_LSE_SHAPES = ((4, 2048, 36, 36, 64), (1, 1000, 8, 2, 128))
 SSD_SHAPES = (((16, 256, 128, 256, 64), "bfloat16"),
               ((3, 32, 16, 4, 8), "float32"))
 LM_T, LM_DECODE_T, LM_WARMUP, LM_TIMED = 4096, 256, 3, 10
@@ -428,11 +436,14 @@ def emit_total(phase: str, t0: float, rows: int) -> None:
 
 
 def ptxas_summary(reports: dict) -> dict:
-    """Registers and spill bytes per compiled entry, from ``ptxas -v``."""
+    """Registers and spill bytes per compiled entry, from ``ptxas -v``, and
+    each source's warnings (C7513 is a serialised wgmma)."""
     out = {}
     for src, text in reports.items():
         entry = None
         for line in text.splitlines():
+            if "warning" in line:
+                out.setdefault(src + ":warnings", []).append(line.strip())
             hit = re.search(r"Compiling entry function '(\w+)'", line)
             if hit:
                 entry = hit.group(1)
@@ -512,6 +523,9 @@ def all_cases(torch, checks):
         dtype = getattr(torch, dtype_name)
         yield dtype, T, H, checks.flash_attention_case(B, T, H, Hkv, hd,
                                                        dtype, "cuda")
+    for B, T, H, Hkv, hd in FLASH_LSE_SHAPES:
+        yield torch.bfloat16, T, H, checks.flash_attention_lse_case(
+            B, T, H, Hkv, hd, "cuda")
     for (B, T, H, Hkv, hd), dtype_name in FLASH_BWD_SHAPES:
         dtype = getattr(torch, dtype_name)
         yield dtype, T, H, checks.flash_attention_bwd_case(B, T, H, Hkv, hd,
@@ -529,7 +543,8 @@ def all_cases(torch, checks):
 # Fig. 2's 4096², the LM kernels at the prefills' shapes (Jamba's and
 # DBRX's attention).  The kernel phase checks every row.
 TIMED_VARIANTS = {"": None, "C 1": None, "C 512, features": None,
-                  "rows 256:768": ("eigvec_rotate2", "float32")}
+                  "rows 256:768": ("eigvec_rotate2", "float32"),
+                  "lse": ("flash_attention", "bfloat16")}
 
 
 # Profiled calls a timing row: 25 of a kernel (checks.device_ms's
@@ -552,6 +567,8 @@ def timed_row(name: str, variant: str, n: int, m: int, dtype) -> bool:
         return m == GRAM_K[0]
     if name == "rbf_gram":
         return (n, m) in ((1024, 1024), (GRAM_N, GRAM_N))
+    if name == "flash_attention" and variant == "lse":
+        return (n, m) == FLASH_LSE_SHAPES[0][1:3]
     if name == "flash_attention":
         return (m, dtype_name) in ((shape[2], dt) for shape, dt
                                    in FLASH_SHAPES[:3])

@@ -65,6 +65,7 @@ launch latency included, as the main path pays them.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import time
 from dataclasses import dataclass
@@ -85,7 +86,9 @@ from repro_torch.kernels.nystrom_recon import ref as nref
 from repro_torch.kernels.nystrom_recon.ref import transform_project_ref
 from repro_torch.kernels.rbf_gram import ops as kops
 from repro_torch.kernels.flash_attn import ops as fops
-from repro_torch.kernels.flash_attn.ref import (flash_attention_bwd_ref,
+from repro_torch.kernels.flash_attn.ref import (LOG2E,
+                                                flash_attention_bwd_ref,
+                                                flash_attention_lse_ref,
                                                 flash_attention_ref)
 from repro_torch.kernels.rbf_gram.ref import krow_project_ref, rbf_gram_ref
 from repro_torch.kernels.ssd_chunk import ops as sops
@@ -801,6 +804,21 @@ def ssd_intra_chunk_work(G: int, Q: int, N: int, H: int, P: int,
             1.0 * G * Q * (Q + 1) / 2 * (2 * N + H * (2 * P + 2)))
 
 
+def _attention_operands(B: int, T: int, H: int, Hkv: int, hd: int, dtype,
+                        device, seed: int, extra: int = 0
+                        ) -> tuple[Tensor, ...]:
+    """q (B, T, H, hd), k and v (B, T, Hkv, hd) and ``extra`` more (B, T,
+    H, hd) draws, standard normal from ``seed``, in ``dtype``."""
+    rng = np.random.default_rng(seed)
+
+    def draw(h):
+        return torch.as_tensor(rng.normal(size=(B, T, h, hd)),
+                               dtype=torch.float32).to(dtype).to(device)
+
+    return (draw(H), draw(Hkv), draw(Hkv)) + tuple(draw(H)
+                                                   for _ in range(extra))
+
+
 def flash_attention_case(B: int, T: int, H: int, Hkv: int, hd: int, dtype,
                          device, seed: int = 0) -> Case:
     """Causal attention at (B, T, H, Hkv, hd): q, k, v standard normal, as
@@ -808,13 +826,7 @@ def flash_attention_case(B: int, T: int, H: int, Hkv: int, hd: int, dtype,
     (scores of unit spread after the 1/sqrt(hd) scale).  The library call
     is ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
     on the (B, H, T, hd) views, timed as a yardstick only."""
-    rng = np.random.default_rng(seed)
-
-    def draw(h):
-        return torch.as_tensor(rng.normal(size=(B, T, h, hd)),
-                               dtype=torch.float32).to(dtype).to(device)
-
-    q, k, v = draw(H), draw(Hkv), draw(Hkv)
+    q, k, v = _attention_operands(B, T, H, Hkv, hd, dtype, device, seed)
     item = q.element_size()
     return Case(
         name="flash_attention",
@@ -831,6 +843,67 @@ def flash_attention_case(B: int, T: int, H: int, Hkv: int, hd: int, dtype,
                    "through the softmax",
         **dict(zip(("bytes", "flops"),
                    flash_attention_work(B, T, H, Hkv, hd, item))))
+
+
+def flash_attention_lse_tol(q: Tensor, k: Tensor, lse: Tensor) -> Tensor:
+    """Per-row bound on two float32 evaluations of the causal log-sum-exp
+    in base 2 (``flash_attention_lse_ref``'s units; ``lse`` (B, H, T) the
+    plain version's): with x_ts = s_ts·log2(e)/sqrt(hd) the exponents,
+      - the scores' error δ_t (``flash_attention_tol``) moves every
+        exponent by at most δ_t·log2(e), and so the log-sum-exp;
+      - l = Σ_s 2^(x_ts - m), a float32 sum of T terms, each within exp2's
+        2 ulp, rescaled once a 64-key tile: (4(T+2) + 64 + 8T/64)eps
+        relative, which log2 turns into log2(e) times that;
+      - x, log2(l) and m + log2(l) each rounded once in each evaluation:
+        4 eps·(max_s |x_ts| + |lse_t|).
+    One kv head (its group of q heads) at a time, in float32."""
+    B, T, H, hd = q.shape
+    Hkv = k.shape[2]
+    g = H // Hkv
+    eps = torch.finfo(torch.float32).eps
+    scale = 1.0 / hd ** 0.5
+    rel = (4 * (T + 2) + 64 + 8 * -(-T // 64)) * eps
+    causal = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
+    tol = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    for j in range(Hkv):
+        qj, kj = q[:, :, j * g:(j + 1) * g].float(), k[:, :, j].float()
+        s = torch.einsum("btgd,bsd->bgts", qj, kj) * scale
+        x_max = torch.where(causal, s.abs(), 0.0).amax(dim=-1) * LOG2E
+        del s
+        qk = torch.einsum("btgd,bsd->bgts", qj.abs(), kj.abs())
+        delta = 2 * (hd + 2) * eps * scale * torch.where(
+            causal, qk, 0.0).amax(dim=-1)                    # (B, g, T)
+        del qk
+        tol[:, j * g:(j + 1) * g] = (
+            LOG2E * (rel + 2 * delta)
+            + 4 * eps * (x_max + lse[:, j * g:(j + 1) * g].abs()))
+    return tol + torch.finfo(torch.float32).tiny
+
+
+def flash_attention_lse_case(B: int, T: int, H: int, Hkv: int, hd: int,
+                             device, seed: int = 0) -> Case:
+    """The bfloat16 forward as a gradient step calls it: the output and
+    each row's log-sum-exp in base 2 (``fops.attention_with_lse``), at
+    ``flash_attention_case``'s operands and bound for the output; the
+    plain versions are ``flash_attention_ref`` and
+    ``flash_attention_lse_ref``.  The library call is
+    ``scaled_dot_product_attention`` as in that case (it returns no
+    log-sum-exp)."""
+    case = flash_attention_case(B, T, H, Hkv, hd, torch.bfloat16, device,
+                                seed)
+    q, k, v = _attention_operands(B, T, H, Hkv, hd, torch.bfloat16, device,
+                                  seed)
+    lse = flash_attention_lse_ref(q, k)
+    return dataclasses.replace(
+        case, variant="lse",
+        kernel=lambda: fops.attention_with_lse(q, k, v),
+        plain=lambda: (flash_attention_ref(q, k, v), lse),
+        tols=(case.tols[0], flash_attention_lse_tol(q, k, lse)),
+        tol_reason=case.tol_reason + "; lse per row log2(e)·((4(T+2) + 64 "
+                   "+ 8T/64)eps32 + 2δ_t) + 4eps32·(max_s|x_ts| + |lse_t|), "
+                   "x the base-2 exponents",
+        # The forward's reads and flops, and the float32 lse written.
+        bytes=case.bytes + 4.0 * B * H * T)
 
 
 def flash_attention_bwd_tol(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
@@ -851,7 +924,15 @@ def flash_attention_bwd_tol(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
     output's terms (A_dv = Pᵀ|dout|, A_dS = P∘(|dout||v|ᵀ + rowsum(|dout|
     ∘|out|) + |dP - D|), A_dq = scale·A_dS|k|, A_dk = scale·A_dSᵀ|q|):
     tol = rel·A + 2u|out|, the last for the two roundings to the type.
-    One kv head (its group of q heads) at a time, in float32."""
+    In bfloat16 the kernel takes P and dS as the A operands of its
+    products, rounded to the type (the plain version rounds them alike):
+      - dv = Σ_t bf16(P_ts) dout_t: each evaluation moves each term by at
+        most u·P_ts|dout_t|, so two evaluations differ by 2u·Pᵀ|dout|
+        more;
+      - dq = scale·Σ_s bf16(dS_ts) k_s and dk = scale·Σ_t bf16(dS_ts) q_t:
+        likewise 2u·scale·|dS||k| and 2u·scale·|dS|ᵀ|q|, |dS| = P∘|dP - D|.
+    In float32 both roundings are exact (u = 0) and the bound is the one
+    above.  One kv head (its group of q heads) at a time, in float32."""
     B, T, H, hd = q.shape
     Hkv = k.shape[2]
     g = H // Hkv
@@ -878,10 +959,12 @@ def flash_attention_bwd_tol(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
         dsum = (doj * oj).sum(-1).permute(0, 2, 1)[..., None]
         dsum_abs = (doj.abs() * oj.abs()).sum(-1).permute(0, 2, 1)[..., None]
         dp = torch.einsum("btgd,bsd->bgts", doj, vj)
-        a_ds = p * (torch.einsum("btgd,bsd->bgts", doj.abs(), vj.abs())
-                    + dsum_abs + (dp - dsum).abs()) * rel
-        del dp
-        tv[:, :, j] = torch.einsum("bgts,btgd->bsd", p * rel, doj.abs())
+        ds_abs = p * (dp - dsum).abs()
+        a_ds = (p * (torch.einsum("btgd,bsd->bgts", doj.abs(), vj.abs())
+                     + dsum_abs) + ds_abs) * rel + 2 * u * ds_abs
+        del dp, ds_abs
+        tv[:, :, j] = torch.einsum("bgts,btgd->bsd", p * (rel + 2 * u),
+                                   doj.abs())
         del p
         tq[:, :, heads] = scale * torch.einsum("bgts,bsd->btgd", a_ds,
                                                kj.abs())
@@ -907,16 +990,11 @@ def flash_attention_bwd_case(B: int, T: int, H: int, Hkv: int, hd: int,
     ``dtype``), dout standard normal.  The library call is the backward
     of ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
     alone (its forward graph kept), timed as a yardstick only."""
-    rng = np.random.default_rng(seed)
-
-    def draw(h):
-        return torch.as_tensor(rng.normal(size=(B, T, h, hd)),
-                               dtype=torch.float32).to(dtype).to(device)
-
-    q, k, v = draw(H), draw(Hkv), draw(Hkv)
-    dout = draw(H)
+    q, k, v, dout = _attention_operands(B, T, H, Hkv, hd, dtype, device,
+                                        seed, extra=1)
     out = flash_attention_ref(q, k, v)
-    want = flash_attention_bwd_ref(q, k, v, out, dout)
+    lse = flash_attention_lse_ref(q, k)
+    want = flash_attention_bwd_ref(q, k, v, out, dout, lse)
     item = q.element_size()
     lib_in = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
     lib_out = F.scaled_dot_product_attention(*lib_in, is_causal=True,
@@ -924,8 +1002,8 @@ def flash_attention_bwd_case(B: int, T: int, H: int, Hkv: int, hd: int,
     lib_dout = dout.transpose(1, 2)
     return Case(
         name="flash_attention_bwd",
-        kernel=lambda: fops.attention_backward(q, k, v, out, dout),
-        plain=lambda: flash_attention_bwd_ref(q, k, v, out, dout),
+        kernel=lambda: fops.attention_backward(q, k, v, out, dout, lse),
+        plain=lambda: flash_attention_bwd_ref(q, k, v, out, dout, lse),
         library=lambda: torch.autograd.grad(lib_out, lib_in, lib_dout,
                                             retain_graph=True),
         tols=flash_attention_bwd_tol(q, k, v, out, dout, want),
@@ -933,7 +1011,9 @@ def flash_attention_bwd_case(B: int, T: int, H: int, Hkv: int, hd: int,
                    "(64 + 8T/64)eps32 + 2δ_t, A the magnitudes of the "
                    "output's terms (Pᵀ|dout|, scale·A_dS|k|, scale·"
                    "A_dSᵀ|q|, A_dS = P∘(|dout||v|ᵀ + Σ|dout||out| + "
-                   "|dP - D|)), u the operands' unit roundoff",
+                   "|dP - D|)), u the operands' unit roundoff; plus the "
+                   "bf16 A operands P and dS: 2u·Pᵀ|dout| (dv), "
+                   "2u·scale·|dS||k| (dq), 2u·scale·|dS|ᵀ|q| (dk)",
         **dict(zip(("bytes", "flops"),
                    flash_attention_bwd_work(B, T, H, Hkv, hd, item))))
 

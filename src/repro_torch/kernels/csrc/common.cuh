@@ -63,4 +63,13 @@ __device__ __forceinline__ float half_warp_sum(float v) {
   return v;
 }
 
+// Row stride of the bf16 attention's float32 (B, H, T) log-sum-exp and
+// rowsum(dO o O) arrays: T rounded up to the backward's 64-row query tile,
+// so a tile's slice is one aligned bulk copy (flash_attention.cu writes
+// the lse, flash_attention_bwd.cu reads both; flash_attn/ops.py lse_len).
+constexpr int kLseRows = 64;
+__host__ __device__ __forceinline__ int lse_stride(int t_len) {
+  return (t_len + kLseRows - 1) / kLseRows * kLseRows;
+}
+
 }  // namespace repro

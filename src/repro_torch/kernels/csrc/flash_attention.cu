@@ -77,6 +77,14 @@
 //   * Accumulation order: wgmma's within each product, and one rescale by
 //     exp(m_old - m_new) per 128-key tile (kernels/checks.py's
 //     flash_attention_tol allows one per 64 keys).
+//   * When a gradient will be taken (flash_attn/ops.py passes the buffer
+//     only then), each row t < T also writes its log-sum-exp into a float32
+//     (B, H, T') array, T' = T rounded up to 64 (common.cuh lse_stride), in
+//     the softmax's base-2 units: lse = m + log2(l), m the running max of
+//     the scores times log2(e) / sqrt(hd), so that the backward's
+//     P = exp2(S log2(e) / sqrt(hd) - lse) (flash_attention_bwd.cu).  The
+//     write is a template parameter: the prefill's instantiation writes
+//     nothing.
 //
 // float32: flash_attention_kernel, a SIMT kernel on the float32 CUDA cores
 // (67 TFLOP/s; TF32 tensor cores would miss the float32 bars).  A block of
@@ -390,12 +398,13 @@ __device__ __forceinline__ void fence_fragments(uint32_t (&pa)[8][4]) {
 // Accumulator fragments (wgmma m64nN, float32): in warpgroup thread
 // (warp w, lane l) entry 4 c + 2 i + e is row 16 w + l / 4 + 8 i, column
 // 8 c + 2 (l % 4) + e of the warpgroup's 64-row tile.
-template <int HD>
+template <int HD, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap qmap,
                              const __grid_constant__ CUtensorMap kmap,
                              const __grid_constant__ CUtensorMap vmap,
-                             __nv_bfloat16* __restrict__ o, int t_len, int H,
+                             __nv_bfloat16* __restrict__ o,
+                             float* __restrict__ lse, int t_len, int H,
                              int Hkv, int hd, float scale_log2) {
   constexpr int kBoxes = HD / kBox;
   constexpr uint32_t kQBytes = kBoxes * kBoxBytes;
@@ -571,6 +580,11 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap qmap,
     const int t = row + 8 * i;
     if (t >= t_len) continue;
     const float den = fmaxf(l_run[i], 1e-30f);
+    if constexpr (kLse) {
+      if (cq == 0)
+        lse[((size_t)b * H + h) * repro::lse_stride(t_len) + t] =
+            m_run[i] + log2f(den);
+    }
     __nv_bfloat16* orow = o + ((size_t)b * t_len + t) * qstride +
                           (size_t)h * hd;
 #pragma unroll
@@ -610,13 +624,14 @@ bool encode(CUtensorMap* map, const void* base, int B, int t_len, int heads,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int t_len, int H, int Hkv, int hd, double scale, void* stream) {
+template <int HD, bool kLse>
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           int B, int t_len, int H, int Hkv, int hd, double scale,
+           void* stream) {
   static bool attr = false;
   if (!attr) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel_wgmma<HD>,
+        flash_attention_kernel_wgmma<HD, kLse>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes<HD>());
     if (err != cudaSuccess) return static_cast<int>(err);
     attr = true;
@@ -630,9 +645,10 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
       !encode(&vm, v, B, t_len, Hkv, HD))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(H, (t_len + kBQ - 1) / kBQ, B);
-  flash_attention_kernel_wgmma<HD><<<grid, kThreads, smem_bytes<HD>(),
-                                     static_cast<cudaStream_t>(stream)>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(o), t_len, H, Hkv, hd,
+  flash_attention_kernel_wgmma<HD, kLse><<<grid, kThreads, smem_bytes<HD>(),
+                                           static_cast<cudaStream_t>(stream)>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
+      t_len, H, Hkv, hd,
       static_cast<float>(scale * 1.4426950408889634));   // log2(e)
   return static_cast<int>(cudaGetLastError());
 }
@@ -641,23 +657,32 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 
+// lse: the bf16 kernel's log-sum-exp output; the float32 kernel writes none
+// and refuses one (its backward computes its own).
 extern "C" int flash_attention_f32(const void* q, const void* k,
-                                   const void* v, void* o, int B, int t_len,
-                                   int H, int Hkv, int hd, double scale,
-                                   void* stream) {
+                                   const void* v, void* o, void* lse, int B,
+                                   int t_len, int H, int Hkv, int hd,
+                                   double scale, void* stream) {
+  if (lse != nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return simt::launch<float>(q, k, v, o, B, t_len, H, Hkv, hd, scale,
                              stream);
 }
 
 // q, k and v hold the head dim padded to 64 (hd <= 64) or 128 (hd <= 128),
-// as flash_attn/ops.py pads them; o holds hd.
+// as flash_attn/ops.py pads them; o holds hd.  lse is null (the prefill)
+// or a float32 (B, H, lse_stride(T)) array for each row's log-sum-exp.
 extern "C" int flash_attention_bf16(const void* q, const void* k,
-                                    const void* v, void* o, int B, int t_len,
-                                    int H, int Hkv, int hd, double scale,
-                                    void* stream) {
+                                    const void* v, void* o, void* lse, int B,
+                                    int t_len, int H, int Hkv, int hd,
+                                    double scale, void* stream) {
   if (hd < 1 || hd > 128) return static_cast<int>(cudaErrorInvalidValue);
-  return hd <= 64
-             ? wg::launch<64>(q, k, v, o, B, t_len, H, Hkv, hd, scale, stream)
-             : wg::launch<128>(q, k, v, o, B, t_len, H, Hkv, hd, scale,
-                               stream);
+  if (lse == nullptr)
+    return hd <= 64 ? wg::launch<64, false>(q, k, v, o, lse, B, t_len, H,
+                                            Hkv, hd, scale, stream)
+                    : wg::launch<128, false>(q, k, v, o, lse, B, t_len, H,
+                                             Hkv, hd, scale, stream);
+  return hd <= 64 ? wg::launch<64, true>(q, k, v, o, lse, B, t_len, H, Hkv,
+                                         hd, scale, stream)
+                  : wg::launch<128, true>(q, k, v, o, lse, B, t_len, H, Hkv,
+                                          hd, scale, stream);
 }

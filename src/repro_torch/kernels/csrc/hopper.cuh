@@ -103,6 +103,19 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// A contiguous run of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from global into shared memory by the bulk-copy engine, no
+// tensor map; completion is counted on `bar` in bytes.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)),
+         "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // ------------------------------------------------------------------- wgmma
 // Shared-memory matrix descriptor for a tile written by TMA with the
 // 128-byte swizzle (layout type 1): start address, leading and stride byte

@@ -48,7 +48,7 @@ SIGNATURES = {
     "transform_project": (P,) * 6 + (I,) * 5 + (F, F) + (I,) * 7 + (P,),
     "scaled_gram": (P, P, P, P, I, I, P),
     "rbf_gram": (P, P, P, I, I, I, F, I, P),
-    "flash_attention": (P, P, P, P, I, I, I, I, I, F, P),
+    "flash_attention": (P, P, P, P, P, I, I, I, I, I, F, P),
     "flash_attention_bwd": (P,) * 10 + (I,) * 5 + (F, P),
     "ssd_intra_chunk": (P, P, P, P, P, I, I, I, I, I, P),
 }

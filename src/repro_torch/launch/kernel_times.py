@@ -3,12 +3,15 @@
     PYTHONPATH=src python -m repro_torch.launch.kernel_times \\
         --kpca 1024:1000:float32 256:200:float64 \\
         --flash 1:4096:64:8:128:bfloat16 --gram 4096:512:float64 \\
-        --ssd 16:256:128:256:64:bfloat16
+        --ssd 16:256:128:256:64:bfloat16 \\
+        --flash-bwd 4:2048:36:36:64:bfloat16
 
 ``--kpca n:m:dtype`` times the KPCA path's kernels named by ``--kernels``
 (default ``eigvec_rotate2``) at capacity bucket n with m active pairs,
 the row-block cases among them (``variant`` names their rows);
-``--flash B:T:H:Hkv:hd:dtype`` times ``flash_attention``, ``--gram
+``--flash B:T:H:Hkv:hd:dtype`` times ``flash_attention``, ``--flash-bwd
+B:T:H:Hkv:hd:dtype`` its backward (with ``split``: each device kernel's
+ms per call, from one more profile), ``--gram
 n:k:dtype`` ``scaled_gram`` (B of n rows and width k), ``--ssd
 G:Q:N:H:P:dtype`` ``ssd_intra_chunk``, ``--rbf n:m:d:dtype``
 ``rbf_gram`` (n = m is k(X, X)) and ``--magic`` ``rbf_gram`` on Fig. 2's
@@ -28,8 +31,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.kernels import checks
 
@@ -51,6 +57,26 @@ def _row(case, dtype, label: dict) -> dict:
             "device": torch.cuda.get_device_name(0)}
 
 
+def _split(fn, reps: int = 10) -> dict[str, float]:
+    """Device ms per call of each kernel ``fn`` launches, by name, from
+    one profile of ``reps`` calls after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = re.sub(r"\(anonymous namespace\)::", "", e.name)
+            name = name.split("(")[0].removeprefix("void ")
+            out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / (
+                1e3 * reps)
+    return out
+
+
 def main(argv=None) -> list[dict]:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kpca", nargs="*", default=(),
@@ -58,6 +84,9 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--kernels", nargs="*", default=("eigvec_rotate2",))
     ap.add_argument("--flash", nargs="*", default=(),
                     help="B:T:H:Hkv:hd:dtype shapes of flash_attention")
+    ap.add_argument("--flash-bwd", nargs="*", default=(),
+                    help="B:T:H:Hkv:hd:dtype shapes of the flash_attention "
+                         "backward")
     ap.add_argument("--gram", nargs="*", default=(),
                     help="n:k:dtype shapes of scaled_gram")
     ap.add_argument("--ssd", nargs="*", default=(),
@@ -86,6 +115,16 @@ def main(argv=None) -> list[dict]:
         case = checks.flash_attention_case(B, T, H, Hkv, hd, dtype, "cuda")
         rows.append(_row(case, dtype, {"B": B, "T": T, "H": H, "Hkv": Hkv,
                                        "hd": hd}))
+        print(json.dumps(rows[-1]), flush=True)
+    for spec in args.flash_bwd:
+        *shape, dtype_name = spec.split(":")
+        B, T, H, Hkv, hd = map(int, shape)
+        dtype = getattr(torch, dtype_name)
+        case = checks.flash_attention_bwd_case(B, T, H, Hkv, hd, dtype,
+                                               "cuda")
+        rows.append(_row(case, dtype, {"B": B, "T": T, "H": H, "Hkv": Hkv,
+                                       "hd": hd}))
+        rows[-1]["split"] = _split(case.kernel)
         print(json.dumps(rows[-1]), flush=True)
     for spec in args.gram:
         n, k, dtype_name = spec.split(":")

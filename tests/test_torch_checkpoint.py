@@ -32,6 +32,7 @@ from repro_torch.core import engine as teng, health as thl  # noqa: E402
 from repro_torch.core import inkpca as tink, kernels_fn as tkf  # noqa: E402
 from repro_torch.core import rankone as trk  # noqa: E402
 from repro_torch.testing import faults  # noqa: E402
+from repro_torch.testing.threads import one_torch_thread  # noqa: E402,F401
 
 SIGMA = 5.0
 JSPEC, TSPEC = jkf.KernelSpec(sigma=SIGMA), tkf.KernelSpec(sigma=SIGMA)

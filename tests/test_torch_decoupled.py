@@ -27,6 +27,7 @@ from repro_torch.core import engine as teng, health as thl  # noqa: E402
 from repro_torch.core import kernels_fn as tkf  # noqa: E402
 from repro_torch.core import serving as tsrv  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
+from repro_torch.testing.threads import one_torch_thread  # noqa: E402,F401
 
 JSPEC, TSPEC = jkf.KernelSpec(sigma=2.0), tkf.KernelSpec(sigma=2.0)
 

@@ -28,6 +28,7 @@ from repro_torch.core import engine as teng, inkpca as tink  # noqa: E402
 from repro_torch.core import kernels_fn as tkf, rankone as trk  # noqa: E402
 from repro_torch.core import window as twnd  # noqa: E402
 from repro_torch.testing import spmd  # noqa: E402
+from repro_torch.testing.threads import one_torch_thread  # noqa: E402,F401
 
 SIGMA = 5.0
 SPEC = jkf.KernelSpec(name="rbf", sigma=SIGMA)

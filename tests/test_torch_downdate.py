@@ -19,6 +19,7 @@ from repro.core import kernels_fn as jkf, rankone as jrk  # noqa: E402
 from repro_torch.core import engine as teng, inkpca as tink  # noqa: E402
 from repro_torch.core import downdate as tdd  # noqa: E402
 from repro_torch.core import kernels_fn as tkf, rankone as trk  # noqa: E402
+from repro_torch.testing.threads import one_torch_thread  # noqa: E402,F401
 
 SIGMA = 5.0
 JSPEC, TSPEC = jkf.KernelSpec(sigma=SIGMA), tkf.KernelSpec(sigma=SIGMA)

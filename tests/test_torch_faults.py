@@ -22,6 +22,7 @@ from repro_torch.checkpoint import (latest_step, load_checkpoint,  # noqa: E402
 from repro_torch.core import convert, inkpca as tink  # noqa: E402
 from repro_torch.core import kernels_fn as tkf  # noqa: E402
 from repro_torch.testing import faults  # noqa: E402
+from repro_torch.testing.threads import one_torch_thread  # noqa: E402,F401
 
 KILLPOINTS = ("checkpoint.mid_write", "checkpoint.after_write",
               "checkpoint.between_renames", "checkpoint.after_publish")

@@ -27,6 +27,7 @@ from repro_torch.core import inkpca as tink, kernels_fn as tkf  # noqa: E402
 from repro_torch.core import nystrom as tny, rankone as trk  # noqa: E402
 from repro_torch.core import window as twnd  # noqa: E402
 from repro_torch.testing import faults  # noqa: E402
+from repro_torch.testing.threads import one_torch_thread  # noqa: E402,F401
 
 SIGMA = 4.0
 JSPEC, TSPEC = jkf.KernelSpec(sigma=SIGMA), tkf.KernelSpec(sigma=SIGMA)

@@ -20,6 +20,7 @@ from repro.core import kernels_fn as jkf  # noqa: E402
 from repro_torch.core import batch as tbatch, engine as teng  # noqa: E402
 from repro_torch.core import inkpca as tink  # noqa: E402
 from repro_torch.core import kernels_fn as tkf  # noqa: E402
+from repro_torch.testing.threads import one_torch_thread  # noqa: E402,F401
 
 PLAN = dict(matmul="pallas", fuse_krow=True, dispatch="bucketed",
             min_bucket=16)

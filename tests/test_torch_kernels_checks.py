@@ -24,6 +24,7 @@ from repro_torch.kernels.nystrom_recon.ref import (  # noqa: E402
 from repro_torch.kernels.rbf_gram import ops as kops  # noqa: E402
 from repro_torch.kernels.rbf_gram.ref import (  # noqa: E402
     krow_project_ref, rbf_gram_ref)
+from repro_torch.testing.threads import one_torch_thread  # noqa: E402,F401
 
 N = 96
 NAMES = ("eigvec_rotate", "eigvec_rotate2", "eigvec_project",

@@ -66,12 +66,16 @@ def test_rotate2_matches_plain_version(device, n, m, dtype):
 
 
 def test_flash_attention_bf16_runs_on_the_tensor_cores(device):
-    """The bfloat16 attention kernel's SASS holds wgmma instructions."""
+    """The bfloat16 attention kernels' SASS holds wgmma instructions: the
+    forward (both instantiations: with and without the log-sum-exp) and the
+    backward's dK/dV and dQ kernels at both head dims."""
     cuda.library()
     counts = cuda.sass_counts()
-    wgmma = {k: v for k, v in counts.items()
-             if "flash_attention_kernel_wgmma" in k}
-    assert wgmma and all(v["HGMMA"] > 0 for v in wgmma.values()), counts
+    for name, n in (("flash_attention_kernel_wgmma", 4),
+                    ("bwd_dkdv_kernel_wgmma", 2), ("bwd_dq_kernel_wgmma", 2)):
+        wgmma = {k: v for k, v in counts.items() if name in k}
+        assert len(wgmma) == n, (name, counts)
+        assert all(v["HGMMA"] > 0 for v in wgmma.values()), counts
 
 
 def test_rotate_f32_runs_on_the_tensor_cores(device):
@@ -498,14 +502,18 @@ def test_flash_attention_matches_plain_version(device, B, T, H, Hkv, hd,
 
 @pytest.mark.parametrize("B,T,H,Hkv,hd", [
     (1, 1, 2, 1, 64), (2, 77, 6, 3, 100), (1, 130, 4, 4, 128),
-    (1, 64, 8, 2, 32), (1, 129, 4, 2, 128), (3, 200, 6, 2, 16)])
+    (1, 64, 8, 2, 32), (1, 129, 4, 2, 128), (3, 200, 6, 2, 16),
+    (1, 256, 6, 1, 64), (2, 384, 12, 2, 128), (1, 1000, 6, 6, 128),
+    (1, 333, 12, 2, 64)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_bwd_matches_plain_version(device, B, T, H, Hkv, hd,
                                                    dtype):
-    """The backward kernel against its plain version: T = 1, T one past a
-    64-row tile and off it, head dims that are no multiple of 4 rows of
-    the padded tile (100) and the largest (128), GQA groups of 1 to 4;
-    two runs bit for bit (no atomics)."""
+    """The backward kernel against its plain version (given the plain
+    log-sum-exp): T = 1, T one past a 64-row tile and off it, T a multiple
+    of the bfloat16 kernels' 128-row blocks (256, 384) and not (77, 130,
+    333, 1000), head dims the bfloat16 kernels pad (16, 32, 100) and run
+    as they are (64, 128), GQA groups of 1 to 6; two runs bit for bit (no
+    atomics)."""
     case = checks.flash_attention_bwd_case(
         B, T, H, Hkv, hd, getattr(torch, dtype), device, seed=T + H)
     checks.compare(case)
@@ -527,12 +535,14 @@ def test_flash_attention_gradient_is_the_backward_kernels(device, dtype):
                .requires_grad_() for h in (4, 2, 2))
     cuda.reset_launches()
     out = fops.causal_attention(q, k, v)
+    lse = out.grad_fn.saved_tensors[4]        # the bf16 forward's, else None
+    assert (lse is None) == (dtype == "float32")
     dout = torch.ones_like(out)
     grads = torch.autograd.grad(out, (q, k, v), dout)
     assert (cuda.LAUNCHES["flash_attention"],
             cuda.LAUNCHES["flash_attention_bwd"]) == (1, 1)
     want = fops.attention_backward(q.detach(), k.detach(), v.detach(),
-                                   out.detach(), dout)
+                                   out.detach(), dout, lse)
     assert all(torch.equal(g, w) for g, w in zip(grads, want))
     assert grads[0].shape == q.shape
     plain = flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(),
@@ -541,6 +551,53 @@ def test_flash_attention_gradient_is_the_backward_kernels(device, dtype):
                                           out.detach(), dout, plain)
     for g, p, t in zip(grads, plain, tols):
         assert bool(((g.double() - p.double()).abs() <= t).all())
+
+
+def test_flash_attention_forward_writes_lse_only_for_a_gradient(
+        device, monkeypatch):
+    """bfloat16: a forward in grad mode writes each row's log-sum-exp,
+    within ``checks.flash_attention_lse_tol`` of the plain one, and saves
+    it for the backward; under ``torch.inference_mode`` the forward
+    allocates no log-sum-exp buffer (only its output) and passes the
+    kernel none, with the same output; two backward runs agree bit for
+    bit."""
+    from repro_torch.kernels.flash_attn import ops as fops
+    from repro_torch.kernels.flash_attn.ref import flash_attention_lse_ref
+
+    rng = np.random.default_rng(3)
+    B, T, H, Hkv, hd = 2, 200, 6, 2, 64
+    q, k, v = (torch.tensor(rng.normal(size=(B, T, h, hd)),
+                            dtype=torch.bfloat16, device=device)
+               .requires_grad_() for h in (H, Hkv, Hkv))
+    out = fops.causal_attention(q, k, v)
+    lse = out.grad_fn.saved_tensors[4]
+    assert lse.shape == (B, H, fops.lse_len(T)) and lse.dtype == torch.float32
+    want = flash_attention_lse_ref(q.detach(), k.detach())
+    tol = checks.flash_attention_lse_tol(q.detach(), k.detach(), want)
+    assert bool(((lse[..., :T] - want).abs() <= tol).all())
+
+    passed = []
+    launch = cuda.launch
+
+    def spy(name, dtype, *args):
+        if name == "flash_attention":
+            passed.append(args[4])            # q, k, v, out, lse, ...
+        return launch(name, dtype, *args)
+
+    monkeypatch.setattr(cuda, "launch", spy)
+    with torch.inference_mode():
+        before = torch.cuda.memory_allocated(device)
+        served = fops.causal_attention(q, k, v)
+        grew = torch.cuda.memory_allocated(device) - before
+    assert passed == [None]
+    assert grew == served.numel() * served.element_size()
+    assert torch.equal(served, out.detach())
+
+    dout = torch.tensor(rng.normal(size=out.shape), dtype=torch.bfloat16,
+                        device=device)
+    first = torch.autograd.grad(out, (q, k, v), dout, retain_graph=True)
+    second = torch.autograd.grad(out, (q, k, v), dout)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_kernels_without_a_backward_raise_under_grad(device):

@@ -36,6 +36,7 @@ from repro_torch.kernels.eigvec_update import ops as eops  # noqa: E402
 from repro_torch.kernels.eigvec_update import ref as tref  # noqa: E402
 from repro_torch.kernels.nystrom_recon import ops as nops  # noqa: E402
 from repro_torch.kernels.rbf_gram import ops as kops  # noqa: E402
+from repro_torch.testing.threads import one_torch_thread  # noqa: E402,F401
 
 DTYPES = {"f32": (np.float32, torch.float32, jnp.float32, 2e-5),
           "f64": (np.float64, torch.float64, jnp.float64, 1e-12)}

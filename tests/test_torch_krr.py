@@ -16,6 +16,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.core import kernels_fn as jkf, krr as jkrr  # noqa: E402
 from repro_torch.core import convert, engine as teng  # noqa: E402
 from repro_torch.core import kernels_fn as tkf, krr as tkrr  # noqa: E402
+from repro_torch.testing.threads import one_torch_thread  # noqa: E402,F401
 
 
 def _problem(n, d=3, noise=0.05, seed=11):

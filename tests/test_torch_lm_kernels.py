@@ -24,6 +24,7 @@ from repro.kernels.ssd_chunk.ssd_chunk import \
     ssd_intra_chunk as j_ssd  # noqa: E402
 from repro_torch.kernels.flash_attn import ops as fops  # noqa: E402
 from repro_torch.kernels.ssd_chunk import ops as sops  # noqa: E402
+from repro_torch.testing.threads import one_torch_thread  # noqa: E402,F401
 
 TYPES = {"f32": (jnp.float32, torch.float32, 1e-5),
          "bf16": (jnp.bfloat16, torch.bfloat16, 3e-2)}

@@ -31,6 +31,7 @@ from repro_torch.models import layers as tl  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
 from repro_torch.models import ssm as tssm  # noqa: E402
 from repro_torch.models.config import ArchConfig  # noqa: E402
+from repro_torch.testing.threads import one_torch_thread  # noqa: E402,F401
 
 ATOL = 1e-4
 B, T = 2, 16

@@ -21,6 +21,7 @@ from repro.models.config import MoEConfig as JMoEConfig  # noqa: E402
 from repro_torch.core import convert  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models.config import ArchConfig, MoEConfig  # noqa: E402
+from repro_torch.testing.threads import one_torch_thread  # noqa: E402,F401
 
 ATOL = 1e-4
 B, T, E, K = 2, 16, 4, 2

@@ -25,6 +25,7 @@ from repro_torch.core import kernels_fn as tkf  # noqa: E402
 from repro_torch.core import nystrom as tn  # noqa: E402
 from repro_torch.data import uci_like as tuci  # noqa: E402
 from repro_torch.kernels.nystrom_recon import ops as nops  # noqa: E402
+from repro_torch.testing.threads import one_torch_thread  # noqa: E402,F401
 
 PLAN = dict(matmul="pallas2", fuse_krow=True, dispatch="bucketed",
             min_bucket=8)

@@ -27,6 +27,7 @@ from repro_torch.core import convert  # noqa: E402
 from repro_torch.core import kernels_fn as tkf  # noqa: E402
 from repro_torch.models import nystrom_attention as tnys  # noqa: E402
 from repro_torch.models.config import ArchConfig  # noqa: E402
+from repro_torch.testing.threads import one_torch_thread  # noqa: E402,F401
 
 RTOL = 1e-5
 

@@ -22,6 +22,7 @@ from repro_torch.core import kernels_fn as tkf  # noqa: E402
 from repro_torch.core import telemetry as ttm  # noqa: E402
 from repro_torch.kernels import cuda  # noqa: E402
 from repro_torch.spectral import SpectralMonitor  # noqa: E402
+from repro_torch.testing.threads import one_torch_thread  # noqa: E402,F401
 
 
 def _fill(hub):

@@ -26,6 +26,7 @@ from repro_torch.optim import compression as tcomp  # noqa: E402
 from repro_torch.optim import optimizers as topt  # noqa: E402
 from repro_torch.optim import schedules as tsch  # noqa: E402
 from repro_torch.testing import spmd  # noqa: E402
+from repro_torch.testing.threads import one_torch_thread  # noqa: E402,F401
 
 OPT_RTOL = 2e-6
 

@@ -30,6 +30,7 @@ from repro_torch.core import batch as tbatch, engine as teng  # noqa: E402
 from repro_torch.core import inkpca as tink, kernels_fn as tkf  # noqa: E402
 from repro_torch.core import rankone as tr  # noqa: E402
 from repro_torch.kernels.eigvec_update import ops as eops  # noqa: E402
+from repro_torch.testing.threads import one_torch_thread  # noqa: E402,F401
 
 
 def _rotation2_inputs(M, m, np_dtype, seed=0):

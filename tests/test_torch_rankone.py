@@ -17,6 +17,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core import rankone as jr  # noqa: E402
 from repro_torch.core import rankone as tr  # noqa: E402
+from repro_torch.testing.threads import one_torch_thread  # noqa: E402,F401
 
 
 def _padded(lam, vec, M):

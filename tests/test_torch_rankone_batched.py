@@ -29,6 +29,7 @@ from repro_torch.core import rankone as tr  # noqa: E402
 from repro_torch.kernels.eigvec_update import ops as eops  # noqa: E402
 from repro_torch.kernels.nystrom_recon import ops as nops  # noqa: E402
 from repro_torch.kernels.rbf_gram import ops as kops  # noqa: E402
+from repro_torch.testing.threads import one_torch_thread  # noqa: E402,F401
 
 M, D = 16, 4
 MS = (5, 9, 16, 12)                     # per-tenant active counts

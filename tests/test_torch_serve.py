@@ -7,6 +7,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.testing.threads import one_torch_thread  # noqa: E402,F401
 
 
 def test_serve_kpca_runs_on_cpu():

@@ -22,6 +22,7 @@ from repro_torch.core import convert, engine as teng  # noqa: E402
 from repro_torch.core import inkpca as tink, kernels_fn as tkf  # noqa: E402
 from repro_torch.core import krr as tkrr, nystrom as tn  # noqa: E402
 from repro_torch.core import serving as tsrv  # noqa: E402
+from repro_torch.testing.threads import one_torch_thread  # noqa: E402,F401
 
 JSPEC, TSPEC = jkf.KernelSpec(sigma=2.0), tkf.KernelSpec(sigma=2.0)
 

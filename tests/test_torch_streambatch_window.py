@@ -18,6 +18,7 @@ from repro.core import engine as jeng  # noqa: E402
 from repro_torch.core import engine as teng  # noqa: E402
 from repro_torch.core import health as thl  # noqa: E402
 from repro_torch.core import kernels_fn as tkf, rankone as trk  # noqa: E402
+from repro_torch.testing.threads import one_torch_thread  # noqa: E402,F401
 from test_torch_streambatch import (  # noqa: E402
     D, JSPEC, TSPEC, _bitwise, _cohorts, _masked_steps, _plans,
     _same_as_reference, _same_as_singles, _singles)

@@ -48,6 +48,7 @@ from repro_torch.models import lm as tlm  # noqa: E402
 from repro_torch.models.config import ArchConfig  # noqa: E402
 from repro_torch.optim import optimizers as topt  # noqa: E402
 from repro_torch.optim import schedules as tsch  # noqa: E402
+from repro_torch.testing.threads import one_torch_thread  # noqa: E402,F401
 
 LOSS_ATOL = 1e-5
 GRAD_RTOL = 1e-4

@@ -22,6 +22,7 @@ from repro.core import nystrom as jn, rankone as jrk  # noqa: E402
 from repro_torch.core import engine as teng, inkpca as tink  # noqa: E402
 from repro_torch.core import kernels_fn as tkf  # noqa: E402
 from repro_torch.core import nystrom as tn, rankone as trk  # noqa: E402
+from repro_torch.testing.threads import one_torch_thread  # noqa: E402,F401
 
 JSPEC, TSPEC = jkf.KernelSpec(sigma=5.0), tkf.KernelSpec(sigma=5.0)
 BUK = dict(dispatch="bucketed", min_bucket=8)

@@ -21,6 +21,7 @@ from repro_torch.core import convert, engine as teng  # noqa: E402
 from repro_torch.core import inkpca as tink  # noqa: E402
 from repro_torch.core import kernels_fn as tkf, rankone as trk  # noqa: E402
 from repro_torch.core import window as twnd  # noqa: E402
+from repro_torch.testing.threads import one_torch_thread  # noqa: E402,F401
 
 SIGMA = 5.0
 JSPEC, TSPEC = jkf.KernelSpec(sigma=SIGMA), tkf.KernelSpec(sigma=SIGMA)

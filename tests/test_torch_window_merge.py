@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.core import batch, downdate as dd, engine as eng
 from repro_torch.core import inkpca, kernels_fn as kf, rankone
+from repro_torch.testing.threads import one_torch_thread  # noqa: F401
 
 CAP, W, POINTS, DIM = 128, 100, 300, 16
 EPS_RATIO = torch.finfo(torch.float64).eps / torch.finfo(torch.float32).eps

@@ -21,6 +21,7 @@ from repro.models.config import ArchConfig as JArchConfig  # noqa: E402
 from repro_torch.core import convert  # noqa: E402
 from repro_torch.models import xlstm as tx  # noqa: E402
 from repro_torch.models.config import ArchConfig  # noqa: E402
+from repro_torch.testing.threads import one_torch_thread  # noqa: E402,F401
 
 ATOL = 1e-4
 B, T = 2, 16
