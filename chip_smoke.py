@@ -29,7 +29,12 @@ Phases, each printing one JSON line per row:
    bf16 and f32, at DBRX's 48 / 8 heads of 128, at T = 1000 and at a
    small f32 GQA shape; ``ssd_intra_chunk`` at the prefill's 16 chunks of
    256, N = 128, 256 heads of 64 with bf16 x and f32 cum, and at a small
-   f32 shape), each output entry within its own bound as
+   f32 shape; its backward ``ssd_intra_chunk_bwd`` (three SIMT kernels,
+   f32 sums, no atomics) at Jamba's training shape (the prefill's, bf16),
+   at two chunks of 256 with 20 heads in bf16 and f32, at Q = 100 (off
+   the 64-row tile, variant "Q 100") in both, at the smoke shape (8
+   chunks of 8, f32) and at steep decays (variants "steep 1.0", bf16, and
+   "steep 200", f32: every gradient finite)), each output entry within its own bound as
    ``repro_torch.kernels.checks`` states it, pruned entries exact zeros
    and two runs of the kernel bit for bit equal; ``eigvec_rotate``,
    ``eigvec_rotate2``, ``eigvec_project`` and ``krow_project`` also on a
@@ -238,11 +243,21 @@ Phases, each printing one JSON line per row:
    ``flash_attention_bwd`` 40 launches a step (forward and recompute per
    layer, one backward per layer); step ms p50, tokens/s, the model-FLOP
    share of the bf16 dense peak; then two steps from seed 0 twice: the
-   gradient norms and the parameters bit for bit.  ``lm_train_check``:
-   one step of MiniCPM-2B's smoke config (f32) on the card against the
-   CPU from the same weights: the loss, every gradient leaf and the
-   parameters after one AdamW step within the bounds its docstring
-   derives.  ``lm_nystrom``: a 2-layer dense config at MiniCPM's widths
+   gradient norms and the parameters bit for bit.  ``lm_train_jamba``:
+   Jamba-1.5-Large at every published width (d_model 8192, 64 q / 8 kv
+   heads of 128, d_ff 24576, vocab 65536, Mamba N = 128, 256 heads of 64,
+   chunk 256), the first four layers of its period (mamba ×3, attn) with
+   ``moe=None``: 4.86 B bf16 parameters drawn on the card, 4 AdamW steps
+   (cosine schedule, clipping, remat per period) on B = 1, T = 4096, the
+   same checks and rows as ``lm_train``; a step launches
+   ``ssd_intra_chunk`` 6 times (forward and recompute), its backward 3,
+   ``flash_attention`` 2 and its backward 1.  ``lm_train_check``: one
+   step of MiniCPM-2B's smoke config (f32) and of Jamba's smoke cut (a
+   Mamba layer, then attention with the experts; B 2, T 64 in 8 chunks)
+   on the card against the CPU from the same weights: the experts' routes
+   alike, the loss, every gradient leaf and the parameters after one
+   AdamW step within the bounds its docstring derives.  ``lm_nystrom``: a
+   2-layer dense config at MiniCPM's widths
    with Nyström attention (f32, 256 landmarks set to each layer's keys of
    a 256-token prompt): prefill against teacher-forced decode within
    ``NYSTROM_BAR``; then ``grow_landmark`` 64 times on the card (f64,
@@ -347,6 +362,21 @@ FLASH_BWD_SHAPES = (((4, 2048, 36, 36, 64), "bfloat16"),
 FLASH_LSE_SHAPES = ((4, 2048, 36, 36, 64), (1, 1000, 8, 2, 128))
 SSD_SHAPES = (((16, 256, 128, 256, 64), "bfloat16"),
               ((3, 32, 16, 4, 8), "float32"))
+# The ssd_intra_chunk backward ((G, Q, N, H, P), type, variant, decay a
+# step): Jamba's training shape (16 chunks of 256, bf16; its row is the
+# kernel's main-path row), two chunks of 256 in both types, Q = 100 off the
+# 64-row tile in both types, the smoke shape (f32), and steep decays as
+# tests/test_torch_kernels_cuda.py's: at 1.0 a step the far decays fall
+# below float32's normal range, at 200 nearly all underflow (every
+# gradient finite).
+SSD_BWD_SHAPES = (((16, 256, 128, 256, 64), "bfloat16", "", 0.2),
+                  ((2, 256, 128, 20, 64), "bfloat16", "", 0.2),
+                  ((2, 256, 128, 20, 64), "float32", "", 0.2),
+                  ((2, 100, 128, 20, 64), "bfloat16", "Q 100", 0.2),
+                  ((2, 100, 128, 20, 64), "float32", "Q 100", 0.2),
+                  ((8, 8, 8, 8, 16), "float32", "", 0.2),
+                  ((2, 256, 128, 20, 64), "bfloat16", "steep 1.0", 1.0),
+                  ((2, 256, 128, 20, 64), "float32", "steep 200", 200.0))
 LM_T, LM_DECODE_T, LM_WARMUP, LM_TIMED = 4096, 256, 3, 10
 # The f32 kernels on three TF32 products (eigvec_rotate, scaled_gram), and
 # f32 rbf_gram, against the f64 product of their operands: at most this
@@ -499,6 +529,8 @@ def all_cases(torch, checks):
     """(dtype, n, m, case) for every kernel at the phases' shapes: the KPCA
     kernels at bucket 1024, scaled_gram at n = 4096 (m is B's width),
     rbf_gram at ``RBF_SHAPES`` and the Fig. 2 data's full gram."""
+    import dataclasses
+
     from repro_torch.core import kernels_fn as kf
     from repro_torch.data.uci_like import load_dataset
 
@@ -534,6 +566,11 @@ def all_cases(torch, checks):
         dtype = getattr(torch, dtype_name)
         yield dtype, G * Q, H, checks.ssd_intra_chunk_case(G, Q, N, H, P,
                                                            dtype, "cuda")
+    for (G, Q, N, H, P), dtype_name, variant, decay in SSD_BWD_SHAPES:
+        dtype = getattr(torch, dtype_name)
+        case = checks.ssd_intra_chunk_bwd_case(G, Q, N, H, P, dtype, "cuda",
+                                               decay=decay)
+        yield dtype, G * Q, H, dataclasses.replace(case, variant=variant)
 
 
 # The rows of the kernel phase that PERF.md's kernel table reads, and so
@@ -575,6 +612,9 @@ def timed_row(name: str, variant: str, n: int, m: int, dtype) -> bool:
     if name == "flash_attention_bwd":
         return (m, dtype_name) in ((shape[2], dt) for shape, dt
                                    in FLASH_BWD_SHAPES[:2])
+    if name == "ssd_intra_chunk_bwd":
+        return (m, dtype_name) == (SSD_BWD_SHAPES[0][0][3],
+                                   SSD_BWD_SHAPES[0][1])
     return (m, dtype_name) == (SSD_SHAPES[0][0][3], SSD_SHAPES[0][1])
 
 
@@ -666,7 +706,7 @@ def service_phase(torch, cuda, serve, capacity: int, points: int,
               "transform_project": points // args.transform_every,
               "scaled_gram": 0, "rbf_gram": 0, "flash_attention": 0,
               "flash_attention_bwd": 0,
-              "ssd_intra_chunk": 0}
+              "ssd_intra_chunk": 0, "ssd_intra_chunk_bwd": 0}
     if matmul == "pallas2":
         expect.update(pair_reckoning(launches, 2 * points))
     if launches != expect:
@@ -741,6 +781,7 @@ def nystrom_phase(torch, cuda, serve, dtype_name: str) -> dict:
               "transform_project": 0, "scaled_gram": 0, "rbf_gram": 0,
               "flash_attention": 0,
               "flash_attention_bwd": 0, "ssd_intra_chunk": 0,
+              "ssd_intra_chunk_bwd": 0,
               **pair_reckoning(launches, adm)}
     if result["admitted"] != adm or launches != expect:
         raise AssertionError(f"nystrom: {result['admitted']} admissions, "
@@ -846,6 +887,7 @@ def fig2_phase(torch, cuda, checks) -> dict:
               "transform_project": 0, "scaled_gram": len(checkpoints),
               "rbf_gram": 0, "flash_attention": 0,
               "flash_attention_bwd": 0, "ssd_intra_chunk": 0,
+              "ssd_intra_chunk_bwd": 0,
               **pair_reckoning(launches, grown)}
     if launches != expect:
         raise AssertionError(f"fig2 launch counts {launches} != {expect}")
@@ -882,7 +924,7 @@ def window_phase(torch, cuda, serve, capacity: int, window: int,
               "transform_project": points // args.transform_every,
               "scaled_gram": 0, "rbf_gram": 0, "flash_attention": 0,
               "flash_attention_bwd": 0,
-              "ssd_intra_chunk": 0}
+              "ssd_intra_chunk": 0, "ssd_intra_chunk_bwd": 0}
     if matmul == "pallas2":
         expect.update(pair_reckoning(launches, 2 * growth + 4 * steady))
     if launches != expect:
@@ -1667,7 +1709,7 @@ def guarded_window_phase(torch, cuda, serve, capacity: int = 256,
               "transform_project": points // args.transform_every,
               "scaled_gram": 0, "rbf_gram": 0, "flash_attention": 0,
               "flash_attention_bwd": 0,
-              "ssd_intra_chunk": 0}
+              "ssd_intra_chunk": 0, "ssd_intra_chunk_bwd": 0}
     expect.update(pair_reckoning(launches, 2 * growth + 4 * steady))
     x0, draws = serve.kpca_draws(args)
     kept = [x for i, (x, _) in enumerate(draws)
@@ -1969,7 +2011,7 @@ def multitenant_phase(torch, cuda, serve, points: int = 600,
               "transform_project": points // args.transform_every,
               "scaled_gram": 0, "rbf_gram": 0, "flash_attention": 0,
               "flash_attention_bwd": 0,
-              "ssd_intra_chunk": 0}
+              "ssd_intra_chunk": 0, "ssd_intra_chunk_bwd": 0}
     # A step of tenants at m needs m + 1 rows: the cohort crosses into
     # buckets 256, 512 and 1024 at the steps where 4 + i + 1 passes 128,
     # 256 and 512; only there may a step read m back.
@@ -2277,7 +2319,8 @@ def decoupled_phase(torch, cuda, serve) -> dict:
               "krow_project": n, "eigvec_project": n,
               "transform_project": n * DECOUPLED_RATE, "scaled_gram": 0,
               "rbf_gram": 0, "flash_attention": 0,
-              "flash_attention_bwd": 0, "ssd_intra_chunk": 0}
+              "flash_attention_bwd": 0, "ssd_intra_chunk": 0,
+              "ssd_intra_chunk_bwd": 0}
     bitwise = all(torch.equal(y, serving.query_batch(s, q, spec=loop.spec,
                                                      plan=loop.plan))
                   for s, q, y in log)
@@ -3112,6 +3155,12 @@ def lm_xlstm_phase(torch, cuda) -> dict:
 # optimizer steps (AdamW, the WSD schedule over STEPS steps, remat per
 # layer).
 TRAIN_B, TRAIN_T, TRAIN_STEPS = 4, 2048, 4
+# Jamba-1.5-Large trained at full width (lm_train_jamba): the first four
+# layers of its period, in order, without experts; B sequences of T tokens
+# (16 chunks of 256), STEPS AdamW steps.  Its whole 8-layer period needs
+# ~107 GB with AdamW's f32 moments, more than the card holds.
+JAMBA_TRAIN_PATTERN = ("mamba", "mamba", "mamba", "attn")
+TRAIN_JAMBA_B, TRAIN_JAMBA_T, TRAIN_JAMBA_STEPS = 1, 4096, 4
 # The smoke step on the card against the CPU (lm_train_check): the loss
 # within 1e-5 and each gradient leaf within 1e-4 of its largest magnitude,
 # the reference's bar between its naive and flash attention carried
@@ -3140,18 +3189,28 @@ def _smi() -> str:
                           timeout=60).stdout.strip().splitlines()[0]
 
 
+def step_launches(cfg) -> dict:
+    """The LM kernels' launches of one loss-and-gradient pass with remat:
+    per attention layer ``flash_attention`` twice (forward and remat's
+    recompute) and its backward once, per Mamba layer ``ssd_intra_chunk``
+    twice and its backward once; kernels with no launch left out."""
+    kinds = [cfg.block_kind(i) for i in range(cfg.n_layers)]
+    attn, mamba = kinds.count("attn"), kinds.count("mamba")
+    want = {"flash_attention": 2 * attn, "flash_attention_bwd": attn,
+            "ssd_intra_chunk": 2 * mamba, "ssd_intra_chunk_bwd": mamba}
+    return {k: v for k, v in want.items() if v}
+
+
 def train_reckoning(cfg, B: int, T: int) -> dict:
-    """What a MiniCPM-2B train step holds on the card, reckoned before it
-    runs: parameters and gradients in the model's type, two float32
-    moments, the inputs remat keeps (one (B, T, d) activation a layer),
-    the logits in bf16, their float32 copy and its gradient; and the
-    flash_attention launches a step (forward and recompute per layer,
-    one backward per layer)."""
+    """What a train step holds on the card, reckoned before it runs:
+    parameters and gradients in the model's type, two float32 moments,
+    the inputs remat keeps (one (B, T, d) activation a layer), the logits
+    in the model's type, their float32 copy and its gradient; and the LM
+    kernels' launches a step (``step_launches``)."""
     from repro_torch.models.config import param_count
 
     n = param_count(cfg)
     item = 2 if cfg.dtype == "bfloat16" else 4
-    layers = sum(cfg.block_kind(i) == "attn" for i in range(cfg.n_layers))
     logits = B * T * cfg.vocab
     parts = {"params_and_grads_gb": 2 * n * item / 1e9,
              "moments_gb": 2 * n * 4 / 1e9,
@@ -3159,60 +3218,61 @@ def train_reckoning(cfg, B: int, T: int) -> dict:
              / 1e9,
              "logits_gb": logits * (item + 4 + 4) / 1e9}
     return {"params": n, **parts, "total_gb": sum(parts.values()),
-            "flash_attention_per_step": 2 * layers,
-            "flash_attention_bwd_per_step": layers}
+            "launches_per_step": step_launches(cfg)}
 
 
 def _model_flops(cfg, n: int, B: int, T: int) -> float:
     """Model FLOPs of one train step: 6·N·tokens for the weights, and the
     causal attention's QKᵀ and PV (4·hd flops per pair s <= t a head)
     three times (forward, and twice that in the backward); remat's
-    recompute is not counted."""
+    recompute is not counted, nor the Mamba layers' own intra-chunk and
+    chunk-state products (SSD's flops beyond its weights)."""
     attn = sum(4.0 * cfg.hd * cfg.n_heads * B * T * (T + 1) / 2
                for i in range(cfg.n_layers) if cfg.block_kind(i) == "attn")
     return 6.0 * n * B * T + 3 * attn
 
 
-def lm_train_phase(torch, cuda) -> dict:
-    """MiniCPM-2B trained whole on the card (40 layers, d_model 2304, 36
-    heads of 64, d_ff 5760, vocab 122753, tied embeddings, residual scale
-    1.4/√40; bf16 parameters drawn from seed 0 on the card): ``STEPS``
-    steps of ``make_train_step`` (AdamW with float32 moments, the WSD
-    schedule, clipping to norm 1, remat per layer) on ``TokenStream``
-    batches of B = 4, T = 2048.  Each step's loss, gradient norm and rate;
-    finite losses and norms; the ``flash_attention`` forward and backward
-    launches per step against the reckoning; step ms, tokens/s, the
-    model-FLOP share of the bf16 dense peak, the peak memory beside its
-    reckoning.  Then the same two first steps from seed 0 again: their
-    gradient norms and the parameters after them bit for bit."""
+def _train_phase(torch, cuda, phase: str, arch: str, cfg, B: int, T: int,
+                 n_steps: int, reduced) -> dict:
+    """``n_steps`` steps of ``make_train_step`` for ``cfg`` (``arch``'s
+    optimizer and schedule, as ``launch/train`` picks them: AdamW with
+    float32 moments here; clipping to norm 1; remat per period) on
+    ``TokenStream`` batches of B x T, the parameters drawn from seed 0 on
+    the card.  The memory reckoning is printed before the run, the peak
+    beside it after; each step's loss, gradient norm and rate, finite; the
+    LM kernels' launches a step against the reckoning; step ms, tokens/s,
+    the model-FLOP share of the bf16 dense peak.  Then the same two first
+    steps from seed 0 again: their gradient norms and the parameters after
+    them bit for bit."""
     import numpy as np
 
-    from repro_torch.configs import get_config
     from repro_torch.data.synthetic import TokenStream
     from repro_torch.launch import steps
 
-    cfg = get_config("minicpm_2b")
-    reck = train_reckoning(cfg, TRAIN_B, TRAIN_T)
-    emit({"phase": "lm_train", "reckoning": reck, "card": _smi()})
+    reck = train_reckoning(cfg, B, T)
+    emit({"phase": phase, "reckoning": reck, "card": _smi()})
     t_phase = time.perf_counter()
-    optimizer = steps.optimizer_for("minicpm_2b")
-    schedule = steps.schedule_for("minicpm_2b", total=TRAIN_STEPS)
-    stream = TokenStream(vocab=cfg.vocab, seq_len=TRAIN_T,
-                         global_batch=TRAIN_B, seed=0)
-    batches = [stream.batch_at(i, "cuda") for i in range(TRAIN_STEPS)]
+    optimizer = steps.optimizer_for(arch)
+    schedule = steps.schedule_for(arch, total=n_steps)
+    stream = TokenStream(vocab=cfg.vocab, seq_len=T, global_batch=B, seed=0)
+    batches = [stream.batch_at(i, "cuda") for i in range(n_steps)]
 
-    def run(n_steps: int, record: bool):
+    def run(count: int, record: bool, against: dict | None = None):
+        """``count`` steps from seed 0.  With ``record`` the parameters
+        before and after, on the host (the card holds the state only),
+        and how many moved; with ``against`` whether the parameters after
+        equal those, bit for bit."""
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         state = steps.init_train_state(cfg, optimizer, seed=0, device="cuda")
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         train_step = steps.make_train_step(cfg, optimizer, schedule)
-        init = ({k: p.detach().clone() for k, p in
+        init = ({k: p.detach().to("cpu", copy=True) for k, p in
                  state.params.named_parameters()} if record else None)
         torch.cuda.reset_peak_memory_stats()
         out = []
-        for i in range(n_steps):
+        for i in range(count):
             cuda.reset_launches()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -3232,98 +3292,147 @@ def lm_train_phase(torch, cuda) -> dict:
             params = {k: p.detach().cpu() for k, p in
                       state.params.named_parameters()}
             out[-1]["params_moved"] = sum(
-                int(not torch.equal(init[k], p)) for k, p in
-                state.params.named_parameters())
+                int(not torch.equal(init[k], p)) for k, p in params.items())
             out[-1]["params"] = len(init)
+        if against is not None:
+            out[-1]["params_bitwise"] = all(
+                torch.equal(against[k], p.detach().cpu())
+                for k, p in state.params.named_parameters())
         del state, init
         return out, peak, init_s, params
 
-    steps_out, peak, init_s, _ = run(TRAIN_STEPS, record=False)
-    want = {"flash_attention": reck["flash_attention_per_step"],
-            "flash_attention_bwd": reck["flash_attention_bwd_per_step"]}
+    steps_out, peak, init_s, _ = run(n_steps, record=False)
+    want = reck["launches_per_step"]
     for r in steps_out:
         if r["launches"] != want:
-            raise AssertionError(f"lm_train step {r['step']} launches "
+            raise AssertionError(f"{phase} step {r['step']} launches "
                                  f"{r['launches']} != {want}")
         if not (np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])):
-            raise AssertionError(f"lm_train step {r['step']}: {r}")
+            raise AssertionError(f"{phase} step {r['step']}: {r}")
     times = [r["ms"] for r in steps_out]
     p50 = float(np.percentile(times, 50))
-    tokens = TRAIN_B * TRAIN_T
-    flops = _model_flops(cfg, reck["params"], TRAIN_B, TRAIN_T)
+    tokens = B * T
+    flops = _model_flops(cfg, reck["params"], B, T)
     # Determinism: two steps from seed 0 twice, bit for bit.
     det = {}
     first, _, _, p_first = run(2, record=True)
-    again, _, _, p_again = run(2, record=True)
+    again, _, _, _ = run(2, record=False, against=p_first)
+    del p_first
     det["grad_norms_bitwise"] = [a["grad_norm_bits"] == b["grad_norm_bits"]
                                  for a, b in zip(first, again)]
     det["grad_norms_equal_the_run"] = [
         a["grad_norm_bits"] == b["grad_norm_bits"]
         for a, b in zip(first, steps_out)]
-    det["params_bitwise"] = all(torch.equal(p_first[k], p_again[k])
-                                for k in p_first)
+    det["params_bitwise"] = again[-1]["params_bitwise"]
     det["params_moved_of"] = (first[-1]["params_moved"],
                               first[-1]["params"])
-    del p_first, p_again
     torch.cuda.empty_cache()
     if not (all(det["grad_norms_bitwise"]) and det["params_bitwise"]
             and det["params_moved_of"][0] > 0):
-        raise AssertionError(f"lm_train: two runs from seed 0 differ: {det}")
-    row = {"phase": "lm_train", "arch": cfg.name, "n_layers": cfg.n_layers,
-           "reduced": None, "dtype": cfg.dtype, "B": TRAIN_B, "T": TRAIN_T,
-           "optimizer": optimizer.name, "schedule": "wsd",
-           "remat": "per layer", "init_s": init_s, "steps": steps_out,
+        raise AssertionError(f"{phase}: two runs from seed 0 differ: {det}")
+    row = {"phase": phase, "arch": cfg.name, "n_layers": cfg.n_layers,
+           "block_pattern": list(cfg.block_pattern),
+           "moe": cfg.moe is not None,
+           "reduced": reduced, "dtype": cfg.dtype, "B": B, "T": T,
+           "optimizer": optimizer.name,
+           "schedule": "wsd" if "minicpm" in arch else "cosine",
+           "remat": "per period" if cfg.period > 1 else "per layer",
+           "init_s": init_s, "steps": steps_out,
            "step_ms_p50": p50, "step_ms": times,
            "tokens_per_s": tokens / p50 * 1e3,
            "model_flops_per_step": flops,
+           "model_flops_exclude": "SSD's intra-chunk and chunk-state "
+                                  "products (beyond 6·N·tokens)",
            "model_flop_share_of_bf16_peak": flops / (p50 / 1e3) / 989e12,
            "peak_memory_gb": peak / 1e9, "peak_memory_gib": peak / 2 ** 30,
            "reckoned_memory_gb": reck["total_gb"],
            "launches_per_step": want, "determinism": det, "card": _smi(),
            "total_s": time.perf_counter() - t_phase}
     emit(row)
-    return {**row, "launches": {
-        "flash_attention": sum(r["launches"]["flash_attention"]
-                               for r in steps_out),
-        "flash_attention_bwd": sum(r["launches"]["flash_attention_bwd"]
-                                   for r in steps_out)}}
+    return {**row, "launches": {k: sum(r["launches"][k] for r in steps_out)
+                                for k in want}}
 
 
-def lm_train_check_phase(torch, cuda) -> dict:
-    """One train step of MiniCPM-2B's smoke config (2 layers, d 64, float32)
-    on the card against the same step on the CPU from the same weights and
-    batch: the loss (``TRAIN_CHECK_LOSS``), every gradient leaf
-    (``TRAIN_CHECK_GRAD`` of its largest magnitude) and the parameters
-    after one AdamW step at a constant rate of 1e-3.  AdamW's first step
-    moves an entry by lr·(g/(|g| + eps) + wd·p): with the gradients within
-    δ = TRAIN_CHECK_GRAD·max|g| of each other, the step's u differs by at
-    most min(2, 2δ/(|g| + eps)), so each entry is held to lr times that
-    plus four float32 roundings of |p|."""
+def lm_train_phase(torch, cuda) -> dict:
+    """MiniCPM-2B trained whole on the card (40 layers, d_model 2304, 36
+    heads of 64, d_ff 5760, vocab 122753, tied embeddings, residual scale
+    1.4/√40; bf16 parameters drawn from seed 0 on the card): ``TRAIN_STEPS``
+    steps of ``make_train_step`` (AdamW with float32 moments, the WSD
+    schedule, clipping to norm 1, remat per layer) on ``TokenStream``
+    batches of B = 4, T = 2048 (``_train_phase``): 80 ``flash_attention``
+    and 40 backward launches a step."""
     from repro_torch.configs import get_config
+
+    return _train_phase(torch, cuda, "lm_train", "minicpm_2b",
+                        get_config("minicpm_2b"), TRAIN_B, TRAIN_T,
+                        TRAIN_STEPS, None)
+
+
+def lm_train_jamba_phase(torch, cuda) -> dict:
+    """Jamba-1.5-Large trained on the card at every published width
+    (d_model 8192, 64 q / 8 kv heads of 128, d_ff 24576, vocab 65536,
+    Mamba N = 128, 256 heads of 64, chunk 256): the first four layers of
+    its period in order (``JAMBA_TRAIN_PATTERN``, one period, remat around
+    it) with ``moe=None``, as the ``lm`` phase runs it: 4.87 B bf16
+    parameters drawn from seed 0 on the card; ``TRAIN_JAMBA_STEPS`` steps
+    of AdamW (float32 moments), the cosine schedule over the steps,
+    clipping, on B = 1, T = 4096 (16 chunks) (``_train_phase``): a step
+    launches ``ssd_intra_chunk`` 6 times (3 Mamba layers, forward and
+    recompute), its backward 3, ``flash_attention`` 2 and its backward
+    1."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    arch = "jamba_1_5_large_398b"
+    cfg = dataclasses.replace(get_config(arch), moe=None,
+                              block_pattern=JAMBA_TRAIN_PATTERN,
+                              n_layers=len(JAMBA_TRAIN_PATTERN))
+    return _train_phase(torch, cuda, "lm_train_jamba", arch, cfg,
+                        TRAIN_JAMBA_B, TRAIN_JAMBA_T, TRAIN_JAMBA_STEPS,
+                        {"n_layers": [72, cfg.n_layers], "moe": "none",
+                         "why": "AdamW's f32 moments: one 8-layer period "
+                                "needs ~107 GB, more than the card's 80"})
+
+
+def _train_check(torch, cuda, phase: str, cfg, tokens) -> dict:
+    """One train step of a smoke config (float32) on the card against the
+    same step on the CPU from the same weights and batch: where the model
+    has experts, first the routes (every MoE layer call's top-k expert ids
+    on both devices, forward and remat's recompute, equal); then the loss
+    (``TRAIN_CHECK_LOSS``), every gradient leaf (``TRAIN_CHECK_GRAD`` of
+    its largest magnitude), the LM kernels' launches (``step_launches``)
+    and the parameters after one AdamW step at a constant rate of 1e-3.
+    AdamW's first step moves an entry by lr·(g/(|g| + eps) + wd·p): with
+    the gradients within δ = TRAIN_CHECK_GRAD·max|g| of each other, the
+    step's u differs by at most min(2, 2δ/(|g| + eps)), so each entry is
+    held to lr times that plus four float32 roundings of |p|."""
     from repro_torch.launch import steps
-    from repro_torch.models import lm
+    from repro_torch.models import lm, moe
     from repro_torch.optim import optimizers, schedules
 
-    import numpy as np
-
     t0 = time.perf_counter()
-    cfg = get_config("minicpm_2b", smoke=True)
     cpu = lm.init_params(cfg, seed=0)
     gpu = lm.init_params(cfg, seed=0, device="cuda")
     gpu.load_state_dict(cpu.state_dict())
-    tok = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab, (4, 65)))
-    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
-    out = {}
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    out, routes = {}, {}
     cuda.reset_launches()
     for dev, model in (("cuda", gpu), ("cpu", cpu)):
         b = {k: v.to(dev) for k, v in batch.items()}
-        loss, _ = lm.loss_fn(model, cfg, b)
-        leaves = dict(model.named_parameters())
-        grads = torch.autograd.grad(loss, list(leaves.values()))
+        with recorded_routes(moe) as log:
+            loss, _ = lm.loss_fn(model, cfg, b)
+            leaves = dict(model.named_parameters())
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+        routes[dev] = [i.cpu() for i in log["idx"]]
         out[dev] = (float(loss.detach()), {k: g.detach().cpu() for k, g in
                                            zip(leaves, grads)})
     launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+    routes_alike = (len(routes["cuda"]) == len(routes["cpu"]) and all(
+        torch.equal(a, b) for a, b in zip(routes["cuda"], routes["cpu"])))
+    if not routes_alike:
+        raise AssertionError(f"{phase}: the card's expert choices differ "
+                             f"from the CPU's")
     loss_err = abs(out["cuda"][0] - out["cpu"][0])
     worst = 0.0
     for k, g in out["cpu"][1].items():
@@ -3348,7 +3457,11 @@ def lm_train_check_phase(torch, cuda) -> dict:
             + 4 * eps32 * p.abs()
         ratio = float(((params["cuda"][k] - p).abs() / bound).max())
         p_worst = max(p_worst, ratio)
-    row = {"phase": "lm_train_check", "arch": cfg.name, "dtype": cfg.dtype,
+    row = {"phase": phase, "arch": cfg.name, "dtype": cfg.dtype,
+           "block_pattern": list(cfg.block_pattern),
+           "moe": cfg.moe is not None, "B": batch["tokens"].shape[0],
+           "T": batch["tokens"].shape[1],
+           "moe_calls_routed_alike": len(routes["cuda"]),
            "loss_cuda": out["cuda"][0], "loss_cpu": out["cpu"][0],
            "loss_err": loss_err, "loss_bar": TRAIN_CHECK_LOSS,
            "worst_grad_rel_err": worst, "grad_bar": TRAIN_CHECK_GRAD,
@@ -3358,12 +3471,37 @@ def lm_train_check_phase(torch, cuda) -> dict:
     emit(row)
     if not (loss_err <= TRAIN_CHECK_LOSS and worst <= TRAIN_CHECK_GRAD
             and p_worst <= 1.0):
-        raise AssertionError(f"lm_train_check: {row}")
-    want = {"flash_attention": 2 * cfg.n_layers,
-            "flash_attention_bwd": cfg.n_layers}
-    if launches != want:
-        raise AssertionError(f"lm_train_check launches {launches} != {want}")
+        raise AssertionError(f"{phase}: {row}")
+    if launches != step_launches(cfg):
+        raise AssertionError(f"{phase} launches {launches} != "
+                             f"{step_launches(cfg)}")
     return row
+
+
+def lm_train_check_phase(torch, cuda) -> dict:
+    """``_train_check`` for MiniCPM-2B's smoke config (2 layers, d 64) at
+    B 4, T 64, and for Jamba's smoke cut as ``tests/test_torch_train.py``
+    takes it (a Mamba layer, then an attention layer with the experts,
+    d 64, Mamba N 8, 8 heads of 16, chunk 8) at B 2, T 64: 8 chunks, the
+    backward kernel's f32 route."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config("minicpm_2b", smoke=True)
+    rows = {"minicpm": _train_check(
+        torch, cuda, "lm_train_check", cfg,
+        torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab,
+                                                           (4, 65))))}
+    cfg = dataclasses.replace(get_config("jamba_1_5_large_398b", smoke=True),
+                              block_pattern=("mamba", "attn"), n_layers=2)
+    rows["jamba"] = _train_check(
+        torch, cuda, "lm_train_check_jamba", cfg,
+        torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab,
+                                                           (2, 65))))
+    return rows
 
 
 def lm_nystrom_phase(torch, cuda) -> dict:
@@ -3551,6 +3689,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     runs["lm_train"] = clock("lm_train", lm_train_phase, torch, cuda)
     torch.cuda.empty_cache()
+    runs["lm_train_jamba"] = clock("lm_train_jamba", lm_train_jamba_phase,
+                                   torch, cuda)
+    torch.cuda.empty_cache()
     clock("lm_train_check", lm_train_check_phase, torch, cuda)
     clock("lm_nystrom", lm_nystrom_phase, torch, cuda)
     with torch.inference_mode():
@@ -3571,10 +3712,12 @@ def main() -> int:
     # the single rotation and the prologue/projection/transform kernels,
     # the fused-pair service for rotate2, the Fig. 2 loop for scaled_gram,
     # the roofline for rbf_gram, the LM prefill for the LM kernels, the
-    # MiniCPM-2B training run for the attention backward.
+    # MiniCPM-2B training run for the attention backward, the Jamba
+    # training run for the intra-chunk term's backward.
     path_of = {"eigvec_rotate2": "pallas2", "scaled_gram": "fig2",
                "rbf_gram": "roofline", "flash_attention": "lm",
-               "ssd_intra_chunk": "lm", "flash_attention_bwd": "lm_train"}
+               "ssd_intra_chunk": "lm", "flash_attention_bwd": "lm_train",
+               "ssd_intra_chunk_bwd": "lm_train_jamba"}
     main_key_of = {"scaled_gram": ("float64", GRAM_K[0]),   # Fig. 2's type
                    "rbf_gram": ("float32", RBF_SHAPES[0][1]),
                    "flash_attention": (FLASH_SHAPES[0][1],
@@ -3582,7 +3725,9 @@ def main() -> int:
                    "flash_attention_bwd": (FLASH_BWD_SHAPES[0][1],
                                            FLASH_BWD_SHAPES[0][0][2]),
                    "ssd_intra_chunk": (SSD_SHAPES[0][1],
-                                       SSD_SHAPES[0][0][3])}
+                                       SSD_SHAPES[0][0][3]),
+                   "ssd_intra_chunk_bwd": (SSD_BWD_SHAPES[0][1],
+                                           SSD_BWD_SHAPES[0][0][3])}
     # The batched forms' launches: the multi-tenant service (f32 pallas,
     # B = 8) for the prologue, projection, rotation and transform, the
     # grouped f64 pallas2 cohort for the fused pair.

@@ -9,7 +9,9 @@ the Nyström reconstruction (B of n rows and width k), and
 ``rbf_gram_cases(n, m, dim, dtype, device)`` those of the dense RBF gram
 (the roofline's k(X, X) where n = m), ``flash_attention_case`` and
 ``ssd_intra_chunk_case`` those of the LM prefill's two kernels at a
-given shape; each returns a
+given shape, and ``flash_attention_bwd_case`` and
+``ssd_intra_chunk_bwd_case`` those of their backward kernels; each
+returns a
 ``Case`` per kernel: the kernel call, its plain version, the one PyTorch
 call that computes the same function where there is one, the tolerance
 the comparison is held to and why, and the bound on its time.
@@ -92,7 +94,8 @@ from repro_torch.kernels.flash_attn.ref import (LOG2E,
                                                 flash_attention_ref)
 from repro_torch.kernels.rbf_gram.ref import krow_project_ref, rbf_gram_ref
 from repro_torch.kernels.ssd_chunk import ops as sops
-from repro_torch.kernels.ssd_chunk.ref import ssd_intra_chunk_ref
+from repro_torch.kernels.ssd_chunk.ref import (ssd_intra_chunk_bwd_ref,
+                                               ssd_intra_chunk_ref)
 
 Tensor = torch.Tensor
 
@@ -126,6 +129,10 @@ SOURCES = {
         "src/repro/kernels/flash_attn/flash_attn.py:73"),
     "ssd_intra_chunk": ("src/repro_torch/kernels/csrc/ssd_intra_chunk.cu",
                         "src/repro/kernels/ssd_chunk/ssd_chunk.py:48"),
+    # Likewise: the reference differentiates its jnp scan.
+    "ssd_intra_chunk_bwd": (
+        "src/repro_torch/kernels/csrc/ssd_intra_chunk_bwd.cu",
+        "src/repro/kernels/ssd_chunk/ssd_chunk.py:48"),
 }
 
 N_QUERIES, N_COMPONENTS, DIM = 64, 8, 16
@@ -804,6 +811,17 @@ def ssd_intra_chunk_work(G: int, Q: int, N: int, H: int, P: int,
             1.0 * G * Q * (Q + 1) / 2 * (2 * N + H * (2 * P + 2)))
 
 
+def ssd_intra_chunk_bwd_work(G: int, Q: int, N: int, H: int, P: int,
+                             item: int) -> tuple[float, float]:
+    """(bytes, flops) the backward needs: c, b, x, dy (``item`` bytes each
+    entry) and cum (float32) read once, dc, db, dx and dcum written once;
+    per pair s <= t the score (2N, shared by the heads), dc's and db's
+    terms (2N each), and per head dM (2P), dx's term (2P) and the decay,
+    m, dS's term and Z (8)."""
+    return (item * (3 * G * Q * H * P + 4 * G * Q * N) + 8 * G * Q * H,
+            1.0 * G * Q * (Q + 1) / 2 * (6 * N + H * (4 * P + 8)))
+
+
 def _attention_operands(B: int, T: int, H: int, Hkv: int, hd: int, dtype,
                         device, seed: int, extra: int = 0
                         ) -> tuple[Tensor, ...]:
@@ -1047,13 +1065,13 @@ def ssd_intra_chunk_tol(c: Tensor, b: Tensor, x: Tensor, cum: Tensor
     return tol + torch.finfo(torch.float32).tiny
 
 
-def ssd_intra_chunk_case(G: int, Q: int, N: int, H: int, P: int, dtype,
-                         device, seed: int = 0, decay: float = 0.2) -> Case:
-    """The intra-chunk term at (G, Q, N, H, P): c, b of spread 0.3 and x
-    standard normal in ``dtype``, cum float32 falling by uniform(0,
-    ``decay``) per step (0.2: the reference's test inputs; a steeper
-    decay drives exp(cum_t - cum_s) below float32's normal range).  No
-    single PyTorch call computes the function."""
+def ssd_operands(G: int, Q: int, N: int, H: int, P: int, dtype, device,
+                 seed: int = 0, decay: float = 0.2, with_dy: bool = False
+                 ) -> tuple[Tensor, ...]:
+    """c, b (G, Q, N) of spread 0.3 and x (G, Q, H, P) standard normal in
+    ``dtype``, cum (G, Q, H) float32 falling by uniform(0, ``decay``) a
+    step, drawn from ``seed`` in that order; with ``with_dy`` also dy
+    (G, Q, H, P) standard normal in ``dtype``, drawn after them."""
     rng = np.random.default_rng(seed)
 
     def draw(*shape, scale=1.0):
@@ -1065,6 +1083,17 @@ def ssd_intra_chunk_case(G: int, Q: int, N: int, H: int, P: int, dtype,
     cum = torch.as_tensor(-np.cumsum(rng.uniform(0, decay, (G, Q, H)),
                                      axis=1),
                           dtype=torch.float32, device=device)
+    return (c, b, x, cum, draw(G, Q, H, P)) if with_dy else (c, b, x, cum)
+
+
+def ssd_intra_chunk_case(G: int, Q: int, N: int, H: int, P: int, dtype,
+                         device, seed: int = 0, decay: float = 0.2) -> Case:
+    """The intra-chunk term at (G, Q, N, H, P): c, b of spread 0.3 and x
+    standard normal in ``dtype``, cum float32 falling by uniform(0,
+    ``decay``) per step (0.2: the reference's test inputs; a steeper
+    decay drives exp(cum_t - cum_s) below float32's normal range).  No
+    single PyTorch call computes the function."""
+    c, b, x, cum = ssd_operands(G, Q, N, H, P, dtype, device, seed, decay)
     item = x.element_size()
     return Case(
         name="ssd_intra_chunk",
@@ -1077,6 +1106,93 @@ def ssd_intra_chunk_case(G: int, Q: int, N: int, H: int, P: int, dtype,
                    "the diagonal, u x's unit roundoff (m and y rounded)",
         **dict(zip(("bytes", "flops"),
                    ssd_intra_chunk_work(G, Q, N, H, P, item))))
+
+
+def ssd_intra_chunk_bwd_tol(c: Tensor, b: Tensor, x: Tensor, cum: Tensor,
+                            dy: Tensor, grads: tuple[Tensor, ...]
+                            ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Per-entry bounds on two evaluations of the backward (dc, db, dx,
+    dcum) that read the same operands into float32, sum in float32 in
+    different orders and round m, dM, dc, db and dx to x's type u at the
+    same points (``grads`` the plain version's outputs).  With D the decay
+    (0 above the diagonal), S = c·bᵀ, M = S∘D, dm = dy·xᵀ masked, A =
+    |dy||x|ᵀ masked, eps float32's and s_u the type's subnormal spacing
+    (2^-133 in bfloat16, 0 in float32, where the casts are exact):
+      - S, a length-N float32 dot product: δS = 2(N+2)eps|c||b|ᵀ; exp and
+        the product S·D within 6 eps: E_M = δS∘D + 6eps|M|; m rounded in
+        each: E_m = E_M + 2u|M| + s_u;
+      - dm, length P: 2(P+2)eps·A, rounded in each: E_dm = 2(P+2)eps·A +
+        2u|dm| + s_u (a rounding can land on either side);
+      - dS = Σ_h dM∘D over H heads: E_dS = Σ_h (E_dm + (2H+8)eps|dm|)∘D,
+        and dc = dS B, db = dSᵀ C sum Q terms: W = E_dS + 2(Q+2)eps·Σ_h
+        |dm|∘D, tol_dc = W|b| + 2u|dc|, tol_db = Wᵀ|c| + 2u|db|;
+      - dx_h = m_hᵀ dy_h over Q terms: (E_m + 2(Q+2)eps|M|)ᵀ|dy| + 2u|dx|;
+      - Z = dM∘M: E_Z = E_dm|M| + |dm|E_M + 2eps|dm||M|, and dcum's two
+        sums of Q terms: R = E_Z + 2(Q+2)eps|dm||M|, tol_dcum[t] = Σ_s
+        R[t, s] + Σ_t' R[t', t] + 2eps|dcum|.
+    Per chunk, in float64; every bound plus float32's smallest normal."""
+    G, Q, N = c.shape
+    H, P = x.shape[2:]
+    eps = torch.finfo(torch.float32).eps
+    u = _unit_roundoff(x.dtype)
+    sub = 0.0 if u == 0.0 else 2.0 ** -133
+    causal = torch.ones((Q, Q), dtype=torch.bool,
+                        device=c.device).tril()[..., None]
+    live = causal.double()
+    tols = [torch.empty(t.shape, dtype=torch.float64, device=t.device)
+            for t in grads]
+    for gi in range(G):
+        cg, bg = c[gi].double(), b[gi].double()
+        xg, dyg = x[gi].double(), dy[gi].double()
+        ldiff = cum[gi].double()[:, None, :] - cum[gi].double()[None, :, :]
+        D = torch.where(causal, torch.exp(torch.where(causal, ldiff, 0.0)),
+                        0.0)                                   # (Q, Q, H)
+        M = ((cg @ bg.T)[..., None] * D).abs()
+        E_M = (2 * (N + 2) * eps * (cg.abs() @ bg.abs().T)[..., None] * D
+               + 6 * eps * M)
+        E_m = E_M + 2 * u * M + sub * live
+        dm = torch.where(causal, torch.einsum("thp,shp->tsh", dyg, xg),
+                         0.0).abs()
+        A = torch.where(causal, torch.einsum("thp,shp->tsh", dyg.abs(),
+                                             xg.abs()), 0.0)
+        E_dm = 2 * (P + 2) * eps * A + 2 * u * dm + sub * live
+        W = (((E_dm + (2 * H + 8) * eps * dm) * D).sum(-1)
+             + 2 * (Q + 2) * eps * (dm * D).sum(-1))
+        tols[0][gi] = W @ bg.abs()
+        tols[1][gi] = W.T @ cg.abs()
+        tols[2][gi] = torch.einsum("tsh,thp->shp",
+                                   E_m + 2 * (Q + 2) * eps * M, dyg.abs())
+        R = (E_dm * M + dm * E_M + (2 + 2 * (Q + 2)) * eps * dm * M)
+        tols[3][gi] = R.sum(1) + R.sum(0)
+    tiny = torch.finfo(torch.float32).tiny
+    out = [t + 2 * u * gr.double().abs() + tiny
+           for t, gr in zip(tols[:3], grads[:3])]
+    return (*out, tols[3] + 2 * eps * grads[3].double().abs() + tiny)
+
+
+def ssd_intra_chunk_bwd_case(G: int, Q: int, N: int, H: int, P: int, dtype,
+                             device, seed: int = 0, decay: float = 0.2
+                             ) -> Case:
+    """The backward at (G, Q, N, H, P): ``ssd_intra_chunk_case``'s
+    operands and dy (``ssd_operands``).  No single PyTorch call computes
+    the function."""
+    c, b, x, cum, dy = ssd_operands(G, Q, N, H, P, dtype, device, seed,
+                                    decay, with_dy=True)
+    want = ssd_intra_chunk_bwd_ref(c, b, x, cum, dy)
+    return Case(
+        name="ssd_intra_chunk_bwd",
+        kernel=lambda: sops.intra_chunk_backward(c, b, x, cum, dy),
+        plain=lambda: ssd_intra_chunk_bwd_ref(c, b, x, cum, dy),
+        library=None,
+        tols=ssd_intra_chunk_bwd_tol(c, b, x, cum, dy, want),
+        tol_reason="per entry, from the float32 sums (2(K+2)eps32 of the "
+                   "terms' magnitudes for S, dM, dS, dc, db, dx, dcum) and "
+                   "the casts of m and dM to x's type (2u of their "
+                   "magnitude each, and a bf16 subnormal step), carried "
+                   "through the products; dc, db, dx rounded: 2u|out|",
+        **dict(zip(("bytes", "flops"),
+                   ssd_intra_chunk_bwd_work(G, Q, N, H, P,
+                                            x.element_size()))))
 
 
 def compare(case: Case) -> dict:

@@ -33,7 +33,8 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("errors.cu", "eigvec_rotate.cu", "eigvec_rotate2.cu",
            "eigvec_project.cu", "krow_project.cu", "transform_project.cu",
            "scaled_gram.cu", "rbf_gram.cu", "flash_attention.cu",
-           "flash_attention_bwd.cu", "ssd_intra_chunk.cu")
+           "flash_attention_bwd.cu", "ssd_intra_chunk.cu",
+           "ssd_intra_chunk_bwd.cu")
 HEADERS = ("common.cuh", "hopper.cuh", "rotate_tile.cuh", "project_tile.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -51,6 +52,7 @@ SIGNATURES = {
     "flash_attention": (P, P, P, P, P, I, I, I, I, I, F, P),
     "flash_attention_bwd": (P,) * 10 + (I,) * 5 + (F, P),
     "ssd_intra_chunk": (P, P, P, P, P, I, I, I, I, I, P),
+    "ssd_intra_chunk_bwd": (P,) * 12 + (I,) * 5 + (P,),
 }
 # The typed variants of each entry point, by the operands' type; the LM
 # kernels take float32 and bfloat16, the others float32 and float64.
@@ -59,7 +61,8 @@ SUFFIXES = {torch.float32: "_f32", torch.float64: "_f64",
 TYPES = {name: (torch.float32, torch.float64) for name in SIGNATURES}
 TYPES.update(flash_attention=(torch.float32, torch.bfloat16),
              flash_attention_bwd=(torch.float32, torch.bfloat16),
-             ssd_intra_chunk=(torch.float32, torch.bfloat16))
+             ssd_intra_chunk=(torch.float32, torch.bfloat16),
+             ssd_intra_chunk_bwd=(torch.float32, torch.bfloat16))
 
 # Launches per kernel since the last ``reset_launches`` — a plain count,
 # incremented only where a kernel is launched.
@@ -178,12 +181,10 @@ def library() -> ctypes.CDLL:
 # Kernels with a gradient (a backward kernel bound as a
 # ``torch.autograd.Function``); every other kernel refuses operands that
 # ask for one, naming where its backward is queued.
-DIFFERENTIABLE = ("flash_attention", "flash_attention_bwd")
-NO_BACKWARD = {"ssd_intra_chunk": "ROADMAP.md §1 item 11.4 (the "
-                                  "ssd_intra_chunk backward, to train the "
-                                  "Mamba family on the card)"}
-KPCA_NO_BACKWARD = ("ROADMAP.md §1 item 12 (gradients through the KPCA "
-                    "kernels; no path differentiates the streaming update)")
+DIFFERENTIABLE = ("flash_attention", "flash_attention_bwd", "ssd_intra_chunk",
+                  "ssd_intra_chunk_bwd")
+NO_BACKWARD = ("ROADMAP.md §1 item 12 (gradients through the KPCA kernels; "
+               "no path differentiates the streaming update)")
 
 
 def check_grad(name: str, *tensors: torch.Tensor) -> None:
@@ -196,7 +197,7 @@ def check_grad(name: str, *tensors: torch.Tensor) -> None:
         raise NotImplementedError(
             f"{name}: the CUDA kernel has no backward, so its output would "
             f"carry no gradient; run it without grad or see "
-            f"{NO_BACKWARD.get(name, KPCA_NO_BACKWARD)}")
+            f"{NO_BACKWARD}")
 
 
 def check_operands(name: str, *tensors: torch.Tensor) -> torch.dtype:

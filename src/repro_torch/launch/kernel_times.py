@@ -4,7 +4,8 @@
         --kpca 1024:1000:float32 256:200:float64 \\
         --flash 1:4096:64:8:128:bfloat16 --gram 4096:512:float64 \\
         --ssd 16:256:128:256:64:bfloat16 \\
-        --flash-bwd 4:2048:36:36:64:bfloat16
+        --flash-bwd 4:2048:36:36:64:bfloat16 \\
+        --ssd-bwd 16:256:128:256:64:bfloat16
 
 ``--kpca n:m:dtype`` times the KPCA path's kernels named by ``--kernels``
 (default ``eigvec_rotate2``) at capacity bucket n with m active pairs,
@@ -13,7 +14,8 @@ the row-block cases among them (``variant`` names their rows);
 B:T:H:Hkv:hd:dtype`` its backward (with ``split``: each device kernel's
 ms per call, from one more profile), ``--gram
 n:k:dtype`` ``scaled_gram`` (B of n rows and width k), ``--ssd
-G:Q:N:H:P:dtype`` ``ssd_intra_chunk``, ``--rbf n:m:d:dtype``
+G:Q:N:H:P:dtype`` ``ssd_intra_chunk``, ``--ssd-bwd G:Q:N:H:P:dtype`` its
+backward (with ``split``, as ``--flash-bwd``), ``--rbf n:m:d:dtype``
 ``rbf_gram`` (n = m is k(X, X)) and ``--magic`` ``rbf_gram`` on Fig. 2's
 full gram (``magic_like``, 4096², d = 10, f64).  The inputs and
 bounds are ``kernels/checks.py``'s.  Each row is one JSON line: the
@@ -91,6 +93,9 @@ def main(argv=None) -> list[dict]:
                     help="n:k:dtype shapes of scaled_gram")
     ap.add_argument("--ssd", nargs="*", default=(),
                     help="G:Q:N:H:P:dtype shapes of ssd_intra_chunk")
+    ap.add_argument("--ssd-bwd", nargs="*", default=(),
+                    help="G:Q:N:H:P:dtype shapes of the ssd_intra_chunk "
+                         "backward")
     ap.add_argument("--rbf", nargs="*", default=(),
                     help="n:m:d:dtype shapes of rbf_gram (n = m: k(X, X))")
     ap.add_argument("--magic", action="store_true",
@@ -139,6 +144,15 @@ def main(argv=None) -> list[dict]:
         case = checks.ssd_intra_chunk_case(G, Q, N, H, P, dtype, "cuda")
         rows.append(_row(case, dtype, {"G": G, "Q": Q, "N": N, "H": H,
                                        "P": P}))
+        print(json.dumps(rows[-1]), flush=True)
+    for spec in args.ssd_bwd:
+        *shape, dtype_name = spec.split(":")
+        G, Q, N, H, P = map(int, shape)
+        dtype = getattr(torch, dtype_name)
+        case = checks.ssd_intra_chunk_bwd_case(G, Q, N, H, P, dtype, "cuda")
+        rows.append(_row(case, dtype, {"G": G, "Q": Q, "N": N, "H": H,
+                                       "P": P}))
+        rows[-1]["split"] = _split(case.kernel)
         print(json.dumps(rows[-1]), flush=True)
     for spec in args.rbf:
         n, m, dim, dtype_name = spec.split(":")

@@ -150,7 +150,7 @@ def test_stream_on_cuda_matches_cpu(device):
                              "transform_project": 1, "scaled_gram": 0,
                              "rbf_gram": 0, "flash_attention": 0,
                              "flash_attention_bwd": 0,
-                             "ssd_intra_chunk": 0}
+                             "ssd_intra_chunk": 0, "ssd_intra_chunk_bwd": 0}
     K = kf.gram_block(torch.tensor(X), torch.tensor(X), spec=spec)
     lam_ref = batch.batch_kpca(K, adjusted=True)[0].numpy()
     scale = max(1.0, np.abs(lam_ref).max())
@@ -601,18 +601,24 @@ def test_flash_attention_forward_writes_lse_only_for_a_gradient(
 
 
 def test_kernels_without_a_backward_raise_under_grad(device):
-    """With grad mode on, ``ssd_intra_chunk`` refuses an operand that
-    requires a gradient (its output would carry none); without grad mode
-    it runs."""
+    """With grad mode on, ``ssd_intra_chunk`` takes an operand that
+    requires a gradient (its backward is a kernel) and gives it one; a
+    KPCA kernel refuses one (its output would carry none), naming item
+    12; without grad mode it runs."""
+    from repro_torch.kernels.eigvec_update import ops as eops
     from repro_torch.kernels.ssd_chunk import ops as sops
 
     c = torch.randn(2, 8, 4, device=device)
     x = torch.randn(2, 8, 3, 16, device=device, requires_grad=True)
     cum = -torch.rand(2, 8, 3, device=device).cumsum(1)
-    with pytest.raises(NotImplementedError, match="item 11.4"):
-        sops.intra_chunk(c, c, x, cum)
+    (dx,) = torch.autograd.grad(sops.intra_chunk(c, c, x, cum).sum(), x)
+    assert dx.shape == x.shape and torch.isfinite(dx).all()
+    U = torch.eye(8, device=device, requires_grad=True)
+    v = torch.randn(8, 1, device=device)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        eops.project_vectors(U, v, 8)
     with torch.no_grad():
-        assert sops.intra_chunk(c, c, x, cum).shape == x.shape
+        assert eops.project_vectors(U, v, 8).shape == (8, 1)
 
 
 def test_train_step_on_cuda_matches_cpu(device):
@@ -649,6 +655,25 @@ def test_train_step_on_cuda_matches_cpu(device):
                                                        cfg.n_layers)
 
 
+def test_train_driver_trains_jamba_on_cuda(device):
+    """``launch/train --arch jamba_1_5_large_398b --smoke`` on the card (7
+    Mamba layers and one attention layer, float32, remat per period): 2
+    steps with finite losses, through the intra-chunk term's backward
+    kernel: per step 14 forward launches (forward and recompute) and 7
+    backward ones, and the attention's 2 and 1."""
+    from repro_torch.launch import train as ttrain
+
+    cuda.reset_launches()
+    res, _ = ttrain.train(ttrain.parse_args(
+        ["--arch", "jamba_1_5_large_398b", "--smoke", "--steps", "2",
+         "--batch", "2", "--seq", "32", "--log-every", "1"]))
+    assert res["steps"] == 2
+    assert np.isfinite(res["first_loss"]) and np.isfinite(res["last_loss"])
+    assert {k: v for k, v in cuda.LAUNCHES.items() if v} == {
+        "ssd_intra_chunk": 28, "ssd_intra_chunk_bwd": 14,
+        "flash_attention": 4, "flash_attention_bwd": 2}
+
+
 @pytest.mark.parametrize("G,Q,N,H,P", [
     (1, 1, 8, 3, 8), (3, 40, 16, 5, 8), (2, 256, 128, 20, 64),
     (2, 100, 33, 17, 63)])
@@ -659,6 +684,67 @@ def test_ssd_intra_chunk_matches_plain_version(device, G, Q, N, H, P,
     a multiple of its 64-row tile, N not a multiple of its 32-wide slab."""
     checks.compare(checks.ssd_intra_chunk_case(
         G, Q, N, H, P, getattr(torch, dtype), device, seed=G + Q + H))
+
+
+@pytest.mark.parametrize("G,Q,N,H,P,dtype", [
+    (16, 256, 128, 256, 64, "bfloat16"), (2, 256, 128, 20, 64, "bfloat16"),
+    (2, 256, 128, 20, 64, "float32"), (2, 100, 33, 17, 63, "bfloat16"),
+    (2, 100, 33, 17, 63, "float32"), (8, 8, 8, 8, 16, "float32")])
+def test_ssd_intra_chunk_bwd_matches_plain_version(device, G, Q, N, H, P,
+                                                   dtype):
+    """The backward at ``chip_smoke.py``'s kernel-phase shapes: Jamba's
+    training shape, two chunks of 256 in both types, Q = 100 off the
+    64-row tile (N and P off theirs too), the smoke shape; every output
+    entry within its bound, two runs bit for bit (no atomics)."""
+    case = checks.ssd_intra_chunk_bwd_case(G, Q, N, H, P,
+                                           getattr(torch, dtype), device,
+                                           seed=G + Q + H)
+    checks.compare(case)
+    assert checks.repeats_bitwise(case)
+
+
+@pytest.mark.parametrize("decay", [1.0, 200.0])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_intra_chunk_bwd_steep_decay(device, decay, dtype):
+    """Steep decays, as ``test_ssd_intra_chunk_steep_decay``: every
+    gradient finite (``compare`` refuses a non-finite output; the exponent
+    is selected before the exponential) and within its bound."""
+    checks.compare(checks.ssd_intra_chunk_bwd_case(
+        2, 256, 128, 20, 64, getattr(torch, dtype), device, seed=7,
+        decay=decay))
+
+
+def test_ssd_intra_chunk_under_grad_launches_its_backward(device):
+    """``intra_chunk`` on operands that require a gradient launches the
+    forward kernel once and, per backward, ``ssd_intra_chunk_bwd`` once
+    (never the plain version); its gradients are the backward wrapper's
+    on the same dy, bit for bit, of the unpadded operands' shapes."""
+    from repro_torch.kernels.ssd_chunk import ops as sops
+
+    rng = np.random.default_rng(2)
+    G, Q, N, H, P = 2, 100, 40, 8, 48           # padded for TMA in bf16
+    c, b = (torch.tensor(rng.normal(size=(G, Q, N)) * 0.3,
+                         dtype=torch.bfloat16, device=device)
+            for _ in range(2))
+    x = torch.tensor(rng.normal(size=(G, Q, H, P)), dtype=torch.bfloat16,
+                     device=device)
+    cum = torch.tensor(-np.cumsum(rng.uniform(0, 0.2, (G, Q, H)), axis=1),
+                       dtype=torch.float32, device=device)
+    dy = torch.tensor(rng.normal(size=(G, Q, H, P)), dtype=torch.bfloat16,
+                      device=device)
+    leaves = [t.clone().requires_grad_() for t in (c, b, x, cum)]
+    cuda.reset_launches()
+    y = sops.intra_chunk(*leaves)
+    assert (cuda.LAUNCHES["ssd_intra_chunk"],
+            cuda.LAUNCHES["ssd_intra_chunk_bwd"]) == (1, 0)
+    first = torch.autograd.grad(y, leaves, dy, retain_graph=True)
+    second = torch.autograd.grad(y, leaves, dy)
+    assert (cuda.LAUNCHES["ssd_intra_chunk"],
+            cuda.LAUNCHES["ssd_intra_chunk_bwd"]) == (1, 2)
+    direct = sops.intra_chunk_backward(c, b, x, cum, dy)
+    for g1, g2, d, t in zip(first, second, direct, (c, b, x, cum)):
+        assert g1.shape == t.shape and g1.dtype == t.dtype
+        assert torch.equal(g1, g2) and torch.equal(g1, d)
 
 
 def test_lm_on_cuda_matches_cpu(device):

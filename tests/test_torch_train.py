@@ -281,19 +281,25 @@ def test_flash_attention_bwd_ref_matches_autograd(groups):
 
 
 def test_kernels_without_a_backward_refuse_gradients():
-    """With grad mode on, ``ssd_intra_chunk`` (and the KPCA kernels)
-    refuse operands that require a gradient, naming the ROADMAP item;
-    without grad mode, or without such an operand, nothing is refused.
-    The check runs before any CUDA work, so it is tested on CPU tensors."""
+    """With grad mode on, the KPCA kernels refuse operands that require a
+    gradient, naming the ROADMAP item (12); the LM kernels, whose
+    backward is a kernel (``ssd_intra_chunk`` since its backward kernel,
+    ``flash_attention``), take them.  Without grad mode, or without such
+    an operand, nothing is refused.  The check runs before any CUDA work,
+    so it is tested on CPU tensors."""
     x = torch.zeros(2, 3, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="item 11.4"):
-        cuda.check_grad("ssd_intra_chunk", x)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        cuda.check_grad("eigvec_rotate", x)
+    for name in ("ssd_intra_chunk", "ssd_intra_chunk_bwd", "flash_attention",
+                 "flash_attention_bwd"):
+        cuda.check_grad(name, x)
+    for name in ("eigvec_rotate", "eigvec_rotate2", "eigvec_project",
+                 "krow_project", "transform_project", "scaled_gram",
+                 "rbf_gram"):
+        with pytest.raises(NotImplementedError, match="item 12"):
+            cuda.check_grad(name, x)
+    assert "11.4" not in cuda.NO_BACKWARD
     with torch.no_grad():
-        cuda.check_grad("ssd_intra_chunk", x)
-    cuda.check_grad("ssd_intra_chunk", x.detach())
-    cuda.check_grad("flash_attention", x)
+        cuda.check_grad("eigvec_rotate", x)
+    cuda.check_grad("eigvec_rotate", x.detach())
 
 
 def _driver(tmp, *extra):
